@@ -1,0 +1,135 @@
+"""Force-engine registry (the port of nbody_tpu.sim.engines).
+
+Each engine owns one force algorithm and mirrors one of the reference's
+run_* entry points (src/all_pairs.h:108-116):
+
+  make_step(cfg, opts, device)     -> state -> state: force + leapfrog, the
+                                      unit of the step loop
+  make_detailed(cfg, opts, device) -> state -> (state, {phase: seconds}) for
+                                      the --csv-detailed per-phase timing mode
+  csv_phases                       -> extra CSV columns after force/accel
+  info(state, cfg)                 -> per-step --print-info lines (or None)
+
+The step order is force-then-integrate exactly as the reference kernels()
+lambdas: the force engine fills `a` from current positions, then leapfrog
+advances x/v and rolls ao <- a. The tree engines (octree, bvh) are not
+ported yet; get_engine says so.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time as _time
+from typing import Callable
+
+import torch
+
+from nbody_torch.config import SimConfig
+from nbody_torch.ops.allpairs import allpairs_accel, freeze_z
+from nbody_torch.ops.cuda_allpairs import allpairs_accel_cuda
+from nbody_torch.ops.integrator import leapfrog_step
+from nbody_torch.state import SystemState
+
+KERNELS = ("auto", "cuda", "torch")
+UNPORTED = ("bvh", "octree")
+
+
+@dataclasses.dataclass
+class EngineOptions:
+    """Runtime knobs that do not exist in the reference CLI."""
+    kernel: str = "auto"   # auto|cuda|torch : all-pairs force backend
+    fix_z: bool = False    # fix the collapsed-force z-freeze quirk
+
+
+def sync(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _timed(device: torch.device, fn: Callable, *args):
+    t0 = _time.perf_counter()
+    out = fn(*args)
+    sync(device)
+    return out, _time.perf_counter() - t0
+
+
+class AllPairsEngine:
+    """O(N^2) direct sum (src/all_pairs.h:14-27)."""
+
+    name = "all-pairs"
+    csv_phases: tuple = ()
+    header_in_detailed = False  # all-pairs prints the CSV header only in
+    # --csv-total mode (all_pairs.h:58-66), unlike octree/bvh.
+
+    def _accel_fn(self, cfg: SimConfig, opts: EngineOptions,
+                  device: torch.device) -> Callable[[SystemState], torch.Tensor]:
+        """state -> acceleration. `auto` and `cuda` take the CUDA kernel's
+        wrapper (which runs its plain twin for CPU tensors); `torch` the
+        plain torch path on any device. Both precisions go through the kernel."""
+        if opts.kernel not in KERNELS:
+            raise ValueError(f'Unknown kernel: "{opts.kernel}". Options are: auto, cuda, torch.')
+        if opts.kernel == "torch":
+            return lambda s: allpairs_accel(s.m, s.x, cfg.G, cfg.eps)
+        if device.type == "cuda":
+            from nbody_torch._build import load_library
+
+            load_library()  # build and load the kernels before any timer starts
+        elif opts.kernel == "cuda":
+            raise ValueError(f"--kernel cuda needs a CUDA device, got {device}")
+        return lambda s: allpairs_accel_cuda(s.m, s.x, cfg.G, cfg.eps)
+
+    def make_step(self, cfg: SimConfig, opts: EngineOptions, device: torch.device):
+        accel = self._accel_fn(cfg, opts, device)
+
+        def step(state: SystemState) -> SystemState:
+            return leapfrog_step(dataclasses.replace(state, a=accel(state)), cfg.dt)
+
+        return step
+
+    def make_detailed(self, cfg: SimConfig, opts: EngineOptions, device: torch.device):
+        accel = self._accel_fn(cfg, opts, device)
+
+        def detailed(state: SystemState):
+            a, t_force = _timed(device, accel, state)
+            state, t_accel = _timed(device, leapfrog_step,
+                                    dataclasses.replace(state, a=a), cfg.dt)
+            return state, {"force": t_force, "accel": t_accel}
+
+        return detailed
+
+    def info(self, state: SystemState, cfg: SimConfig):
+        return None
+
+
+class AllPairsCollapsedEngine(AllPairsEngine):
+    """Pair-parallel direct sum (src/all_pairs.h:29-50). Same math; the
+    reference's atomic accumulation touches only components [0] and [1], so
+    by default the z-acceleration is frozen (see allpairs_collapsed_accel)."""
+
+    name = "all-pairs-collapsed"
+
+    def _accel_fn(self, cfg, opts, device):
+        base = super()._accel_fn(cfg, opts, device)
+        return lambda s: freeze_z(base(s), s.a, opts.fix_z)
+
+
+ENGINES = {
+    "all-pairs": AllPairsEngine,
+    "all-pairs-collapsed": AllPairsCollapsedEngine,
+}
+
+
+def get_engine(name: str):
+    if name in UNPORTED:
+        raise NotImplementedError(
+            f'Algorithm "{name}" is not yet ported to nbody_torch; '
+            "use all-pairs or all-pairs-collapsed, or nbody_tpu."
+        )
+    try:
+        return ENGINES[name]()
+    except KeyError:
+        raise ValueError(
+            f'Unknown algorithm: "{name}". '
+            "Options are: all-pairs, all-pairs-collapsed, bvh, octree (default)."
+        ) from None

@@ -1,0 +1,217 @@
+"""The hand-written CUDA kernels against their plain torch twins, on the
+card. Every test here needs an NVIDIA GPU with nvcc (the kernels are built
+from nbody_torch/csrc at first use) and skips without one; on the GPU
+machine run them with
+
+    python -m pytest tests/test_torch_kernels.py -m cuda
+
+Tolerance, per row and component: |kernel - twin| <= TOL * sum_j |term|
+(both sum the same terms in different orders), with TOL = 1e-5 in
+float32 and 1e-12 in float64; for the potential, whose terms are all
+positive, the scale is the row value itself. The same tolerance holds the
+kernels against references that share no code with the twins: a float64
+numpy evaluation of the same inputs, and nbody_tpu's jnp functions where
+jax is importable.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nbody_torch.ops import cuda_allpairs as ca
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _bodies(n, dim, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    return (torch.tensor(rng.uniform(0.1, 1.0, n), dtype=dtype, device=dev),
+            torch.tensor(rng.uniform(-1.0, 1.0, (n, dim)), dtype=dtype, device=dev))
+
+
+def _numpy_refs(xi, mj, xj, eps, softening):
+    """float64 numpy force sum_j m_j (x_j - x_i) / t, its sum_j |term|
+    scale, and (for a square block) the potential rowsums."""
+    xi, mj, xj = (a.double().cpu().numpy() for a in (xi, mj, xj))
+    d = xj[None, :, :] - xi[:, None, :]
+    d2 = np.sum(d * d, axis=-1)
+    r = np.sqrt(d2)
+    t = (r + eps) ** 3 if softening == "sqrt3" else d2 * r + eps
+    w = mj[None, :] / t
+    force = np.einsum("kn,knd->kd", w, d)
+    scale = np.einsum("kn,knd->kd", np.abs(w), np.abs(d))
+    pe = None
+    if xi.shape == xj.shape:
+        inv = mj[None, :] / (r + eps)
+        np.fill_diagonal(inv, 0.0)
+        pe = mj * inv.sum(axis=1)
+    return force, scale, pe
+
+
+def _assert_within(got, ref, scale, dtype):
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == ref.dtype == dtype
+    assert torch.isfinite(got).all()
+    assert bool(((got - ref).abs() <= TOL[dtype] * scale).all()), \
+        ((got - ref).abs() / scale).max().item()
+
+
+@pytest.mark.parametrize("n", [1000, 4099])
+@pytest.mark.parametrize("softening", ["poly", "sqrt3"])
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_block_kernel_vs_twin(dev, dtype, dim, softening, n):
+    m, x = _bodies(n, dim, dtype, dev, seed=n + dim)
+    eps = float(torch.finfo(dtype).eps)
+    got = ca.allpairs_block_cuda(x, m, x, eps, softening)
+    _assert_within(got, ca.allpairs_block_torch(x, m, x, eps, softening),
+                   ca.allpairs_block_abs_torch(x, m, x, eps, softening), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_block_kernel_rectangular(dev, dtype):
+    _, xi = _bodies(777, 3, dtype, dev, seed=1)
+    mj, xj = _bodies(2051, 3, dtype, dev, seed=2)
+    eps = float(torch.finfo(dtype).eps)
+    for soft in ("poly", "sqrt3"):
+        got = ca.allpairs_block_cuda(xi, mj, xj, eps, soft)
+        _assert_within(got, ca.allpairs_block_torch(xi, mj, xj, eps, soft),
+                       ca.allpairs_block_abs_torch(xi, mj, xj, eps, soft), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_accel_applies_g_after_the_sum(dev, dtype):
+    m, x = _bodies(1000, 3, dtype, dev, seed=3)
+    eps, G = float(torch.finfo(dtype).eps), 1e-4
+    got = ca.allpairs_accel_cuda(m, x, G, eps)
+    _assert_within(got, G * ca.allpairs_block_torch(x, m, x, eps),
+                   G * ca.allpairs_block_abs_torch(x, m, x, eps), dtype)
+    raw = ca.allpairs_block_cuda(x, m, x, eps)
+    assert torch.equal(got, G * raw)
+
+
+@pytest.mark.parametrize("n", [1000, 4099])
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_potential_kernel_vs_twin(dev, dtype, dim, n):
+    m, x = _bodies(n, dim, dtype, dev, seed=n * dim)
+    eps = float(torch.finfo(dtype).eps)
+    ref = ca.potential_rowsums_torch(m, x, eps)
+    _assert_within(ca.potential_rowsums_cuda(m, x, eps), ref, ref.abs(), dtype)
+
+
+@pytest.mark.parametrize("softening", ["poly", "sqrt3"])
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_vs_numpy_float64(dev, dtype, dim, softening):
+    """Both kernels against a float64 numpy evaluation, square and
+    rectangular, so a mistake the twins share with a kernel still shows."""
+    mj, xj = _bodies(1029, dim, dtype, dev, seed=7 + dim)
+    xi = xj[:300].contiguous()
+    eps = float(torch.finfo(dtype).eps)
+    for rows in (xj, xi):
+        force, scale, pe = _numpy_refs(rows, mj, xj, eps, softening)
+        got = ca.allpairs_block_cuda(rows, mj, xj, eps, softening)
+        torch.cuda.synchronize()
+        err = np.abs(got.double().cpu().numpy() - force)
+        assert np.all(err <= TOL[dtype] * scale), float(np.max(err / scale))
+    got_pe = ca.potential_rowsums_cuda(mj, xj, eps).double().cpu().numpy()
+    _, _, pe = _numpy_refs(xj, mj, xj, eps, softening)
+    assert np.all(np.abs(got_pe - pe) <= TOL[dtype] * pe)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_vs_nbody_tpu(dev, dtype):
+    """The kernels against nbody_tpu's jnp allpairs_accel and calc_energies
+    on the same numpy inputs; skips where jax is not installed."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from nbody_tpu.ops import allpairs as jap
+    from nbody_tpu.ops import energy as jenergy
+
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    rng = np.random.default_rng(8)
+    m = rng.uniform(0.1, 1.0, 1000).astype(np_dtype)
+    x, v = rng.uniform(-1.0, 1.0, (2, 1000, 3)).astype(np_dtype)
+    eps, G = float(np.finfo(np_dtype).eps), 0.5
+    tm, tx = (torch.tensor(a, device=dev) for a in (m, x))
+    ref = np.asarray(jap.allpairs_accel(jnp.asarray(m), jnp.asarray(x), G, eps, chunk=256),
+                     np.float64)
+    got = ca.allpairs_accel_cuda(tm, tx, G, eps).double().cpu().numpy()
+    scale = G * _numpy_refs(tx, tm, tx, eps, "poly")[1]
+    assert np.all(np.abs(got - ref) <= TOL[dtype] * scale)
+    _, jpe = jenergy.calc_energies(jnp.asarray(m), jnp.asarray(x), jnp.asarray(v), G, eps,
+                                   chunk=256)
+    pe = -0.5 * G * ca.potential_rowsums_cuda(tm, tx, eps).double().sum().item()
+    assert abs(pe - float(jpe)) <= TOL[dtype] * abs(float(jpe))
+
+
+def test_potential_diagonal_masked_by_global_index(dev):
+    """Coincident bodies in different 256-row blocks: only i == j is
+    skipped, so each body sees the other one's m / eps."""
+    n = 600
+    m = torch.ones(n, dtype=torch.float64, device=dev)
+    x = torch.zeros(n, 2, dtype=torch.float64, device=dev)
+    eps = 0.5
+    pe = ca.potential_rowsums_cuda(m, x, eps)
+    torch.cuda.synchronize()
+    assert torch.equal(pe, torch.full_like(pe, (n - 1) / eps))
+    one = ca.potential_rowsums_cuda(m[:1], x[:1], eps)
+    assert one.item() == 0.0
+
+
+def test_self_and_coincident_force_terms_vanish(dev):
+    eps = float(torch.finfo(torch.float32).eps)
+    m = torch.tensor([1.0, 2.0], device=dev)
+    x = torch.tensor([[0.5, 0.5], [0.5, 0.5]], device=dev)
+    for soft in ("poly", "sqrt3"):
+        a = ca.allpairs_block_cuda(x, m, x, eps, soft)
+        torch.cuda.synchronize()
+        assert torch.equal(a, torch.zeros_like(a))
+
+
+def test_launch_counters(dev):
+    m, x = _bodies(300, 2, torch.float32, dev, seed=5)
+    ca.reset_launch_counts()
+    ca.allpairs_accel_cuda(m, x, 1.0, 1e-7)
+    ca.allpairs_block_cuda(x, m, x, 1e-7, "sqrt3")
+    ca.potential_rowsums_cuda(m, x, 1e-7)
+    ca.allpairs_block_cuda(x[:0], m, x, 1e-7)  # no rows: no launch
+    ca.allpairs_block_torch(x, m, x, 1e-7)     # the twin never counts
+    assert ca.launch_counts == {"allpairs_block_kernel": 2, "potential_rowsums_kernel": 1}
+    ca.reset_launch_counts()
+    assert ca.launch_counts == {"allpairs_block_kernel": 0, "potential_rowsums_kernel": 0}
+
+
+def test_wrapper_raises_on_mixed_devices(dev):
+    m, x = _bodies(10, 2, torch.float32, dev, seed=6)
+    with pytest.raises(ValueError):
+        ca.allpairs_accel_cuda(m.cpu(), x, 1.0, 1e-7)
+
+
+def test_engine_step_on_card_matches_cpu(dev):
+    """One all-pairs step through the engine, on the card and on the CPU."""
+    import dataclasses
+
+    from nbody_torch.models import build_galaxy_model
+    from nbody_torch.sim.engines import EngineOptions, get_engine
+
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        cfg, s = build_galaxy_model(2000, 3, np.float64, device)
+        step = get_engine("all-pairs").make_step(cfg, EngineOptions(), device)
+        for _ in range(3):
+            s = step(s)
+        outs.append({f.name: getattr(s, f.name).cpu() for f in dataclasses.fields(s)})
+    for name in ("x", "v", "a"):
+        torch.testing.assert_close(outs[0][name], outs[1][name], rtol=1e-10, atol=1e-14)
