@@ -10,13 +10,15 @@ Layer map:
   config/state  - static sim config + SoA body-state dataclass of tensors
   rng, native   - bit-exact std::mt19937 stream; ctypes bridge to native/
   models/       - workload generators (ref: src/models.h)
-  ops/          - all-pairs force (plain torch and CUDA), leapfrog, energies
+  ops/          - all-pairs and octree forces (plain torch and CUDA), leapfrog,
+                  energies
   io/           - binary trajectory/energy/state formats (ref: src/saving.h)
   sim/          - engines, step loop, warmup protocol, CSV (ref: run_* loops)
   cli.py        - python -m nbody_torch.cli
 
-Ported so far: the all-pairs and all-pairs-collapsed algorithms. The tree
-algorithms and the multi-device layouts are still to come (ROADMAP.md).
+Ported so far: the all-pairs and all-pairs-collapsed algorithms, and the
+octree's fast path. The BVH, the octree's list paths and the multi-device
+layouts are still to come (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

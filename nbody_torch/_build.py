@@ -1,12 +1,14 @@
 """Build and load the hand-written CUDA kernels (nbody_torch/csrc/*.cu).
 
-nvcc compiles every source into one shared library with a plain C
+nvcc compiles each source into an object, all of them at once in parallel
+processes, and links the objects into one shared library with a plain C
 interface, which ctypes loads; nothing includes PyTorch's headers, so a
 build takes seconds. The library goes to .build/nbody_torch/ at the root
-of the checkout, under a name that carries a hash of the sources and the
-flags, so an edited source is rebuilt and an unchanged one is not. The
-build happens at first use (ops.cuda_allpairs calls load_library before
-its first launch), never at import.
+of the checkout, under a name that carries a hash of the sources, the
+headers they include (csrc/*.cuh) and the flags, so an edited source or
+header is rebuilt and an unchanged one is not. The build happens at first
+use (each kernel wrapper calls load_library before its first launch),
+never at import.
 
 Flags: sm_90a code for Hopper, and no --use_fast_math -- nvcc's defaults
 keep IEEE division and square root (-prec-div, -prec-sqrt) and denormals,
@@ -26,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / ".build" / "nbody_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 
 def sources() -> list[Path]:
@@ -34,9 +36,9 @@ def sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libnbody_torch_{h.hexdigest()[:16]}.so"
@@ -58,18 +60,34 @@ def find_nvcc() -> str:
                        "it is needed to build nbody_torch/csrc")
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel processes; raise if any fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile the sources unless a library for them already exists."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+          for src, obj in zip(sources(), objs)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
+    _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
     return out
 
@@ -77,13 +95,20 @@ def build() -> Path:
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C interface
-    of csrc/allpairs.cu."""
+    of csrc/allpairs.cu and csrc/group_eval.cu."""
     lib = ctypes.CDLL(str(build()))
     i, p, f64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
-    lib.nbody_allpairs_block.argtypes = [i, i, i, i, p, i, p, p, i, f64, f64, p, p]
-    lib.nbody_allpairs_block.restype = i
-    lib.nbody_potential_rowsums.argtypes = [i, i, i, p, p, i, f64, p, p]
-    lib.nbody_potential_rowsums.restype = i
+    for name, args in (
+        ("nbody_allpairs_block", [i, i, i, i, p, i, p, p, i, f64, f64, p, p]),
+        ("nbody_potential_rowsums", [i, i, i, p, p, i, f64, p, p]),
+        # (device, dim, xi, ntiles, tb, ...) as in ops/cuda_group_eval._launch
+        ("nbody_masked_eval_bits", [i, i, p, i, i, p, p, i, p, i, f64, p, p]),
+        ("nbody_window_eval_interval", [i, i, p, i, i, p, p, i, p, p, p, i, f64, p, p]),
+        ("nbody_entries_lohi_eval", [i, i, p, i, i, p, p, i, p, p, p, p, i, f64, p, p]),
+    ):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = i
     lib.nbody_error_string.argtypes = [i]
     lib.nbody_error_string.restype = ctypes.c_char_p
     return lib

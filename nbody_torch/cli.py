@@ -10,9 +10,11 @@ Extensions: --kernel (auto|cuda|torch force backend), --device
 --save-state/--load-state. --chunk is parsed as nbody_tpu parses it and
 changes nothing: the plain torch path sizes its row chunks from n.
 
-Not yet ported, and refused with exit code 1 rather than ignored: the
-octree and bvh algorithms (and with them the tree-only flags), --mesh > 1,
---mesh-layout partitioned, --mesh-tile > 1 and --profile.
+The octree runs its fast path (--traversal group, float32), with
+--theta, --group-tile and --window-tiles. Not yet ported, and refused
+with exit code 1 rather than ignored: the bvh algorithm, the octree in
+double precision, with --traversal per-body or with --kernel torch,
+--mesh > 1, --mesh-layout partitioned, --mesh-tile > 1 and --profile.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ _HELP = """Help:
 --theta t\t\tTheta threshold parameter to use in Octree
 --precision double|float(default)\t\tSelects floating-point precision
 --algorithm all-pairs|all-pairs-collapsed|bvh|octree(default)\t\tSelects simulation algorithm
-\t\t(bvh and octree are not yet ported to nbody_torch)
+\t\t(bvh, and octree in double or per-body, are not yet ported to nbody_torch)
 --workload plummer|galaxy|uniform(default)|load <file.bin>\t\tSelects workload
 --print-state\t\tPrint the initial and final state of the simulation
 --print-info\t\tPrint info every timestep
@@ -47,7 +49,7 @@ _HELP = """Help:
 --traversal group|per-body\t\tTree traversal strategy (default group)
 --group-tile N\t\tBodies per tile in group traversal (default 512)
 --refine-levels N\t\tBVH residual refinement depth (default auto)
---window-tiles N\t\tBVH near-field window width in tiles (default 32)
+--window-tiles N\t\tNear-field window width in tiles (default 32)
 --save-state file.bin\t\tWrite final state in the loadable format
 --profile DIR\t\tProfiler trace of the run (not yet ported)
 --help\t\tDisplay this help message and quit
@@ -238,6 +240,13 @@ def _unported(args: dict) -> str | None:
     """What the parsed flags ask for that the port cannot run yet, or None."""
     if args["algorithm"] in UNPORTED:
         return f'--algorithm {args["algorithm"]}'
+    if args["algorithm"] == "octree":
+        for flag, value, ported in (("--precision", args["precision"], "float"),
+                                    ("--traversal", args["traversal"], "group")):
+            if value != ported:
+                return f"--algorithm octree {flag} {value}"
+        if args["kernel"] == "torch":
+            return "--algorithm octree --kernel torch"
     if args["mesh"] != 1:
         return "--mesh > 1"
     if args["mesh_layout"] != "replicated":
@@ -297,6 +306,9 @@ def main(argv: list[str] | None = None, out=None) -> int:
         engine_opts=EngineOptions(
             kernel=args["kernel"],
             fix_z=args["fix_z"],
+            traversal=args["traversal"],
+            group_tile=args["group_tile"],
+            window_tiles=args["window_tiles"],
         ),
         out=out,
     )

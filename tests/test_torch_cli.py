@@ -1,5 +1,7 @@
-"""The all-pairs slice end to end: python -m nbody_torch.cli against
-python -m nbody_tpu.cli on the same flags, on the CPU.
+"""The CLI end to end: python -m nbody_torch.cli against python -m
+nbody_tpu.cli on the same flags, on the CPU (all-pairs), and against
+nbody_tpu's octree fast path in interpret mode (octree: the JAX CLI on
+the CPU takes the octree's list path, whose box differs).
 
 Exact where the JAX package is exact (headers, CSV columns, file headers
 and lengths, printed text in float64, error paths); float values within
@@ -95,11 +97,13 @@ def test_port_flag_values_checked(argv):
 
 
 @pytest.mark.parametrize("argv", [
-    [], ["--algorithm", "octree"], ["--algorithm", "bvh", "--theta", "0"],
+    ["--precision", "double"], ["--algorithm", "octree", "--traversal", "per-body"],
+    ["--algorithm", "bvh", "--theta", "0"],
     ["--algorithm", "all-pairs", "--mesh", "2"],
     ["--algorithm", "all-pairs", "--mesh-layout", "partitioned"],
     ["--algorithm", "all-pairs", "--mesh-tile", "2"],
     ["--algorithm", "all-pairs", "--profile", "trace_dir"],
+    ["--kernel", "torch"],
 ])
 def test_unported_features_exit_1(argv, capsys):
     with pytest.raises(SystemExit) as e:
@@ -245,9 +249,10 @@ def test_port_imports_no_jax():
     code = (
         "import io, sys\n"
         "import nbody_torch.cli, nbody_torch.ops.cuda_allpairs, nbody_torch.sim.runner\n"
-        "import nbody_torch.probe\n"
-        "nbody_torch.cli.main(['-n', '8', '-s', '11', '--algorithm', 'all-pairs',\n"
-        "                      '--csv-total', '--device', 'cpu'], out=io.StringIO())\n"
+        "import nbody_torch.probe, nbody_torch.ops.cuda_group_eval, nbody_torch.sim.tree_engines\n"
+        "for algo in ('all-pairs', 'octree'):\n"
+        "    nbody_torch.cli.main(['-n', '64', '-s', '11', '--algorithm', algo,\n"
+        "                          '--csv-total', '--device', 'cpu'], out=io.StringIO())\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'nbody_tpu')))\n"
         "assert not bad, bad\n"
     )
@@ -269,3 +274,63 @@ def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):
         proc = subprocess.run(cmd, cwd=tmp_path, capture_output=True, text=True, timeout=300)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+OCTREE_DETAILED = ("algorithm,dim,precision,nsteps,nbodies,total [s],force [s],accel [s],"
+                   "clear [s],bbox [s],insert [s],multipoles [s],force approx [s]")
+
+
+@pytest.mark.parametrize("dim", ["2", "3"])
+@pytest.mark.parametrize("algorithm", [[], ["--algorithm", "octree"]])
+def test_octree_runs_by_default(algorithm, dim, tmp_path, monkeypatch):
+    """Octree is the default algorithm: -s 12 runs 10 warmup and 2 timed
+    steps, and the final state is finite and has moved."""
+    argv = ["-n", "700", "-s", "12", "-d", dim, "--workload", "galaxy", *algorithm, "--csv-total",
+            "--save-state", "final.bin"]
+    t = _run(tcli.main, [*argv, "--device", "cpu"], tmp_path, monkeypatch).strip().splitlines()
+    assert t[0] == "algorithm,dim,precision,nsteps,nbodies,total [s]"
+    assert t[1].split(",")[:5] == ["octree", dim, "32", "2", "700"]
+    _, final = _read_state(tmp_path / "final.bin")
+    _, s0 = build_galaxy_model(700, int(dim), np.float32, torch.device("cpu"))
+    assert np.all(np.isfinite(final)) and not np.array_equal(final[:, 1:1 + int(dim)],
+                                                             s0.x.numpy())
+
+
+def test_octree_csv_detailed_header_like_jax(tmp_path, monkeypatch):
+    argv = ["-n", "64", "-s", "2", "--algorithm", "octree", "--csv-detailed"]
+    j, t, _, _ = _both(argv, tmp_path, monkeypatch)
+    jl, tl = j.strip().splitlines(), t.strip().splitlines()
+    assert tl[0] == jl[0] == OCTREE_DETAILED
+    assert tl[1].split(",")[:5] == jl[1].split(",")[:5] == ["octree", "2", "32", "2", "64"]
+    assert len(tl[1].split(",")) == len(jl[1].split(",")) == 13
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_octree_print_info_vs_jax_fast_path(dim, tmp_path, monkeypatch):
+    """--print-info: "Tree init complete" once, then per step the tree
+    size and total mass of nbody_tpu's octree_step_force (fast path, in
+    interpret mode) plus leapfrog_step from the same galaxy: sizes equal,
+    masses within one float32 ulp (the port sums the masses in float64)."""
+    import jax.numpy as jnp
+
+    from nbody_tpu.models import build_model as jbuild
+    from nbody_tpu.ops.integrator import leapfrog_step as jleapfrog
+    from nbody_tpu.ops.octree import max_depth, octree_step_force
+
+    n, steps = 2048, 3  # JAX needs sub_width | S: n = 1500 gives S = 1536
+    argv = ["-n", str(n), "-s", str(steps), "-d", str(dim), "--workload", "galaxy",
+            "--print-info", "--csv-detailed", "--device", "cpu"]
+    lines = _run(tcli.main, argv, tmp_path, monkeypatch).strip().splitlines()
+    assert lines[0] == OCTREE_DETAILED and lines[1] == "Tree init complete"
+    info = lines[2:-1]
+    assert len(info) == 2 * steps and lines[-1].startswith(f"octree,{dim},32,{steps},{n},")
+    cfg, s = jbuild("galaxy", n, dim, np.float32)
+    depth = max_depth(n, dim)
+    for k in range(steps):
+        s, _, aux = octree_step_force(s, cfg.theta, cfg.G, cfg.eps, depth,
+                                      use_pallas="interpret")
+        s = jleapfrog(s, cfg.dt)
+        assert info[2 * k] == f"Tree size: {int(aux['tree_size'])}"
+        mass = np.float32(jnp.asarray(aux["root_mass"]))
+        assert info[2 * k + 1].startswith("Total mass: ")
+        assert abs(float(info[2 * k + 1].split(":")[1]) - mass) <= np.spacing(mass)

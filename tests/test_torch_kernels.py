@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain torch twins, on the
-card. Every test here needs an NVIDIA GPU with nvcc (the kernels are built
-from nbody_torch/csrc at first use) and skips without one; on the GPU
-machine run them with
+card: the all-pairs kernels (csrc/allpairs.cu) and the octree's far,
+window and entries kernels (csrc/group_eval.cu). Every test here needs an
+NVIDIA GPU with nvcc (the kernels are built from nbody_torch/csrc at
+first use) and skips without one; on the GPU machine run them with
 
     python -m pytest tests/test_torch_kernels.py -m cuda
 
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from nbody_torch.ops import cuda_allpairs as ca
+from nbody_torch.ops import cuda_group_eval as cg
 
 pytestmark = pytest.mark.cuda
 
@@ -211,7 +213,146 @@ def test_engine_step_on_card_matches_cpu(dev):
         cfg, s = build_galaxy_model(2000, 3, np.float64, device)
         step = get_engine("all-pairs").make_step(cfg, EngineOptions(), device)
         for _ in range(3):
-            s = step(s)
+            s, _ = step(s)
         outs.append({f.name: getattr(s, f.name).cpu() for f in dataclasses.fields(s)})
     for name in ("x", "v", "a"):
         torch.testing.assert_close(outs[0][name], outs[1][name], rtol=1e-10, atol=1e-14)
+
+
+# ------------------------------------------------ octree fast-path kernels
+
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def _group_scale(xi, mj, xj, sel, tb):
+    """float64 sum_j |m_j (x_j - x_i) / t| per row and component over the
+    bodies sel[t] (T, nj) bool of each row tile t."""
+    xi, mj, xj = (a.double().cpu().numpy() for a in (xi, mj, xj))
+    out = np.zeros_like(xi)
+    for t in range(sel.shape[0]):
+        cols = np.flatnonzero(sel[t])
+        rows = slice(t * tb, (t + 1) * tb)
+        d = xj[cols][None, :, :] - xi[rows][:, None, :]
+        r = np.sqrt(np.sum(d * d, axis=-1))
+        w = mj[cols][None, :] / (r + EPS32) ** 3
+        out[rows] = np.einsum("kn,knd->kd", w, np.abs(d))
+    return torch.tensor(out, dtype=torch.float32)
+
+
+def _assert_group_within(got, ref, scale):
+    torch.cuda.synchronize()
+    got, ref = got.cpu(), ref.cpu()
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    err = (got - ref).abs()
+    assert bool((err <= 1e-5 * scale).all()), (err / scale.clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.parametrize("tb", [512, 300, 700])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_far_kernel_vs_twin(dev, dim, tb):
+    """A ragged node count (1500), tiles of 512, 300 and 700 rows, and a
+    tile that accepts no node."""
+    ntiles, w = 5, 1500
+    mj, xj = _bodies(w, dim, torch.float32, dev, seed=40 + dim)
+    _, xi = _bodies(ntiles * tb, dim, torch.float32, dev, seed=41 + dim)
+    mask = torch.tensor(np.random.default_rng(42).random((ntiles, w)) < 0.3, device=dev)
+    mask[1] = False
+    words = cg.pack_mask_bits(mask)
+    got = cg.masked_eval_bits_cuda(xi, mj, xj, words, EPS32)
+    ref = cg.masked_eval_bits_torch(xi, mj, xj, words, EPS32)
+    _assert_group_within(got, ref, _group_scale(xi, mj, xj, mask.cpu().numpy(), tb))
+    assert not got[tb:2 * tb].any()
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_window_kernel_vs_twin(dev, dim):
+    """Random windows and intervals over a ragged body count, an empty
+    interval, and an interval that runs past the last body."""
+    ntiles, tb, wt = 9, 512, 4
+    nj = ntiles * tb - 77
+    mj, xj = _bodies(nj, dim, torch.float32, dev, seed=50 + dim)
+    _, xi = _bodies(ntiles * tb, dim, torch.float32, dev, seed=51 + dim)
+    rng = np.random.default_rng(52)
+    w0 = rng.integers(0, ntiles - wt + 1, ntiles)
+    lo = (w0 * tb + rng.integers(-300, 900, ntiles)).clip(0)
+    hi = lo + rng.integers(0, wt * tb + 600, ntiles)
+    hi[2], hi[-1] = lo[2], ntiles * tb + 100
+    args = [torch.tensor(a, dtype=torch.int32, device=dev) for a in (w0, lo, hi)]
+    got = cg.window_eval_interval_cuda(xi, mj, xj, *args, EPS32, wt)
+    ref = cg.window_eval_interval_torch(xi, mj, xj, *args, EPS32, wt)
+    cols = np.arange(nj)[None, :]
+    sel = (cols >= np.maximum(lo, w0 * tb)[:, None]) & (cols < np.minimum(hi, (w0 + wt) * tb)[:, None])
+    _assert_group_within(got, ref, _group_scale(xi, mj, xj, sel, tb))
+    assert not got[2 * tb:3 * tb].any()
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_entries_kernel_vs_twin(dev, dim):
+    """A tile-sorted entry list with tiles that have no entries, lo == hi
+    sentinels, whole blocks, entries past n_real, and a ragged last block."""
+    ntiles, tb, S = 7, 512, 1024
+    nj = 4 * S - 100
+    mj, xj = _bodies(nj, dim, torch.float32, dev, seed=60 + dim)
+    _, xi = _bodies(ntiles * tb, dim, torch.float32, dev, seed=61 + dim)
+    rng = np.random.default_rng(62)
+    ents, lohis = [], []
+    sel = np.zeros((ntiles, nj), bool)
+    for tile in (0, 1, 3, 6):  # tiles 2, 4 and 5 have no entries
+        ents.append(tile << 16)
+        lohis.append(0)
+        for blk in range(4):
+            lo, hi = (0, S) if tile == 3 else sorted(int(v) for v in rng.integers(0, S + 1, 2))
+            ents.append((tile << 16) | blk)
+            lohis.append(lo | (hi << 16))
+            sel[tile, blk * S + lo:min(blk * S + hi, nj)] = True
+    n_real = torch.tensor(len(ents), device=dev)
+    ents += [(ntiles - 1) << 16 | 2] * 5  # pads: ignored past n_real
+    lohis += [7 | (900 << 16)] * 5
+    e = torch.tensor(ents, dtype=torch.int32, device=dev)
+    lh = torch.tensor(lohis, dtype=torch.int32, device=dev)
+    got = cg.entries_lohi_eval_cuda(xi, mj, xj, e, lh, n_real, S, ntiles, EPS32)
+    ref = cg.entries_lohi_eval_torch(xi, mj, xj, e, lh, n_real, S, ntiles, EPS32)
+    _assert_group_within(got, ref, _group_scale(xi, mj, xj, sel, tb))
+    for tile in (2, 4, 5):
+        assert not got[tile * tb:(tile + 1) * tb].any()
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_octree_fast_path_on_card_matches_cpu(dev, dim):
+    """compute_force_grouped_fast on the card (the three kernels and the
+    sqrt3 fallback) and on the CPU (the twins): equal counters, forces
+    within 1e-5 of sum |a|."""
+    from nbody_torch.ops import octree, octree_group
+
+    n = 20000
+    rng = np.random.default_rng(70 + dim)
+    x = rng.uniform(-1, 1, (n, dim)).astype(np.float32)
+    m = rng.uniform(0.1, 1, n).astype(np.float32)
+    depth = octree.max_depth(n, dim)
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        lo, hi = octree.robust_quant_box(torch.tensor(x, device=device))
+        ms, xs, ks, _ = octree.morton_sort(torch.tensor(m, device=device),
+                                           torch.tensor(x, device=device), lo, hi, depth)
+        a, info = octree_group.compute_force_grouped_fast(ms, xs, ks, depth, 0.5, 1.0, EPS32,
+                                                          window_tiles=1, e_chunk=1024)
+        out[device.type] = (a.cpu(), {k: int(v) for k, v in info.items()})
+    (ga, ginfo), (ca_, cinfo) = out["cuda"], out["cpu"]
+    assert ginfo == cinfo and cinfo["entries"] > 0
+    assert ((ga - ca_).abs().sum() / ca_.abs().sum()).item() < 1e-5
+
+
+def test_group_launch_counters(dev):
+    mj, xj = _bodies(64, 2, torch.float32, dev, seed=80)
+    cg.reset_launch_counts()
+    words = cg.pack_mask_bits(torch.ones(1, 64, dtype=torch.bool, device=dev))
+    cg.masked_eval_bits_cuda(xj, mj, xj, words, EPS32)
+    i32 = dict(dtype=torch.int32, device=dev)
+    zero = torch.zeros(1, **i32)
+    cg.window_eval_interval_cuda(xj, mj, xj, zero, zero, torch.full((1,), 64, **i32), EPS32, 1)
+    cg.entries_lohi_eval_cuda(xj, mj, xj, zero, zero, torch.tensor(1, device=dev), 64, 1, EPS32)
+    cg.masked_eval_bits_torch(xj, mj, xj, words, EPS32)  # the twin never counts
+    assert cg.launch_counts == {"masked_eval_bits_kernel": 1, "window_eval_interval_kernel": 1,
+                                "entries_lohi_kernel": 1}
+    with pytest.raises(TypeError):
+        cg.masked_eval_bits_cuda(xj.double(), mj.double(), xj.double(), words, EPS32)
