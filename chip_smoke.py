@@ -26,15 +26,45 @@ Phases, each printed on its own lines:
      c. the 3-D force of (a) against the sqrt3 all-pairs kernel on the
         same sorted bodies (sanity bounds on the relative error);
      d. a 17,000-body 3-D evaluation on the card and through the CPU
-        twins: equal counters, forces within 1e-5 of sum |a|.
+        twins: equal counters, forces within 1e-5 of sum |a|;
+  6. the BVH fast path (--algorithm bvh):
+     a. one BVH force evaluation of a 2^20-body galaxy, in 3-D and in 2-D,
+        whose far, node-mask window and entries kernel calls are recorded
+        and re-run as in 5a, each timed beside its twin; the dense-mask
+        window, which the BVH reaches only at n <= 16, is timed on a
+        synthetic 2^20 window built from the node-mask window's slots and
+        on the inputs of an n = 16 evaluation;
+     b. the CLI at full size, -n 1048576 -s 12 --algorithm bvh in 3-D and
+        in 2-D;
+     c. the 3-D force of (a) against the poly all-pairs kernel on the same
+        Hilbert-sorted bodies (the sanity bounds of 5c);
+     d. a 17,000-body 3-D evaluation with a window of 2 tiles and a small
+        e_chunk, so that the residual and the exact fallback run, on the
+        card and through the CPU twins: equal counters, forces within 1e-5
+        of sum |a|;
+     e. the small path, -n 10 -s 5 --algorithm bvh --theta 0, on the card
+        (through the dense-mask window) and on the CPU: the same final
+        state, in the same body order.
+Every kernel call that 5a and 6a time prints its pair count, the pairs
+its inputs need (all-pairs N(N-1); a window the columns it visits times
+the rows; entries sum(hi - lo) times the rows; the far field the set
+accept bits times the rows), and the bound: the larger of those pairs
+times the FLOPs per pair (5*dim + 3 for a force, one more under sqrt3,
+3*dim + 3 for the potential; a square root and a division counted as
+one each) over the H100's 67 TFLOP/s in
+float32, and the bytes (each input read once, the output written once)
+over its 3.35 TB/s. No single PyTorch call computes a softened gravity
+sum (torch.cdist gives distances, not forces), so library_ms is null.
 The kernels' launch counts are set to 0 just before each CLI run that
 drives a main path and read just after it: the all-pairs force kernel's
 from the 2^20 run of phase 3, the potential kernel's from the run of
 phase 4 (the 2^20 --csv-total run computes no energies), the octree
-kernels' from the 3-D run of phase 5b (the 2-D run's counts and the
+kernels' from the 3-D run of phase 5b, the BVH's far, node-mask and
+entries kernels' from the 3-D run of phase 6b and the dense-mask
+window's from the small run of phase 6e (the 2-D runs' counts and the
 fallback launches of the all-pairs kernel are reported beside them).
-Launches made to compare a kernel with its twin, and those of the small
-runs, do not count.
+Launches made to compare a kernel with its twin, and those of the other
+small runs, do not count.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Without a GPU, or if any phase
@@ -43,6 +73,7 @@ fails, the script exits non-zero and prints neither.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -175,8 +206,16 @@ def main() -> int:
         err, abs_err = scaled(got, ref, scale)
         report(f"{name} at N=2^20 3-D float32 (kernel {ms:.1f} ms, plain {plain_ms:.1f} ms)",
                torch.float32, err)
+        pairs = big * (big - 1)
+        flops = flops_per_pair(3, "poly") if name == "allpairs_block_kernel" else 3 * 3 + 3
+        nbytes = big * 4 * (3 + 1) + big * 4 * (3 if name == "allpairs_block_kernel" else 1)
+        bound_ms, bound_by = bound(pairs, flops, nbytes)
+        print(f"[2] {name}: {pairs} pairs, {flops} FLOPs per pair, bound {bound_ms:.3f} ms "
+              f"({bound_by})")
         kernels[name] = {"max_abs_err": abs_err, "max_scaled_err": err,
-                         "scaled_err_limit": TOL["float32"], "ms": ms, "plain_ms": plain_ms}
+                         "scaled_err_limit": TOL["float32"], "ms": ms, "plain_ms": plain_ms,
+                         "pairs": pairs, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": None}
         del got, ref, scale
     del m, x
     torch.cuda.empty_cache()
@@ -257,7 +296,8 @@ def main() -> int:
           f"relative drift {drift:.3e} (limit 1e-3); potential kernel launches {pe_launches}")
     check(drift <= 1e-3, "energy drift too large")
 
-    octree_kernels, fallback_launches = octree_phases(dev, big)
+    octree_kernels, octree_fallback = octree_phases(dev, big)
+    bvh_kernels, bvh_fallback = bvh_phases(dev, big)
 
     entries = []
     for name, replaces, launches, run in (
@@ -271,21 +311,174 @@ def main() -> int:
                         "replaces": replaces, "launches": launches[name], "launches_in": run,
                         **kernels[name], "n": big, "dim": 3, "dtype": "float32"})
     entries[0]["also_replaces"] = "nbody_tpu/ops/pallas_allpairs.py:181"
-    entries[0]["octree_fallback_launches"] = fallback_launches
-    print(json.dumps({"kernels": entries + octree_kernels}))
+    entries[0]["octree_fallback_launches"] = octree_fallback  # sqrt3
+    entries[0]["bvh_fallback_launches"] = bvh_fallback        # poly
+    print(json.dumps({"kernels": entries + octree_kernels + bvh_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
 
 
+# H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor cores, HBM3
+F32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+GROUP_EVAL = "nbody_torch/csrc/group_eval.cu"
+PALLAS_GROUP_EVAL = "nbody_tpu/ops/pallas_group_eval.py"
+
+
+def flops_per_pair(dim: int, softening: str) -> int:
+    """dim subtractions, 2*dim - 1 for d2, the square root, the softening
+    (poly: a multiply and an add; sqrt3: an add and two multiplies), the
+    division, and 2*dim to accumulate the weighted separation."""
+    return 5 * dim + 3 + (softening == "sqrt3")
+
+
+def bound(pairs: int, flops: int, nbytes: int):
+    """(least milliseconds the card could take, what bounds it)."""
+    t_ops, t_bytes = pairs * flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def pairs_of(name: str, args) -> int:
+    """The (row, source) pairs a group kernel's inputs need: the rows of a
+    tile times the sources it visits that can add to its rows. A source of
+    mass 0 (padding, a dead node) or of mask weight 0 adds exactly 0
+    (0 * m / t with t >= eps > 0), so it is not counted."""
+    import torch
+
+    from nbody_torch.ops import cuda_group_eval as cg
+
+    xi, mj = args[0], args[1]
+    nj = mj.shape[0]
+    live = mj != 0
+    if name.startswith("masked_eval_bits"):
+        words = args[3]
+        return int((cg.unpack_mask_bits(words, nj) & live).sum()) * (xi.shape[0] // words.shape[0])
+
+    def in_ranges(a, b):  # live sources in [a, b), summed over the ranges
+        ends = torch.cat([live.new_zeros(1, dtype=torch.int64), live.long().cumsum(0)])
+        a, b = a.clamp(0, nj), b.clamp(0, nj)
+        return int((ends[b] - ends[torch.minimum(a, b)]).sum())
+
+    if name.startswith("entries_lohi"):
+        ent, lohi, n_real, S = args[3], args[4], int(args[5]), args[6]
+        tb = xi.shape[0] // args[7]
+        base = (ent[:n_real].long() & 0xFFFF) * S
+        lohi = lohi[:n_real].long()
+        return in_ranges(base + (lohi & 0xFFFF), base + ((lohi >> 16) & 0xFFFF)) * tb
+    w0 = args[3].long()
+    tb = xi.shape[0] // w0.shape[0]
+    if name == "window_eval_interval_kernel":
+        lo, hi, wt = args[4].long(), args[5].long(), args[7]
+        return in_ranges(torch.maximum(lo, w0 * tb), torch.minimum(hi, (w0 + wt) * tb)) * tb
+    if name not in ("window_eval_nodemask_kernel", "window_eval_dense_kernel"):
+        raise ValueError(name)
+    mask = args[4]
+    wb = mask.shape[1] * (args[7] if name == "window_eval_nodemask_kernel" else 1)
+    cols = w0[:, None] * tb + torch.arange(wb, device=w0.device)
+    inside = cols < nj
+    cols = cols.clamp_max(nj - 1)
+    if name == "window_eval_nodemask_kernel":  # the live bodies of the open S-body slots
+        keep = mask.repeat_interleave(args[7], dim=1) & live[cols]
+    else:  # the columns whose weight mask[t, c] * m_j is nonzero
+        keep = mask * mj[cols] != 0
+    return int((keep & inside).sum()) * tb
+
+
+def bytes_of(args) -> int:
+    """Each distinct input tensor read once, the (rows, dim) output written once."""
+    import torch
+
+    seen = {t.data_ptr(): t.numel() * t.element_size()
+            for t in args if isinstance(t, torch.Tensor)}
+    return sum(seen.values()) + args[0].numel() * args[0].element_size()
+
+
+def measure(tag: str, name: str, kern, twin, args, dim: int, softening: str) -> dict:
+    """Time kernel `name` (5 launches after a warm-up, CUDA events) and its
+    twin (one call) on the recorded args; hold it against the twin and
+    both against the twin in float64, as fractions of sum |term|; count
+    its pairs and compute its bound. Fails above 1e-5."""
+    import torch
+
+    got = kern(*args)  # warm-up launch
+    kms = event_ms(lambda: kern(*args), reps=5)
+    plain_ms, ref = event_ms(lambda: twin(*args), reps=1, keep=True)
+    scale = twin(*args, absolute=True)
+    err, abs_err = scaled(got, ref, scale)
+    ref64 = twin(*(a.double() if isinstance(a, torch.Tensor) and a.is_floating_point() else a
+                   for a in args))
+    err64 = [scaled(v, ref64, scale)[0] for v in (got, ref)]
+    pairs, flops = pairs_of(name, args), flops_per_pair(dim, softening)
+    bound_ms, bound_by = bound(pairs, flops, bytes_of(args))
+    print(f"[{tag}] {name}<{softening}>: kernel {kms:.3f} ms, plain {plain_ms:.1f} ms; max |kernel - "
+          f"plain| / sum|term| = {err:.3e} (limit 1e-5); against float64: kernel {err64[0]:.3e}, "
+          f"plain {err64[1]:.3e}; {pairs} pairs ({pairs / (kms * 1e-3):.4e} pairs/s), bound "
+          f"{bound_ms:.3f} ms ({bound_by}, {flops} FLOPs per pair)")
+    check(err <= 1e-5, f"{tag} {name}: scaled error {err:.3e} above 1e-5")
+    check(err64[0] <= 1e-5, f"{tag} {name}: scaled error against float64 {err64[0]:.3e} above 1e-5")
+    return {"ms": kms, "plain_ms": plain_ms, "max_abs_err": abs_err, "max_scaled_err": err,
+            "max_scaled_err_vs_float64": err64[0], "pairs": pairs, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+@contextlib.contextmanager
+def recording(module, attrs):
+    """Wrap module.<attr> for each attr so that each call's positional
+    args are kept (the last call's, by attr) while the call goes through."""
+    recorded = {}
+    saved = {attr: getattr(module, attr) for attr in attrs}
+
+    def wrap(attr, fn):
+        def call(*args):
+            recorded[attr] = args
+            return fn(*args)
+        return call
+
+    for attr in attrs:
+        setattr(module, attr, wrap(attr, saved[attr]))
+    try:
+        yield recorded
+    finally:
+        for attr, fn in saved.items():
+            setattr(module, attr, fn)
+
+
+def cli_full_size(algorithm: str, dim: int, big: int, tag: str) -> dict:
+    """-n big -s 12 --csv-total through the CLI on the card, with the
+    launch counts set to 0 just before and read just after."""
+    from nbody_torch import cli
+    from nbody_torch.ops import cuda_allpairs as ca
+    from nbody_torch.ops import cuda_group_eval as cg
+
+    ca.reset_launch_counts()
+    cg.reset_launch_counts()
+    argv = ["-n", str(big), "-s", "12", "-d", str(dim), "--algorithm", algorithm,
+            "--workload", "galaxy", "--device", "cuda", "--csv-total"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    rc = cli.main(argv, out=out)
+    wall = time.perf_counter() - t0
+    launches = {**cg.launch_counts, "allpairs_block_kernel": ca.launch_counts["allpairs_block_kernel"]}
+    lines = out.getvalue().strip().splitlines()
+    check(rc == 0 and len(lines) == 2 and lines[0] == "algorithm,dim,precision,nsteps,nbodies,"
+          "total [s]", f"{algorithm} CLI run failed: rc={rc}, output {lines!r}")
+    fields = lines[1].split(",")
+    check(fields[:5] == [algorithm, str(dim), "32", "2", str(big)], f"CSV row {lines[1]!r}")
+    print(f"[{tag}] python -m nbody_torch.cli {' '.join(argv)}")
+    print(f"[{tag}]   {lines[1]}  ->  {float(fields[5]) / 2:.4f} s/step; wall {wall:.1f} s with "
+          f"model build and warmup; launches {launches}")
+    return launches
+
+
 OCTREE_KERNELS = {  # name -> (wrapper in ops.cuda_group_eval, twin, Pallas function replaced)
     "masked_eval_bits_kernel": ("masked_eval_bits_cuda", "masked_eval_bits_torch",
-                                "nbody_tpu/ops/pallas_group_eval.py:310"),
+                                f"{PALLAS_GROUP_EVAL}:310"),
     "window_eval_interval_kernel": ("window_eval_interval_cuda", "window_eval_interval_torch",
-                                    "nbody_tpu/ops/pallas_group_eval.py:502"),
+                                    f"{PALLAS_GROUP_EVAL}:502"),
     "entries_lohi_kernel": ("entries_lohi_eval_cuda", "entries_lohi_eval_torch",
-                            "nbody_tpu/ops/pallas_group_eval.py:963"),
+                            f"{PALLAS_GROUP_EVAL}:963"),
 }
 
 
@@ -295,7 +488,6 @@ def octree_phases(dev, big: int):
     CLI runs, by dimension."""
     import torch
 
-    from nbody_torch import cli
     from nbody_torch.models import build_model
     from nbody_torch.ops import cuda_allpairs as ca
     from nbody_torch.ops import cuda_group_eval as cg
@@ -304,6 +496,7 @@ def octree_phases(dev, big: int):
 
     eps = eps_of(torch.float32)
     measured = {name: {} for name in OCTREE_KERNELS}
+    wrappers = [attr for attr, _, _ in OCTREE_KERNELS.values()]
 
     # -- (a) one real evaluation per dimension, its kernel inputs recorded
     for dim in (3, 2):
@@ -312,18 +505,7 @@ def octree_phases(dev, big: int):
         lo, hi = octree.robust_quant_box(state.x)
         ms, xs, ks, _ = octree.morton_sort(state.m, state.x, lo, hi, depth)
         del state
-        recorded = {}
-
-        def recorder(name, fn):
-            def call(*args):
-                recorded[name] = args
-                return fn(*args)
-            return call
-
-        wrappers = {name: getattr(og, attr) for name, (attr, _, _) in OCTREE_KERNELS.items()}
-        for name, (attr, _, _) in OCTREE_KERNELS.items():
-            setattr(og, attr, recorder(name, wrappers[name]))
-        try:
+        with recording(og, wrappers) as recorded:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
@@ -331,79 +513,33 @@ def octree_phases(dev, big: int):
             a, info = og.compute_force_grouped_fast(ms, xs, ks, depth, cfg.theta, cfg.G, cfg.eps)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        finally:
-            for name, (attr, _, _) in OCTREE_KERNELS.items():
-                setattr(og, attr, wrappers[name])
         peak = (torch.cuda.max_memory_allocated() - base) / 2**30
         counters = {k: int(v) for k, v in info.items()}
         print(f"[5a] {big}-body {dim}-D galaxy, one octree force evaluation: {wall:.3f} s wall "
               f"(first call), peak memory above its inputs {peak:.2f} GiB; {counters}")
         check(bool(torch.isfinite(a).all()), "octree force is not finite")
-        check(set(recorded) == set(OCTREE_KERNELS), f"kernels called: {sorted(recorded)}")
+        check(set(recorded) == set(wrappers), f"kernels called: {sorted(recorded)}")
         for name, (attr, twin_attr, _) in OCTREE_KERNELS.items():
-            args = recorded[name]
-            kern, twin = getattr(cg, attr), getattr(cg, twin_attr)
-            got = kern(*args)  # warm-up launch
-            kms = event_ms(lambda: kern(*args), reps=5)
-            plain_ms, ref = event_ms(lambda: twin(*args), reps=1, keep=True)
-            scale = twin(*args, absolute=True)
-            err, abs_err = scaled(got, ref, scale)
-            # both against the twin in float64 on the same inputs
-            ref64 = twin(*(a.double() if isinstance(a, torch.Tensor) and a.is_floating_point()
-                           else a for a in args))
-            err64 = [scaled(v, ref64, scale)[0] for v in (got, ref)]
-            print(f"[5a] {name} at the {dim}-D 2^20 shapes: kernel {kms:.3f} ms, plain {plain_ms:.1f} "
-                  f"ms; max |kernel - plain| / sum|term| = {err:.3e} (limit 1e-5); against float64: "
-                  f"kernel {err64[0]:.3e}, plain {err64[1]:.3e}")
-            check(err <= 1e-5, f"{name} {dim}-D: scaled error {err:.3e} above 1e-5")
-            measured[name][dim] = {"ms": kms, "plain_ms": plain_ms, "max_abs_err": abs_err,
-                                   "max_scaled_err": err, "max_scaled_err_vs_float64": err64[0]}
-            del got, ref, ref64, scale
+            measured[name][dim] = measure(f"5a {dim}-D", name, getattr(cg, attr),
+                                          getattr(cg, twin_attr), recorded[attr], dim, "sqrt3")
         del recorded
         if dim == 3:
             # -- (c) the 3-D force against the exact sqrt3 sum on the same bodies
             ref = cfg.G * ca.allpairs_block_cuda(xs, ms, xs, eps, "sqrt3")
-            rel = ((a - ref).norm(dim=1) / ref.norm(dim=1).clamp_min(1e-30)).double()
-            med, p99 = (torch.quantile(rel, q).item() for q in (0.5, 0.99))
-            print(f"[5c] {big}-body 3-D octree vs sqrt3 all-pairs, per-body relative error: "
-                  f"median {med:.3e}, p99 {p99:.3e}, max {rel.max().item():.3e} "
-                  f"(limits: median 1e-3, p99 1e-2)")
-            check(med <= 1e-3 and p99 <= 1e-2, "octree force far from the direct sum")
-            del ref, rel
+            accuracy("5c", "octree vs sqrt3 all-pairs", big, a, ref)
+            del ref
         del a, ms, xs, ks
         torch.cuda.empty_cache()
 
     # -- (b) the CLI at full size; counts from 0 just before each run ------
-    launches = {}
+    launches = {dim: cli_full_size("octree", dim, big, "5b") for dim in (3, 2)}
     for dim in (3, 2):
-        ca.reset_launch_counts()
-        cg.reset_launch_counts()
-        argv = ["-n", str(big), "-s", "12", "-d", str(dim), "--algorithm", "octree",
-                "--workload", "galaxy", "--device", "cuda", "--csv-total"]
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        rc = cli.main(argv, out=out)
-        wall = time.perf_counter() - t0
-        launches[dim] = {**cg.launch_counts, "allpairs_block_kernel": ca.launch_counts[
-            "allpairs_block_kernel"]}
-        lines = out.getvalue().strip().splitlines()
-        check(rc == 0 and len(lines) == 2 and lines[0] == "algorithm,dim,precision,nsteps,nbodies,"
-              "total [s]", f"octree CLI run failed: rc={rc}, output {lines!r}")
-        fields = lines[1].split(",")
-        check(fields[:5] == ["octree", str(dim), "32", "2", str(big)], f"CSV row {lines[1]!r}")
-        print(f"[5b] python -m nbody_torch.cli {' '.join(argv)}")
-        print(f"[5b]   {lines[1]}  ->  {float(fields[5]) / 2:.3f} s/step; wall {wall:.1f} s with "
-              f"model build and warmup; launches {launches[dim]}")
         for name in OCTREE_KERNELS:
             check(launches[dim][name] > 0, f"{name} was not launched in the {dim}-D octree run")
 
     # -- (d) 17,000 bodies, 3-D: the card against the CPU twins -------------
-    rng = np.random.default_rng(11)
-    n, dim = 17000, 3
-    centers = rng.uniform(-40, 40, (9, dim))
-    x = (centers[rng.integers(0, 9, n)] + rng.normal(0, 1.2, (n, dim))).astype(np.float32)
-    m = rng.uniform(0.1, 1, n).astype(np.float32)
-    depth = octree.max_depth(n, dim)
+    m, x = clusters(17000, 3)
+    depth = octree.max_depth(17000, 3)
     runs = []
     for device in (dev, torch.device("cpu")):
         lo, hi = octree.robust_quant_box(torch.tensor(x, device=device))
@@ -411,21 +547,195 @@ def octree_phases(dev, big: int):
                                            torch.tensor(x, device=device), lo, hi, depth)
         a, info = og.compute_force_grouped_fast(ms, xs, ks, depth, 0.5, 1.0, eps)
         runs.append((a.cpu(), {k: int(v) for k, v in info.items()}))
-    (ga, ginfo), (pa, pinfo) = runs
-    rel = ((ga - pa).abs().sum() / pa.abs().sum()).item()
-    print(f"[5d] {n}-body 3-D clusters, card vs CPU twins: sum|diff| / sum|a| = {rel:.3e} "
-          f"(limit 1e-5); counters {'equal' if ginfo == pinfo else 'DIFFER'}: {ginfo}")
-    check(ginfo == pinfo, f"counters differ: card {ginfo}, CPU {pinfo}")
-    check(rel <= 1e-5, "card and CPU octree forces differ")
+    card_vs_cpu("5d", "17000-body 3-D clusters", runs)
 
     entries = []
     for name, (_, _, replaces) in OCTREE_KERNELS.items():
-        entries.append({"name": name, "route": "cuda", "source": "nbody_torch/csrc/group_eval.cu",
+        entries.append({"name": f"{name}<sqrt3>", "route": "cuda", "source": GROUP_EVAL,
                         "replaces": replaces, "launches": launches[3][name],
                         "launches_in": f"phase 5b: {big}-body 3-D octree --csv-total",
                         **measured[name][3], "n": big, "dim": 3, "dtype": "float32",
                         "launches_2d": launches[2][name], "2d": measured[name][2]})
     return entries, {dim: launches[dim]["allpairs_block_kernel"] for dim in (3, 2)}
+
+
+BVH_KERNELS = {  # name -> (wrapper, twin, Pallas function replaced)
+    "masked_eval_bits_kernel": ("masked_eval_bits_cuda", "masked_eval_bits_torch",
+                                f"{PALLAS_GROUP_EVAL}:310"),
+    "window_eval_nodemask_kernel": ("window_eval_nodemask_cuda", "window_eval_nodemask_torch",
+                                    f"{PALLAS_GROUP_EVAL}:614"),
+    "entries_lohi_kernel": ("entries_lohi_eval_cuda", "entries_lohi_eval_torch",
+                            f"{PALLAS_GROUP_EVAL}:963"),
+}
+DENSE = ("window_eval_dense_kernel", "window_eval_dense_cuda", "window_eval_dense_torch",
+         f"{PALLAS_GROUP_EVAL}:383")
+
+
+def bvh_phases(dev, big: int):
+    """Phase 6: the BVH fast path at 2^20. Returns the JSON entries of its
+    four kernels and the all-pairs kernel's fallback launches in the CLI
+    runs, by dimension."""
+    import torch
+
+    from nbody_torch import cli
+    from nbody_torch.models import build_model
+    from nbody_torch.ops import bvh
+    from nbody_torch.ops import bvh_group as bg
+    from nbody_torch.ops import cuda_allpairs as ca
+    from nbody_torch.ops import cuda_group_eval as cg
+    from nbody_torch.state import SystemState
+
+    eps = eps_of(torch.float32)
+    measured = {name: {} for name in (*BVH_KERNELS, DENSE[0])}
+    wrappers = [attr for attr, _, _ in BVH_KERNELS.values()]
+    dense_kern, dense_twin = getattr(cg, DENSE[1]), getattr(cg, DENSE[2])
+
+    # -- (a) one real evaluation per dimension, its kernel inputs recorded
+    for dim in (3, 2):
+        cfg, state = build_model("galaxy", big, dim, np.float32, device=dev)
+        state = bvh.hilbert_sort(state, cfg.eps)
+        tree = bvh.build_tree(state.m, state.x, cfg.eps)
+        with recording(bg, [*wrappers, "allpairs_block_cuda"]) as recorded:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            a, info = bg.compute_force_grouped_windowed(tree, state.m, state.x, cfg.theta, cfg.G,
+                                                        cfg.eps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        counters = {k: int(v) for k, v in info.items()}
+        check(bool(torch.isfinite(a).all()), "BVH force is not finite")
+        check(set(wrappers) <= set(recorded), f"kernels called: {sorted(recorded)}")
+        check(counters["bad_entries"] == 0, "an entry addresses no tile")
+        ent_args = recorded["entries_lohi_eval_cuda"]
+        first, last = cg.tile_segments(ent_args[3], ent_args[5], ent_args[7])
+        per_tile = (last - first - 1).double()  # entries beside each tile's sentinel
+        print(f"[6a] {big}-body {dim}-D galaxy, one BVH force evaluation: {wall:.3f} s wall "
+              f"(first call), peak memory above its inputs {peak:.2f} GiB; {counters}; residual "
+              f"entries per tile: max {int(per_tile.max())}, mean {per_tile.mean().item():.2f} "
+              f"over {per_tile.numel()} tiles")
+        for name, (attr, twin_attr, _) in BVH_KERNELS.items():
+            measured[name][dim] = measure(f"6a {dim}-D", name, getattr(cg, attr),
+                                          getattr(cg, twin_attr), recorded[attr], dim, "poly")
+        if "allpairs_block_cuda" in recorded:
+            xi, mj, xj = recorded["allpairs_block_cuda"][:3]
+            print(f"[6a] the exact fallback ran on {xi.shape[0]} rows")
+        # the dense-mask window on a synthetic window of this size: the
+        # node-mask call's inputs, its slots broadcast over their S bodies
+        xi, mj, xj, w0, in_win, _, wt, S, _ = recorded["window_eval_nodemask_cuda"]
+        mask = in_win.to(torch.float32).repeat_interleave(S, dim=1).contiguous()
+        measured[DENSE[0]][dim] = measure(f"6a {dim}-D synthetic", DENSE[0], dense_kern,
+                                          dense_twin, (xi, mj, xj, w0, mask, eps, wt, "poly"),
+                                          dim, "poly")
+        del recorded, mask, xi, mj, xj, w0, in_win, ent_args
+        if dim == 3:
+            # -- (c) the 3-D force against the exact poly sum on the same bodies
+            ref = cfg.G * ca.allpairs_block_cuda(state.x, state.m, state.x, eps, "poly")
+            accuracy("6c", "BVH vs poly all-pairs", big, a, ref)
+            del ref
+        del a, state, tree
+        torch.cuda.empty_cache()
+
+    # the dense-mask window where the BVH takes it: an n = 16 evaluation
+    for dim in (3, 2):
+        cfg, state = build_model("galaxy", 16, dim, np.float32, device=dev)
+        state = bvh.hilbert_sort(state, cfg.eps)
+        tree = bvh.build_tree(state.m, state.x, cfg.eps)
+        with recording(bg, [DENSE[1]]) as recorded:
+            bg.compute_force_grouped_windowed(tree, state.m, state.x, 0.0, cfg.G, cfg.eps)
+        check(DENSE[1] in recorded, f"the {dim}-D n = 16 evaluation took no dense-mask window")
+        measured[DENSE[0]][f"n16_{dim}d"] = measure(f"6a {dim}-D n=16", DENSE[0], dense_kern,
+                                                    dense_twin, recorded[DENSE[1]], dim, "poly")
+
+    # -- (b) the CLI at full size; counts from 0 just before each run ------
+    launches = {dim: cli_full_size("bvh", dim, big, "6b") for dim in (3, 2)}
+    for dim in (3, 2):
+        for name in BVH_KERNELS:
+            check(launches[dim][name] > 0, f"{name} was not launched in the {dim}-D BVH run")
+
+    # -- (d) 17,000 bodies, 3-D: residual and fallback, card against CPU ----
+    m, x = clusters(17000, 3)
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        st = SystemState.from_numpy(m, x, np.zeros_like(x), device=device)
+        st = bvh.hilbert_sort(st, eps)
+        tree = bvh.build_tree(st.m, st.x, eps)
+        a, info = bg.compute_force_grouped_windowed(tree, st.m, st.x, 0.5, 1.0, eps,
+                                                    window_tiles=2, e_chunk=8)
+        runs.append((a.cpu(), {k: int(v) for k, v in info.items()}))
+    check(runs[1][1]["entries"] > 0 and runs[1][1]["fallback_tiles"] > 0,
+          f"6d takes no residual or no fallback: {runs[1][1]}")
+    card_vs_cpu("6d", "17000-body 3-D clusters, window_tiles 2, e_chunk 8", runs)
+
+    # -- (e) the small path: the card (dense-mask window) against the CPU ----
+    with tempfile.TemporaryDirectory() as tmp:
+        finals = {}
+        for device in ("cuda", "cpu"):
+            path = os.path.join(tmp, f"final_{device}.bin")
+            ca.reset_launch_counts()
+            cg.reset_launch_counts()
+            cli.main(["-n", "10", "-s", "5", "--algorithm", "bvh", "--theta", "0", "--device",
+                      device, "--save-state", path], out=io.StringIO())
+            if device == "cuda":
+                small_launches = dict(cg.launch_counts)
+            finals[device] = read_state(path)
+    gpu, cpu = finals["cuda"], finals["cpu"]
+    check(gpu.shape == (10, 5) and bool(np.isfinite(gpu).all()), "final state malformed")
+    diff = float((np.abs(gpu - cpu).max(axis=0) / np.abs(cpu).max(axis=0)).max())
+    print(f"[6e] -n 10 -s 5 --algorithm bvh --theta 0: final state on the card vs the CPU "
+          f"twins, in the order each run left its bodies, max over columns of max |diff| / "
+          f"max |value| = {diff:.3e} (limit 1e-4); launches on the card {small_launches}")
+    check(diff <= 1e-4, "card and CPU final states differ (or their body orders do)")
+    check(small_launches[DENSE[0]] > 0, "the small run did not launch the dense-mask window")
+
+    run3 = f"phase 6b: {big}-body 3-D bvh --csv-total"
+    entries = []
+    for name, (_, _, replaces) in BVH_KERNELS.items():
+        entries.append({"name": f"{name}<poly>" if "nodemask" not in name else name,
+                        "route": "cuda", "source": GROUP_EVAL, "replaces": replaces,
+                        "launches": launches[3][name], "launches_in": run3,
+                        **measured[name][3], "n": big, "dim": 3, "dtype": "float32",
+                        "launches_2d": launches[2][name], "2d": measured[name][2]})
+    dense = measured[DENSE[0]]
+    entries.append({"name": DENSE[0], "route": "cuda", "source": GROUP_EVAL, "replaces": DENSE[3],
+                    "launches": small_launches[DENSE[0]],
+                    "launches_in": "phase 6e: -n 10 -s 5 --algorithm bvh --theta 0 on the card",
+                    **dense[3], "n": big, "dim": 3, "dtype": "float32",
+                    "timed_on": "a synthetic 2^20 window from the node-mask call's slots",
+                    "2d": dense[2], "n16_3d": dense["n16_3d"], "n16_2d": dense["n16_2d"]})
+    return entries, {dim: launches[dim]["allpairs_block_kernel"] for dim in (3, 2)}
+
+
+def accuracy(tag: str, what: str, n: int, a, ref) -> None:
+    """Per-body relative error of a tree force against an exact sum:
+    median 1e-3 and p99 1e-2 at most (sanity bounds)."""
+    import torch
+
+    rel = ((a - ref).norm(dim=1) / ref.norm(dim=1).clamp_min(1e-30)).double()
+    med, p99 = (torch.quantile(rel, q).item() for q in (0.5, 0.99))
+    print(f"[{tag}] {n}-body 3-D {what}, per-body relative error: median {med:.3e}, p99 "
+          f"{p99:.3e}, max {rel.max().item():.3e} (limits: median 1e-3, p99 1e-2)")
+    check(med <= 1e-3 and p99 <= 1e-2, f"{what}: far from the direct sum")
+
+
+def clusters(n: int, dim: int):
+    """Nine Gaussian clusters from a fixed seed, float32 (m, x)."""
+    rng = np.random.default_rng(11)
+    centers = rng.uniform(-40, 40, (9, dim))
+    x = (centers[rng.integers(0, 9, n)] + rng.normal(0, 1.2, (n, dim))).astype(np.float32)
+    return rng.uniform(0.1, 1, n).astype(np.float32), x
+
+
+def card_vs_cpu(tag: str, what: str, runs) -> None:
+    """Equal counters and forces within 1e-5 of sum |a|, card against CPU."""
+    (ga, ginfo), (pa, pinfo) = runs
+    rel = ((ga - pa).abs().sum() / pa.abs().sum()).item()
+    print(f"[{tag}] {what}, card vs CPU twins: sum|diff| / sum|a| = {rel:.3e} (limit 1e-5); "
+          f"counters {'equal' if ginfo == pinfo else 'DIFFER'}: {ginfo}")
+    check(ginfo == pinfo, f"counters differ: card {ginfo}, CPU {pinfo}")
+    check(rel <= 1e-5, "card and CPU forces differ")
 
 
 def eps_of(dtype) -> float:

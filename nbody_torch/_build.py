@@ -95,16 +95,19 @@ def build() -> Path:
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C interface
-    of csrc/allpairs.cu and csrc/group_eval.cu."""
+    of csrc/allpairs.cu and csrc/group_eval.cu (a pointer must be
+    c_void_p: ctypes passes an undeclared one as a 32-bit int)."""
     lib = ctypes.CDLL(str(build()))
     i, p, f64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
     for name, args in (
         ("nbody_allpairs_block", [i, i, i, i, p, i, p, p, i, f64, f64, p, p]),
         ("nbody_potential_rowsums", [i, i, i, p, p, i, f64, p, p]),
         # (device, dim, xi, ntiles, tb, ...) as in ops/cuda_group_eval._launch
-        ("nbody_masked_eval_bits", [i, i, p, i, i, p, p, i, p, i, f64, p, p]),
+        ("nbody_masked_eval_bits", [i, i, p, i, i, p, p, i, p, i, i, f64, p, p]),
         ("nbody_window_eval_interval", [i, i, p, i, i, p, p, i, p, p, p, i, f64, p, p]),
-        ("nbody_entries_lohi_eval", [i, i, p, i, i, p, p, i, p, p, p, p, i, f64, p, p]),
+        ("nbody_window_eval_nodemask", [i, i, p, i, i, p, p, i, p, p, i, i, i, f64, p, p]),
+        ("nbody_window_eval_dense", [i, i, p, i, i, p, p, i, p, p, i, i, f64, p, p]),
+        ("nbody_entries_lohi_eval", [i, i, p, i, i, p, p, i, p, p, p, p, i, i, f64, p, p]),
     ):
         fn = getattr(lib, name)
         fn.argtypes = args

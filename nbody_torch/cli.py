@@ -10,11 +10,15 @@ Extensions: --kernel (auto|cuda|torch force backend), --device
 --save-state/--load-state. --chunk is parsed as nbody_tpu parses it and
 changes nothing: the plain torch path sizes its row chunks from n.
 
-The octree runs its fast path (--traversal group, float32), with
---theta, --group-tile and --window-tiles. Not yet ported, and refused
-with exit code 1 rather than ignored: the bvh algorithm, the octree in
-double precision, with --traversal per-body or with --kernel torch,
---mesh > 1, --mesh-layout partitioned, --mesh-tile > 1 and --profile.
+The octree and the bvh run their fast paths (--traversal group,
+float32), with --theta, --group-tile and --window-tiles. Not yet ported,
+and refused with exit code 1 rather than ignored: the octree and the bvh
+in double precision, with --traversal per-body or with --kernel torch,
+the bvh with --sort-every > 1 or --refine-levels > 0, --mesh > 1,
+--mesh-layout partitioned, --mesh-tile > 1 and --profile.
+
+The port runs on the GPU unless --device cpu asks for the CPU: without a
+CUDA device, --device auto (the default) and --device cuda exit 1.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from __future__ import annotations
 import sys
 
 from nbody_torch.config import precision_dtype
-from nbody_torch.sim.engines import KERNELS, UNPORTED
+from nbody_torch.sim.engines import KERNELS
 
 _HELP = """Help:
 -n size\t\tNumber of particles to simulate
@@ -31,7 +35,7 @@ _HELP = """Help:
 --theta t\t\tTheta threshold parameter to use in Octree
 --precision double|float(default)\t\tSelects floating-point precision
 --algorithm all-pairs|all-pairs-collapsed|bvh|octree(default)\t\tSelects simulation algorithm
-\t\t(bvh, and octree in double or per-body, are not yet ported to nbody_torch)
+\t\t(octree and bvh in double or per-body are not yet ported to nbody_torch)
 --workload plummer|galaxy|uniform(default)|load <file.bin>\t\tSelects workload
 --print-state\t\tPrint the initial and final state of the simulation
 --print-info\t\tPrint info every timestep
@@ -39,16 +43,16 @@ _HELP = """Help:
 --csv-detailed\t\tPer-phase timing CSV, saves every step
 --csv-total\t\tSingle-row timing CSV (excludes printing/saving)
 --kernel auto|cuda|torch\t\tForce backend: CUDA kernel (auto on a GPU) or plain torch
---device auto|cpu|cuda\t\tTorch device (default auto: cuda when a GPU is present)
+--device auto|cpu|cuda\t\tTorch device (default auto: the GPU; cpu only when asked for)
 --mesh N\t\tShard bodies across N devices (only 1 is ported)
 --mesh-layout L\treplicated (default) | partitioned (not yet ported)
 --mesh-tile T\t\tPartitioned 2-D mesh tile shards (only 1 is ported)
 --chunk N\t\tAccepted for nbody_tpu parity; nbody_torch sizes its row chunks from n
 --fix-collapsed-z\t\tFix the reference's frozen-z quirk in all-pairs-collapsed
---sort-every K\t\tRe-sort bodies every K steps in tree engines (default 1)
+--sort-every K\t\tRe-sort bodies every K steps in tree engines (default 1; bvh: only 1 is ported)
 --traversal group|per-body\t\tTree traversal strategy (default group)
 --group-tile N\t\tBodies per tile in group traversal (default 512)
---refine-levels N\t\tBVH residual refinement depth (default auto)
+--refine-levels N\t\tBVH residual refinement depth (default auto; only 0 is ported)
 --window-tiles N\t\tNear-field window width in tiles (default 32)
 --save-state file.bin\t\tWrite final state in the loadable format
 --profile DIR\t\tProfiler trace of the run (not yet ported)
@@ -238,15 +242,20 @@ def parse_args(argv: list[str]) -> dict:
 
 def _unported(args: dict) -> str | None:
     """What the parsed flags ask for that the port cannot run yet, or None."""
-    if args["algorithm"] in UNPORTED:
-        return f'--algorithm {args["algorithm"]}'
-    if args["algorithm"] == "octree":
+    algo = args["algorithm"]
+    if algo in ("octree", "bvh"):
         for flag, value, ported in (("--precision", args["precision"], "float"),
                                     ("--traversal", args["traversal"], "group")):
             if value != ported:
-                return f"--algorithm octree {flag} {value}"
+                return f"--algorithm {algo} {flag} {value}"
         if args["kernel"] == "torch":
-            return "--algorithm octree --kernel torch"
+            return f"--algorithm {algo} --kernel torch"
+    if algo == "bvh":
+        # K <= 1 and R <= 0 are the default branch (re-sort every step, no refinement)
+        if args["sort_every"] > 1:
+            return f'--algorithm bvh --sort-every {args["sort_every"]}'
+        if args["refine"] > 0:
+            return f'--algorithm bvh --refine-levels {args["refine"]}'
     if args["mesh"] != 1:
         return "--mesh > 1"
     if args["mesh_layout"] != "replicated":
@@ -259,18 +268,17 @@ def _unported(args: dict) -> str | None:
 
 
 def resolve_device(name: str):
-    """--device: auto picks CUDA when a GPU is present, as nbody_tpu picks
-    the TPU; cuda without a GPU is an error, never a silent CPU run."""
+    """--device: auto and cuda take the GPU; without one they exit 1,
+    never a silent CPU run. Only --device cpu runs on the CPU."""
     import torch
 
     if name == "cpu":
         return torch.device("cpu")
     if torch.cuda.is_available():
         return torch.device("cuda", torch.cuda.current_device())
-    if name == "cuda":
-        print("--device cuda: no CUDA device is available.", file=sys.stderr)
-        raise SystemExit(1)
-    return torch.device("cpu")
+    print(f"--device {name}: no CUDA device is available; pass --device cpu to run on the CPU.",
+          file=sys.stderr)
+    raise SystemExit(1)
 
 
 def main(argv: list[str] | None = None, out=None) -> int:

@@ -1,11 +1,15 @@
-// Tree-evaluation kernels of the octree fast path for Hopper (sm_90a), with
-// a plain C interface that nbody_torch/ops/cuda_group_eval.py loads through
-// ctypes. Each evaluates T row tiles of `tb` consecutive Morton-sorted bodies
-// against a set of sources and writes the raw (G-less) accelerations
+// Tree-evaluation kernels of the octree and BVH fast paths for Hopper
+// (sm_90a), with a plain C interface that nbody_torch/ops/cuda_group_eval.py
+// loads through ctypes. Each evaluates T row tiles of `tb` consecutive
+// sorted bodies against a set of sources and writes the raw (G-less)
+// accelerations
 //     out_i = sum_j m_j * (x_j - x_i) / t,
-// with t = (sqrt(d2) + eps)^3, the octree's sqrt3 softening of pair.cuh.
+// with pair.cuh's softening: t = (sqrt(d2) + eps)^3 (sqrt3, the octree's)
+// or t = d2 * sqrt(d2) + eps (poly, the BVH's). The far and entries
+// kernels are templated on it (SQRT3); the octree's interval window is
+// sqrt3 only and the BVH's two windows take both.
 //
-// masked_eval_bits_kernel<DIM> replaces masked_eval_bits_pallas
+// masked_eval_bits_kernel<DIM, SQRT3> replaces masked_eval_bits_pallas
 // (nbody_tpu/ops/pallas_group_eval.py:310, body _masked_bits_kernel): the
 // far field. Every tile sees the same W heap nodes (mass, COM); a packed
 // accept bit per (tile, node) gates each node (word l / 32, bit l % 32).
@@ -13,16 +17,34 @@
 // block: the block stages kNodeChunk nodes and their mask words in shared
 // memory, skips a chunk whose words are all zero, and walks the set bits
 // with a block-uniform loop. An unset node is skipped outright; that is
-// exact, since its Pallas weight is 0 * m / t with t >= eps^3 > 0.
+// exact, since its Pallas weight is 0 * m / t with t >= eps > 0 (t >=
+// eps^3 under sqrt3).
 //
 // window_eval_interval_kernel<DIM> replaces window_eval_interval_pallas
-// (:502, body _window_interval_kernel): the near window. Tile t sees the
-// sorted bodies [max(lo, w0*tb), min(hi, (w0 + window_tiles)*tb)), the
-// cell-snapped interval inside its window. Only those columns are visited,
-// which is nbody_tpu's skip_outside carried to the column.
+// (:502, body _window_interval_kernel): the octree's near window. Tile t
+// sees the sorted bodies [max(lo, w0*tb), min(hi, (w0 + window_tiles)*tb)),
+// the cell-snapped interval inside its window. Only those columns are
+// visited, which is nbody_tpu's skip_outside carried to the column.
 //
-// entries_lohi_kernel<DIM> replaces entries_lohi_eval_pallas (:963,
-// body _entries_lohi_kernel): the near-field exact entries. The entry list
+// window_eval_nodemask_kernel<DIM, SQRT3> replaces
+// window_eval_nodemask_pallas (:614, body _window_nodemask_kernel): the
+// BVH's near window. Tile t's window is the window_tiles*tb bodies from
+// w0*tb, cut into wnodes slots of S bodies; slot v counts when its node is
+// open for the tile (in_win[t, v], one byte). The block walks the slots
+// with a block-uniform loop and adds each run of consecutive open slots
+// as one range of bodies; a closed slot is skipped outright, which is
+// exact for the reason above and is nbody_tpu's skip_outside carried to
+// the slot. The TPU's limit of 64 slots per block (unrolled selects) does
+// not apply.
+//
+// window_eval_dense_kernel<DIM, SQRT3> replaces window_eval_pallas (:383,
+// body _masked_eval_kernel): the same window with a dense float32 weight
+// per (tile, column), mask[t, c], that multiplies m_j. The BVH takes it
+// where a window block would hold more than 64 slots (only tiny systems).
+//
+// entries_lohi_kernel<DIM, SQRT3> replaces entries_lohi_eval_pallas (:963,
+// body _entries_lohi_kernel): the near-field exact entries (the octree's
+// near field, the BVH's residual). The entry list
 // (tile << 16 | blk, lo | hi << 16) is sorted by tile; the wrapper finds each
 // tile's run [first, last) on the device. One block per tile walks its run,
 // visits the bodies blk*S + [lo, hi) of each entry exactly, and writes its
@@ -108,7 +130,7 @@ __device__ __forceinline__ void add_to(float (&dst)[kRows][DIM], const float (&s
 }
 
 // One source (m, x) acting on both rows of the thread.
-template <int DIM>
+template <int DIM, bool SQRT3>
 __device__ __forceinline__ void add_source(const float (&p)[kRows][DIM], float m, const float (&x)[DIM],
                                            float eps, float (&part)[kRows][DIM]) {
 #pragma unroll
@@ -120,7 +142,7 @@ __device__ __forceinline__ void add_source(const float (&p)[kRows][DIM], float m
       dx[d] = x[d] - p[r][d];
       d2 += dx[d] * dx[d];
     }
-    const float w = nbody::pair_weight<float, true>(m, d2, eps);
+    const float w = nbody::pair_weight<float, SQRT3>(m, d2, eps);
 #pragma unroll
     for (int d = 0; d < DIM; ++d) part[r][d] += w * dx[d];
   }
@@ -128,15 +150,17 @@ __device__ __forceinline__ void add_source(const float (&p)[kRows][DIM], float m
 
 // The contiguous sorted bodies [a, b), staged kChunk at a time, added to
 // `sum` stage by stage. Called by every thread with block-uniform a, b.
-template <int DIM>
+// With `weight`, body j's mass is scaled by weight[j - a].
+template <int DIM, bool SQRT3>
 __device__ __forceinline__ void add_range(const Rows<DIM>& rows, const float* __restrict__ mj,
                                           const float* __restrict__ xj, int a, int b, float eps,
-                                          float* s_m, float (*s_x)[kChunk], float (&sum)[kRows][DIM]) {
+                                          float* s_m, float (*s_x)[kChunk], float (&sum)[kRows][DIM],
+                                          const float* __restrict__ weight = nullptr) {
   for (int j0 = a; j0 < b; j0 += kChunk) {
     const int len = min(kChunk, b - j0);
     if (threadIdx.x < len) {
       const int j = j0 + threadIdx.x;
-      s_m[threadIdx.x] = mj[j];
+      s_m[threadIdx.x] = weight == nullptr ? mj[j] : mj[j] * weight[j - a];
 #pragma unroll
       for (int d = 0; d < DIM; ++d) s_x[d][threadIdx.x] = xj[static_cast<size_t>(j) * DIM + d];
     }
@@ -152,7 +176,7 @@ __device__ __forceinline__ void add_range(const Rows<DIM>& rows, const float* __
         float x[DIM];
 #pragma unroll
         for (int d = 0; d < DIM; ++d) x[d] = s_x[d][k];
-        add_source<DIM>(rows.p, s_m[k], x, eps, group);
+        add_source<DIM, SQRT3>(rows.p, s_m[k], x, eps, group);
       }
       add_to(part, group);
     }
@@ -161,7 +185,7 @@ __device__ __forceinline__ void add_range(const Rows<DIM>& rows, const float* __
   }
 }
 
-template <int DIM>
+template <int DIM, bool SQRT3>
 __global__ void __launch_bounds__(kThreads)
 masked_eval_bits_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
                         const float* __restrict__ xj, int W, const unsigned* __restrict__ words,
@@ -201,7 +225,7 @@ masked_eval_bits_kernel(const float* __restrict__ xi, int tb, const float* __res
         float x[DIM];
 #pragma unroll
         for (int d = 0; d < DIM; ++d) x[d] = s_x[d][k];
-        add_source<DIM>(rows.p, s_m[k], x, eps, group);
+        add_source<DIM, SQRT3>(rows.p, s_m[k], x, eps, group);
       }
       add_to(part, group);
     }
@@ -225,11 +249,60 @@ window_eval_interval_kernel(const float* __restrict__ xi, int tb, const float* _
   const int col0 = w0[t] * tb;
   const int a = max(lo[t], col0);
   const int b = min(min(hi[t], col0 + window_tiles * tb), nj);
-  add_range<DIM>(rows, mj, xj, a, b, eps, s_m, s_x, rows.acc);
+  add_range<DIM, true>(rows, mj, xj, a, b, eps, s_m, s_x, rows.acc);
   rows.store(out);
 }
 
-template <int DIM>
+template <int DIM, bool SQRT3>
+__global__ void __launch_bounds__(kThreads)
+window_eval_nodemask_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
+                            const float* __restrict__ xj, int nj, const int* __restrict__ w0,
+                            const unsigned char* __restrict__ in_win, int wnodes, int S, float eps,
+                            float* __restrict__ out) {
+  __shared__ float s_m[kChunk];
+  __shared__ float s_x[DIM][kChunk];
+
+  Rows<DIM> rows(xi, tb);
+  const int t = blockIdx.x;
+  const int col0 = w0[t] * tb;
+  const unsigned char* slot_open = in_win + static_cast<size_t>(t) * wnodes;
+  // the same slots for every thread: a block-uniform walk over the runs of
+  // open slots, each run one contiguous range of bodies
+  int v = 0;
+  while (v < wnodes) {
+    if (!slot_open[v]) {
+      ++v;
+      continue;
+    }
+    int v1 = v + 1;
+    while (v1 < wnodes && slot_open[v1]) ++v1;
+    const int a = col0 + v * S;
+    const int b = min(col0 + v1 * S, nj);
+    if (a < b) add_range<DIM, SQRT3>(rows, mj, xj, a, b, eps, s_m, s_x, rows.acc);
+    v = v1;
+  }
+  rows.store(out);
+}
+
+template <int DIM, bool SQRT3>
+__global__ void __launch_bounds__(kThreads)
+window_eval_dense_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
+                         const float* __restrict__ xj, int nj, const int* __restrict__ w0,
+                         const float* __restrict__ mask, int wb, float eps,
+                         float* __restrict__ out) {
+  __shared__ float s_m[kChunk];
+  __shared__ float s_x[DIM][kChunk];
+
+  Rows<DIM> rows(xi, tb);
+  const int t = blockIdx.x;
+  const int a = w0[t] * tb;
+  const int b = min(a + wb, nj);
+  add_range<DIM, SQRT3>(rows, mj, xj, a, b, eps, s_m, s_x, rows.acc,
+                        mask + static_cast<size_t>(t) * wb);
+  rows.store(out);
+}
+
+template <int DIM, bool SQRT3>
 __global__ void __launch_bounds__(kThreads)
 entries_lohi_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
                     const float* __restrict__ xj, int nj, const int* __restrict__ entries,
@@ -248,7 +321,7 @@ entries_lohi_kernel(const float* __restrict__ xi, int tb, const float* __restric
     if (a >= b) continue;  // a lo == hi sentinel or padding entry
     float ent[kRows][DIM];
     zero(ent);
-    add_range<DIM>(rows, mj, xj, a, b, eps, s_m, s_x, ent);
+    add_range<DIM, SQRT3>(rows, mj, xj, a, b, eps, s_m, s_x, ent);
     add_to(rows.acc, ent);
   }
   rows.store(out);
@@ -258,10 +331,16 @@ inline dim3 grid_for(int ntiles, int tb) {
   return dim3(static_cast<unsigned>(ntiles), static_cast<unsigned>((tb + kRowsPerBlock - 1) / kRowsPerBlock));
 }
 
-// The instantiation for the runtime dim, or nullptr.
+// The instantiation for the runtime dim (and softening), or nullptr.
 template <typename Fn>
 Fn pick(int dim, Fn d2, Fn d3) {
   return dim == 2 ? d2 : dim == 3 ? d3 : nullptr;
+}
+
+template <typename Fn>
+Fn pick(int dim, int sqrt3, Fn poly2, Fn sqrt3_2, Fn poly3, Fn sqrt3_3) {
+  if (sqrt3 != 0 && sqrt3 != 1) return nullptr;
+  return pick(dim, sqrt3 ? sqrt3_2 : poly2, sqrt3 ? sqrt3_3 : poly3);
 }
 
 cudaError_t prepare(int device, int ntiles, int tb) {
@@ -273,15 +352,17 @@ cudaError_t prepare(int device, int ntiles, int tb) {
 
 // Float32 only. Pointers are device pointers to contiguous arrays: xi
 // (ntiles*tb, dim) rows, mj (nj,) and xj (nj, dim) sources, int32 index
-// arrays. Each returns the cudaError_t of the launch (0 on success); the
-// kernel runs on `stream` and nothing here synchronises.
+// arrays. `sqrt3` picks the softening: 1 sqrt3, 0 poly. Each returns the
+// cudaError_t of the launch (0 on success); the kernel runs on `stream`
+// and nothing here synchronises.
 extern "C" int nbody_masked_eval_bits(int device, int dim, const void* xi, int ntiles,
                                       int tb, const void* mj, const void* xj, int W,
-                                      const void* words, int nw, double eps, void* out,
-                                      void* stream) {
+                                      const void* words, int nw, int sqrt3, double eps,
+                                      void* out, void* stream) {
   cudaError_t err = prepare(device, ntiles, tb);
   if (err != cudaSuccess) return err;
-  const auto kernel = pick(dim, masked_eval_bits_kernel<2>, masked_eval_bits_kernel<3>);
+  const auto kernel = pick(dim, sqrt3, masked_eval_bits_kernel<2, false>, masked_eval_bits_kernel<2, true>,
+                           masked_eval_bits_kernel<3, false>, masked_eval_bits_kernel<3, true>);
   if (kernel == nullptr || W < 0 || nw != (W + 31) / 32) return cudaErrorInvalidValue;
   kernel<<<grid_for(ntiles, tb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xi), tb, static_cast<const float*>(mj), static_cast<const float*>(xj), W,
@@ -304,14 +385,48 @@ extern "C" int nbody_window_eval_interval(int device, int dim, const void* xi, i
   return cudaGetLastError();
 }
 
-extern "C" int nbody_entries_lohi_eval(int device, int dim, const void* xi, int ntiles,
-                                       int tb, const void* mj, const void* xj, int nj,
-                                       const void* entries, const void* lohis, const void* first,
-                                       const void* last, int S, double eps, void* out,
+extern "C" int nbody_window_eval_nodemask(int device, int dim, const void* xi, int ntiles,
+                                          int tb, const void* mj, const void* xj, int nj,
+                                          const void* w0, const void* in_win, int wnodes, int S,
+                                          int sqrt3, double eps, void* out, void* stream) {
+  cudaError_t err = prepare(device, ntiles, tb);
+  if (err != cudaSuccess) return err;
+  const auto kernel = pick(dim, sqrt3, window_eval_nodemask_kernel<2, false>,
+                           window_eval_nodemask_kernel<2, true>, window_eval_nodemask_kernel<3, false>,
+                           window_eval_nodemask_kernel<3, true>);
+  if (kernel == nullptr || wnodes <= 0 || S <= 0) return cudaErrorInvalidValue;
+  kernel<<<grid_for(ntiles, tb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xi), tb, static_cast<const float*>(mj), static_cast<const float*>(xj), nj,
+      static_cast<const int*>(w0), static_cast<const unsigned char*>(in_win), wnodes, S,
+      static_cast<float>(eps), static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+extern "C" int nbody_window_eval_dense(int device, int dim, const void* xi, int ntiles, int tb,
+                                       const void* mj, const void* xj, int nj, const void* w0,
+                                       const void* mask, int wb, int sqrt3, double eps, void* out,
                                        void* stream) {
   cudaError_t err = prepare(device, ntiles, tb);
   if (err != cudaSuccess) return err;
-  const auto kernel = pick(dim, entries_lohi_kernel<2>, entries_lohi_kernel<3>);
+  const auto kernel = pick(dim, sqrt3, window_eval_dense_kernel<2, false>, window_eval_dense_kernel<2, true>,
+                           window_eval_dense_kernel<3, false>, window_eval_dense_kernel<3, true>);
+  if (kernel == nullptr || wb <= 0) return cudaErrorInvalidValue;
+  kernel<<<grid_for(ntiles, tb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xi), tb, static_cast<const float*>(mj), static_cast<const float*>(xj), nj,
+      static_cast<const int*>(w0), static_cast<const float*>(mask), wb, static_cast<float>(eps),
+      static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+extern "C" int nbody_entries_lohi_eval(int device, int dim, const void* xi, int ntiles,
+                                       int tb, const void* mj, const void* xj, int nj,
+                                       const void* entries, const void* lohis, const void* first,
+                                       const void* last, int S, int sqrt3, double eps, void* out,
+                                       void* stream) {
+  cudaError_t err = prepare(device, ntiles, tb);
+  if (err != cudaSuccess) return err;
+  const auto kernel = pick(dim, sqrt3, entries_lohi_kernel<2, false>, entries_lohi_kernel<2, true>,
+                           entries_lohi_kernel<3, false>, entries_lohi_kernel<3, true>);
   if (kernel == nullptr || S <= 0) return cudaErrorInvalidValue;
   kernel<<<grid_for(ntiles, tb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xi), tb, static_cast<const float*>(mj), static_cast<const float*>(xj), nj,

@@ -8,8 +8,8 @@ where eps = numeric_limits<T>::epsilon(). The epsilon softening means the
 self-interaction term of the force is exactly zero (0/eps * m = 0).
 
 All functions broadcast over leading axes; the last axis is the spatial
-dimension. scalar_bounds is the octree's root box; aabb_of_points comes
-with the BVH slice.
+dimension. scalar_bounds is the octree's root box, aabb_of_points the
+BVH's.
 """
 
 from __future__ import annotations
@@ -30,6 +30,16 @@ def dist3_from_d2(d2: torch.Tensor, eps: float) -> torch.Tensor:
     """dist2^(3/2) + eps, computed as d2*sqrt(d2) + eps (equal in exact
     arithmetic to the reference's pow(d2, 1.5), differs by <=1 ulp)."""
     return d2 * torch.sqrt(d2) + eps
+
+
+def aabb_of_points(x: torch.Tensor, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Bounding box of the bodies and the origin, widened by the
+    reference's 10*eps point tolerance (bounding_box(), bvh.h:16-22, whose
+    reduction starts from the point box of the origin, vec.h:388-392).
+    Returns (xmin, xmax), each of shape (dim,), on x's device."""
+    tol = torch.full((), 10.0 * eps, dtype=x.dtype, device=x.device)
+    zero = x.new_zeros(())
+    return torch.minimum(x.amin(0), zero) - tol, torch.maximum(x.amax(0), zero) + tol
 
 
 def scalar_bounds(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -305,12 +305,12 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
     # ---- evaluation: far + window + near ------------------------------
     if compact and cheap:
         far = masked_eval_bits_cuda(xp, mm_heap[keep_idx], com_heap[keep_idx].contiguous(),
-                                    pack_mask_bits(acc_bool[:, keep_idx]), eps)
+                                    pack_mask_bits(acc_bool[:, keep_idx]), eps, "sqrt3")
     else:
-        far = masked_eval_bits_cuda(xp, mm_heap, com_heap, pack_mask_bits(acc_bool), eps)
+        far = masked_eval_bits_cuda(xp, mm_heap, com_heap, pack_mask_bits(acc_bool), eps, "sqrt3")
     win = window_eval_interval_cuda(xp, mp, xp, w0.to(torch.int32), lo_t.to(torch.int32),
                                     hi_t.to(torch.int32), eps, wt)
-    near = entries_lohi_eval_cuda(xp, mp, xp, entries, lohis, n_merged, S, ntiles, eps)
+    near = entries_lohi_eval_cuda(xp, mp, xp, entries, lohis, n_merged, S, ntiles, eps, "sqrt3")
     acc = (far + win) + near
 
     # ---- exact fallback for overflowed tiles --------------------------

@@ -2,7 +2,7 @@
 
     python -m nbody_torch.probe trace [-n N] [-d DIM] [--steps K] [--algorithm A]
         Builds an N-body galaxy (default 2^20, 3-D, float32), runs one
-        untimed step of algorithm A (default all-pairs; or octree) through
+        untimed step of algorithm A (default all-pairs; or octree, bvh) through
         the engine, then K steps (default 3) under torch.profiler. Prints
         the kernel table, the wall time of the K steps, the summed device
         kernel time, the device idle share 1 - kernel time / wall, the
@@ -82,7 +82,7 @@ def main(argv: list[str] | None = None) -> int:
     sub = parser.add_subparsers(dest="cmd", required=True)
     t = sub.add_parser("trace", help="profile K steps; print the idle share")
     t.add_argument("-n", type=int, default=1 << 20)
-    t.add_argument("--algorithm", choices=("all-pairs", "octree"), default="all-pairs")
+    t.add_argument("--algorithm", choices=("all-pairs", "octree", "bvh"), default="all-pairs")
     t.add_argument("-d", "--dim", type=int, default=3)
     t.add_argument("--steps", type=int, default=3)
     s = sub.add_parser("sass", help="write the kernels' SASS to a file")

@@ -15,8 +15,8 @@ run_* entry points (src/all_pairs.h:108-116, src/octree.h:266):
 
 The step order is force-then-integrate exactly as the reference kernels()
 lambdas: the force engine fills `a` from current positions, then leapfrog
-advances x/v and rolls ao <- a. The octree engine lives in
-sim/tree_engines.py; bvh is not ported yet, and get_engine says so.
+advances x/v and rolls ao <- a. The octree and bvh engines live in
+sim/tree_engines.py.
 """
 
 from __future__ import annotations
@@ -34,7 +34,6 @@ from nbody_torch.ops.integrator import leapfrog_step
 from nbody_torch.state import SystemState
 
 KERNELS = ("auto", "cuda", "torch")
-UNPORTED = ("bvh",)
 
 
 @dataclasses.dataclass
@@ -44,7 +43,7 @@ class EngineOptions:
     fix_z: bool = False         # fix the collapsed-force z-freeze quirk
     traversal: str = "group"    # group|per-body : tree traversal strategy
     group_tile: int = 512       # bodies per tile in group traversal
-    window_tiles: int = 32      # octree near-field window width (body tiles)
+    window_tiles: int = 32      # tree near-field window width (body tiles)
 
 
 def sync(device: torch.device) -> None:
@@ -132,19 +131,21 @@ def _octree_engine():
     return OctreeEngine()
 
 
+def _bvh_engine():
+    from nbody_torch.sim.tree_engines import BVHEngine
+
+    return BVHEngine()
+
+
 ENGINES = {
     "all-pairs": AllPairsEngine,
     "all-pairs-collapsed": AllPairsCollapsedEngine,
+    "bvh": _bvh_engine,
     "octree": _octree_engine,
 }
 
 
 def get_engine(name: str):
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f'Algorithm "{name}" is not yet ported to nbody_torch; '
-            "use all-pairs, all-pairs-collapsed or octree, or nbody_tpu."
-        )
     try:
         return ENGINES[name]()
     except KeyError:

@@ -98,12 +98,15 @@ def test_port_flag_values_checked(argv):
 
 @pytest.mark.parametrize("argv", [
     ["--precision", "double"], ["--algorithm", "octree", "--traversal", "per-body"],
-    ["--algorithm", "bvh", "--theta", "0"],
+    ["--algorithm", "bvh", "--mesh", "2"],
     ["--algorithm", "all-pairs", "--mesh", "2"],
     ["--algorithm", "all-pairs", "--mesh-layout", "partitioned"],
     ["--algorithm", "all-pairs", "--mesh-tile", "2"],
     ["--algorithm", "all-pairs", "--profile", "trace_dir"],
     ["--kernel", "torch"],
+    ["--algorithm", "bvh", "--sort-every", "2"], ["--algorithm", "bvh", "--refine-levels", "1"],
+    ["--algorithm", "bvh", "--precision", "double"],
+    ["--algorithm", "bvh", "--traversal", "per-body"], ["--algorithm", "bvh", "--kernel", "torch"],
 ])
 def test_unported_features_exit_1(argv, capsys):
     with pytest.raises(SystemExit) as e:
@@ -117,12 +120,14 @@ def test_device_cuda_needs_a_gpu(capsys):
         assert tcli.resolve_device("cuda").type == "cuda"
         assert tcli.resolve_device("auto").type == "cuda"
     else:
-        with pytest.raises(SystemExit) as e:
-            tcli.main(["-n", "8", "--algorithm", "all-pairs", "--device", "cuda"],
-                      out=io.StringIO())
-        assert e.value.code == 1
-        assert "no CUDA device" in capsys.readouterr().err
-        assert tcli.resolve_device("auto").type == "cpu"
+        # --device cuda, --device auto and the default (auto) all exit 1 and
+        # name --device cpu: the CPU runs only when asked for
+        for device in (["--device", "cuda"], ["--device", "auto"], []):
+            with pytest.raises(SystemExit) as e:
+                tcli.main(["-n", "8", "--algorithm", "all-pairs", *device], out=io.StringIO())
+            assert e.value.code == 1
+            err = capsys.readouterr().err
+            assert "no CUDA device" in err and "--device cpu" in err
     assert tcli.resolve_device("cpu").type == "cpu"
 
 
@@ -250,7 +255,7 @@ def test_port_imports_no_jax():
         "import io, sys\n"
         "import nbody_torch.cli, nbody_torch.ops.cuda_allpairs, nbody_torch.sim.runner\n"
         "import nbody_torch.probe, nbody_torch.ops.cuda_group_eval, nbody_torch.sim.tree_engines\n"
-        "for algo in ('all-pairs', 'octree'):\n"
+        "for algo in ('all-pairs', 'octree', 'bvh'):\n"
         "    nbody_torch.cli.main(['-n', '64', '-s', '11', '--algorithm', algo,\n"
         "                          '--csv-total', '--device', 'cpu'], out=io.StringIO())\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'nbody_tpu')))\n"
@@ -334,3 +339,45 @@ def test_octree_print_info_vs_jax_fast_path(dim, tmp_path, monkeypatch):
         mass = np.float32(jnp.asarray(aux["root_mass"]))
         assert info[2 * k + 1].startswith("Total mass: ")
         assert abs(float(info[2 * k + 1].split(":")[1]) - mass) <= np.spacing(mass)
+
+
+BVH_DETAILED = ("algorithm,dim,precision,nsteps,nbodies,total [s],force [s],accel [s],"
+                "bbox [s],sort [s],multipoles [s],force approx [s]")
+
+
+def test_bvh_print_state_like_jax(tmp_path, monkeypatch):
+    """-n 10 -s 5 --algorithm bvh --theta 0 --print-state: the JAX CLI on
+    the CPU takes the bvh's list path, the port its fast path through the
+    twins, and at theta = 0 both sum every pair exactly. The printed state
+    is the Hilbert-sorted one: the same body order, values within 1e-4
+    relative."""
+    argv = ["-n", "10", "-s", "5", "--algorithm", "bvh", "--theta", "0", "--print-state"]
+    j, t, _, _ = _both(argv, tmp_path, monkeypatch)
+    jl, tl = _without_times(j), _without_times(t)
+    assert [NUM.sub("#", ln) for ln in tl] == [NUM.sub("#", ln) for ln in jl]
+    np.testing.assert_allclose(_numbers(t), _numbers(j), rtol=1e-4, atol=1e-6)
+    assert "Final state:" in t
+
+
+@pytest.mark.parametrize("dim", ["2", "3"])
+def test_bvh_csv_detailed_header_and_info_like_jax(dim, tmp_path, monkeypatch):
+    """--csv-detailed prints the bvh's header (bvh.h:342) and --print-info
+    the root's total mass each step, as nbody_tpu does."""
+    argv = ["-n", "64", "-s", "3", "-d", dim, "--algorithm", "bvh", "--csv-detailed",
+            "--print-info"]
+    j, t, _, _ = _both(argv, tmp_path, monkeypatch)
+    jl, tl = j.strip().splitlines(), t.strip().splitlines()
+    assert tl[0] == jl[0] == BVH_DETAILED
+    assert tl[1:-1] == jl[1:-1] and len(tl) == 5 and tl[1].startswith("Total mass: ")
+    assert tl[-1].split(",")[:5] == jl[-1].split(",")[:5] == ["bvh", dim, "32", "3", "64"]
+    assert len(tl[-1].split(",")) == len(jl[-1].split(",")) == 12
+
+
+@pytest.mark.parametrize("flags", [["--sort-every", "1"], ["--sort-every", "0"],
+                                   ["--refine-levels", "0"], ["--refine-levels", "-1"]])
+def test_bvh_default_branch_flags_run(flags, tmp_path, monkeypatch):
+    """--sort-every K <= 1 and --refine-levels R <= 0 are nbody_tpu's
+    default branch (re-sort every step, no refinement): they run."""
+    out = _run(tcli.main, ["-n", "64", "-s", "12", "--algorithm", "bvh", "--csv-total", *flags,
+                           "--device", "cpu"], tmp_path, monkeypatch)
+    assert out.strip().splitlines()[1].startswith("bvh,2,32,2,64,")

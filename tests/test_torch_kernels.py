@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels against their plain torch twins, on the
-card: the all-pairs kernels (csrc/allpairs.cu) and the octree's far,
-window and entries kernels (csrc/group_eval.cu). Every test here needs an
+card: the all-pairs kernels (csrc/allpairs.cu) and the tree kernels
+(csrc/group_eval.cu): far, the octree's interval window, the BVH's
+node-mask and dense-mask windows, and entries, each far and entries test
+under both softenings. Every test here needs an
 NVIDIA GPU with nvcc (the kernels are built from nbody_torch/csrc at
 first use) and skips without one; on the GPU machine run them with
 
@@ -224,7 +226,7 @@ def test_engine_step_on_card_matches_cpu(dev):
 EPS32 = float(np.finfo(np.float32).eps)
 
 
-def _group_scale(xi, mj, xj, sel, tb):
+def _group_scale(xi, mj, xj, sel, tb, softening="sqrt3"):
     """float64 sum_j |m_j (x_j - x_i) / t| per row and component over the
     bodies sel[t] (T, nj) bool of each row tile t."""
     xi, mj, xj = (a.double().cpu().numpy() for a in (xi, mj, xj))
@@ -233,9 +235,10 @@ def _group_scale(xi, mj, xj, sel, tb):
         cols = np.flatnonzero(sel[t])
         rows = slice(t * tb, (t + 1) * tb)
         d = xj[cols][None, :, :] - xi[rows][:, None, :]
-        r = np.sqrt(np.sum(d * d, axis=-1))
-        w = mj[cols][None, :] / (r + EPS32) ** 3
-        out[rows] = np.einsum("kn,knd->kd", w, np.abs(d))
+        d2 = np.sum(d * d, axis=-1)
+        r = np.sqrt(d2)
+        t3 = (r + EPS32) ** 3 if softening == "sqrt3" else d2 * r + EPS32
+        out[rows] = np.einsum("kn,knd->kd", mj[cols][None, :] / t3, np.abs(d))
     return torch.tensor(out, dtype=torch.float32)
 
 
@@ -247,9 +250,10 @@ def _assert_group_within(got, ref, scale):
     assert bool((err <= 1e-5 * scale).all()), (err / scale.clamp_min(1e-30)).max().item()
 
 
+@pytest.mark.parametrize("softening", ["poly", "sqrt3"])
 @pytest.mark.parametrize("tb", [512, 300, 700])
 @pytest.mark.parametrize("dim", [2, 3])
-def test_far_kernel_vs_twin(dev, dim, tb):
+def test_far_kernel_vs_twin(dev, dim, tb, softening):
     """A ragged node count (1500), tiles of 512, 300 and 700 rows, and a
     tile that accepts no node."""
     ntiles, w = 5, 1500
@@ -258,9 +262,9 @@ def test_far_kernel_vs_twin(dev, dim, tb):
     mask = torch.tensor(np.random.default_rng(42).random((ntiles, w)) < 0.3, device=dev)
     mask[1] = False
     words = cg.pack_mask_bits(mask)
-    got = cg.masked_eval_bits_cuda(xi, mj, xj, words, EPS32)
-    ref = cg.masked_eval_bits_torch(xi, mj, xj, words, EPS32)
-    _assert_group_within(got, ref, _group_scale(xi, mj, xj, mask.cpu().numpy(), tb))
+    got = cg.masked_eval_bits_cuda(xi, mj, xj, words, EPS32, softening)
+    ref = cg.masked_eval_bits_torch(xi, mj, xj, words, EPS32, softening)
+    _assert_group_within(got, ref, _group_scale(xi, mj, xj, mask.cpu().numpy(), tb, softening))
     assert not got[tb:2 * tb].any()
 
 
@@ -286,8 +290,9 @@ def test_window_kernel_vs_twin(dev, dim):
     assert not got[2 * tb:3 * tb].any()
 
 
+@pytest.mark.parametrize("softening", ["poly", "sqrt3"])
 @pytest.mark.parametrize("dim", [2, 3])
-def test_entries_kernel_vs_twin(dev, dim):
+def test_entries_kernel_vs_twin(dev, dim, softening):
     """A tile-sorted entry list with tiles that have no entries, lo == hi
     sentinels, whole blocks, entries past n_real, and a ragged last block."""
     ntiles, tb, S = 7, 512, 1024
@@ -310,11 +315,97 @@ def test_entries_kernel_vs_twin(dev, dim):
     lohis += [7 | (900 << 16)] * 5
     e = torch.tensor(ents, dtype=torch.int32, device=dev)
     lh = torch.tensor(lohis, dtype=torch.int32, device=dev)
-    got = cg.entries_lohi_eval_cuda(xi, mj, xj, e, lh, n_real, S, ntiles, EPS32)
-    ref = cg.entries_lohi_eval_torch(xi, mj, xj, e, lh, n_real, S, ntiles, EPS32)
-    _assert_group_within(got, ref, _group_scale(xi, mj, xj, sel, tb))
+    got = cg.entries_lohi_eval_cuda(xi, mj, xj, e, lh, n_real, S, ntiles, EPS32, softening)
+    ref = cg.entries_lohi_eval_torch(xi, mj, xj, e, lh, n_real, S, ntiles, EPS32, softening)
+    _assert_group_within(got, ref, _group_scale(xi, mj, xj, sel, tb, softening))
     for tile in (2, 4, 5):
         assert not got[tile * tb:(tile + 1) * tb].any()
+
+
+def _window_case(dev, dim, tb, wt, S, seed):
+    """Rows, ragged bodies (nj not a multiple of S or tb) and a random
+    per-slot window mask with one tile wholly closed and one wholly open;
+    sel (T, nj) marks the bodies each tile sees."""
+    ntiles = 9
+    nj = ntiles * tb - 77
+    mj, xj = _bodies(nj, dim, torch.float32, dev, seed=seed)
+    _, xi = _bodies(ntiles * tb, dim, torch.float32, dev, seed=seed + 1)
+    rng = np.random.default_rng(seed + 2)
+    w0 = rng.integers(0, ntiles - wt + 1, ntiles)
+    in_win = rng.random((ntiles, wt * tb // S)) < 0.5
+    in_win[2], in_win[4] = False, True
+    cols = w0[:, None] * tb + np.arange(wt * tb)[None, :]
+    seen = np.repeat(in_win, S, axis=1) & (cols < nj)
+    sel = np.zeros((ntiles, nj), bool)
+    for t in range(ntiles):
+        sel[t, cols[t][seen[t]]] = True
+    return (xi, mj, xj, torch.tensor(w0, dtype=torch.int32, device=dev),
+            torch.tensor(in_win, device=dev), sel)
+
+
+@pytest.mark.parametrize("softening", ["poly", "sqrt3"])
+@pytest.mark.parametrize("tb,wt,S", [(512, 4, 512), (512, 2, 8), (300, 3, 100)])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_nodemask_window_kernel_vs_twin(dev, dim, tb, wt, S, softening):
+    """Slots of 512 (the 2^20 shape), of 8 bodies (128 slots per window
+    block, past the TPU kernel's 64) and of 100 in 300-row tiles; ragged
+    bodies, a closed and an open window."""
+    xi, mj, xj, w0, in_win, sel = _window_case(dev, dim, tb, wt, S, seed=90 + dim)
+    got = cg.window_eval_nodemask_cuda(xi, mj, xj, w0, in_win, EPS32, wt, S, softening)
+    ref = cg.window_eval_nodemask_torch(xi, mj, xj, w0, in_win, EPS32, wt, S, softening)
+    _assert_group_within(got, ref, _group_scale(xi, mj, xj, sel, tb, softening))
+    assert not got[2 * tb:3 * tb].any()
+
+
+@pytest.mark.parametrize("softening", ["poly", "sqrt3"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_dense_window_kernel_vs_twin(dev, dim, softening):
+    """The dense-mask window: a 0/1 mask from per-slot openness, then
+    arbitrary float weights on the masses."""
+    tb, wt, S = 512, 4, 16
+    xi, mj, xj, w0, in_win, sel = _window_case(dev, dim, tb, wt, S, seed=95 + dim)
+    mask = in_win.float().repeat_interleave(S, dim=1).contiguous()
+    got = cg.window_eval_dense_cuda(xi, mj, xj, w0, mask, EPS32, wt, softening)
+    ref = cg.window_eval_dense_torch(xi, mj, xj, w0, mask, EPS32, wt, softening)
+    _assert_group_within(got, ref, _group_scale(xi, mj, xj, sel, tb, softening))
+    weights = torch.rand(mask.shape, generator=torch.Generator().manual_seed(3)).to(dev)
+    got = cg.window_eval_dense_cuda(xi, mj, xj, w0, weights * mask, EPS32, wt, softening)
+    ref = cg.window_eval_dense_torch(xi, mj, xj, w0, weights * mask, EPS32, wt, softening)
+    _assert_group_within(got, ref, _group_scale(xi, mj, xj, sel, tb, softening))
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_bvh_fast_path_on_card_matches_cpu(dev, dim):
+    """compute_force_grouped_windowed on the card (the far, node-mask,
+    entries and poly fallback kernels) and on the CPU (the twins), with a
+    2-tile window and a small e_chunk so that the residual and the
+    fallback run: equal counters, forces within 1e-5 of sum |a|; and an
+    n = 16 system through the dense-mask window."""
+    from nbody_torch.ops import bvh, bvh_group
+    from nbody_torch.state import SystemState
+
+    for n, kw in ((20000, dict(window_tiles=2, e_chunk=8)), (16, {})):
+        rng = np.random.default_rng(75 + dim)
+        centers = rng.uniform(-40, 40, (9, dim))
+        x = (centers[rng.integers(0, 9, n)] + rng.normal(0, 1.2, (n, dim))).astype(np.float32)
+        m = rng.uniform(0.1, 1, n).astype(np.float32)
+        out = {}
+        cg.reset_launch_counts()
+        for device in (dev, torch.device("cpu")):
+            st = bvh.hilbert_sort(SystemState.from_numpy(m, x, np.zeros_like(x), device=device),
+                                  EPS32)
+            tree = bvh.build_tree(st.m, st.x, EPS32)
+            a, info = bvh_group.compute_force_grouped_windowed(tree, st.m, st.x, 0.5, 1.0, EPS32,
+                                                               **kw)
+            out[device.type] = (a.cpu(), {k: int(v) for k, v in info.items()})
+        (ga, ginfo), (ca_, cinfo) = out["cuda"], out["cpu"]
+        assert ginfo == cinfo and cinfo["bad_entries"] == 0
+        assert ((ga - ca_).abs().sum() / ca_.abs().sum()).item() < 1e-5
+        if n == 16:
+            assert cg.launch_counts["window_eval_dense_kernel"] == 1
+        else:
+            assert cinfo["entries"] > 0 and cinfo["fallback_tiles"] > 0
+            assert cg.launch_counts["window_eval_nodemask_kernel"] == 1
 
 
 @pytest.mark.parametrize("dim", [2, 3])
@@ -346,13 +437,18 @@ def test_group_launch_counters(dev):
     mj, xj = _bodies(64, 2, torch.float32, dev, seed=80)
     cg.reset_launch_counts()
     words = cg.pack_mask_bits(torch.ones(1, 64, dtype=torch.bool, device=dev))
-    cg.masked_eval_bits_cuda(xj, mj, xj, words, EPS32)
+    cg.masked_eval_bits_cuda(xj, mj, xj, words, EPS32, "poly")
     i32 = dict(dtype=torch.int32, device=dev)
     zero = torch.zeros(1, **i32)
     cg.window_eval_interval_cuda(xj, mj, xj, zero, zero, torch.full((1,), 64, **i32), EPS32, 1)
-    cg.entries_lohi_eval_cuda(xj, mj, xj, zero, zero, torch.tensor(1, device=dev), 64, 1, EPS32)
-    cg.masked_eval_bits_torch(xj, mj, xj, words, EPS32)  # the twin never counts
+    cg.entries_lohi_eval_cuda(xj, mj, xj, zero, zero, torch.tensor(1, device=dev), 64, 1, EPS32,
+                              "poly")
+    cg.window_eval_nodemask_cuda(xj, mj, xj, zero, torch.ones(1, 4, dtype=torch.bool, device=dev),
+                                 EPS32, 1, 16, "poly")
+    cg.window_eval_dense_cuda(xj, mj, xj, zero, torch.ones(1, 64, device=dev), EPS32, 1, "poly")
+    cg.masked_eval_bits_torch(xj, mj, xj, words, EPS32, "poly")  # the twin never counts
     assert cg.launch_counts == {"masked_eval_bits_kernel": 1, "window_eval_interval_kernel": 1,
+                                "window_eval_nodemask_kernel": 1, "window_eval_dense_kernel": 1,
                                 "entries_lohi_kernel": 1}
     with pytest.raises(TypeError):
-        cg.masked_eval_bits_cuda(xj.double(), mj.double(), xj.double(), words, EPS32)
+        cg.masked_eval_bits_cuda(xj.double(), mj.double(), xj.double(), words, EPS32, "poly")

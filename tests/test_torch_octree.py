@@ -232,11 +232,11 @@ def test_far_twin_vs_masked_eval_bits_pallas(dim):
                                       jpg.pack_mask_bits(jnp.asarray(mask)), EPS,
                                       interpret=True, softening="sqrt3")
     words = tge.pack_mask_bits(_t(mask))
-    got = tge.masked_eval_bits_cuda(_t(xi), _t(mj), _t(xj), words, EPS)
+    got = tge.masked_eval_bits_cuda(_t(xi), _t(mj), _t(xj), words, EPS, "sqrt3")
     sums = _f64_sums(xi, mj, xj, mask, tb)
     _assert_twin_and_pallas(got, ref, sums)
-    _assert_scale(tge.masked_eval_bits_torch(_t(xi), _t(mj), _t(xj), words, EPS, absolute=True),
-                  sums)
+    _assert_scale(tge.masked_eval_bits_torch(_t(xi), _t(mj), _t(xj), words, EPS, "sqrt3",
+                                             absolute=True), sums)
     assert not got[2 * tb:3 * tb].any()
 
 
@@ -296,7 +296,8 @@ def test_entries_twin_vs_entries_lohi_eval_pallas(dim):
                                        jnp.asarray(ents), jnp.asarray(lohis), EPS, S=S, tb=tb,
                                        interpret=True, softening="sqrt3",
                                        n_real=jnp.asarray(n_real, jnp.int32))
-    args = (_t(xj), _t(mj), _t(xj), _t(ents), _t(lohis), torch.tensor(n_real), S, ntiles, EPS)
+    args = (_t(xj), _t(mj), _t(xj), _t(ents), _t(lohis), torch.tensor(n_real), S, ntiles, EPS,
+            "sqrt3")
     got = tge.entries_lohi_eval_cuda(*args)
     sums = _f64_sums(xj, mj, xj, sel, tb)
     _assert_twin_and_pallas(got, ref, sums)
