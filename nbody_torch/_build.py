@@ -108,6 +108,8 @@ def load_library() -> ctypes.CDLL:
         ("nbody_window_eval_nodemask", [i, i, p, i, i, p, p, i, p, p, i, i, i, f64, p, p]),
         ("nbody_window_eval_dense", [i, i, p, i, i, p, p, i, p, p, i, i, f64, p, p]),
         ("nbody_entries_lohi_eval", [i, i, p, i, i, p, p, i, p, p, p, p, i, i, f64, p, p]),
+        # (device, dtype, dim, xi, ntiles, tb, mj, xj, L, split, n0, n1, sqrt3, eps, out, stream)
+        ("nbody_group_eval", [i, i, i, p, i, i, p, p, i, i, p, p, i, f64, p, p]),
     ):
         fn = getattr(lib, name)
         fn.argtypes = args

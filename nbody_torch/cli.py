@@ -10,12 +10,14 @@ Extensions: --kernel (auto|cuda|torch force backend), --device
 --save-state/--load-state. --chunk is parsed as nbody_tpu parses it and
 changes nothing: the plain torch path sizes its row chunks from n.
 
-The octree and the bvh run their fast paths (--traversal group,
-float32), with --theta, --group-tile and --window-tiles. Not yet ported,
-and refused with exit code 1 rather than ignored: the octree and the bvh
-in double precision, with --traversal per-body or with --kernel torch,
-the bvh with --sort-every > 1 or --refine-levels > 0, --mesh > 1,
---mesh-layout partitioned, --mesh-tile > 1 and --profile.
+The octree and the bvh run their group traversals, with --theta,
+--group-tile and --window-tiles: the fast paths in float32, the list
+paths in double precision (through the CUDA list kernel) and under
+--kernel torch (through its plain twin), as nbody_tpu chooses. Not yet
+ported, and refused with exit code 1 rather than ignored: the octree and
+the bvh with --traversal per-body, the bvh with --sort-every > 1 or
+--refine-levels > 0, --mesh > 1, --mesh-layout partitioned, --mesh-tile
+> 1 and --profile.
 
 The port runs on the GPU unless --device cpu asks for the CPU: without a
 CUDA device, --device auto (the default) and --device cuda exit 1.
@@ -35,7 +37,7 @@ _HELP = """Help:
 --theta t\t\tTheta threshold parameter to use in Octree
 --precision double|float(default)\t\tSelects floating-point precision
 --algorithm all-pairs|all-pairs-collapsed|bvh|octree(default)\t\tSelects simulation algorithm
-\t\t(octree and bvh in double or per-body are not yet ported to nbody_torch)
+\t\t(octree and bvh with --traversal per-body are not yet ported to nbody_torch)
 --workload plummer|galaxy|uniform(default)|load <file.bin>\t\tSelects workload
 --print-state\t\tPrint the initial and final state of the simulation
 --print-info\t\tPrint info every timestep
@@ -43,6 +45,7 @@ _HELP = """Help:
 --csv-detailed\t\tPer-phase timing CSV, saves every step
 --csv-total\t\tSingle-row timing CSV (excludes printing/saving)
 --kernel auto|cuda|torch\t\tForce backend: CUDA kernel (auto on a GPU) or plain torch
+\t\t(octree and bvh with --kernel torch or in double take their list paths)
 --device auto|cpu|cuda\t\tTorch device (default auto: the GPU; cpu only when asked for)
 --mesh N\t\tShard bodies across N devices (only 1 is ported)
 --mesh-layout L\treplicated (default) | partitioned (not yet ported)
@@ -243,13 +246,8 @@ def parse_args(argv: list[str]) -> dict:
 def _unported(args: dict) -> str | None:
     """What the parsed flags ask for that the port cannot run yet, or None."""
     algo = args["algorithm"]
-    if algo in ("octree", "bvh"):
-        for flag, value, ported in (("--precision", args["precision"], "float"),
-                                    ("--traversal", args["traversal"], "group")):
-            if value != ported:
-                return f"--algorithm {algo} {flag} {value}"
-        if args["kernel"] == "torch":
-            return f"--algorithm {algo} --kernel torch"
+    if algo in ("octree", "bvh") and args["traversal"] != "group":
+        return f'--algorithm {algo} --traversal {args["traversal"]}'
     if algo == "bvh":
         # K <= 1 and R <= 0 are the default branch (re-sort every step, no refinement)
         if args["sort_every"] > 1:

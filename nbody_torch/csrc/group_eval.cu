@@ -1,13 +1,13 @@
-// Tree-evaluation kernels of the octree and BVH fast paths for Hopper
-// (sm_90a), with a plain C interface that nbody_torch/ops/cuda_group_eval.py
+// Tree-evaluation kernels of the octree and BVH fast and list paths for
+// Hopper (sm_90a), with a plain C interface that nbody_torch/ops/cuda_group_eval.py
 // loads through ctypes. Each evaluates T row tiles of `tb` consecutive
 // sorted bodies against a set of sources and writes the raw (G-less)
 // accelerations
 //     out_i = sum_j m_j * (x_j - x_i) / t,
 // with pair.cuh's softening: t = (sqrt(d2) + eps)^3 (sqrt3, the octree's)
 // or t = d2 * sqrt(d2) + eps (poly, the BVH's). The far and entries
-// kernels are templated on it (SQRT3); the octree's interval window is
-// sqrt3 only and the BVH's two windows take both.
+// and list kernels are templated on it (SQRT3); the octree's interval
+// window is sqrt3 only and the BVH's two windows take both.
 //
 // masked_eval_bits_kernel<DIM, SQRT3> replaces masked_eval_bits_pallas
 // (nbody_tpu/ops/pallas_group_eval.py:310, body _masked_bits_kernel): the
@@ -51,6 +51,23 @@
 // rows once: no zeroing on a tile's first entry, no atomics, no chunk loop,
 // and a tile with no entries writes zeros.
 //
+// group_eval_kernel<T, DIM, SQRT3> computes group_eval_pallas's function
+// (:83, body _group_eval_kernel): the list paths' evaluation, the octree's
+// (sqrt3) and the BVH's (poly). nbody_tpu reaches group_eval_pallas only
+// through compute_force_grouped(use_pallas=...); its float64 runs take the
+// jnp evaluation (octree_group.py:375-416, bvh_group.py:295-331), and this
+// kernel stands there on the port's float64 path. Float32 lists reach it
+// through the list_path branch of the step functions (float32 CLI runs
+// take the fast paths). Tile t's rows see the tile's own gathered list, mj[t, :]
+// and xj[t, :, :] (accepted monopoles, then opened leaf bodies). The list
+// holds two segments, nodes [0, split) and leaf bodies [split, L), each
+// padded with mass-0 entries; the block visits only each segment's live
+// head, [0, n0[t]) and [split, split + n1[t]), which is exact: a padding
+// entry adds 0 * dx / t = 0. The TPU's padding of L to 1,024 lanes is not
+// carried over. Unlike the other kernels here it is templated on T in
+// {float, double}, as allpairs.cu is; on an H100 float64 issue (its
+// division and square root) is what bounds it.
+//
 // What bounds them on an H100: as for allpairs_block_kernel (PERF.md), FP32
 // and SFU issue per pair -- the IEEE sqrt and division of pair_weight --
 // not bytes: the sources are staged once per block through shared memory
@@ -81,13 +98,13 @@ constexpr int kNodeChunk = 1024;                           // far-field nodes pe
 constexpr int kGroup = 32;                                 // terms per innermost running sum
 
 // The block's rows: tile t's rows [row0, row_end), two per thread.
-template <int DIM>
+template <typename T, int DIM>
 struct Rows {
-  float p[kRows][DIM];
-  float acc[kRows][DIM];
+  T p[kRows][DIM];
+  T acc[kRows][DIM];
   int row[kRows];
 
-  __device__ __forceinline__ Rows(const float* __restrict__ xi, int tb) {
+  __device__ __forceinline__ Rows(const T* __restrict__ xi, int tb) {
     const int t = blockIdx.x;
     const int row0 = t * tb + blockIdx.y * kRowsPerBlock;
     const int row_end = (t + 1) * tb;
@@ -97,13 +114,13 @@ struct Rows {
       row[r] = i < row_end ? i : -1;
 #pragma unroll
       for (int d = 0; d < DIM; ++d) {
-        p[r][d] = row[r] >= 0 ? xi[static_cast<size_t>(i) * DIM + d] : 0.f;
-        acc[r][d] = 0.f;
+        p[r][d] = row[r] >= 0 ? xi[static_cast<size_t>(i) * DIM + d] : T(0);
+        acc[r][d] = T(0);
       }
     }
   }
 
-  __device__ __forceinline__ void store(float* __restrict__ out) const {
+  __device__ __forceinline__ void store(T* __restrict__ out) const {
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       if (row[r] < 0) continue;
@@ -113,16 +130,16 @@ struct Rows {
   }
 };
 
-template <int DIM>
-__device__ __forceinline__ void zero(float (&v)[kRows][DIM]) {
+template <typename T, int DIM>
+__device__ __forceinline__ void zero(T (&v)[kRows][DIM]) {
 #pragma unroll
   for (int r = 0; r < kRows; ++r)
 #pragma unroll
-    for (int d = 0; d < DIM; ++d) v[r][d] = 0.f;
+    for (int d = 0; d < DIM; ++d) v[r][d] = T(0);
 }
 
-template <int DIM>
-__device__ __forceinline__ void add_to(float (&dst)[kRows][DIM], const float (&src)[kRows][DIM]) {
+template <typename T, int DIM>
+__device__ __forceinline__ void add_to(T (&dst)[kRows][DIM], const T (&src)[kRows][DIM]) {
 #pragma unroll
   for (int r = 0; r < kRows; ++r)
 #pragma unroll
@@ -130,19 +147,19 @@ __device__ __forceinline__ void add_to(float (&dst)[kRows][DIM], const float (&s
 }
 
 // One source (m, x) acting on both rows of the thread.
-template <int DIM, bool SQRT3>
-__device__ __forceinline__ void add_source(const float (&p)[kRows][DIM], float m, const float (&x)[DIM],
-                                           float eps, float (&part)[kRows][DIM]) {
+template <typename T, int DIM, bool SQRT3>
+__device__ __forceinline__ void add_source(const T (&p)[kRows][DIM], T m, const T (&x)[DIM], T eps,
+                                           T (&part)[kRows][DIM]) {
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    float dx[DIM];
-    float d2 = 0.f;
+    T dx[DIM];
+    T d2 = T(0);
 #pragma unroll
     for (int d = 0; d < DIM; ++d) {
       dx[d] = x[d] - p[r][d];
       d2 += dx[d] * dx[d];
     }
-    const float w = nbody::pair_weight<float, SQRT3>(m, d2, eps);
+    const T w = nbody::pair_weight<T, SQRT3>(m, d2, eps);
 #pragma unroll
     for (int d = 0; d < DIM; ++d) part[r][d] += w * dx[d];
   }
@@ -151,11 +168,11 @@ __device__ __forceinline__ void add_source(const float (&p)[kRows][DIM], float m
 // The contiguous sorted bodies [a, b), staged kChunk at a time, added to
 // `sum` stage by stage. Called by every thread with block-uniform a, b.
 // With `weight`, body j's mass is scaled by weight[j - a].
-template <int DIM, bool SQRT3>
-__device__ __forceinline__ void add_range(const Rows<DIM>& rows, const float* __restrict__ mj,
-                                          const float* __restrict__ xj, int a, int b, float eps,
-                                          float* s_m, float (*s_x)[kChunk], float (&sum)[kRows][DIM],
-                                          const float* __restrict__ weight = nullptr) {
+template <typename T, int DIM, bool SQRT3>
+__device__ __forceinline__ void add_range(const Rows<T, DIM>& rows, const T* __restrict__ mj,
+                                          const T* __restrict__ xj, int a, int b, T eps, T* s_m,
+                                          T (*s_x)[kChunk], T (&sum)[kRows][DIM],
+                                          const T* __restrict__ weight = nullptr) {
   for (int j0 = a; j0 < b; j0 += kChunk) {
     const int len = min(kChunk, b - j0);
     if (threadIdx.x < len) {
@@ -165,18 +182,18 @@ __device__ __forceinline__ void add_range(const Rows<DIM>& rows, const float* __
       for (int d = 0; d < DIM; ++d) s_x[d][threadIdx.x] = xj[static_cast<size_t>(j) * DIM + d];
     }
     __syncthreads();
-    float part[kRows][DIM];
+    T part[kRows][DIM];
     zero(part);
     for (int k0 = 0; k0 < len; k0 += kGroup) {
-      float group[kRows][DIM];
+      T group[kRows][DIM];
       zero(group);
       const int k1 = min(len, k0 + kGroup);
 #pragma unroll 4
       for (int k = k0; k < k1; ++k) {
-        float x[DIM];
+        T x[DIM];
 #pragma unroll
         for (int d = 0; d < DIM; ++d) x[d] = s_x[d][k];
-        add_source<DIM, SQRT3>(rows.p, s_m[k], x, eps, group);
+        add_source<T, DIM, SQRT3>(rows.p, s_m[k], x, eps, group);
       }
       add_to(part, group);
     }
@@ -194,7 +211,7 @@ masked_eval_bits_kernel(const float* __restrict__ xi, int tb, const float* __res
   __shared__ float s_x[DIM][kNodeChunk];
   __shared__ unsigned s_w[kNodeChunk / 32];
 
-  Rows<DIM> rows(xi, tb);
+  Rows<float, DIM> rows(xi, tb);
   const unsigned* tile_words = words + static_cast<size_t>(blockIdx.x) * nw;
   for (int c0 = 0; c0 < W; c0 += kNodeChunk) {
     const int len = min(kNodeChunk, W - c0);
@@ -225,7 +242,7 @@ masked_eval_bits_kernel(const float* __restrict__ xi, int tb, const float* __res
         float x[DIM];
 #pragma unroll
         for (int d = 0; d < DIM; ++d) x[d] = s_x[d][k];
-        add_source<DIM, SQRT3>(rows.p, s_m[k], x, eps, group);
+        add_source<float, DIM, SQRT3>(rows.p, s_m[k], x, eps, group);
       }
       add_to(part, group);
     }
@@ -244,12 +261,12 @@ window_eval_interval_kernel(const float* __restrict__ xi, int tb, const float* _
   __shared__ float s_m[kChunk];
   __shared__ float s_x[DIM][kChunk];
 
-  Rows<DIM> rows(xi, tb);
+  Rows<float, DIM> rows(xi, tb);
   const int t = blockIdx.x;
   const int col0 = w0[t] * tb;
   const int a = max(lo[t], col0);
   const int b = min(min(hi[t], col0 + window_tiles * tb), nj);
-  add_range<DIM, true>(rows, mj, xj, a, b, eps, s_m, s_x, rows.acc);
+  add_range<float, DIM, true>(rows, mj, xj, a, b, eps, s_m, s_x, rows.acc);
   rows.store(out);
 }
 
@@ -262,7 +279,7 @@ window_eval_nodemask_kernel(const float* __restrict__ xi, int tb, const float* _
   __shared__ float s_m[kChunk];
   __shared__ float s_x[DIM][kChunk];
 
-  Rows<DIM> rows(xi, tb);
+  Rows<float, DIM> rows(xi, tb);
   const int t = blockIdx.x;
   const int col0 = w0[t] * tb;
   const unsigned char* slot_open = in_win + static_cast<size_t>(t) * wnodes;
@@ -278,7 +295,7 @@ window_eval_nodemask_kernel(const float* __restrict__ xi, int tb, const float* _
     while (v1 < wnodes && slot_open[v1]) ++v1;
     const int a = col0 + v * S;
     const int b = min(col0 + v1 * S, nj);
-    if (a < b) add_range<DIM, SQRT3>(rows, mj, xj, a, b, eps, s_m, s_x, rows.acc);
+    if (a < b) add_range<float, DIM, SQRT3>(rows, mj, xj, a, b, eps, s_m, s_x, rows.acc);
     v = v1;
   }
   rows.store(out);
@@ -293,11 +310,11 @@ window_eval_dense_kernel(const float* __restrict__ xi, int tb, const float* __re
   __shared__ float s_m[kChunk];
   __shared__ float s_x[DIM][kChunk];
 
-  Rows<DIM> rows(xi, tb);
+  Rows<float, DIM> rows(xi, tb);
   const int t = blockIdx.x;
   const int a = w0[t] * tb;
   const int b = min(a + wb, nj);
-  add_range<DIM, SQRT3>(rows, mj, xj, a, b, eps, s_m, s_x, rows.acc,
+  add_range<float, DIM, SQRT3>(rows, mj, xj, a, b, eps, s_m, s_x, rows.acc,
                         mask + static_cast<size_t>(t) * wb);
   rows.store(out);
 }
@@ -311,7 +328,7 @@ entries_lohi_kernel(const float* __restrict__ xi, int tb, const float* __restric
   __shared__ float s_m[kChunk];
   __shared__ float s_x[DIM][kChunk];
 
-  Rows<DIM> rows(xi, tb);
+  Rows<float, DIM> rows(xi, tb);
   const int t = blockIdx.x;
   for (int e = first[t]; e < last[t]; ++e) {
     const int base = (entries[e] & 0xFFFF) * S;
@@ -321,9 +338,29 @@ entries_lohi_kernel(const float* __restrict__ xi, int tb, const float* __restric
     if (a >= b) continue;  // a lo == hi sentinel or padding entry
     float ent[kRows][DIM];
     zero(ent);
-    add_range<DIM, SQRT3>(rows, mj, xj, a, b, eps, s_m, s_x, ent);
+    add_range<float, DIM, SQRT3>(rows, mj, xj, a, b, eps, s_m, s_x, ent);
     add_to(rows.acc, ent);
   }
+  rows.store(out);
+}
+
+template <typename T, int DIM, bool SQRT3>
+__global__ void __launch_bounds__(kThreads)
+group_eval_kernel(const T* __restrict__ xi, int tb, const T* __restrict__ mj,
+                  const T* __restrict__ xj, int L, int split, const int* __restrict__ n0,
+                  const int* __restrict__ n1, T eps, T* __restrict__ out) {
+  __shared__ T s_m[kChunk];
+  __shared__ T s_x[DIM][kChunk];
+
+  Rows<T, DIM> rows(xi, tb);
+  const int t = blockIdx.x;
+  const T* tile_m = mj + static_cast<size_t>(t) * L;
+  const T* tile_x = xj + static_cast<size_t>(t) * L * DIM;
+  // the live head of each segment: nodes [0, n0), leaf bodies [split, split + n1)
+  add_range<T, DIM, SQRT3>(rows, tile_m, tile_x, 0, min(max(n0[t], 0), split), eps, s_m, s_x,
+                           rows.acc);
+  add_range<T, DIM, SQRT3>(rows, tile_m, tile_x, split, split + min(max(n1[t], 0), L - split), eps,
+                           s_m, s_x, rows.acc);
   rows.store(out);
 }
 
@@ -348,7 +385,35 @@ cudaError_t prepare(int device, int ntiles, int tb) {
   return cudaSetDevice(device);
 }
 
+template <typename T>
+cudaError_t launch_group_eval(int dim, int sqrt3, const void* xi, int ntiles, int tb, const void* mj,
+                              const void* xj, int L, int split, const void* n0, const void* n1,
+                              double eps, void* out, cudaStream_t stream) {
+  const auto kernel = pick(dim, sqrt3, group_eval_kernel<T, 2, false>, group_eval_kernel<T, 2, true>,
+                           group_eval_kernel<T, 3, false>, group_eval_kernel<T, 3, true>);
+  if (kernel == nullptr || L < 0 || split < 0 || split > L) return cudaErrorInvalidValue;
+  kernel<<<grid_for(ntiles, tb), kThreads, 0, stream>>>(
+      static_cast<const T*>(xi), tb, static_cast<const T*>(mj), static_cast<const T*>(xj), L, split,
+      static_cast<const int*>(n0), static_cast<const int*>(n1), static_cast<T>(eps), static_cast<T*>(out));
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// Each tile's own list: mj (ntiles, L) and xj (ntiles, L, dim) of `dtype`
+// (0 float32, 1 float64), the same type as the rows xi (ntiles*tb, dim);
+// n0 and n1 are int32 (ntiles,) live lengths of the list's two segments
+// [0, split) and [split, L). Returns the cudaError_t of the launch.
+extern "C" int nbody_group_eval(int device, int dtype, int dim, const void* xi, int ntiles, int tb,
+                                const void* mj, const void* xj, int L, int split, const void* n0,
+                                const void* n1, int sqrt3, double eps, void* out, void* stream) {
+  cudaError_t err = prepare(device, ntiles, tb);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_group_eval<float>(dim, sqrt3, xi, ntiles, tb, mj, xj, L, split, n0, n1, eps, out, s);
+  if (dtype == 1) return launch_group_eval<double>(dim, sqrt3, xi, ntiles, tb, mj, xj, L, split, n0, n1, eps, out, s);
+  return cudaErrorInvalidValue;
+}
 
 // Float32 only. Pointers are device pointers to contiguous arrays: xi
 // (ntiles*tb, dim) rows, mj (nj,) and xj (nj, dim) sources, int32 index

@@ -1,5 +1,7 @@
-"""Grouped BVH force, fast path (the port of
-nbody_tpu.ops.bvh_group.compute_force_grouped_windowed, default branch).
+"""Grouped BVH force (the port of nbody_tpu.ops.bvh_group): the fast path,
+compute_force_grouped_windowed (its default branch), and the list path,
+compute_force_grouped, which float64 runs and --kernel torch take (see
+its docstring). The fast path:
 
 Bodies arrive Hilbert-sorted, so consecutive bodies form spatially tight
 tiles of `tile` rows; the tree is the implicit heap of ops.bvh. Per tile,
@@ -42,10 +44,12 @@ import torch
 
 from nbody_torch.ops.bvh import BVHTree
 from nbody_torch.ops.cuda_allpairs import allpairs_block_cuda
-from nbody_torch.ops.cuda_group_eval import (entries_lohi_eval_cuda, masked_eval_bits_cuda,
+from nbody_torch.ops.cuda_group_eval import (entries_lohi_eval_cuda, group_eval_cuda,
+                                             group_eval_torch, masked_eval_bits_cuda,
                                              pack_mask_bits, window_eval_dense_cuda,
                                              window_eval_nodemask_cuda)
-from nbody_torch.ops.octree_group import _box_dist2, merge_contiguous_entries
+from nbody_torch.ops.octree_group import (_box_dist2, compact_rows, exact_fallback,
+                                          merge_contiguous_entries, overflow_causes, tile_boxes)
 
 BIG = 1 << 30  # sort sentinel of the residual node ids
 S_TARGET = 512  # bodies per L* node (nbody_tpu's s_target default)
@@ -248,3 +252,139 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
         **{f"res_pass_{k}": v for k, v in enumerate(res_pass)},
     }
     return G * acc[:n], info
+
+
+# --------------------------------------------------------------------------
+# the list path
+
+
+def default_caps(n: int, theta: float) -> tuple[int, int]:
+    """The list caps of nbody_tpu (bvh_group.py:58-68): every leaf pair at
+    theta = 0, else 640 / theta^2, at least 1,024 and at most
+    bit_ceil(n) / 2 + 8."""
+    nleafs = 1 << max(0, (max(n, 2) - 1).bit_length())
+    full = nleafs // 2 + 8
+    cap = full if theta <= 1e-6 else int(min(full, max(1024, 640.0 / (theta * theta))))
+    return cap, cap
+
+
+def compute_force_grouped(tree: BVHTree, m: torch.Tensor, x: torch.Tensor, theta: float,
+                          G: float, eps: float, tile: int = 512, cap_nodes: int | None = None,
+                          cap_leaves: int | None = None, use_cuda: bool = True):
+    """The BVH's list path (bvh_group.py:76-335, nrows=None): per tile of
+    `tile` Hilbert-sorted bodies, an interaction list from a
+    level-synchronous walk of the heap with the group MAC
+    bw^2 < theta^2 * dmin(tile box, COM)^2, then one evaluation of every
+    tile against its own list with the poly softening, and the exact sum
+    for the tiles that overflow a cap (_finish_grouped).
+
+    Levels with 2^l <= 2F (F = max(caps)) keep a dense open mask over the
+    whole level; deeper levels a compacted frontier of left children.
+    Nodes still open at the deepest stored level give their body pairs
+    (s0, s0 + 1), the pair's second body masked where it is past n. A tile
+    overflows when its frontier, node list or leaf list outgrows its cap.
+    Every rule is nbody_tpu's, so the counters of `info` match it; the
+    widest arrays at 2^20 bodies are (T, 8,191), so the walk takes all
+    tiles at once. The evaluation takes group_eval_cuda over the live
+    heads of the node segment and the 2 * lcnt leaf bodies, or its plain
+    twin where not use_cuda (--kernel torch); the fallback
+    allpairs_block_cuda(..., "poly") or its twin. One host read per call.
+    Returns (G * accel in sorted order, info)."""
+    n, dim = x.shape
+    dev, dtype = x.device, x.dtype
+    if cap_nodes is None or cap_leaves is None:
+        cn, cl = default_caps(n, theta)
+        cap_nodes, cap_leaves = cap_nodes or cn, cap_leaves or cl
+    nlevels = tree.nlevels
+    nnodes = (1 << nlevels) - 1
+    theta2 = torch.full((), float(theta) ** 2, dtype=dtype, device=dev)
+    xt, tmin, tmax = tile_boxes(x, tile)
+    ntiles = xt.shape[0]
+    mm, mx, w2 = tree.mm, tree.mx, tree.bw * tree.bw
+    width = max(cap_nodes, cap_leaves)  # nbody_tpu's F
+    n_dense = sum(1 for level in range(nlevels) if (1 << level) <= 2 * width)
+
+    def mac_accept(nodes, vmask):
+        """The group MAC of heap nodes, shared (W,) or per tile (T, W)."""
+        return vmask & (w2[nodes] < theta2 * _box_dist2(tmin, tmax, mx[nodes]))
+
+    # dense levels: an open mask over each whole level
+    over_front = torch.zeros(ntiles, dtype=torch.bool, device=dev)
+    over_nodes = torch.zeros_like(over_front)
+    acc_idx, acc_valid = [], []
+    open_mask = torch.ones(ntiles, 1, dtype=torch.bool, device=dev)
+    leaf_idx = leaf_valid = frontier = fvalid = None
+    for level in range(n_dense):
+        lo_i = (1 << level) - 1
+        idxs = torch.arange(lo_i, 2 * lo_i + 1, device=dev)
+        accept = mac_accept(idxs, open_mask)
+        open_ = open_mask & ~accept
+        acc_idx.append(idxs.expand(ntiles, -1))
+        acc_valid.append(accept)
+        if level == nlevels - 1:
+            leaf_idx, leaf_valid = (2 * (idxs - lo_i)).expand(ntiles, -1), open_
+        elif level == n_dense - 1:  # to the sparse levels: the open nodes' left children
+            frontier, fvalid, counts = compact_rows((2 * idxs + 1).expand(ntiles, -1), open_, width)
+            over_front |= counts > width
+        else:
+            open_mask = open_.repeat_interleave(2, dim=1)
+    nodes, nvalid, ncount = compact_rows(torch.cat(acc_idx, 1), torch.cat(acc_valid, 1), cap_nodes)
+    over_nodes |= ncount > cap_nodes
+    del acc_idx, acc_valid
+
+    # sparse levels: both children of each frontier node
+    for level in range(n_dense, nlevels):
+        kids = torch.stack([frontier, frontier + 1], dim=-1).reshape(ntiles, -1)
+        kvalid = fvalid.repeat_interleave(2, dim=1)
+        tc = kids.clamp(0, nnodes - 1)
+        accept = mac_accept(tc, kvalid)
+        open_ = kvalid & ~accept
+        nodes, nvalid, ncount = compact_rows(torch.cat([torch.where(nvalid, nodes, 0), tc], 1),
+                                             torch.cat([nvalid, accept], 1), cap_nodes)
+        over_nodes |= ncount > cap_nodes
+        if level == nlevels - 1:
+            leaf_idx, leaf_valid = 2 * (tc - ((1 << level) - 1)), open_
+        else:
+            frontier, fvalid, counts = compact_rows(2 * tc + 1, open_, width)
+            over_front |= counts > width
+
+    ncnt = ncount.clamp_max(cap_nodes)
+    leaves, lvalid, lcount = compact_rows(leaf_idx, leaf_valid, cap_leaves)
+    causes = torch.stack([over_front, over_nodes, lcount > cap_leaves], dim=1)
+    lcnt = lcount.clamp_max(cap_leaves)
+
+    # the lists (bvh_group.py:270-283): node monopoles, then the opened
+    # pairs' bodies; mass 0 pads
+    nidx = torch.where(nvalid, nodes, 0)
+    mj_n = torch.where(nvalid, mm[nidx], 0)
+    s0 = torch.where(lvalid, leaves, 0)
+    bidx = torch.stack([s0, s0 + 1], dim=-1).reshape(ntiles, -1)
+    bvalid = lvalid.repeat_interleave(2, dim=1) & (bidx < n)
+    bc = bidx.clamp(0, n - 1)
+    mj_list = torch.cat([mj_n, torch.where(bvalid, m[bc], 0)], dim=1)
+    xj_list = torch.cat([mx[nidx], x[bc]], dim=1)
+    del nidx, mj_n, s0, bidx, bvalid, bc
+    evaluate = group_eval_cuda if use_cuda else group_eval_torch
+    acc = evaluate(xt.reshape(-1, dim), mj_list, xj_list, eps, "poly", cap_nodes,
+                   ncnt.to(torch.int32), (2 * lcnt).to(torch.int32))
+    del mj_list, xj_list
+    return _finish_grouped(acc, xt, causes, ncnt, lcnt, m, x, G, eps, use_cuda)
+
+
+BVH_CAUSES = ("frontier", "nodes", "leaves")
+
+
+def _finish_grouped(acc: torch.Tensor, xt: torch.Tensor, causes: torch.Tensor,
+                    ncnt: torch.Tensor, lcnt: torch.Tensor, m: torch.Tensor, x: torch.Tensor,
+                    G: float, eps: float, use_cuda: bool):
+    """The exact poly fallback over the tiles that overflowed (causes (T,
+    3) bool: frontier, node cap, leaf cap) and the info dict
+    (bvh_group.py:338-415)."""
+    tile_over = causes.any(1)
+    n_over = tile_over.sum()
+    exact_fallback(acc, xt, tile_over, int(n_over), m, x, eps, "poly", use_cuda)
+    zero = torch.zeros((), dtype=torch.int32, device=x.device)
+    info = {"max_nodes": ncnt.max(), "max_leaves": lcnt.max(), "fallback_tiles": n_over,
+            "node_overflow": zero, "leaf_overflow": zero,  # the fallback truncates nothing
+            **overflow_causes(causes, BVH_CAUSES)}
+    return G * acc[:x.shape[0]], info

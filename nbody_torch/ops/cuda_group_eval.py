@@ -2,8 +2,8 @@
 twins, and the far field's accept-mask packing.
 
 The port of the nbody_tpu.ops.pallas_group_eval kernels on the octree and
-BVH fast paths. The kernels live in nbody_torch/csrc/group_eval.cu (see
-its header for the design):
+BVH fast and list paths. The kernels live in nbody_torch/csrc/group_eval.cu
+(see its header for the design):
 
   masked_eval_bits_kernel      replaces masked_eval_bits_pallas
                                (pallas_group_eval.py:310; body
@@ -20,6 +20,14 @@ its header for the design):
   entries_lohi_kernel          replaces entries_lohi_eval_pallas (:963; body
                                _entries_lohi_kernel :823): the near-field
                                exact entries
+  group_eval_kernel            computes group_eval_pallas's function (:83;
+                               body _group_eval_kernel): the list paths'
+                               evaluation, each tile against its own list.
+                               On the float64 path it stands where nbody_tpu
+                               runs its jnp evaluation (octree_group.py:375-
+                               416, bvh_group.py:295-331): nbody_tpu reaches
+                               group_eval_pallas only through
+                               compute_force_grouped(use_pallas=...)
 
 All of them take the rows xi of T tiles of tb rows each, as an (T*tb, dim)
 array, and return their raw (G-less) accelerations in the same layout.
@@ -31,8 +39,10 @@ Each wrapper checks its inputs, allocates the output with torch.empty,
 launches on the current stream, raises on a CUDA error and adds one to
 `launch_counts` for the kernel it launched. It runs the plain twin beside
 it only when its tensors lie on the CPU; on a CUDA tensor it launches the
-kernel or raises. The kernels take float32 only, as the Pallas kernels do;
-the twins take either precision.
+kernel or raises. The fast paths' kernels take float32 only, as the Pallas
+kernels do; group_eval_kernel takes float32 and float64 (the list paths
+are what float64 runs take; float32 reaches them through the list_path
+branch of the step functions); the twins take either precision.
 
 The accept mask is packed node l -> word l // 32, bit l % 32
 (pack_mask_bits / unpack_mask_bits). nbody_tpu's strided order
@@ -45,12 +55,21 @@ from __future__ import annotations
 import torch
 
 from nbody_torch.ops.allpairs import SOFTENINGS, pairs_per_chunk
-from nbody_torch.ops.cuda_allpairs import _on_cpu, _raise_on_error
+from nbody_torch.ops.cuda_allpairs import _DTYPE_CODES, _on_cpu, _raise_on_error
 
-# Kernel launches since the last reset, by kernel name; the twins never count.
+# Kernel launches since the last reset, by kernel name (the list kernel's
+# by instantiation, group_eval_name); the twins never count.
 launch_counts = {"masked_eval_bits_kernel": 0, "window_eval_interval_kernel": 0,
                  "window_eval_nodemask_kernel": 0, "window_eval_dense_kernel": 0,
-                 "entries_lohi_kernel": 0}
+                 "entries_lohi_kernel": 0,
+                 **{f"group_eval_kernel<{dtype}, {softening}>": 0
+                    for dtype in ("float32", "float64") for softening in SOFTENINGS}}
+
+
+def group_eval_name(dtype: torch.dtype, softening: str) -> str:
+    """The launch_counts key of the list kernel's instantiation for these
+    rows and softening, e.g. "group_eval_kernel<float64, sqrt3>"."""
+    return f"group_eval_kernel<{str(dtype).removeprefix('torch.')}, {softening}>"
 
 
 def reset_launch_counts() -> None:
@@ -101,7 +120,9 @@ def _masked_block(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, keep: to
     rounded once: a float32 running sum that meets one close pair's huge
     term early drops the small terms after it (measured ~1e-4 of the row's
     sum of |term| on the CPU, depending on the buffer's alignment). Dropped
-    terms are exact zeros. absolute=True sums |term| instead."""
+    terms are exact zeros, and so, under sqrt3, is a term whose t is not
+    positive (nbody_tpu's den > 0 guard, octree_group.py:386-388). absolute=True
+    sums |term| instead."""
     dx = [xj[:, None, :, d] - xi[:, :, None, d] for d in range(xi.shape[-1])]  # (g, r, c)
     d2 = dx[0] * dx[0]
     for v in dx[1:]:
@@ -111,7 +132,10 @@ def _masked_block(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, keep: to
         t = t * t * t
     else:
         t = (d2 * d2.sqrt()).add_(eps)
-    w = (mj[:, None, :] / t).masked_fill_(~keep[:, None, :], 0)
+    w = mj[:, None, :] / t
+    if softening == "sqrt3":
+        w.masked_fill_(t <= 0, 0)
+    w.masked_fill_(~keep[:, None, :], 0)
     if absolute:
         w, dx = w.abs(), [v.abs() for v in dx]
     return torch.stack([torch.sum(w * v, dim=-1, dtype=torch.float64) for v in dx],
@@ -238,6 +262,30 @@ def entries_lohi_eval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor
                              absolute)
         per_entry[:, rs].index_add_(0, owner[ps], part)
     return torch.zeros_like(xt).index_add_(0, tid, per_entry).view_as(xi)
+
+
+def group_eval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, eps: float,
+                     softening: str, split: int, n0: torch.Tensor, n1: torch.Tensor,
+                     absolute: bool = False) -> torch.Tensor:
+    """List path: row tile t against its own list (mj (T, L), xj (T, L,
+    dim)), over the live heads [0, n0[t]) and [split, split + n1[t]) of the
+    list's two segments -- the plain twin of group_eval_kernel. Each chunk
+    of tiles visits the columns of its longest heads, masked per tile."""
+    ntiles, length = mj.shape
+    tb = xi.shape[0] // ntiles
+    n0, n1 = n0.long().clamp(0, split), n1.long().clamp(0, length - split)
+    xt = xi.view(ntiles, tb, -1)
+    out = torch.zeros_like(xt)
+    for ts, rs in _chunks(ntiles, tb, length, xi.device):
+        a, b = int(n0[ts].max()), int(n1[ts].max())
+        if a + b == 0:
+            continue
+        cols = torch.cat([torch.arange(a, device=xi.device),
+                          torch.arange(split, split + b, device=xi.device)])
+        keep = (cols < n0[ts, None]) | ((cols >= split) & (cols < split + n1[ts, None]))
+        out[ts, rs] = _masked_block(xt[ts, rs], mj[ts][:, cols], xj[ts][:, cols], keep, eps,
+                                    softening, absolute)
+    return out.view_as(xi)
 
 
 # --------------------------------------------------------------------------
@@ -392,3 +440,43 @@ def entries_lohi_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
     return _launch("entries_lohi_kernel", "nbody_entries_lohi_eval", xi, ntiles,
                    mj.data_ptr(), xj.data_ptr(), mj.shape[0], entries.data_ptr(),
                    lohis.data_ptr(), first.data_ptr(), last.data_ptr(), int(S), sqrt3, float(eps))
+
+
+def group_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, eps: float,
+                    softening: str, split: int, n0: torch.Tensor,
+                    n1: torch.Tensor) -> torch.Tensor:
+    """List path: row tile t of xi (T*tb, dim) against its own list mj (T,
+    L), xj (T, L, dim), float32 or float64, over the live heads [0, n0[t])
+    and [split, split + n1[t]) (int32 (T,)) of the list's node and leaf
+    segments -- the counterpart of group_eval_pallas, with xj untransposed
+    and L unpadded (entries past the heads are not read)."""
+    if mj.ndim != 2 or xj.shape != (*mj.shape, xi.shape[-1]):
+        raise ValueError(f"list {tuple(mj.shape)}, {tuple(xj.shape)} does not match rows "
+                         f"{tuple(xi.shape)}")
+    if xi.dtype not in _DTYPE_CODES:
+        raise TypeError(f"group_eval_kernel takes float32 or float64, got {xi.dtype}")
+    if not 0 <= split <= mj.shape[1]:
+        raise ValueError(f"split {split} outside the list's {mj.shape[1]} entries")
+    if n0.shape != (mj.shape[0],) or n1.shape != n0.shape:
+        raise ValueError(f"live lengths {tuple(n0.shape)}, {tuple(n1.shape)} for "
+                         f"{mj.shape[0]} tiles")
+    if not (mj.is_contiguous() and xj.is_contiguous()):
+        raise ValueError("the kernels take contiguous tensors")
+    # the list checked as if it were W = T * L shared sources
+    _check(xi, mj.shape[0], mj.view(-1), xj.view(-1, xi.shape[-1]), n0, n1)
+    sqrt3 = _sqrt3(softening)
+    if _on_cpu(xi, mj, xj, n0, n1):
+        return group_eval_torch(xi, mj, xj, eps, softening, split, n0, n1)
+    from nbody_torch._build import load_library
+
+    out = torch.empty_like(xi)
+    if xi.shape[0] == 0:
+        return out
+    err = load_library().nbody_group_eval(
+        xi.device.index, _DTYPE_CODES[xi.dtype], xi.shape[1], xi.data_ptr(), mj.shape[0],
+        xi.shape[0] // mj.shape[0], mj.data_ptr(), xj.data_ptr(), mj.shape[1], int(split),
+        n0.data_ptr(), n1.data_ptr(), sqrt3, float(eps), out.data_ptr(),
+        torch.cuda.current_stream(xi.device).cuda_stream)
+    _raise_on_error("group_eval_kernel", err)
+    launch_counts[group_eval_name(xi.dtype, softening)] += 1
+    return out

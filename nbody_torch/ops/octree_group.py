@@ -1,5 +1,7 @@
-"""Grouped octree force, fast path (the port of
-nbody_tpu.ops.octree_group.compute_force_grouped_fast, default branch).
+"""Grouped octree force (the port of nbody_tpu.ops.octree_group): the fast
+path, compute_force_grouped_fast (its default branch), and the list path,
+compute_force_grouped, which float64 runs and --kernel torch take (see
+its docstring). The fast path:
 
 Bodies arrive Morton-sorted, so consecutive bodies form spatially tight
 tiles of `tile` rows. Per tile, with the conservative group MAC
@@ -39,11 +41,15 @@ import math
 
 import torch
 
-from nbody_torch.ops.cuda_allpairs import allpairs_block_cuda
-from nbody_torch.ops.cuda_group_eval import (entries_lohi_eval_cuda, masked_eval_bits_cuda,
+from nbody_torch.ops.cuda_allpairs import allpairs_block_cuda, allpairs_block_torch
+from nbody_torch.ops.cuda_group_eval import (entries_lohi_eval_cuda, group_eval_cuda,
+                                             group_eval_torch, masked_eval_bits_cuda,
                                              pack_mask_bits, window_eval_interval_cuda)
+from nbody_torch.ops.octree import OctreeLevels
 
-BIGK = 1 << 30  # sort sentinel of the per-tile entry rows
+BIGK = 1 << 30  # sort sentinel of the per-tile entry rows (and of compact_rows)
+K_CELL = 16  # bodies expanded per open max-depth cell of the list path (else fallback)
+TILE_CHUNK = 256  # tiles per pass of the list path's traversal
 
 
 def merge_contiguous_entries(entries: torch.Tensor, lohis: torch.Tensor, n_raw: torch.Tensor,
@@ -85,11 +91,12 @@ def _pool(a: torch.Tensor, nbranch: int, op: str) -> torch.Tensor:
 
 
 def _box_dist2(lo: torch.Tensor, hi: torch.Tensor, com: torch.Tensor) -> torch.Tensor:
-    """Squared distance from boxes [lo, hi] (T, dim) to points com (C, dim),
-    (T, C): per dimension max(lo - c, 0, c - hi), summed in order."""
+    """Squared distance from boxes [lo, hi] (T, dim) to points com, shared
+    (C, dim) or per box (T, C, dim) -> (T, C): per dimension
+    max(lo - c, 0, c - hi), summed in order."""
     d2 = None
-    for d in range(com.shape[1]):
-        c = com[:, d][None, :]
+    for d in range(com.shape[-1]):
+        c = com[..., d]
         dd = torch.clamp_min(lo[:, d][:, None] - c, 0)
         dd = torch.maximum(dd, c - hi[:, d][:, None])
         d2 = dd * dd if d2 is None else d2 + dd * dd
@@ -314,10 +321,7 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
     acc = (far + win) + near
 
     # ---- exact fallback for overflowed tiles --------------------------
-    if n_over:
-        over = torch.argsort((~tile_over).to(torch.int8), stable=True)[:n_over]
-        fb = allpairs_block_cuda(xt[over].reshape(-1, dim), ms, xs, eps, "sqrt3")
-        acc.view(ntiles, tile, dim)[over] = fb.view(-1, tile, dim)
+    exact_fallback(acc, xt, tile_over, n_over, ms, xs, eps, "sqrt3")
 
     info.update({
         "max_nodes": ent_count.clamp_max(r_slice).max(),
@@ -332,3 +336,243 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
         "node_overflow": torch.zeros((), dtype=torch.int32, device=dev),
     })
     return G * acc[:n], info
+
+
+# --------------------------------------------------------------------------
+# the list path
+
+
+def default_caps(n: int, theta: float, dim: int) -> tuple[int, int]:
+    """The list caps of nbody_tpu (octree_group.py:130-135): every node at
+    theta = 0, else 512 (dim - 1) / theta^2, at least 1,024 and at most
+    max(n, 64)."""
+    if theta <= 1e-6:
+        cap = max(n, 64)
+    else:
+        cap = int(min(max(n, 64), max(1024, (512.0 * (dim - 1)) / (theta * theta))))
+    return cap, cap
+
+
+def compact_rows(values: torch.Tensor, valid: torch.Tensor, width: int):
+    """Each row's valid values, ascending, packed to the front and cut or
+    padded to `width` columns with the sentinel BIGK: nbody_tpu's one row
+    sort (octree_group.py:207-225). A cut keeps the smallest values, as
+    JAX does, so an overflowing tile's later lists and counts match it.
+    Returns (packed, pvalid, counts), counts taken before the cut."""
+    counts = valid.sum(1)
+    packed = torch.sort(torch.where(valid, values, BIGK), dim=1).values[:, :width]
+    if packed.shape[1] < width:
+        packed = torch.nn.functional.pad(packed, (0, width - packed.shape[1]), value=BIGK)
+    pvalid = torch.arange(width, device=values.device)[None, :] < counts[:, None]
+    return packed, pvalid, counts
+
+
+def exact_fallback(acc: torch.Tensor, xt: torch.Tensor, tile_over: torch.Tensor, n_over: int,
+                   m: torch.Tensor, x: torch.Tensor, eps: float, softening: str,
+                   use_cuda: bool = True) -> None:
+    """Overwrite the rows of the n_over tiles flagged in tile_over (the
+    caller's host read of their count) with their exact sums against all
+    bodies, in one call over all of them. nbody_tpu's bounded while_loop
+    (octree_group.py:418-468, bvh_group.py:357-401) takes groups of
+    K_GRP = min(8, T) tiles for its static shapes; each row's sum is its
+    own, so the grouping changes no value, and on the card a group of 8
+    tiles would fill 16 blocks of 132 SMs. acc is (T*tile, dim), xt (T,
+    tile, dim); use_cuda=False takes the plain twin."""
+    if not n_over:
+        return
+    ntiles, tile, dim = xt.shape
+    fallback = allpairs_block_cuda if use_cuda else allpairs_block_torch
+    over = torch.argsort((~tile_over).to(torch.int8), stable=True)[:n_over]
+    fb = fallback(xt[over].reshape(-1, dim), m, x, eps, softening)
+    acc.view(ntiles, tile, dim)[over] = fb.view(-1, tile, dim)
+
+
+def tile_boxes(x: torch.Tensor, tile: int):
+    """The zero-padded bodies as (T, tile, dim) row tiles, and each tile's
+    box over its real bodies (a padding row takes the tile's first body)."""
+    n, dim = x.shape
+    ntiles = -(-n // tile)
+    xt = torch.nn.functional.pad(x, (0, 0, 0, ntiles * tile - n)).view(ntiles, tile, dim)
+    valid = (torch.arange(ntiles * tile, device=x.device) < n).view(ntiles, tile)
+    xt_real = torch.where(valid[:, :, None], xt, xt[:, :1, :])
+    return xt, xt_real.amin(1), xt_real.amax(1)
+
+
+def compute_force_grouped(levels: OctreeLevels, ms: torch.Tensor, xs: torch.Tensor,
+                          root_side: torch.Tensor, theta: float, G: float, eps: float,
+                          tile: int = 512, cap_nodes: int | None = None,
+                          cap_leaves: int | None = None, use_cuda: bool = True,
+                          tile_chunk: int = TILE_CHUNK):
+    """The octree's list path (octree_group.py:143-478, nrows=None): per
+    tile of `tile` Morton-sorted bodies, an interaction list from a
+    level-synchronous traversal with the group MAC
+    side_l^2 < theta^2 * dmin(tile box, COM)^2 (side_l = root_side / 2^l),
+    then one evaluation of every tile against its own list with the sqrt3
+    softening, and the exact sum for the tiles that overflow a cap.
+
+    The traversal: levels of capacity <= 2F (F = max(caps)) propagate a
+    dense open mask through `parent`; deeper levels expand a compacted
+    frontier through child_start/child_count. Single-body nodes are always
+    accepted (and evaluated as their body); open cells at the deepest level
+    give their bodies, K_CELL at most, as leaf entries. A tile overflows
+    when its frontier, node list or leaf list outgrows its cap, or a leaf
+    cell holds more than K_CELL bodies. Every rule is nbody_tpu's, so the
+    counters of `info` match it. The traversal runs over tile_chunk tiles at
+    a time (each tile's lists are its own): at 2^20 bodies in 3-D the
+    deepest level holds T x 32,768 candidate cells, and nbody_tpu's
+    expansion of each into K_CELL bodies, 8.6 GB of int64 for all 2,048
+    tiles at once (here only the first cap_leaves open cells are expanded,
+    which gives the same lists).
+
+    The evaluation takes group_eval_cuda over the live heads of the two
+    list segments, or its plain twin where not use_cuda (--kernel torch);
+    the fallback takes allpairs_block_cuda(..., "sqrt3") or its twin. One
+    host read per call: the fallback count. Returns (G * accel in sorted
+    order, info) with device counters max_nodes, max_leaves,
+    fallback_tiles, node_overflow and leaf_overflow."""
+    n, dim = xs.shape
+    dev, dtype = xs.device, xs.dtype
+    if cap_nodes is None or cap_leaves is None:
+        cn, cl = default_caps(n, theta, dim)
+        cap_nodes, cap_leaves = cap_nodes or cn, cap_leaves or cl
+    theta2 = torch.full((), float(theta) ** 2, dtype=dtype, device=dev)
+    side = [root_side / float(1 << level) for level in range(levels.depth + 1)]
+    xt, tmin, tmax = tile_boxes(xs, tile)
+    ntiles = xt.shape[0]
+
+    parts = [_octree_lists(levels, tmin[c:c + tile_chunk], tmax[c:c + tile_chunk], side, theta2,
+                           cap_nodes, cap_leaves) for c in range(0, ntiles, tile_chunk)]
+    nodes, ncount, leaves, lcount, causes = (torch.cat(p) for p in zip(*parts))
+    del parts
+    tile_over = causes.any(1)
+    ncnt, lcnt = ncount.clamp_max(cap_nodes), lcount.clamp_max(cap_leaves)
+
+    # the lists: node monopoles, a single-body node demoted to its body
+    # (octree_group.py:355-367), then the opened leaf bodies; mass 0 pads
+    total = levels.mass.shape[0]
+    nmask = torch.arange(cap_nodes, device=dev)[None, :] < ncnt[:, None]
+    nidx = nodes.clamp(0, total - 1)
+    cnt1 = levels.count[nidx] == 1
+    bfirst = levels.start[nidx].clamp(0, n - 1)
+    mj_n = torch.where(nmask, torch.where(cnt1, ms[bfirst], levels.mass[nidx]), 0)
+    xj_n = torch.where(cnt1[..., None], xs[bfirst], levels.com[nidx])
+    lmask = torch.arange(cap_leaves, device=dev)[None, :] < lcnt[:, None]
+    bc = leaves.clamp(0, n - 1)
+    mj_list = torch.cat([mj_n, torch.where(lmask, ms[bc], 0)], dim=1)
+    xj_list = torch.cat([xj_n, xs[bc]], dim=1)
+    del nidx, cnt1, bfirst, mj_n, xj_n, bc
+    evaluate = group_eval_cuda if use_cuda else group_eval_torch
+    acc = evaluate(xt.reshape(-1, dim), mj_list, xj_list, eps, "sqrt3", cap_nodes,
+                   ncnt.to(torch.int32), lcnt.to(torch.int32))
+    del mj_list, xj_list
+
+    n_over = tile_over.sum()
+    exact_fallback(acc, xt, tile_over, int(n_over), ms, xs, eps, "sqrt3", use_cuda)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    info = {"max_nodes": ncnt.max(), "max_leaves": lcnt.max(), "fallback_tiles": n_over,
+            "node_overflow": zero, "leaf_overflow": zero,  # the fallback truncates nothing
+            **overflow_causes(causes, OCTREE_CAUSES)}
+    return G * acc[:n], info
+
+
+OCTREE_CAUSES = ("frontier", "nodes", "leaves", "k_cell")
+
+
+def overflow_causes(causes: torch.Tensor, names) -> dict:
+    """info's over_<cause> counters: the tiles that each cause sent to the
+    fallback, from causes (T, len(names)) bool; a tile may have several."""
+    counts = causes.sum(0)
+    return {f"over_{name}": counts[i] for i, name in enumerate(names)}
+
+
+def _octree_lists(levels: OctreeLevels, tmin: torch.Tensor, tmax: torch.Tensor, side: list,
+                  theta2: torch.Tensor, cap_nodes: int, cap_leaves: int):
+    """The list traversal of the tiles with boxes [tmin, tmax] (T, dim)
+    (octree_group.py:227-342). Returns (nodes (T, cap_nodes) flat node
+    indices, ncount (T,), leaves (T, cap_leaves) sorted-body indices,
+    lcount (T,), causes (T, 4) bool: the tile outgrew its frontier, its
+    node cap, its leaf cap, or K_CELL); list slots past a count hold 0."""
+    ntiles, dim = tmin.shape
+    dev = tmin.device
+    depth, caps, offsets = levels.depth, levels.caps, levels.offsets
+    total = levels.mass.shape[0]
+    width = max(cap_nodes, cap_leaves)  # nbody_tpu's F
+    nbranch = 1 << dim
+    k_cell = torch.arange(K_CELL, device=dev)
+
+    def classify(level, flat, vmask):
+        """Accept and open masks of the nodes `flat`, shared (W,) or per
+        tile (T, W), where vmask (T, W) marks them as on the frontier."""
+        fc = flat.clamp(0, total - 1)
+        cnt = levels.count[fc]
+        nonempty = vmask & (cnt > 0)
+        mac = side[level] * side[level] < theta2 * _box_dist2(tmin, tmax, levels.com[fc])
+        accept = nonempty & ((cnt == 1) | mac)
+        return accept, nonempty & ~accept
+
+    def leaf_lists(flat, open_):
+        """The open deepest-level cells' first K_CELL bodies, compacted to
+        (leaves, lvalid, lcount, over) as nbody_tpu's row sort of every
+        cell's K_CELL candidates leaves them (emit_leaf_cells, :256-268).
+        A level's cells are numbered in body order, so the open cells in
+        index order give their bodies in ascending order, and the first
+        cap_leaves open cells (each gives at least one body) hold every
+        entry that sort keeps: only they are expanded."""
+        cnt = levels.count[flat.clamp(0, total - 1)]
+        lcount = torch.where(open_, cnt.clamp_max(K_CELL), 0).sum(1)
+        over = (open_ & (cnt > K_CELL)).any(1)
+        cells, cvalid, _ = compact_rows(flat.expand_as(open_), open_, cap_leaves)
+        cells = cells.clamp(0, total - 1)
+        take = torch.where(cvalid, levels.count[cells].clamp_max(K_CELL), 0)
+        entries = (levels.start[cells][..., None] + k_cell).reshape(ntiles, -1)
+        leaves, _, _ = compact_rows(entries, (k_cell < take[..., None]).reshape(ntiles, -1),
+                                    cap_leaves)
+        lvalid = torch.arange(cap_leaves, device=dev)[None, :] < lcount[:, None]
+        return leaves, lvalid, lcount, over
+
+    over_front = torch.zeros(ntiles, dtype=torch.bool, device=dev)
+    over_nodes = torch.zeros_like(over_front)
+    acc_idx, acc_valid = [], []
+    leaf = None
+    n_dense = sum(1 for level in range(depth + 1) if caps[level] <= 2 * width)
+    frontier = fvalid = open_ = None
+    for level in range(n_dense):  # dense: whole levels, masks through `parent`
+        flat = torch.arange(offsets[level], offsets[level] + caps[level], device=dev)
+        if level == 0:
+            vmask = torch.ones(ntiles, caps[0], dtype=torch.bool, device=dev)
+        else:
+            vmask = open_[:, levels.parent[flat].clamp(0, caps[level - 1] - 1)]
+        accept, open_ = classify(level, flat, vmask)
+        acc_idx.append(flat.expand(ntiles, -1))
+        acc_valid.append(accept)
+        if level == depth:
+            leaf = leaf_lists(flat, open_)
+        elif level == n_dense - 1:  # to the sparse levels: the open level-local indices
+            frontier, fvalid, counts = compact_rows((flat - offsets[level]).expand(ntiles, -1),
+                                                    open_, width)
+            over_front |= counts > width
+    nodes, nvalid, ncount = compact_rows(torch.cat(acc_idx, 1), torch.cat(acc_valid, 1), cap_nodes)
+    over_nodes |= ncount > cap_nodes
+    del acc_idx, acc_valid
+
+    kb = torch.arange(nbranch, device=dev)
+    for level in range(n_dense, depth + 1):  # sparse: the frontier's children
+        pflat = offsets[level - 1] + frontier.clamp(0, caps[level - 1] - 1)
+        cs, cc = levels.child_start[pflat], levels.child_count[pflat]
+        kids = (cs[:, :, None] + kb).reshape(ntiles, -1).clamp(0, caps[level] - 1)
+        kmask = (fvalid[:, :, None] & (kb < cc[:, :, None])).reshape(ntiles, -1)
+        flat = offsets[level] + kids
+        accept, open_ = classify(level, flat, kmask)
+        nodes, nvalid, ncount = compact_rows(torch.cat([torch.where(nvalid, nodes, 0), flat], 1),
+                                             torch.cat([nvalid, accept], 1), cap_nodes)
+        over_nodes |= ncount > cap_nodes
+        if level == depth:
+            leaf = leaf_lists(flat, open_)
+        else:
+            frontier, fvalid, counts = compact_rows(kids, open_, width)
+            over_front |= counts > width
+
+    leaves, lvalid, lcount, over_kcell = leaf
+    causes = torch.stack([over_front, over_nodes, lcount > cap_leaves, over_kcell], dim=1)
+    return (torch.where(nvalid, nodes, 0), ncount, torch.where(lvalid, leaves, 0), lcount,
+            causes)

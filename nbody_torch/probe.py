@@ -1,9 +1,11 @@
 """Device-side probes of the main paths, for a machine with a CUDA GPU.
 
     python -m nbody_torch.probe trace [-n N] [-d DIM] [--steps K] [--algorithm A]
-        Builds an N-body galaxy (default 2^20, 3-D, float32), runs one
-        untimed step of algorithm A (default all-pairs; or octree, bvh) through
-        the engine, then K steps (default 3) under torch.profiler. Prints
+                                      [--precision float|double]
+        Builds an N-body galaxy (default 2^20, 3-D, float32; double takes
+        the trees' list paths), runs one untimed step of algorithm A
+        (default all-pairs; or octree, bvh) through the engine, then K
+        steps (default 3) under torch.profiler. Prints
         the kernel table, the wall time of the K steps, the summed device
         kernel time, the device idle share 1 - kernel time / wall, the
         peak device memory of the K steps, and the host synchronisations
@@ -24,16 +26,17 @@ import time
 import warnings
 
 
-def trace(n: int, dim: int, steps: int, algorithm: str) -> None:
+def trace(n: int, dim: int, steps: int, algorithm: str, precision: str = "float") -> None:
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from nbody_torch.config import precision_dtype
     from nbody_torch.models import build_model
     from nbody_torch.sim.engines import EngineOptions, get_engine
 
     dev = torch.device("cuda", 0)
-    cfg, s = build_model("galaxy", n, dim, np.float32, device=dev)
+    cfg, s = build_model("galaxy", n, dim, precision_dtype(precision), device=dev)
     step = get_engine(algorithm).make_step(cfg, EngineOptions(), dev)
     s, _ = step(s)
     torch.cuda.synchronize()
@@ -56,7 +59,8 @@ def trace(n: int, dim: int, steps: int, algorithm: str) -> None:
         s, _ = step(s)
     torch.cuda.set_sync_debug_mode("default")
     syncs = [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
-    print(f"{algorithm}, {n} bodies, {dim}-D float32, {steps} steps: wall {wall:.4f} s, device "
+    print(f"{algorithm}, {n} bodies, {dim}-D {np.dtype(cfg.dtype).name}, {steps} steps: "
+          f"wall {wall:.4f} s, device "
           f"kernel time {busy:.4f} s, idle share {1 - busy / wall:.4f}, {len(events)} kernels, "
           f"peak memory {peak:.2f} GiB; host synchronisations in one step: {len(syncs)} {syncs}")
 
@@ -85,11 +89,12 @@ def main(argv: list[str] | None = None) -> int:
     t.add_argument("--algorithm", choices=("all-pairs", "octree", "bvh"), default="all-pairs")
     t.add_argument("-d", "--dim", type=int, default=3)
     t.add_argument("--steps", type=int, default=3)
+    t.add_argument("--precision", choices=("float", "double"), default="float")
     s = sub.add_parser("sass", help="write the kernels' SASS to a file")
     s.add_argument("out")
     args = parser.parse_args(argv)
     if args.cmd == "trace":
-        trace(args.n, args.dim, args.steps, args.algorithm)
+        trace(args.n, args.dim, args.steps, args.algorithm, args.precision)
     else:
         sass(args.out)
     return 0

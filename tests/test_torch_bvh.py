@@ -175,6 +175,62 @@ def test_build_tree_bit_equal(n, dtype):
     np.testing.assert_array_less(np.abs(tt.mx.numpy() - np.asarray(jt.mx)), 4 * ulp + 1e-300)
 
 
+EPS64 = float(np.finfo(np.float64).eps)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_float64_box_cells_keys_and_order_bit_equal(dim):
+    """The list path's float64 inputs at float64's own epsilon: the box of
+    the bodies and the origin, the cells (with bodies on the box's far
+    corner), the Hilbert keys and the stable row order, bit for bit."""
+    rng = np.random.default_rng(40 + dim)
+    centers = rng.uniform(-40, 40, (9, dim))
+    x = centers[rng.integers(0, 9, 3000)] + rng.normal(0, 1.2, (3000, dim))
+    x[100:140] = x[7]  # duplicate keys keep their order
+    x[200:260] = x[200:260] * -3 + 17
+    m = rng.uniform(0.1, 1, 3000)
+    jlo, jhi = jgeo.aabb_of_points(jnp.asarray(x), EPS64)
+    tlo, thi = tgeo.aabb_of_points(_t(x), EPS64)
+    np.testing.assert_array_equal(tlo.numpy(), np.asarray(jlo))
+    np.testing.assert_array_equal(thi.numpy(), np.asarray(jhi))
+    assert tlo.dtype == torch.float64
+    x[0], x[1] = np.asarray(jhi), np.asarray(jlo)  # the far and near corners
+    jc = jh.quantize(jnp.asarray(x), jlo, jhi - jlo, dim)
+    tc = th.quantize(_t(x), tlo, thi - tlo)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc).astype(np.int64))
+    assert tc[0].tolist() == [th.HILBERT_CELLS[dim]] * dim and tc[1].tolist() == [0] * dim
+    jhi_k, jlo_k = jh.hilbert_key_u32pair(jc, dim)
+    keys = th.hilbert_keys(tc)
+    np.testing.assert_array_equal(keys.numpy().view(np.uint64), _u64(jhi_k, jlo_k))
+    iota = np.arange(3000, dtype=np.int32)
+    jperm, jm, jx = sort_arrays_by_u32pair(jhi_k, jlo_k, jnp.asarray(iota), jnp.asarray(m),
+                                           jnp.asarray(x))
+    tperm, tm, tx = sort_rows_by_key(keys, _t(iota), _t(m), _t(x))
+    np.testing.assert_array_equal(tperm.numpy(), np.asarray(jperm))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+
+
+@pytest.mark.parametrize("n", [3, 17, 513, 3000])
+def test_build_tree_float64_eps_bit_equal(n):
+    """The float64 refit at float64's own epsilon (the boxes' 10 eps
+    tolerance): mm and bw bit for bit, mx within 4 ulps (see
+    test_build_tree_bit_equal)."""
+    dim = 2 + n % 2
+    m, x = _clusters(n, dim, seed=50 + n)
+    m, x = m.astype(np.float64), x.astype(np.float64) * (1 + 1e-9)
+    if n > 4:
+        m[4:6] = 0
+    jt = _jax_build_tree(jnp.asarray(m), jnp.asarray(x), EPS64)
+    tt = tb.build_tree(_t(m), _t(x), EPS64)
+    assert tt.nlevels == jt.nlevels
+    for name in ("mm", "bw"):
+        np.testing.assert_array_equal(getattr(tt, name).numpy(), np.asarray(getattr(jt, name)),
+                                      err_msg=name)
+    ulp = np.spacing(np.abs(x).max())
+    np.testing.assert_array_less(np.abs(tt.mx.numpy() - np.asarray(jt.mx)), 4 * ulp + 1e-300)
+
+
 def test_residual_ids_word_limit():
     """The word-compacted extraction's limit: with 16,384 residual nodes
     (512 words) a tile keeps the nodes of its first RW = 256 nonzero words

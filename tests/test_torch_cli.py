@@ -97,22 +97,38 @@ def test_port_flag_values_checked(argv):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--precision", "double"], ["--algorithm", "octree", "--traversal", "per-body"],
+    ["--algorithm", "octree", "--traversal", "per-body"],
     ["--algorithm", "bvh", "--mesh", "2"],
     ["--algorithm", "all-pairs", "--mesh", "2"],
     ["--algorithm", "all-pairs", "--mesh-layout", "partitioned"],
     ["--algorithm", "all-pairs", "--mesh-tile", "2"],
     ["--algorithm", "all-pairs", "--profile", "trace_dir"],
-    ["--kernel", "torch"],
     ["--algorithm", "bvh", "--sort-every", "2"], ["--algorithm", "bvh", "--refine-levels", "1"],
-    ["--algorithm", "bvh", "--precision", "double"],
-    ["--algorithm", "bvh", "--traversal", "per-body"], ["--algorithm", "bvh", "--kernel", "torch"],
+    ["--algorithm", "bvh", "--traversal", "per-body"],
+    ["--algorithm", "bvh", "--precision", "double", "--traversal", "per-body"],
 ])
 def test_unported_features_exit_1(argv, capsys):
     with pytest.raises(SystemExit) as e:
         tcli.main(["-n", "8", *argv, "--device", "cpu"], out=io.StringIO())
     assert e.value.code == 1
     assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--precision", "double"], ["--algorithm", "bvh", "--precision", "double"],
+    ["--kernel", "torch"], ["--algorithm", "bvh", "--kernel", "torch"],
+])
+def test_tree_list_paths_run(argv, tmp_path, monkeypatch):
+    """The trees' list paths, which float64 and --kernel torch take, run
+    (they exited 1 before they were ported): -s 12 leaves a finite state
+    that has moved."""
+    out = _run(tcli.main, ["-n", "300", "-s", "12", *argv, "--device", "cpu", "--csv-total",
+                           "--save-state", "final.bin"], tmp_path, monkeypatch)
+    algorithm = "bvh" if "bvh" in argv else "octree"
+    precision = "64" if "double" in argv else "32"
+    assert out.strip().splitlines()[1].startswith(f"{algorithm},2,{precision},2,300,")
+    _, final = _read_state(tmp_path / "final.bin")
+    assert np.all(np.isfinite(final)) and np.abs(final[:, 3:5]).sum() > 0
 
 
 def test_device_cuda_needs_a_gpu(capsys):

@@ -2,7 +2,8 @@
 card: the all-pairs kernels (csrc/allpairs.cu) and the tree kernels
 (csrc/group_eval.cu): far, the octree's interval window, the BVH's
 node-mask and dense-mask windows, and entries, each far and entries test
-under both softenings. Every test here needs an
+under both softenings, and the list paths' kernel in float32 and float64
+under both. Every test here needs an
 NVIDIA GPU with nvcc (the kernels are built from nbody_torch/csrc at
 first use) and skips without one; on the GPU machine run them with
 
@@ -446,9 +447,145 @@ def test_group_launch_counters(dev):
     cg.window_eval_nodemask_cuda(xj, mj, xj, zero, torch.ones(1, 4, dtype=torch.bool, device=dev),
                                  EPS32, 1, 16, "poly")
     cg.window_eval_dense_cuda(xj, mj, xj, zero, torch.ones(1, 64, device=dev), EPS32, 1, "poly")
+    heads = (64, torch.full((1,), 64, **i32), zero)
+    cg.group_eval_cuda(xj, mj[None], xj[None], EPS32, "sqrt3", *heads)
+    cg.group_eval_cuda(xj.double(), mj[None].double(), xj[None].double(), EPS32, "poly", *heads)
     cg.masked_eval_bits_torch(xj, mj, xj, words, EPS32, "poly")  # the twin never counts
+    cg.group_eval_torch(xj, mj[None], xj[None], EPS32, "sqrt3", *heads)
     assert cg.launch_counts == {"masked_eval_bits_kernel": 1, "window_eval_interval_kernel": 1,
                                 "window_eval_nodemask_kernel": 1, "window_eval_dense_kernel": 1,
-                                "entries_lohi_kernel": 1}
+                                "entries_lohi_kernel": 1,
+                                "group_eval_kernel<float32, poly>": 0,
+                                "group_eval_kernel<float32, sqrt3>": 1,
+                                "group_eval_kernel<float64, poly>": 1,
+                                "group_eval_kernel<float64, sqrt3>": 0}
     with pytest.raises(TypeError):
         cg.masked_eval_bits_cuda(xj.double(), mj.double(), xj.double(), words, EPS32, "poly")
+
+
+# ------------------------------------------------------- the list paths
+
+
+def _list_inputs(dev, dim, dtype, seed, ntiles=6, tb=512, split=700, length=1500):
+    """Rows and per-tile lists with random live heads n0 <= split and
+    n1 <= length - split, mass 0 past them; tile 1's lists are empty and
+    tile 3's are all padding (mass 0 everywhere, heads at full length)."""
+    rng = np.random.default_rng(seed)
+    xi = torch.tensor(rng.uniform(-1, 1, (ntiles * tb, dim)), dtype=dtype, device=dev)
+    xj = torch.tensor(rng.uniform(-1.5, 1.5, (ntiles, length, dim)), dtype=dtype, device=dev)
+    n0 = rng.integers(0, split + 1, ntiles)
+    n1 = rng.integers(0, length - split + 1, ntiles)
+    n0[1] = n1[1] = 0
+    n0[3], n1[3] = split, length - split
+    lane = np.arange(length)[None, :]
+    live = (lane < n0[:, None]) | ((lane >= split) & (lane < split + n1[:, None]))
+    live[3] = False
+    mj = torch.tensor(np.where(live, rng.uniform(0.1, 1, (ntiles, length)), 0), dtype=dtype,
+                      device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return xi, mj, xj, split, torch.tensor(n0, **i32), torch.tensor(n1, **i32), live
+
+
+@pytest.mark.parametrize("softening", ["poly", "sqrt3"])
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_group_eval_kernel_vs_twin(dev, dtype, dim, softening):
+    """The list kernel over the live heads against its twin and against
+    float64 numpy, within TOL of each row's sum of |term|; both whole
+    padded segments give the same bits (padding adds exact zeros in the
+    same groups); empty and all-padding tiles get zeros."""
+    xi, mj, xj, split, n0, n1, live = _list_inputs(dev, dim, dtype, seed=110 + dim)
+    eps = float(torch.finfo(dtype).eps)
+    got = cg.group_eval_cuda(xi, mj, xj, eps, softening, split, n0, n1)
+    ref = cg.group_eval_torch(xi, mj, xj, eps, softening, split, n0, n1)
+    scale = cg.group_eval_torch(xi, mj, xj, eps, softening, split, n0, n1, absolute=True)
+    _assert_within(got, ref, scale, dtype)
+    full = torch.full_like(n0, split), torch.full_like(n1, mj.shape[1] - split)
+    whole = cg.group_eval_cuda(xi, mj, xj, eps, softening, split, *full)
+    torch.cuda.synchronize()
+    assert torch.equal(got, whole)
+    assert not got[512:1024].any() and not got[3 * 512:4 * 512].any()
+    tb = 512
+    x64, m64, j64 = (a.double().cpu().numpy() for a in (xi, mj, xj))
+    for t in range(mj.shape[0]):
+        cols = np.flatnonzero(live[t])
+        force, tscale, _ = _numpy_refs(torch.tensor(x64[t * tb:(t + 1) * tb]),
+                                       torch.tensor(m64[t][cols]), torch.tensor(j64[t][cols]),
+                                       eps, softening)
+        err = np.abs(got[t * tb:(t + 1) * tb].double().cpu().numpy() - force)
+        assert np.all(err <= TOL[dtype] * tscale), float(np.max(err / np.maximum(tscale, 1e-300)))
+
+
+@pytest.mark.parametrize("tree", ["octree", "bvh"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_list_paths_on_card_match_cpu(dev, tree, dim):
+    """compute_force_grouped of a 17,000-body float64 galaxy on the card
+    (the list kernel and the all-pairs fallback) and on the CPU (the
+    twins), with caps of 1,024, small enough that tiles fall back (25-29
+    of 34 in the octree, 10 in the 3-D BVH): equal counters, forces within
+    1e-12 of sum |a|; the list kernel and the fallback launched once per
+    call."""
+    from nbody_torch.models import build_galaxy_model
+    from nbody_torch.ops import bvh, bvh_group, octree, octree_group
+    from nbody_torch.ops.geometry import scalar_bounds
+    from nbody_torch.state import SystemState
+
+    n = 17000
+    _, s = build_galaxy_model(n, dim, np.float64, torch.device("cpu"))
+    m, x = s.m.numpy(), s.x.numpy()
+    eps = float(np.finfo(np.float64).eps)
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        cg.reset_launch_counts()
+        ca.reset_launch_counts()
+        if tree == "octree":
+            tm, tx = torch.tensor(m, device=device), torch.tensor(x, device=device)
+            lo, hi = scalar_bounds(tx)
+            levels, _, ms, xs = octree.build_octree(tm, tx, lo, hi, octree.max_depth(n, dim))
+            a, info = octree_group.compute_force_grouped(levels, ms, xs, hi - lo, 0.5, 1.0, eps,
+                                                         cap_nodes=1024, cap_leaves=1024)
+        else:
+            st = bvh.hilbert_sort(SystemState.from_numpy(m, x, np.zeros_like(x), device=device),
+                                  eps)
+            a, info = bvh_group.compute_force_grouped(bvh.build_tree(st.m, st.x, eps), st.m,
+                                                      st.x, 0.5, 1.0, eps, cap_nodes=1024,
+                                                      cap_leaves=1024)
+        out[device.type] = (a.cpu(), {k: int(v) for k, v in info.items()},
+                            cg.launch_counts[cg.group_eval_name(
+                                torch.float64, "sqrt3" if tree == "octree" else "poly")],
+                            ca.launch_counts["allpairs_block_kernel"])
+    (ga, ginfo, glaunch, gfb), (pa, pinfo, plaunch, pfb) = out["cuda"], out["cpu"]
+    assert ginfo == pinfo and pinfo["fallback_tiles"] < -(-n // 512)
+    assert pinfo["fallback_tiles"] > 0 or (tree, dim) == ("bvh", 2)
+    assert ((ga - pa).abs().sum() / pa.abs().sum()).item() < 1e-12
+    assert (glaunch, plaunch, pfb) == (1, 0, 0) and gfb == int(pinfo["fallback_tiles"] > 0)
+
+
+@pytest.mark.parametrize("tree", ["octree", "bvh"])
+def test_float32_list_step_on_card_matches_cpu(dev, tree):
+    """The float32 list path through the step function (list_path=True) of
+    a 17,000-body 3-D galaxy launches the list kernel's float32
+    instantiation once, and its forces are within 1e-5 of sum |a| of the
+    CPU twins', in the same body order."""
+    from nbody_torch.models import build_galaxy_model
+    from nbody_torch.ops import bvh, octree
+    from nbody_torch.state import SystemState
+
+    n = 17000
+    _, s = build_galaxy_model(n, 3, np.float32, torch.device("cpu"))
+    eps = float(np.finfo(np.float32).eps)
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        st = SystemState.from_numpy(s.m.numpy(), s.x.numpy(), s.v.numpy(), device=device)
+        cg.reset_launch_counts()
+        if tree == "octree":
+            got, _ = octree.octree_step_force(st, 0.5, 1.0, eps, octree.max_depth(n, 3),
+                                              list_path=True)
+        else:
+            got, _ = bvh.bvh_step_force(st, 0.5, 1.0, eps, list_path=True)
+        out[device.type] = (got.x.cpu(), got.a.cpu(), dict(cg.launch_counts))
+    (gx, ga, glaunch), (px, pa, plaunch) = out["cuda"], out["cpu"]
+    assert torch.equal(gx, px)
+    assert ((ga - pa).abs().sum() / pa.abs().sum()).item() < 1e-5
+    key = cg.group_eval_name(torch.float32, "sqrt3" if tree == "octree" else "poly")
+    assert glaunch[key] == 1 and sum(plaunch.values()) == 0
