@@ -69,7 +69,33 @@ Phases, each printed on its own lines:
         counters, forces within 1e-12 of sum |a|;
      e. -n 64 -s 5 --precision double --print-state for both trees on the
         card and on the CPU: the same printed state, in the same body
-        order, values within 1e-12 relative.
+        order, values within 1e-12 relative;
+  8. the all-pairs variants that python -m nbody_torch.kernel_bench runs
+     (allpairs_block_kernel<float32, newton | fast>, allpairs_mxu_kernel
+     and its fast instantiation):
+     a. each against its twin at n = 65,536 in 2-D and 3-D, on uniform
+        bodies unsorted and Hilbert-sorted and on sorted clusters, and at a
+        ragged n: the same branch on every tile pair (the per-i-tile counts
+        equal), forces within 1e-5 of sum |term| (1e-4 for the MXU kernel's
+        fast instantiation, whose bf16 roundings of a weight at a tie may
+        go either way), the branch shares printed;
+     b. each at 2^20 in 3-D and 2-D float32 on kernel_bench's inputs
+        (default_rng(0) uniform), unsorted as the main path runs them
+        (every tile pair near) and Hilbert-sorted (bench.py's all-pairs
+        bodies, where the far branches run), against its twin on the first
+        8,192 rows: the same branch on every tile pair of those rows'
+        i-tiles, forces within the tolerances of (a). On the 3-D sorted
+        bodies each is timed with CUDA events beside the exact kernel, and
+        plain_ms is the twin's measured time on those 8,192 rows (the whole
+        twin would take over a minute); branch shares and the bound (below);
+     c. the outputs of (b) against the float64 kernel on 4,096 sampled rows,
+        with nbody_tpu's tests' bounds: newton and fast within 1e-5 of max
+        |a|, mxu within max(4 err32, 6e-5) and mxu-fast within 5e-3 of
+        test_mxu_kernel.py's per-row measure, err32 the exact float32
+        kernel's;
+     d. python -m nbody_torch.kernel_bench --n 262144 --dims 2,3 --kernels
+        newton,exact,fast,mxu,mxu-fast --repeats 1 as a subprocess: 10 JSON
+        lines, each with the launches of its configuration.
 Every kernel call that 5a and 6a time prints its pair count, the pairs
 its inputs need (all-pairs N(N-1); a window the columns it visits times
 the rows; entries sum(hi - lo) times the rows; the far field the set
@@ -82,6 +108,11 @@ output written once) over its 3.35 TB/s; the list kernel's pairs are each
 tile's rows times the nonzero-mass entries of its live list heads. No
 single PyTorch call computes a softened gravity
 sum (torch.cdist gives distances, not forces), so library_ms is null.
+Phase 8's bounds: newton and fast count 5*dim + 3 operations a pair on
+either chain; the MXU kernel the larger of its FP32 chain (by branch, see
+variant_bound) over 67 TFLOP/s and its MMAs as issued over 989 TFLOP/s
+bf16. Their launches come from the kernel_bench run of 8d, which resets
+the counts before each configuration and prints them after it.
 The kernels' launch counts are set to 0 just before each CLI run that
 drives a main path and read just after it: the all-pairs force kernel's
 from the 2^20 run of phase 3, the potential kernel's from the run of
@@ -333,6 +364,7 @@ def main() -> int:
     octree_kernels, octree_fallback = octree_phases(dev, big)
     bvh_kernels, bvh_fallback = bvh_phases(dev, big)
     list_kernels, list_fallback = list_phases(dev, big)
+    variant_kernels = variant_phases(dev, big)
 
     entries = []
     for name, replaces, launches, run in (
@@ -350,7 +382,8 @@ def main() -> int:
     entries[0]["bvh_fallback_launches"] = bvh_fallback        # poly
     entries[0]["float64_list_fallback_launches"] = list_fallback  # 3-D, by tree
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
-    print(json.dumps({"kernels": entries + octree_kernels + bvh_kernels + list_kernels}))
+    print(json.dumps({"kernels": entries + octree_kernels + bvh_kernels + list_kernels
+                      + variant_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -1026,6 +1059,241 @@ def list_phases(dev, big: int):
                         **f32[tree][1], "n": big, "dim": 3, "dtype": "float32"})
     fallback = {tree: launches[tree]["allpairs_block_kernel"] for tree in LIST_SOFTENING}
     return entries, fallback
+
+
+PALLAS_ALLPAIRS = "nbody_tpu/ops/pallas_allpairs.py"
+PALLAS_MXU = "nbody_tpu/ops/pallas_allpairs_mxu.py"
+BF16_FLOPS = 989e12
+MXU_FAST_TOL = 1e-4  # kernel vs twin under bf16 W and B (tests/test_torch_kernels.py)
+
+
+def variant_calls(eps: float):
+    """name -> (kernel call (m, x) -> (a, its per-i-tile branch counts or
+    None), twin call (m, x, rows) -> the same for the i-tiles that hold the
+    first `rows` rows (rows None: all), TPU kernel replaced, branch names,
+    tolerance against the twin, kernel_bench name)."""
+    from nbody_torch.ops import cuda_allpairs as ca
+    from nbody_torch.ops import cuda_allpairs_mxu as cm
+
+    mxu_fast = {"fast": True, "far_thresh": 1e-2}  # kernel_bench.py:63-64
+    return {
+        ca.NEWTON: (lambda m, x: (ca.allpairs_accel_cuda(m, x, 1.0, eps, exact=False), None),
+                    lambda m, x, rows: (ca.allpairs_block_torch(x[:rows], m, x, eps), None),
+                    f"{PALLAS_ALLPAIRS}:113 (exact=False, :79-84)", None, TOL["float32"],
+                    "newton"),
+        ca.FAST: (lambda m, x: ca.allpairs_accel_cuda(m, x, 1.0, eps, exact=False, fast=True,
+                                                      return_counts=True),
+                  lambda m, x, rows: ca.allpairs_fast_torch(m, x, 1.0, eps, rows=rows),
+                  f"{PALLAS_ALLPAIRS}:113 (fast=True, :93-105)", ("softened", "far"),
+                  TOL["float32"], "fast"),
+        cm.PLAIN: (lambda m, x: cm.allpairs_accel_mxu_cuda(m, x, 1.0, eps, return_counts=True),
+                   lambda m, x, rows: cm.allpairs_accel_mxu_torch(m, x, 1.0, eps, rows=rows),
+                   f"{PALLAS_MXU}:207", cm.BRANCHES, TOL["float32"], "mxu"),
+        cm.FAST: (lambda m, x: cm.allpairs_accel_mxu_cuda(m, x, 1.0, eps, return_counts=True,
+                                                          **mxu_fast),
+                  lambda m, x, rows: cm.allpairs_accel_mxu_torch(m, x, 1.0, eps, rows=rows,
+                                                                 **mxu_fast),
+                  f"{PALLAS_MXU}:207 (fast=True)", cm.BRANCHES, MXU_FAST_TOL, "mxu-fast"),
+    }
+
+
+def sorted_bodies(m, x, eps: float):
+    """(m, x) in the order of the quirk Hilbert curve over their box, as
+    bench.py:74-77 sorts its all-pairs bodies."""
+    from nbody_torch.ops.geometry import aabb_of_points
+    from nbody_torch.ops.hilbert import hilbert_sort_perm
+
+    perm = hilbert_sort_perm(x, *aabb_of_points(x, eps))
+    return m[perm].contiguous(), x[perm].contiguous()
+
+
+def shares(names, counts) -> str:
+    total = sum(counts)
+    return ", ".join(f"{k} {c} ({c / total:.4f})" for k, c in zip(names, counts))
+
+
+def variant_bound(name: str, counts, tile: int, n: int, dim: int):
+    """(bound ms, what bounds it, the FP32 and tensor-core times) of one
+    evaluation of n bodies. Pairs by branch: each tile pair's tile * tile
+    (no padding at n = 2^20). Newton and the fast variant's two chains
+    count 5 dim + 3 operations a pair (flops_per_pair). The MXU kernel's
+    FP32 chain: near pairs the quadratic form that decides (2 dim + 1) and
+    the exact chain with the Newton step (5 dim + 3, plus 3); far pairs the
+    quadratic form, the square root, d2 sqrt + eps, the reciprocal and its
+    Newton step and the split (2 dim + 10); far-fast pairs the form, the
+    rsqrt, its cube and the rounding (2 dim + 5). Its tensor cores: the
+    m16n8k16 MMAs as issued, 2 * 16 * 8 * 16 FLOPs per 16 x 16 pair slots,
+    three in the far branch and one in far-fast, over 989 TFLOP/s bf16.
+    Bytes: positions and masses read once, the accelerations written."""
+    nbytes = n * 4 * (dim + 1) + n * 4 * dim
+    if counts is None or name.startswith("allpairs_block_kernel"):
+        bound_ms, by = bound(n * (n - 1), flops_per_pair(dim, "poly"), nbytes)
+        return bound_ms, by, bound_ms, 0.0
+    near, far, far_fast = (c * tile for c in counts)  # pairs
+    fp32 = near * (7 * dim + 7) + far * (2 * dim + 10) + far_fast * (2 * dim + 5)
+    mma = (far * 3 + far_fast) * 2 * 16 * 8 * 16 / 256
+    t32, tmma = fp32 / F32_FLOPS * 1e3, mma / BF16_FLOPS * 1e3
+    tbytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(t32, tmma, tbytes)
+    by = "bytes" if bound_ms == tbytes else "operations"
+    return bound_ms, by, t32, tmma
+
+
+def variant_phases(dev, big: int):
+    """Phase 8: the all-pairs variants. Returns their JSON entries."""
+    import torch
+
+    from nbody_torch import kernel_bench as kb
+    from nbody_torch.ops import cuda_allpairs as ca
+
+    eps = eps_of(torch.float32)
+    calls = variant_calls(eps)
+
+    def against_twin(tag, m, x, what, rows=None):
+        """Each kernel against its twin on the first `rows` rows (whole
+        i-tiles; None: all): the same branch on every tile pair of those
+        i-tiles, and the sums within the tolerance. Returns name -> (kernel
+        output, its tile pairs by branch over the whole run or None, scaled
+        error, max abs error, twin ms)."""
+        scale = ca.allpairs_block_abs_torch(x[:rows], m, x, eps)
+        out = {}
+        for name, (kern, twin, _, branches, tol, _) in calls.items():
+            got, kc = kern(m, x)
+            twin_ms, (ref, tc) = event_ms(lambda: twin(m, x, rows), reps=1, keep=True)
+            err, abs_err = scaled(got[:rows], ref, scale)
+            line = (f"[{tag}] {name}, {what}: max |kernel - plain| / sum|term| = {err:.3e} "
+                    f"(limit {tol:g})" + (f" on the first {rows} rows" if rows else ""))
+            totals = None
+            if branches is not None:
+                kc = kc.cpu()
+                totals = kc.sum(0).tolist()
+                same = kc[:tc.shape[0]].tolist() == tc.tolist()
+                line += (f"; tile pairs {shares(branches, totals)}; the branch of every tile "
+                         f"pair of the plain version's {tc.shape[0]} i-tiles "
+                         f"{'the same' if same else 'DIFFERS'}")
+                check(same, f"{tag} {name} {what}: branches differ on the plain version's i-tiles")
+            print(line)
+            check(err <= tol, f"{tag} {name} {what}: scaled error {err:.3e} above {tol:g}")
+            out[name] = (got, totals, err, abs_err, twin_ms)
+        del scale
+        return out
+
+    # -- (a) each kernel against its twin at 65,536 (and a ragged n) ----------
+    def layouts(n, dim):
+        rng = np.random.default_rng(SEED + dim)
+        m = torch.tensor(rng.uniform(0.1, 1.0, n), dtype=torch.float32, device=dev)
+        x = torch.tensor(rng.uniform(-1.0, 1.0, (n, dim)), dtype=torch.float32, device=dev)
+        yield "uniform unsorted", m, x
+        yield "uniform Hilbert-sorted", *sorted_bodies(m, x, eps)
+        mc, xc = clusters(n, dim)
+        yield "clusters Hilbert-sorted", *sorted_bodies(torch.tensor(mc, device=dev),
+                                                        torch.tensor(xc, device=dev), eps)
+
+    n = 65536
+    for dim in (2, 3):
+        for what, m, x in layouts(n, dim):
+            against_twin("8a", m, x, f"{n} {dim}-D {what}")
+    mc, xc = clusters(n + 37, 3)
+    against_twin("8a", *sorted_bodies(torch.tensor(mc, device=dev), torch.tensor(xc, device=dev),
+                                      eps), f"{n + 37} 3-D clusters Hilbert-sorted (ragged)")
+    torch.cuda.empty_cache()
+
+    # -- (b) 2^20 bodies, 2-D and 3-D, on kernel_bench's inputs unsorted (as the
+    #    main path runs them: every tile pair near) and Hilbert-sorted (bench.py's
+    #    all-pairs bodies: the far branches run), against the twins on the first
+    #    8,192 rows; 3-D sorted also timed. (c) each against the float64 kernel on
+    #    4,096 sampled rows, with the bounds of nbody_tpu's tests.
+    rows = 8192
+    idx = torch.tensor(np.sort(np.random.default_rng(SEED).choice(big, 4096, replace=False)),
+                       device=dev)
+    measured, checked = {}, {name: [] for name in calls}
+    for dim in (3, 2):
+        m_np, x_np = kb.inputs(big, dim)
+        m0, x0 = torch.tensor(m_np, device=dev), torch.tensor(x_np, device=dev)
+        for order in ("Hilbert-sorted", "unsorted"):
+            m, x = sorted_bodies(m0, x0, eps) if order == "Hilbert-sorted" else (m0, x0)
+            what = f"{big}-body {dim}-D float32, kernel_bench's inputs {order}"
+            res = against_twin("8b", m, x, what, rows)
+            a64 = ca.allpairs_block_cuda(x[idx].double(), m.double(), x.double(), eps)
+            oracle = a64.norm(dim=1) + a64.abs().max() * 1e-3
+
+            def oracle_err(a):
+                return ((a[idx].double() - a64).norm(dim=1) / oracle).max().item()
+
+            a_exact = ca.allpairs_accel_cuda(m, x, 1.0, eps)
+            err32 = oracle_err(a_exact)
+            for name, limit, how in (
+                (ca.NEWTON, 1e-5, "max |a - a64| / max |a64|"),
+                (ca.FAST, 1e-5, "max |a - a64| / max |a64|"),
+                ("allpairs_mxu_kernel<float32>", max(4 * err32, 6e-5), "oracle error"),
+                ("allpairs_mxu_kernel<float32, fast>", 5e-3, "oracle error"),
+            ):
+                got = res[name][0]
+                err = (((got[idx].double() - a64).abs().max() / a64.abs().max()).item()
+                       if how.startswith("max") else oracle_err(got))
+                print(f"[8c] {name}, {what}, vs the float64 kernel on 4096 rows: {how} "
+                      f"{err:.3e} (limit {limit:.3e}; the exact float32 kernel's oracle error "
+                      f"{err32:.3e})")
+                check(err <= limit, f"8c {name} {what}: {err:.3e} above {limit:.3e}")
+                _, totals, serr, _, _ = res[name]
+                branches = calls[name][3]
+                checked[name].append({"dim": dim, "inputs": order, "max_scaled_err": serr,
+                                      "tile_pairs": dict(zip(branches, totals)) if totals else None,
+                                      "accuracy_vs_float64": err, "accuracy_limit": limit})
+            if dim == 3 and order == "Hilbert-sorted":
+                exact_ms = event_ms(lambda: ca.allpairs_accel_cuda(m, x, 1.0, eps), reps=3)
+                for name, (_, _, replaces, branches, tol, label) in calls.items():
+                    accel = kb.accel_fn(label, eps)  # kernel_bench's call, without counts
+                    ms = event_ms(lambda: accel(m, x), reps=3)
+                    _, totals, err, abs_err, twin_ms = res[name]
+                    bound_ms, by, t32, tmma = variant_bound(name, totals, 512 * 1024, big, 3)
+                    print(f"[8b] {name} ({label}), {what}: kernel {ms:.1f} ms (exact kernel "
+                          f"{exact_ms:.1f} ms); plain version {twin_ms:.1f} ms on its first "
+                          f"{rows} rows (not extrapolated); bound {bound_ms:.3f} ms ({by}; FP32 "
+                          f"chain {t32:.3f} ms, tensor cores {tmma:.3f} ms)")
+                    measured[name] = {"ms": ms, "plain_ms": twin_ms, "plain_rows": rows,
+                                      "max_abs_err": abs_err, "max_scaled_err": err,
+                                      "scaled_err_limit": tol, "bound_ms": bound_ms,
+                                      "bound_by": by, "library_ms": None,
+                                      "bound_fp32_ms": t32, "bound_tensor_core_ms": tmma,
+                                      "exact_kernel_ms": exact_ms, "replaces": replaces,
+                                      "tile_pairs": dict(zip(branches, totals)) if totals else None}
+            del res, a64, oracle, a_exact, m, x
+            torch.cuda.empty_cache()
+        del m0, x0
+
+    # -- (d) python -m nbody_torch.kernel_bench at 2^18, as a subprocess ------
+    cmd = [sys.executable, "-m", "nbody_torch.kernel_bench", "--n", "262144", "--dims", "2,3",
+           "--kernels", "newton,exact,fast,mxu,mxu-fast", "--repeats", "1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    rows_out = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    print(f"[8d] {' '.join(cmd[1:])}: rc {proc.returncode}, {len(rows_out)} lines in "
+          f"{time.perf_counter() - t0:.0f} s")
+    for r in rows_out:
+        print(f"[8d]   {json.dumps(r)}")
+    check(proc.returncode == 0 and len(rows_out) == 10,
+          f"kernel_bench failed: {proc.stderr[-2000:]}")
+    launches = {}
+    for r in rows_out:
+        check({"kernel", "dim", "n", "sec_per_step", "int_per_s"} <= set(r), f"keys of {r}")
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    entries = []
+    sources = {ca.NEWTON: "nbody_torch/csrc/allpairs.cu", ca.FAST: "nbody_torch/csrc/allpairs.cu"}
+    for name in calls:
+        check(launches.get(name, 0) > 0, f"{name} was not launched by kernel_bench")
+        entries.append({"name": name, "route": "cuda",
+                        "source": sources.get(name, "nbody_torch/csrc/allpairs_mxu.cu"),
+                        "launches": launches[name],
+                        "launches_in": "phase 8d: python -m nbody_torch.kernel_bench --n 262144 "
+                                       "--dims 2,3 --repeats 1",
+                        **measured[name], "n": big, "dim": 3, "dtype": "float32",
+                        "inputs": "kernel_bench's inputs Hilbert-sorted (bench.py's all-pairs "
+                                  "bodies)",
+                        "checked_at_2p20": checked[name]})
+    return entries
 
 
 def accuracy(tag: str, what: str, n: int, a, ref, dim: int = 3) -> None:

@@ -10,15 +10,19 @@ Layer map:
   config/state  - static sim config + SoA body-state dataclass of tensors
   rng, native   - bit-exact std::mt19937 stream; ctypes bridge to native/
   models/       - workload generators (ref: src/models.h)
-  ops/          - all-pairs and octree forces (plain torch and CUDA), leapfrog,
+  ops/          - all-pairs (plain torch, CUDA, the float32 variants and the
+                  hybrid tensor-core kernel) and tree forces, leapfrog,
                   energies
   io/           - binary trajectory/energy/state formats (ref: src/saving.h)
   sim/          - engines, step loop, warmup protocol, CSV (ref: run_* loops)
+  utils/        - device sync and the seconds-per-step estimator
   cli.py        - python -m nbody_torch.cli
+  kernel_bench  - python -m nbody_torch.kernel_bench (scripts/kernel_bench.py)
 
-Ported so far: the all-pairs and all-pairs-collapsed algorithms, and the
-octree's fast path. The BVH, the octree's list paths and the multi-device
-layouts are still to come (ROADMAP.md).
+Ported so far: the all-pairs and all-pairs-collapsed algorithms, the
+octree and BVH fast paths, the trees' list paths (float64), and the
+all-pairs kernel variants. The per-body walks, the ablation and probe
+kernels and the multi-device layouts are still to come (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

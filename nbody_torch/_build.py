@@ -95,13 +95,20 @@ def build() -> Path:
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C interface
-    of csrc/allpairs.cu and csrc/group_eval.cu (a pointer must be
-    c_void_p: ctypes passes an undeclared one as a 32-bit int)."""
+    of csrc/allpairs.cu, csrc/allpairs_mxu.cu and csrc/group_eval.cu (a
+    pointer must be c_void_p: ctypes passes an undeclared one as a 32-bit
+    int)."""
     lib = ctypes.CDLL(str(build()))
     i, p, f64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
     for name, args in (
         ("nbody_allpairs_block", [i, i, i, i, p, i, p, p, i, f64, f64, p, p]),
         ("nbody_potential_rowsums", [i, i, i, p, p, i, f64, p, p]),
+        # (device, dim, fast, x, m, n, npad, tile_i, tile_j, eps, far_thresh, scale,
+        #  out, counts, stream)
+        ("nbody_allpairs_variant", [i, i, i, p, p, i, i, i, i, f64, f64, f64, p, p, p]),
+        # (device, dim, fast, x, m, n, npad, tile_i, tile_j, eps, near_coef,
+        #  far_thresh, scale, out, counts, stream)
+        ("nbody_allpairs_mxu", [i, i, i, p, p, i, i, i, i, f64, f64, f64, f64, p, p, p]),
         # (device, dim, xi, ntiles, tb, ...) as in ops/cuda_group_eval._launch
         ("nbody_masked_eval_bits", [i, i, p, i, i, p, p, i, p, i, i, f64, p, p]),
         ("nbody_window_eval_interval", [i, i, p, i, i, p, p, i, p, p, p, i, f64, p, p]),

@@ -2,6 +2,7 @@
 
 allpairs.py is plain torch; cuda_allpairs.py wraps the hand-written CUDA
 kernels of csrc/allpairs.cu and keeps their plain twins beside them, as
-cuda_group_eval.py does for the octree's kernels in csrc/group_eval.cu.
-octree.py and octree_group.py are the octree's fast path around them.
+cuda_group_eval.py does for the trees' kernels in csrc/group_eval.cu, and
+cuda_allpairs_mxu.py for the hybrid kernel of csrc/allpairs_mxu.cu.
+octree*.py, hilbert.py and bvh*.py are the trees around them.
 """

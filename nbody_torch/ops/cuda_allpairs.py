@@ -13,12 +13,28 @@ Each wrapper checks device, dtype, shape and contiguity, allocates its
 output with torch.empty, launches on the current stream, raises if the
 launch returns a CUDA error, and adds one to `launch_counts` for the
 kernel it launched. A wrapper runs the plain torch twin beside it
-(allpairs_block_torch, potential_rowsums_torch) only when its tensors lie
-on the CPU; on a CUDA tensor it launches the kernel or raises.
+(allpairs_block_torch, allpairs_fast_torch, potential_rowsums_torch)
+only when its tensors lie on the CPU; on a CUDA tensor it launches the
+kernel or raises.
 
-The Pallas knobs `exact` and `fast` are not carried over: the kernel
-always uses IEEE division, which the Pallas default (approximate
-reciprocal plus one Newton step) lies within 1 ulp of.
+The Pallas knobs `exact` and `fast` of allpairs_accel_cuda select float32
+instantiations of the same kernel, each counted under its own name:
+  exact=True (the default)   IEEE division, float32 and float64; the CLI's
+                             paths and the trees' fallbacks take it;
+  exact=False                allpairs_block_kernel<float32, newton>: the
+                             approximate reciprocal plus one Newton step;
+  fast=True, exact=False     allpairs_block_kernel<float32, fast>: per
+                             (i-tile, j-tile) pair, rsqrt^3 without the
+                             softening where the tile's least d2 exceeds
+                             (eps / fast_tol)^(2/3), else the Newton chain.
+The defaults differ from allpairs_accel_pallas's exact=False on purpose:
+the port's paths keep IEEE division, within 1 ulp of the Newton form.
+Neither variant takes float64 (the Pallas kernel was float32-only), and
+fast requires exact=False: nbody_tpu only ever calls it so. The block
+wrapper allpairs_block_cuda, which the trees' fallbacks call, takes
+neither: no caller of allpairs_block_pallas in nbody_tpu passes them.
+The twin of the Newton form is allpairs_block_torch, in IEEE division:
+the hardware's approximate reciprocal cannot be reproduced on the CPU.
 """
 
 from __future__ import annotations
@@ -26,11 +42,13 @@ from __future__ import annotations
 import torch
 
 from nbody_torch.ops.allpairs import (SOFTENINGS, accel_rows_raw, cat_rows, pair_terms,
-                                      row_chunks, sum_terms)
+                                      pairs_per_chunk, row_chunks, sum_terms)
 
+NEWTON = "allpairs_block_kernel<float32, newton>"
+FAST = "allpairs_block_kernel<float32, fast>"
 # Kernel launches since the last reset, by kernel name. Only a launch of
 # the CUDA kernel counts; a CPU call of a wrapper runs the twin and does not.
-launch_counts = {"allpairs_block_kernel": 0, "potential_rowsums_kernel": 0}
+launch_counts = {"allpairs_block_kernel": 0, NEWTON: 0, FAST: 0, "potential_rowsums_kernel": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
@@ -61,6 +79,77 @@ def allpairs_block_abs_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tenso
         w, d = pair_terms(xi[a:b], mj, xj, eps, softening)
         parts.append(sum_terms(w.abs(), d.abs()))
     return cat_rows(parts, xi)
+
+
+def round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def pad_rows(t: torch.Tensor, n: int) -> torch.Tensor:
+    """t with zero rows appended up to n rows: JAX's padding (bodies at the
+    origin with mass 0)."""
+    return torch.cat([t, t.new_zeros((n - t.shape[0], *t.shape[1:]))]) if n > t.shape[0] else t
+
+
+def fast_tiling(n: int, dim: int, tile_i: int, tile_j: int) -> tuple[int, int]:
+    """(padded count, tile_j) of the fast variant, as allpairs_accel_pallas
+    tiles: tile_j clamped to 1024 in 3-D, and rows and bodies both padded
+    to round_up(max(n, ti, tj), max(ti, tj)) (pallas_allpairs.py:138-144)."""
+    if dim >= 3:
+        tile_j = min(tile_j, 1024)
+    return round_up(max(n, tile_i, tile_j), max(tile_i, tile_j)), tile_j
+
+
+def far_threshold(eps: float, fast_tol: float = 1e-6) -> float:
+    """d2 above which dropping the softening changes each weight by less
+    than fast_tol relative: (eps / fast_tol)^(2/3) (pallas_allpairs.py:151)."""
+    return float((eps / fast_tol) ** (2.0 / 3.0))
+
+
+def tiles_per_chunk(tile_i: int, tile_j: int, device: torch.device) -> int:
+    """j-tiles a twin evaluates at once: one row chunk's pair budget."""
+    return max(1, pairs_per_chunk(device) // (tile_i * tile_j))
+
+
+def allpairs_fast_torch(m: torch.Tensor, x: torch.Tensor, G: float, eps: float,
+                        fast_tol: float = 1e-6, tile_i: int = 512, tile_j: int = 2048,
+                        rows: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain twin of allpairs_block_kernel<float32, fast>: the square
+    evaluation over JAX's tiles and padding (fast_tiling), deciding per
+    (i-tile, j-tile) pair as the kernel and allpairs_accel_pallas(fast=True)
+    decide: m rsqrt(d2)^3 where the tile's least float32 d2 exceeds
+    far_threshold(eps, fast_tol), else the softened weight (IEEE division).
+    Sums reduce in float64. Returns G * a (n, dim) and the int64 counts
+    (i-tiles, 2) of each i-tile's [softened, far] j-tiles; with `rows`, only
+    the i-tiles that hold the first `rows` rows run, and a has those rows
+    (a sample of a large evaluation)."""
+    n, dim = x.shape
+    npad, tile_j = fast_tiling(n, dim, tile_i, tile_j)
+    far_thresh = far_threshold(eps, fast_tol)
+    xp, mp = pad_rows(x, npad), pad_rows(m, npad)
+    ntj = npad // tile_j
+    xjt, mjt = xp.view(ntj, tile_j, dim), mp.view(ntj, tile_j)
+    step = tiles_per_chunk(tile_i, tile_j, x.device)
+    counts, sums = [], []
+    for i0 in range(0, npad if rows is None else min(rows, n), tile_i):
+        xt = xp[i0:i0 + tile_i]
+        acc = xt.new_zeros(xt.shape, dtype=torch.float64)
+        n_far = 0
+        for j0 in range(0, ntj, step):
+            d = xjt[j0:j0 + step, None, :, :] - xt[None, :, None, :]   # (J, ti, tj, dim)
+            d2 = torch.sum(d * d, dim=-1)
+            far = d2.amin(dim=(1, 2)) > far_thresh
+            n_far += int(far.sum())
+            mt = mjt[j0:j0 + step, None, :]
+            r = torch.rsqrt(d2)
+            w = torch.where(far[:, None, None], (mt * r) * (r * r),
+                            mt / (d2 * torch.sqrt(d2) + eps))
+            for c in range(dim):
+                acc[:, c] += torch.sum(w.double() * d[..., c].double(), dim=(0, 2))
+        sums.append(acc)
+        counts.append([ntj - n_far, n_far])
+    a = torch.cat(sums)[:n if rows is None else min(rows, n)]
+    return G * a.to(x.dtype), torch.tensor(counts, dtype=torch.int64)
 
 
 def potential_rowsums_torch(m: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -144,14 +233,64 @@ def allpairs_block_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, ep
     return _launch_block(xi, mj, xj, eps, softening, 1.0)
 
 
-def allpairs_accel_cuda(m: torch.Tensor, x: torch.Tensor, G: float, eps: float) -> torch.Tensor:
+def _check_variant(dtype: torch.dtype, exact: bool, fast: bool, return_counts: bool) -> None:
+    if return_counts and not fast:
+        raise ValueError("return_counts counts the fast variant's branches: pass fast=True")
+    if exact and not fast:
+        return
+    if fast and exact:
+        raise ValueError("fast=True runs the Newton chain on its near tiles, as nbody_tpu "
+                         "calls it: pass exact=False")
+    if dtype != torch.float32:
+        raise TypeError(f"exact=False and fast=True are float32 only, got {dtype}")
+
+
+def tile_counts(npad: int, tile_i: int, branches: int, like: torch.Tensor) -> torch.Tensor:
+    """The zeroed int32 (i-tiles, branches) tensor in which a kernel counts
+    each i-tile's j-tiles by branch."""
+    return torch.zeros((npad // tile_i, branches), dtype=torch.int32, device=like.device)
+
+
+def allpairs_accel_cuda(m: torch.Tensor, x: torch.Tensor, G: float, eps: float,
+                        exact: bool = True, fast: bool = False, fast_tol: float = 1e-6,
+                        tile_i: int = 512, tile_j: int = 2048,
+                        return_counts: bool = False):
     """All-pairs accelerations G * block(x, m, x) -- the counterpart of
     allpairs_accel_pallas. The kernel applies G after the sum, as the
-    Pallas wrapper does (pallas_allpairs.py:173)."""
+    Pallas wrapper does (pallas_allpairs.py:173). exact=True (the
+    default, unlike the Pallas function's) keeps IEEE division; the tiles
+    and fast_tol matter to fast=True only. With return_counts (fast=True
+    only) returns (a, counts), counts the int (i-tiles, 2) tensor of each
+    i-tile's [softened, far] j-tiles, as allpairs_fast_torch returns them."""
     _check_bodies(x, m, x)
+    _check_variant(x.dtype, exact, fast, return_counts)
     if _on_cpu(m, x):
-        return G * allpairs_block_torch(x, m, x, eps)
-    return _launch_block(x, m, x, eps, "poly", G)
+        if not fast:
+            return G * allpairs_block_torch(x, m, x, eps)
+        a, counts = allpairs_fast_torch(m, x, G, eps, fast_tol, tile_i, tile_j)
+        return (a, counts) if return_counts else a
+    if exact:
+        return _launch_block(x, m, x, eps, "poly", G)
+    from nbody_torch._build import load_library
+
+    n, dim = x.shape
+    npad, tile_j = fast_tiling(n, dim, tile_i, tile_j)
+    if fast and (tile_i % 64 or not 64 <= tile_i <= 512 or tile_j * (dim + 1) > 12288):
+        raise ValueError(f"fast takes tile_i a multiple of 64 in [64, 512] and a j-tile of at "
+                         f"most 48 KB, got tile_i={tile_i}, tile_j={tile_j}")
+    out = torch.empty_like(x)
+    counts = tile_counts(npad, tile_i, 2, x) if return_counts else None
+    if n == 0:
+        return (out, counts) if return_counts else out
+    err = load_library().nbody_allpairs_variant(
+        x.device.index, dim, int(fast), x.data_ptr(), m.data_ptr(), n, npad, tile_i, tile_j,
+        float(eps), far_threshold(eps, fast_tol), float(G), out.data_ptr(),
+        None if counts is None else counts.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    name = FAST if fast else NEWTON
+    _raise_on_error(name, err)
+    launch_counts[name] += 1
+    return (out, counts) if return_counts else out
 
 
 def potential_rowsums_cuda(m: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:

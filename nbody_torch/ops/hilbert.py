@@ -89,3 +89,13 @@ def hilbert_keys(cell: torch.Tensor, n_active: int = 2) -> torch.Tensor:
     dim = cell.shape[1]
     return interleave_bits(skilling_transform([cell[:, d] for d in range(dim)], dim, n_active),
                            dim)
+
+
+def hilbert_sort_perm(x: torch.Tensor, xmin: torch.Tensor, xmax: torch.Tensor) -> torch.Tensor:
+    """The permutation that sorts bodies along the reference's quirk curve
+    over the box [xmin, xmax] (the counterpart of hilbert_sort_perm,
+    nbody_tpu/ops/hilbert.py:117-134, true_curve=False): a stable sort of
+    the keys read as unsigned 64-bit values, so equal keys keep body
+    order, as jnp.lexsort((lo, hi)) keeps it."""
+    keys = hilbert_keys(quantize(x, xmin, xmax - xmin))
+    return torch.sort(keys ^ torch.iinfo(torch.int64).min, stable=True).indices

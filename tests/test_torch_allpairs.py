@@ -171,7 +171,8 @@ def test_cpu_wrappers_do_not_count_launches():
     ca.allpairs_accel_cuda(_t(m), _t(x), 1.0, 1e-7)
     ca.allpairs_block_cuda(_t(x), _t(m), _t(x), 1e-7)
     ca.potential_rowsums_cuda(_t(m), _t(x), 1e-7)
-    assert ca.launch_counts == {"allpairs_block_kernel": 0, "potential_rowsums_kernel": 0}
+    assert ca.launch_counts == {"allpairs_block_kernel": 0, ca.NEWTON: 0, ca.FAST: 0,
+                                "potential_rowsums_kernel": 0}
 
 
 @pytest.mark.parametrize("case", ["dtype", "mixed", "dim", "mass", "stride", "int", "softening"])

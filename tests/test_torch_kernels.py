@@ -2,10 +2,13 @@
 card: the all-pairs kernels (csrc/allpairs.cu) and the tree kernels
 (csrc/group_eval.cu): far, the octree's interval window, the BVH's
 node-mask and dense-mask windows, and entries, each far and entries test
-under both softenings, and the list paths' kernel in float32 and float64
-under both. Every test here needs an
-NVIDIA GPU with nvcc (the kernels are built from nbody_torch/csrc at
-first use) and skips without one; on the GPU machine run them with
+under both softenings, the list paths' kernel in float32 and float64
+under both, and the all-pairs variants (the Newton and fast
+instantiations, and the hybrid kernel of csrc/allpairs_mxu.cu, whose
+counts of tile pairs by branch must equal their twins'). Every test
+here needs an NVIDIA GPU with nvcc (the kernels are built from
+nbody_torch/csrc at first use) and skips without one; on the GPU machine
+run them with
 
     python -m pytest tests/test_torch_kernels.py -m cuda
 
@@ -15,7 +18,8 @@ float32 and 1e-12 in float64; for the potential, whose terms are all
 positive, the scale is the row value itself. The same tolerance holds the
 kernels against references that share no code with the twins: a float64
 numpy evaluation of the same inputs, and nbody_tpu's jnp functions where
-jax is importable.
+jax is importable. The hybrid kernel's fast instantiation is held within
+MXU_FAST_TOL (below) of its twin.
 """
 
 import numpy as np
@@ -193,9 +197,11 @@ def test_launch_counters(dev):
     ca.potential_rowsums_cuda(m, x, 1e-7)
     ca.allpairs_block_cuda(x[:0], m, x, 1e-7)  # no rows: no launch
     ca.allpairs_block_torch(x, m, x, 1e-7)     # the twin never counts
-    assert ca.launch_counts == {"allpairs_block_kernel": 2, "potential_rowsums_kernel": 1}
+    assert ca.launch_counts == {"allpairs_block_kernel": 2, ca.NEWTON: 0, ca.FAST: 0,
+                                "potential_rowsums_kernel": 1}
     ca.reset_launch_counts()
-    assert ca.launch_counts == {"allpairs_block_kernel": 0, "potential_rowsums_kernel": 0}
+    assert ca.launch_counts == {"allpairs_block_kernel": 0, ca.NEWTON: 0, ca.FAST: 0,
+                                "potential_rowsums_kernel": 0}
 
 
 def test_wrapper_raises_on_mixed_devices(dev):
@@ -589,3 +595,118 @@ def test_float32_list_step_on_card_matches_cpu(dev, tree):
     assert ((ga - pa).abs().sum() / pa.abs().sum()).item() < 1e-5
     key = cg.group_eval_name(torch.float32, "sqrt3" if tree == "octree" else "poly")
     assert glaunch[key] == 1 and sum(plaunch.values()) == 0
+
+
+# --------------------------------------------------------------------------
+# the all-pairs variants: allpairs_block_kernel<float32, newton | fast> and
+# allpairs_mxu_kernel (csrc/allpairs_mxu.cu)
+
+MXU_FAST_TOL = 1e-4  # bf16 W and [m yj, m]: a weight within an ulp of a bf16
+# tie may round the other way in kernel and twin (rsqrtf against torch's
+# rsqrt), moving that one term by 2^-8 of itself
+
+
+def _layout(layout, n, dim, dev):
+    """(m, x) float32 on dev: uniform unsorted, uniform Hilbert-sorted, or
+    nine Gaussian clusters Hilbert-sorted (far tiles carry most of the force)."""
+    from nbody_torch.ops.geometry import aabb_of_points
+    from nbody_torch.ops.hilbert import hilbert_sort_perm
+
+    rng = np.random.default_rng(n + dim)
+    m = rng.uniform(0.1, 1.0, n).astype(np.float32)
+    if layout == "clusters":
+        centers = rng.uniform(-40, 40, (9, dim))
+        x = (centers[rng.integers(0, 9, n)] + rng.normal(0, 1.2, (n, dim))).astype(np.float32)
+    else:
+        x = rng.uniform(-1.0, 1.0, (n, dim)).astype(np.float32)
+    m, x = torch.tensor(m, device=dev), torch.tensor(x, device=dev)
+    if layout != "unsorted":
+        perm = hilbert_sort_perm(x, *aabb_of_points(x, float(np.finfo(np.float32).eps)))
+        m, x = m[perm].contiguous(), x[perm].contiguous()
+    return m, x
+
+
+@pytest.mark.parametrize("n", [1000, 4099])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_newton_kernel_vs_twin(dev, dim, n):
+    m, x = _layout("unsorted", n, dim, dev)
+    eps = float(torch.finfo(torch.float32).eps)
+    got = ca.allpairs_accel_cuda(m, x, 1.0, eps, exact=False)
+    _assert_within(got, ca.allpairs_block_torch(x, m, x, eps),
+                   ca.allpairs_block_abs_torch(x, m, x, eps), torch.float32)
+
+
+@pytest.mark.parametrize("layout", ["unsorted", "sorted", "clusters"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_fast_kernel_vs_twin(dev, dim, layout):
+    """The same tiles take the same branch (equal counts), and the sums
+    agree within 1e-5 of sum |term|."""
+    m, x = _layout(layout, 6000, dim, dev)
+    eps = float(torch.finfo(torch.float32).eps)
+    got, counts = ca.allpairs_accel_cuda(m, x, 1.0, eps, exact=False, fast=True,
+                                         return_counts=True)
+    ref, tiles = ca.allpairs_fast_torch(m, x, 1.0, eps)
+    assert counts.cpu().tolist() == tiles.tolist()
+    _assert_within(got, ref, ca.allpairs_block_abs_torch(x, m, x, eps), torch.float32)
+    if layout == "clusters":
+        assert tiles[:, 1].sum() > 0
+
+
+def test_fast_kernel_small_tiles_and_tol_vs_twin(dev):
+    """tile_i 256, tile_j 1024 and a looser fast_tol on a ragged n."""
+    m, x = _layout("clusters", 5001, 3, dev)
+    eps = float(torch.finfo(torch.float32).eps)
+    kw = {"fast_tol": 1e-4, "tile_i": 256, "tile_j": 1024}
+    got, counts = ca.allpairs_accel_cuda(m, x, 1.0, eps, exact=False, fast=True,
+                                         return_counts=True, **kw)
+    ref, tiles = ca.allpairs_fast_torch(m, x, 1.0, eps, **kw)
+    assert counts.cpu().tolist() == tiles.tolist()
+    _assert_within(got, ref, ca.allpairs_block_abs_torch(x, m, x, eps), torch.float32)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("layout", ["unsorted", "sorted", "clusters"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_mxu_kernel_vs_twin(dev, dim, layout, fast):
+    from nbody_torch.ops import cuda_allpairs_mxu as cm
+
+    m, x = _layout(layout, 6000, dim, dev)
+    eps = float(torch.finfo(torch.float32).eps)
+    kw = {"fast": True, "far_thresh": 1e-2} if fast else {}
+    got, counts = cm.allpairs_accel_mxu_cuda(m, x, 1.0, eps, return_counts=True, **kw)
+    ref, tiles = cm.allpairs_accel_mxu_torch(m, x, 1.0, eps, **kw)
+    assert counts.cpu().tolist() == tiles.tolist()
+    if layout != "unsorted":
+        assert tiles[:, 1:].sum() > 0
+    scale = ca.allpairs_block_abs_torch(x, m, x, eps)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    err = ((got - ref).abs() / scale).max().item()
+    assert err <= (MXU_FAST_TOL if fast else TOL[torch.float32]), err
+
+
+def test_mxu_tiles_of_jax_tests(dev):
+    """tile_i = tile_j = 128 (test_mxu_kernel.py's tiles) on a ragged n."""
+    from nbody_torch.ops import cuda_allpairs_mxu as cm
+
+    m, x = _layout("clusters", 1000, 3, dev)
+    eps = float(torch.finfo(torch.float32).eps)
+    got = cm.allpairs_accel_mxu_cuda(m, x, 1.0, eps, tile_i=128, tile_j=128)
+    ref, _ = cm.allpairs_accel_mxu_torch(m, x, 1.0, eps, tile_i=128, tile_j=128)
+    _assert_within(got, ref, ca.allpairs_block_abs_torch(x, m, x, eps), torch.float32)
+
+
+def test_variant_launch_counters(dev):
+    from nbody_torch.ops import cuda_allpairs_mxu as cm
+
+    m, x = _bodies(300, 2, torch.float32, dev, seed=7)
+    ca.reset_launch_counts()
+    cm.reset_launch_counts()
+    ca.allpairs_accel_cuda(m, x, 1.0, 1e-7, exact=False)
+    ca.allpairs_accel_cuda(m, x, 1.0, 1e-7, exact=False, fast=True)
+    ca.allpairs_accel_cuda(m, x, 1.0, 1e-7, exact=False, fast=True, return_counts=True)
+    cm.allpairs_accel_mxu_cuda(m, x, 1.0, 1e-7)
+    cm.allpairs_accel_mxu_cuda(m, x, 1.0, 1e-7, fast=True)
+    assert ca.launch_counts == {"allpairs_block_kernel": 0, ca.NEWTON: 1, ca.FAST: 2,
+                                "potential_rowsums_kernel": 0}
+    assert cm.launch_counts == {cm.PLAIN: 1, cm.FAST: 1}
