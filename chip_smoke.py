@@ -95,7 +95,33 @@ Phases, each printed on its own lines:
         kernel's;
      d. python -m nbody_torch.kernel_bench --n 262144 --dims 2,3 --kernels
         newton,exact,fast,mxu,mxu-fast --repeats 1 as a subprocess: 10 JSON
-        lines, each with the launches of its configuration.
+        lines, each with the launches of its configuration;
+  9. the ablation path of the fast paths (the ablate= tokens that
+     python -m nbody_torch.probe knobs drives) and its three kernels:
+     masked_eval_kernel (densemask), group_shared_masked_kernel (farcompact,
+     desc1, desc2) and entries_lohi_kernel<packed> (packedj):
+     a. one force evaluation of a 2^20-body galaxy (float32, theta 0.5, the
+        fast paths' default tile, S and window) per tree, dimension and
+        token (octree densemask, farcompact, packedj, desc1, desc2; BVH
+        densemask, packedj), the new kernels' calls recorded and re-run,
+        timed beside their plain versions (held against them on the first
+        256 tiles, timed on all tiles where those extrapolate to under 20
+        s), with pairs, bytes and bound as in 5a;
+     b. on the card: the packed entries kernel equals the unpacked one on
+        the same entries bit for bit, and packedj forces equal the default
+        path's bit for bit where two runs of the default path do (the BVH;
+        the octree heap's index_add_ atomics sum in no fixed order, so
+        there within 1e-6 of sum |a|);
+        the densemask far field equals the bit-packed far field on the same
+        accepts within 1e-5 of sum |term|; farcompact forces within 1e-5 of
+        sum |a| of the default path's (its far_over tiles printed); the 3-D
+        desc1 and desc2 forces against the sqrt3 all-pairs kernel (the
+        bounds of 5c); and a 17,000-body 3-D evaluation per token on the
+        card and through the CPU twins: equal counters (descend_*
+        included), forces within 1e-5 of sum |a|;
+     c. python -m nbody_torch.probe knobs oct and bvh at 2^20 as two
+        subprocesses, one SPEC per token and the default path in 3-D and
+        2-D: one JSON line per SPEC with its s/step and its launches.
 Every kernel call that 5a and 6a time prints its pair count, the pairs
 its inputs need (all-pairs N(N-1); a window the columns it visits times
 the rows; entries sum(hi - lo) times the rows; the far field the set
@@ -119,7 +145,9 @@ from the 2^20 run of phase 3, the potential kernel's from the run of
 phase 4 (the 2^20 --csv-total run computes no energies), the octree
 kernels' from the 3-D run of phase 5b, the BVH's far, node-mask and
 entries kernels' from the 3-D run of phase 6b, the dense-mask
-window's from the small run of phase 6e, the list kernel's float64
+window's from the small run of phase 6e, the three ablation kernels' from
+the 3-D octree SPEC of their token in 9c (densemask, farcompact, packedj;
+each SPEC's run counts from 0 inside the probe), the list kernel's float64
 instantiations from the 3-D runs of phase 7b (the 2-D runs' counts and
 the fallback launches of the all-pairs kernel are reported beside them),
 and its float32 instantiations from the float32 list-path steps of 7a
@@ -365,6 +393,7 @@ def main() -> int:
     bvh_kernels, bvh_fallback = bvh_phases(dev, big)
     list_kernels, list_fallback = list_phases(dev, big)
     variant_kernels = variant_phases(dev, big)
+    ablation_kernels = ablation_phases(dev, big)
 
     entries = []
     for name, replaces, launches, run in (
@@ -383,7 +412,7 @@ def main() -> int:
     entries[0]["float64_list_fallback_launches"] = list_fallback  # 3-D, by tree
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": entries + octree_kernels + bvh_kernels + list_kernels
-                      + variant_kernels}))
+                      + variant_kernels + ablation_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -495,17 +524,27 @@ def measure(tag: str, name: str, kern, twin, args, dim: int, softening: str) -> 
             "bound_by": bound_by, "library_ms": None}
 
 
+class Recorded(dict):
+    """attr -> the last call's positional args; .kwargs: attr -> its
+    keyword args."""
+
+    def __init__(self):
+        super().__init__()
+        self.kwargs = {}
+
+
 @contextlib.contextmanager
 def recording(module, attrs):
-    """Wrap module.<attr> for each attr so that each call's positional
-    args are kept (the last call's, by attr) while the call goes through."""
-    recorded = {}
+    """Wrap module.<attr> for each attr so that each call's args are kept
+    (the last call's, by attr) while the call goes through."""
+    recorded = Recorded()
     saved = {attr: getattr(module, attr) for attr in attrs}
 
     def wrap(attr, fn):
-        def call(*args):
+        def call(*args, **kwargs):
             recorded[attr] = args
-            return fn(*args)
+            recorded.kwargs[attr] = kwargs
+            return fn(*args, **kwargs)
         return call
 
     for attr in attrs:
@@ -1293,6 +1332,316 @@ def variant_phases(dev, big: int):
                         "inputs": "kernel_bench's inputs Hilbert-sorted (bench.py's all-pairs "
                                   "bodies)",
                         "checked_at_2p20": checked[name]})
+    return entries
+
+
+ABLATE_KERNELS = {  # name -> (wrapper in ops.cuda_group_eval, twin, its keyword args, TPU kernel)
+    "masked_eval_kernel": ("masked_eval_cuda", "masked_eval_torch", {},
+                           f"{PALLAS_GROUP_EVAL}:216"),
+    "group_shared_masked_kernel": ("group_shared_masked_eval_cuda",
+                                   "group_shared_masked_eval_torch", {},
+                                   f"{PALLAS_GROUP_EVAL}:717"),
+    "entries_lohi_kernel<packed>": ("entries_lohi_eval_cuda", "entries_lohi_eval_torch",
+                                    {"packed": True}, f"{PALLAS_GROUP_EVAL}:896"),
+}
+# the tokens of each tree, and the kernel each one brings
+OCTREE_TOKENS = {"densemask": "masked_eval_kernel", "farcompact": "group_shared_masked_kernel",
+                 "packedj": "entries_lohi_kernel<packed>", "desc1": "group_shared_masked_kernel",
+                 "desc2": "group_shared_masked_kernel"}
+BVH_TOKENS = {"densemask": "masked_eval_kernel", "packedj": "entries_lohi_kernel<packed>"}
+HEAD_TILES = 256  # 9a: the plain version on the first 256 tiles when all would take over 20 s
+
+
+def head_args(name: str, args, tiles: int):
+    """A kernel's recorded args cut to its first `tiles` row tiles, and
+    their rows."""
+    import torch
+
+    xi = args[0]
+    if name == "masked_eval_kernel":
+        tb = xi.shape[0] // args[3].shape[0]
+        return (xi[:tiles * tb], *args[1:3], args[3][:tiles], *args[4:]), tiles * tb
+    if name == "group_shared_masked_kernel":
+        tb, G = xi.shape[0] // args[3].shape[0], args[5]
+        lists = -(-tiles // G)
+        return (xi[:tiles * tb], args[1][:lists], args[2][:lists], args[3][:tiles],
+                *args[4:]), tiles * tb
+    ent, n_real, ntiles = args[3], int(args[5]), args[7]  # entries: tile-sorted
+    tb = xi.shape[0] // ntiles
+    n_head = int(((ent[:n_real] >> 16) < tiles).sum())
+    return (xi[:tiles * tb], *args[1:5], torch.tensor(n_head, device=xi.device), args[6], tiles,
+            *args[8:]), tiles * tb
+
+
+def ablate_pairs(name: str, args) -> int:
+    """The pairs a kernel of the ablation path needs: set mask entries of
+    nonzero mass times the rows (the dense-mask far field, the shared
+    lists); for the packed entries sum(hi - lo) of live bodies times the
+    rows (pairs_of)."""
+    import torch
+
+    if name == "entries_lohi_kernel<packed>":
+        return pairs_of("entries_lohi_kernel", args)
+    xi, mj, mask = args[0], args[1], args[3]
+    if name == "group_shared_masked_kernel":  # tile t's list: t // G
+        mj = mj[torch.arange(mask.shape[0], device=mask.device) // args[5]]
+    return int(((mask * mj) != 0).sum()) * (xi.shape[0] // mask.shape[0])
+
+
+def measure_ablate(tag: str, name: str, args, dim: int, softening: str) -> dict:
+    """Time an ablation kernel on recorded args (5 launches after a
+    warm-up, CUDA events); hold it against its plain version, and both
+    against the plain version in float64, on the first HEAD_TILES tiles,
+    within 1e-5 of each row's sum of |term|; time the plain version on all
+    tiles where those extrapolate to under 20 s (else plain_ms is the
+    first tiles'); print the pairs the inputs need, the bytes and the
+    bound."""
+    import torch
+
+    from nbody_torch.ops import cuda_group_eval as cg
+
+    attr, twin_attr, kw, _ = ABLATE_KERNELS[name]
+    kern, twin = getattr(cg, attr), getattr(cg, twin_attr)
+    got = kern(*args, **kw)  # warm-up launch
+    kms = event_ms(lambda: kern(*args, **kw), reps=5)
+    ntiles = args[7] if name == "entries_lohi_kernel<packed>" else args[3].shape[0]
+    tiles = min(HEAD_TILES, ntiles)
+    t_args, rows = head_args(name, args, tiles)
+    plain_ms, ref = event_ms(lambda: twin(*t_args, **kw), reps=1, keep=True)
+    scale = twin(*t_args, absolute=True, **kw)
+    err, abs_err = scaled(got[:rows], ref, scale)
+    ref64 = twin(*(a.double() if isinstance(a, torch.Tensor) and a.is_floating_point() else a
+                   for a in t_args), **kw)
+    err64 = [scaled(v, ref64, scale)[0] for v in (got[:rows], ref)]
+    del ref, ref64, scale
+    plain_tiles = tiles
+    if tiles < ntiles and plain_ms * ntiles / tiles <= 20e3:
+        plain_ms, plain_tiles = event_ms(lambda: twin(*args, **kw), reps=1), ntiles
+    pairs, flops = ablate_pairs(name, args), flops_per_pair(dim, softening)
+    nbytes = bytes_of(args)
+    bound_ms, bound_by = bound(pairs, flops, nbytes)
+    print(f"[{tag}] {name}<{softening}>: kernel {kms:.3f} ms, plain {plain_ms:.1f} ms on "
+          f"{plain_tiles} of {ntiles} tiles; on the first {tiles} tiles max |kernel - plain| / "
+          f"sum|term| = {err:.3e} (limit 1e-5), against float64: kernel {err64[0]:.3e}, plain "
+          f"{err64[1]:.3e}; pairs its inputs need {pairs} ({pairs / (kms * 1e-3):.4e} pairs/s); "
+          f"{nbytes} bytes; bound {bound_ms:.3f} ms ({bound_by}, {flops} FLOPs per pair)")
+    check(err <= 1e-5, f"{tag} {name}: scaled error {err:.3e} above 1e-5")
+    check(err64[0] <= 1e-5, f"{tag} {name}: scaled error against float64 {err64[0]:.3e} above 1e-5")
+    return {"ms": kms, "plain_ms": plain_ms, "plain_tiles": plain_tiles, "max_abs_err": abs_err,
+            "max_scaled_err": err, "max_scaled_err_vs_float64": err64[0], "checked_tiles": tiles,
+            "pairs": pairs, "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def ablate_eval(tree: str, dev, bodies, depth: int, token: str, knobs, **kw):
+    """One fast-path force evaluation with `ablate` token ("" the default
+    path) of the sorted bodies: (ms, xs, keys) for the octree, (m, x) for
+    the BVH; knobs (theta, G, eps). Returns (G * accel, its counters as
+    ints, the ablation kernels' recorded calls as wrapper -> (args,
+    kwargs))."""
+    import torch
+
+    from nbody_torch.ops import bvh, bvh_group, octree_group
+
+    theta, G, eps = knobs
+    wrappers = ["masked_eval_cuda", "group_shared_masked_eval_cuda", "entries_lohi_eval_cuda"]
+    module = octree_group if tree == "octree" else bvh_group
+    with recording(module, [w for w in wrappers if hasattr(module, w)]) as rec:
+        if tree == "octree":
+            a, info = octree_group.compute_force_grouped_fast(*bodies, depth, theta, G, eps,
+                                                              ablate=token, **kw)
+        else:
+            m, x = bodies
+            a, info = bvh_group.compute_force_grouped_windowed(bvh.build_tree(m, x, eps), m, x,
+                                                               theta, G, eps, ablate=token, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    return a, {k: int(v) for k, v in info.items()}, {k: (v, rec.kwargs[k]) for k, v in rec.items()}
+
+
+def ablation_phases(dev, big: int):
+    """Phase 9: the ablation path. Returns the JSON entries of its three
+    kernels."""
+    import torch
+
+    from nbody_torch.models import build_model
+    from nbody_torch.ops import bvh, octree
+    from nbody_torch.ops import cuda_allpairs as ca
+    from nbody_torch.ops import cuda_group_eval as cg
+    from nbody_torch.state import SystemState
+
+    t9 = time.perf_counter()
+    eps = eps_of(torch.float32)
+    measured = {name: {} for name in ABLATE_KERNELS}
+    kernel_wrapper = {name: attr for name, (attr, *_) in ABLATE_KERNELS.items()}
+
+    # -- (a) one force evaluation of a 2^20 galaxy per tree, dimension and
+    #    token, the new kernels' calls recorded and re-run, timed beside
+    #    their plain versions; (b) the checks on the card
+    for tree, tokens in (("octree", OCTREE_TOKENS), ("bvh", BVH_TOKENS)):
+        softening = "sqrt3" if tree == "octree" else "poly"
+        for dim in (3, 2):
+            cfg, state = build_model("galaxy", big, dim, np.float32, device=dev)
+            knobs = (cfg.theta, cfg.G, cfg.eps)
+            depth = 0
+            if tree == "octree":
+                depth = octree.max_depth(big, dim)
+                lo, hi = octree.robust_quant_box(state.x)
+                bodies = octree.morton_sort(state.m, state.x, lo, hi, depth)[:3]
+            else:
+                st = bvh.hilbert_sort(state, cfg.eps)
+                bodies = (st.m, st.x)
+                del st
+            del state
+            a0 = ablate_eval(tree, dev, bodies, depth, "", knobs)[0]
+            # the octree's heap sums masses and moments with index_add_, whose
+            # CUDA atomics add in no fixed order: two runs of the same path
+            # may differ in the last bits of a centre of mass
+            again = ablate_eval(tree, dev, bodies, depth, "", knobs)[0]
+            repeatable = torch.equal(a0, again)
+            print(f"[9b] {tree} {dim}-D default path run twice: "
+                  f"{'bit-equal' if repeatable else 'not bit-equal'}, sum|diff| / sum|a| = "
+                  f"{((again - a0).abs().sum() / a0.abs().sum()).item():.3e}")
+            check(repeatable or tree == "octree", "the BVH fast path is not repeatable")
+            del again
+            ref = None
+            for token, name in tokens.items():
+                t0 = time.perf_counter()
+                a, info, rec = ablate_eval(tree, dev, bodies, depth, token, knobs)
+                wall = time.perf_counter() - t0
+                print(f"[9a] {big}-body {dim}-D galaxy, {tree} ablate={token}: {wall:.3f} s wall; "
+                      f"{info}")
+                check(bool(torch.isfinite(a).all()), f"{tree} {token} force is not finite")
+                args, kwargs = rec[kernel_wrapper[name]]
+                check(kwargs.get("packed", False) == (name == "entries_lohi_kernel<packed>"),
+                      f"{tree} {token}: the recorded entries call is not the packed one")
+                if dim == 3 or token in ("densemask", "packedj", "farcompact"):
+                    measured[name][f"{tree}_{token}_{dim}d"] = measure_ablate(
+                        f"9a {dim}-D {tree} {token}", name, args, dim, softening)
+                # (b) correctness on the card
+                rel = ((a - a0).abs().sum() / a0.abs().sum()).item()
+                if token == "packedj":
+                    # the packed kernel on the recorded entries against the
+                    # unpacked one on the same inputs: bit for bit; the forces
+                    # against the default path's: bit for bit where the path
+                    # repeats, else within 1e-6 of sum |a|
+                    packed = cg.entries_lohi_eval_cuda(*args, packed=True)
+                    same_kernel = torch.equal(packed, cg.entries_lohi_eval_cuda(*args))
+                    same = torch.equal(a, a0)
+                    print(f"[9b] {tree} {dim}-D packedj: the packed entries kernel vs the unpacked "
+                          f"one on the same entries {'bit-equal' if same_kernel else 'DIFFER'}; "
+                          f"forces vs the default path {'bit-equal' if same else 'not bit-equal'}, "
+                          f"sum|diff| / sum|a| = {rel:.3e}")
+                    check(same_kernel, f"{tree} {dim}-D: the packed entries kernel differs from "
+                          "the unpacked one")
+                    check(same if repeatable else rel <= 1e-6,
+                          f"{tree} {dim}-D packedj forces differ from the default path's")
+                    del packed
+                elif token == "densemask":
+                    xi, mj, xj, mask = args[:4]
+                    far = cg.masked_eval_cuda(*args)
+                    bits = cg.masked_eval_bits_cuda(xi, mj, xj, cg.pack_mask_bits(mask != 0), eps,
+                                                    softening)
+                    t_args, rows = head_args(name, args, HEAD_TILES)
+                    err = scaled(far[:rows], bits[:rows], cg.masked_eval_torch(*t_args,
+                                                                               absolute=True))[0]
+                    print(f"[9b] {tree} {dim}-D densemask far field vs the bit-packed far field on "
+                          f"the same accepts, first {HEAD_TILES} tiles: max |diff| / sum|term| = "
+                          f"{err:.3e} (limit 1e-5); forces vs the default path: sum|diff| / "
+                          f"sum|a| = {rel:.3e}")
+                    check(err <= 1e-5, f"{tree} {dim}-D densemask far field differs from the "
+                          "bit-packed one")
+                    del far, bits, t_args
+                elif token == "farcompact":
+                    print(f"[9b] octree {dim}-D farcompact vs the default path: sum|diff| / "
+                          f"sum|a| = {rel:.3e} (limit 1e-5); far_over tiles "
+                          f"{info['far_over_tiles']}")
+                    check(rel <= 1e-5, f"octree {dim}-D farcompact forces differ")
+                elif dim == 3:  # desc1, desc2: the 3-D force against the exact sum
+                    if ref is None:
+                        ref = cfg.G * ca.allpairs_block_cuda(bodies[1], bodies[0], bodies[1], eps,
+                                                             "sqrt3")
+                    accuracy("9b", f"octree {token} vs sqrt3 all-pairs", big, a, ref)
+                del a, rec, args
+            del a0, ref, bodies
+            torch.cuda.empty_cache()
+
+    # -- (b) 17,000 bodies, 3-D, per token: the card against the CPU twins
+    m, x = clusters(17000, 3)
+    for tree, tokens in (("octree", OCTREE_TOKENS), ("bvh", BVH_TOKENS)):
+        for token in tokens:
+            runs = []
+            for device in (dev, torch.device("cpu")):
+                mt, xt = torch.tensor(m, device=device), torch.tensor(x, device=device)
+                depth = 0
+                if tree == "octree":
+                    depth = octree.max_depth(17000, 3)
+                    bodies = octree.morton_sort(mt, xt, *octree.robust_quant_box(xt), depth)[:3]
+                else:
+                    st = bvh.hilbert_sort(SystemState(mt, xt, torch.zeros_like(xt),
+                                                      torch.zeros_like(xt), torch.zeros_like(xt)),
+                                          eps)
+                    bodies = (st.m, st.x)
+                a, info, _ = ablate_eval(tree, device, bodies, depth, token, (0.5, 1.0, eps),
+                                         window_tiles=2)
+                runs.append((a.cpu(), info))
+            check(runs[1][1]["entries"] > 0, f"9b {tree} {token}: no entries at 17,000 bodies")
+            card_vs_cpu("9b", f"17000-body 3-D clusters, {tree} ablate={token}, window_tiles 2",
+                        runs)
+
+    # -- (c) python -m nbody_torch.probe knobs at 2^20 as subprocesses, one
+    #    SPEC per token (and the default path) in 3-D and 2-D; each resets
+    #    the launch counts before its SPEC's steps and reports them after
+    specs = {"oct": [f"512,{s},32,{tok},{dim},0" for tok in ("none", *OCTREE_TOKENS)
+                     for dim, s in ((3, 8192), (2, 2048))],
+             "bvh": [f"512,512,32,{tok},0,{dim}" for tok in ("none", *BVH_TOKENS)
+                     for dim in (3, 2)]}
+    probe_rows = {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        for tree, tree_specs in specs.items():
+            out = os.path.join(tmp, f"{tree}.jsonl")
+            cmd = [sys.executable, "-m", "nbody_torch.probe", "knobs", tree, out, *tree_specs,
+                   "--n", str(big), "--device", dev.type]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=root)
+            rows = [json.loads(line) for line in Path(out).read_text().splitlines()] \
+                if os.path.exists(out) else []
+            print(f"[9c] {' '.join(cmd[1:4])} OUT <{len(tree_specs)} SPECs> --n {big}: rc "
+                  f"{proc.returncode}, {len(rows)} lines in {time.perf_counter() - t0:.0f} s")
+            check(proc.returncode == 0 and len(rows) == len(tree_specs),
+                  f"probe knobs {tree} failed: {proc.stderr[-2000:]}")
+            for r in rows:
+                print(f"[9c]   {json.dumps(r)}")
+                probe_rows[(tree, r["spec"])] = r
+    launches = {name: {} for name in ABLATE_KERNELS}
+    for (tree, spec), r in probe_rows.items():
+        token = spec.split(",")[3]
+        tokens = OCTREE_TOKENS if tree == "oct" else BVH_TOKENS
+        if token in tokens:
+            name = tokens[token]
+            n_launch = r["launches"].get(name, 0)
+            check(n_launch > 0, f"probe {tree} {spec} launched no {name}")
+            launches[name][f"{tree} {spec}"] = n_launch
+    print(f"[9] phase 9 wall time {time.perf_counter() - t9:.0f} s")
+
+    main_spec = {"masked_eval_kernel": "oct 512,8192,32,densemask,3,0",
+                 "group_shared_masked_kernel": "oct 512,8192,32,farcompact,3,0",
+                 "entries_lohi_kernel<packed>": "oct 512,8192,32,packedj,3,0"}
+    main_call = {"masked_eval_kernel": "octree_densemask_3d",
+                 "group_shared_masked_kernel": "octree_farcompact_3d",
+                 "entries_lohi_kernel<packed>": "octree_packedj_3d"}
+    entries = []
+    for name, (_, _, _, replaces) in ABLATE_KERNELS.items():
+        label = "entries_lohi_kernel<sqrt3, packed>" if "packed" in name else f"{name}<sqrt3>"
+        entries.append({"name": label, "route": "cuda", "source": GROUP_EVAL,
+                        "replaces": replaces, "launches": launches[name][main_spec[name]],
+                        "launches_in": f"phase 9c: python -m nbody_torch.probe knobs "
+                                       f"{main_spec[name]} --n {big} (1 untimed + 3 timed steps)",
+                        **measured[name][main_call[name]], "n": big, "dim": 3,
+                        "dtype": "float32", "launches_by_spec": launches[name],
+                        "other_calls": {k: v for k, v in measured[name].items()
+                                        if k != main_call[name]}})
     return entries
 
 

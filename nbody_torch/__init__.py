@@ -16,13 +16,16 @@ Layer map:
   io/           - binary trajectory/energy/state formats (ref: src/saving.h)
   sim/          - engines, step loop, warmup protocol, CSV (ref: run_* loops)
   utils/        - device sync and the seconds-per-step estimator
+  experimental/ - the octree's supertile descent (ablate tokens desc1 / desc2)
   cli.py        - python -m nbody_torch.cli
   kernel_bench  - python -m nbody_torch.kernel_bench (scripts/kernel_bench.py)
+  probe         - python -m nbody_torch.probe (trace, knobs, sass)
 
 Ported so far: the all-pairs and all-pairs-collapsed algorithms, the
-octree and BVH fast paths, the trees' list paths (float64), and the
-all-pairs kernel variants. The per-body walks, the ablation and probe
-kernels and the multi-device layouts are still to come (ROADMAP.md).
+octree and BVH fast paths with their ablation path (the knob probe's
+ablate tokens), the trees' list paths (float64), and the all-pairs kernel
+variants. The per-body walks, the probe kernels and the multi-device
+layouts are still to come (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

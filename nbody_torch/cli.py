@@ -16,8 +16,9 @@ paths in double precision (through the CUDA list kernel) and under
 --kernel torch (through its plain twin), as nbody_tpu chooses. Not yet
 ported, and refused with exit code 1 rather than ignored: the octree and
 the bvh with --traversal per-body, the bvh with --sort-every > 1 or
---refine-levels > 0, --mesh > 1, --mesh-layout partitioned, --mesh-tile
-> 1 and --profile.
+--refine-levels > 0, --mesh > 1 and --profile. At --mesh 1 (or below),
+--mesh-layout and --mesh-tile are read and ignored, as nbody_tpu ignores
+them there.
 
 The port runs on the GPU unless --device cpu asks for the CPU: without a
 CUDA device, --device auto (the default) and --device cuda exit 1.
@@ -48,8 +49,8 @@ _HELP = """Help:
 \t\t(octree and bvh with --kernel torch or in double take their list paths)
 --device auto|cpu|cuda\t\tTorch device (default auto: the GPU; cpu only when asked for)
 --mesh N\t\tShard bodies across N devices (only 1 is ported)
---mesh-layout L\treplicated (default) | partitioned (not yet ported)
---mesh-tile T\t\tPartitioned 2-D mesh tile shards (only 1 is ported)
+--mesh-layout L\treplicated (default) | partitioned (read only when --mesh > 1)
+--mesh-tile T\t\tPartitioned 2-D mesh tile shards (read only when --mesh > 1)
 --chunk N\t\tAccepted for nbody_tpu parity; nbody_torch sizes its row chunks from n
 --fix-collapsed-z\t\tFix the reference's frozen-z quirk in all-pairs-collapsed
 --sort-every K\t\tRe-sort bodies every K steps in tree engines (default 1; bvh: only 1 is ported)
@@ -254,12 +255,11 @@ def _unported(args: dict) -> str | None:
             return f'--algorithm bvh --sort-every {args["sort_every"]}'
         if args["refine"] > 0:
             return f'--algorithm bvh --refine-levels {args["refine"]}'
-    if args["mesh"] != 1:
+    # nbody_tpu reads --mesh-layout and --mesh-tile only when mesh > 1
+    # (sim/engines.py:93, sim/tree_engines.py:58, :228); below that it runs
+    # the single-device step, which the port has
+    if args["mesh"] > 1:
         return "--mesh > 1"
-    if args["mesh_layout"] != "replicated":
-        return f'--mesh-layout {args["mesh_layout"]}'
-    if args["mesh_tile"] != 1:
-        return "--mesh-tile > 1"
     if args["profile"]:
         return "--profile"
     return None

@@ -68,6 +68,34 @@
 // {float, double}, as allpairs.cu is; on an H100 float64 issue (its
 // division and square root) is what bounds it.
 //
+// masked_eval_kernel<DIM, SQRT3> replaces masked_eval_pallas (:216, body
+// _masked_eval_kernel :184): the far field with a dense float32 accept mask
+// (T, W), the ablation token densemask of both trees. Every tile sees the
+// same W nodes, each weighted by its mask value: w = mask[t, l] * m_l / t.
+// It computes the Pallas function, not the bit-skipping shortcut of
+// masked_eval_bits_kernel: the block stages the nodes and the tile's mask
+// row together, kChunk at a time; a stage whose weights are all zero is
+// skipped, and so is a node of weight zero inside a stage (block-uniform:
+// every thread reads the same weight). Both skips are exact, since such a
+// term is 0 * dx / t with t >= eps > 0.
+//
+// group_shared_masked_kernel<DIM, SQRT3> replaces
+// group_shared_masked_eval_pallas (:717, body _group_shared_masked_kernel
+// :684): supertiles of G consecutive tiles share one gathered monopole list
+// (mj (nsuper, M), xj (nsuper, M, dim)); tile t reads list t / G and its
+// own mask row (T, M). The octree's farcompact far field and the
+// descent's monopoles (desc1 / desc2) take it. Padded monopoles carry
+// m = 0; zero weights are skipped as above.
+//
+// entries_lohi_kernel<DIM, SQRT3, PackedSource> replaces
+// _entries_lohi_packed_kernel (:896, entries_lohi_eval_pallas(packed_j=True)
+// :1040): the entries kernel reading each source body as one 16-byte
+// float4 (x, y, z | 0, m) from an (npad, 4) array the wrapper builds, the
+// GPU form of the TPU's one (4, S) block per entry (ablation token
+// packedj). Only the staging load differs; the staged values and the pair
+// arithmetic after them are the unpacked kernel's, so the two agree bit for
+// bit.
+//
 // What bounds them on an H100: as for allpairs_block_kernel (PERF.md), FP32
 // and SFU issue per pair -- the IEEE sqrt and division of pair_weight --
 // not bytes: the sources are staged once per block through shared memory
@@ -85,6 +113,8 @@
 // longest running sums left are a row's over its stages or its entries.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "pair.cuh"
 
@@ -165,23 +195,62 @@ __device__ __forceinline__ void add_source(const T (&p)[kRows][DIM], T m, const 
   }
 }
 
-// The contiguous sorted bodies [a, b), staged kChunk at a time, added to
+// Where a kernel reads source body j: masses and positions in two arrays
+// (m[j], x[j * DIM + d]) ...
+template <typename T, int DIM>
+struct SplitSource {
+  const T* __restrict__ m;
+  const T* __restrict__ x;
+
+  __device__ __forceinline__ void load(int j, T& mj, T (&xj)[DIM]) const {
+    mj = m[j];
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) xj[d] = x[static_cast<size_t>(j) * DIM + d];
+  }
+};
+
+// ... or both in one float4 per body, (x, y, z | 0, m): one 16-byte load.
+template <int DIM>
+struct PackedSource {
+  const float4* __restrict__ xm;
+
+  __device__ __forceinline__ void load(int j, float& mj, float (&xj)[DIM]) const {
+    const float4 v = xm[j];
+    mj = v.w;
+    xj[0] = v.x;
+    xj[1] = v.y;
+    if constexpr (DIM == 3) xj[2] = v.z;
+  }
+};
+
+// The contiguous sources [a, b) of `src`, staged kChunk at a time, added to
 // `sum` stage by stage. Called by every thread with block-uniform a, b.
-// With `weight`, body j's mass is scaled by weight[j - a].
-template <typename T, int DIM, bool SQRT3>
-__device__ __forceinline__ void add_range(const Rows<T, DIM>& rows, const T* __restrict__ mj,
-                                          const T* __restrict__ xj, int a, int b, T eps, T* s_m,
-                                          T (*s_x)[kChunk], T (&sum)[kRows][DIM],
+// With `weight`, body j's mass is scaled by weight[j - a]. SKIP_ZERO skips
+// a stage whose staged masses are all zero, and a zero mass inside a
+// stage; both are block-uniform and exact (the term is 0 * dx / t).
+template <typename T, int DIM, bool SQRT3, bool SKIP_ZERO = false, typename Src>
+__device__ __forceinline__ void add_range(const Rows<T, DIM>& rows, const Src& src, int a, int b,
+                                          T eps, T* s_m, T (*s_x)[kChunk], T (&sum)[kRows][DIM],
                                           const T* __restrict__ weight = nullptr) {
   for (int j0 = a; j0 < b; j0 += kChunk) {
     const int len = min(kChunk, b - j0);
+    bool live = false;
     if (threadIdx.x < len) {
       const int j = j0 + threadIdx.x;
-      s_m[threadIdx.x] = weight == nullptr ? mj[j] : mj[j] * weight[j - a];
+      T m;
+      T x[DIM];
+      src.load(j, m, x);
+      if (weight != nullptr) m = m * weight[j - a];
+      s_m[threadIdx.x] = m;
 #pragma unroll
-      for (int d = 0; d < DIM; ++d) s_x[d][threadIdx.x] = xj[static_cast<size_t>(j) * DIM + d];
+      for (int d = 0; d < DIM; ++d) s_x[d][threadIdx.x] = x[d];
+      live = m != T(0);
     }
-    __syncthreads();
+    if constexpr (SKIP_ZERO) {
+      if (!__syncthreads_or(live)) continue;  // every staged weight is zero
+    } else {
+      __syncthreads();
+    }
     T part[kRows][DIM];
     zero(part);
     for (int k0 = 0; k0 < len; k0 += kGroup) {
@@ -190,6 +259,9 @@ __device__ __forceinline__ void add_range(const Rows<T, DIM>& rows, const T* __r
       const int k1 = min(len, k0 + kGroup);
 #pragma unroll 4
       for (int k = k0; k < k1; ++k) {
+        if constexpr (SKIP_ZERO) {
+          if (s_m[k] == T(0)) continue;  // the same s_m[k] for every thread
+        }
         T x[DIM];
 #pragma unroll
         for (int d = 0; d < DIM; ++d) x[d] = s_x[d][k];
@@ -200,6 +272,11 @@ __device__ __forceinline__ void add_range(const Rows<T, DIM>& rows, const T* __r
     add_to(sum, part);
     __syncthreads();
   }
+}
+
+template <typename T, int DIM>
+__device__ __forceinline__ SplitSource<T, DIM> split_source(const T* m, const T* x) {
+  return SplitSource<T, DIM>{m, x};
 }
 
 template <int DIM, bool SQRT3>
@@ -266,7 +343,8 @@ window_eval_interval_kernel(const float* __restrict__ xi, int tb, const float* _
   const int col0 = w0[t] * tb;
   const int a = max(lo[t], col0);
   const int b = min(min(hi[t], col0 + window_tiles * tb), nj);
-  add_range<float, DIM, true>(rows, mj, xj, a, b, eps, s_m, s_x, rows.acc);
+  add_range<float, DIM, true>(rows, split_source<float, DIM>(mj, xj), a, b, eps, s_m, s_x,
+                              rows.acc);
   rows.store(out);
 }
 
@@ -295,7 +373,10 @@ window_eval_nodemask_kernel(const float* __restrict__ xi, int tb, const float* _
     while (v1 < wnodes && slot_open[v1]) ++v1;
     const int a = col0 + v * S;
     const int b = min(col0 + v1 * S, nj);
-    if (a < b) add_range<float, DIM, SQRT3>(rows, mj, xj, a, b, eps, s_m, s_x, rows.acc);
+    if (a < b) {
+      add_range<float, DIM, SQRT3>(rows, split_source<float, DIM>(mj, xj), a, b, eps, s_m, s_x,
+                                   rows.acc);
+    }
     v = v1;
   }
   rows.store(out);
@@ -314,17 +395,17 @@ window_eval_dense_kernel(const float* __restrict__ xi, int tb, const float* __re
   const int t = blockIdx.x;
   const int a = w0[t] * tb;
   const int b = min(a + wb, nj);
-  add_range<float, DIM, SQRT3>(rows, mj, xj, a, b, eps, s_m, s_x, rows.acc,
-                        mask + static_cast<size_t>(t) * wb);
+  add_range<float, DIM, SQRT3>(rows, split_source<float, DIM>(mj, xj), a, b, eps, s_m, s_x, rows.acc,
+                               mask + static_cast<size_t>(t) * wb);
   rows.store(out);
 }
 
-template <int DIM, bool SQRT3>
+template <int DIM, bool SQRT3, typename Src>
 __global__ void __launch_bounds__(kThreads)
-entries_lohi_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
-                    const float* __restrict__ xj, int nj, const int* __restrict__ entries,
-                    const int* __restrict__ lohis, const int* __restrict__ first,
-                    const int* __restrict__ last, int S, float eps, float* __restrict__ out) {
+entries_lohi_kernel(const float* __restrict__ xi, int tb, const Src src, int nj,
+                    const int* __restrict__ entries, const int* __restrict__ lohis,
+                    const int* __restrict__ first, const int* __restrict__ last, int S, float eps,
+                    float* __restrict__ out) {
   __shared__ float s_m[kChunk];
   __shared__ float s_x[DIM][kChunk];
 
@@ -338,9 +419,40 @@ entries_lohi_kernel(const float* __restrict__ xi, int tb, const float* __restric
     if (a >= b) continue;  // a lo == hi sentinel or padding entry
     float ent[kRows][DIM];
     zero(ent);
-    add_range<float, DIM, SQRT3>(rows, mj, xj, a, b, eps, s_m, s_x, ent);
+    add_range<float, DIM, SQRT3>(rows, src, a, b, eps, s_m, s_x, ent);
     add_to(rows.acc, ent);
   }
+  rows.store(out);
+}
+
+template <int DIM, bool SQRT3>
+__global__ void __launch_bounds__(kThreads)
+masked_eval_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
+                   const float* __restrict__ xj, int W, const float* __restrict__ mask, float eps,
+                   float* __restrict__ out) {
+  __shared__ float s_m[kChunk];
+  __shared__ float s_x[DIM][kChunk];
+
+  Rows<float, DIM> rows(xi, tb);
+  add_range<float, DIM, SQRT3, true>(rows, split_source<float, DIM>(mj, xj), 0, W, eps, s_m, s_x,
+                                     rows.acc, mask + static_cast<size_t>(blockIdx.x) * W);
+  rows.store(out);
+}
+
+template <int DIM, bool SQRT3>
+__global__ void __launch_bounds__(kThreads)
+group_shared_masked_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
+                           const float* __restrict__ xj, int M, int G,
+                           const float* __restrict__ mask, float eps, float* __restrict__ out) {
+  __shared__ float s_m[kChunk];
+  __shared__ float s_x[DIM][kChunk];
+
+  Rows<float, DIM> rows(xi, tb);
+  const int t = blockIdx.x;
+  const size_t list = static_cast<size_t>(t / G) * M;  // the supertile's monopoles
+  add_range<float, DIM, SQRT3, true>(rows, split_source<float, DIM>(mj + list, xj + list * DIM), 0,
+                                     M, eps, s_m, s_x, rows.acc,
+                                     mask + static_cast<size_t>(t) * M);
   rows.store(out);
 }
 
@@ -357,10 +469,10 @@ group_eval_kernel(const T* __restrict__ xi, int tb, const T* __restrict__ mj,
   const T* tile_m = mj + static_cast<size_t>(t) * L;
   const T* tile_x = xj + static_cast<size_t>(t) * L * DIM;
   // the live head of each segment: nodes [0, n0), leaf bodies [split, split + n1)
-  add_range<T, DIM, SQRT3>(rows, tile_m, tile_x, 0, min(max(n0[t], 0), split), eps, s_m, s_x,
+  const SplitSource<T, DIM> src{tile_m, tile_x};
+  add_range<T, DIM, SQRT3>(rows, src, 0, min(max(n0[t], 0), split), eps, s_m, s_x, rows.acc);
+  add_range<T, DIM, SQRT3>(rows, src, split, split + min(max(n1[t], 0), L - split), eps, s_m, s_x,
                            rows.acc);
-  add_range<T, DIM, SQRT3>(rows, tile_m, tile_x, split, split + min(max(n1[t], 0), L - split), eps,
-                           s_m, s_x, rows.acc);
   rows.store(out);
 }
 
@@ -395,6 +507,19 @@ cudaError_t launch_group_eval(int dim, int sqrt3, const void* xi, int ntiles, in
   kernel<<<grid_for(ntiles, tb), kThreads, 0, stream>>>(
       static_cast<const T*>(xi), tb, static_cast<const T*>(mj), static_cast<const T*>(xj), L, split,
       static_cast<const int*>(n0), static_cast<const int*>(n1), static_cast<T>(eps), static_cast<T*>(out));
+  return cudaGetLastError();
+}
+
+template <int DIM, typename Src>
+cudaError_t launch_entries(int sqrt3, const void* xi, int ntiles, int tb, const Src& src, int nj,
+                           const void* entries, const void* lohis, const void* first,
+                           const void* last, int S, double eps, void* out, void* stream) {
+  if (sqrt3 != 0 && sqrt3 != 1) return cudaErrorInvalidValue;
+  const auto kernel = sqrt3 ? entries_lohi_kernel<DIM, true, Src> : entries_lohi_kernel<DIM, false, Src>;
+  kernel<<<grid_for(ntiles, tb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xi), tb, src, nj, static_cast<const int*>(entries),
+      static_cast<const int*>(lohis), static_cast<const int*>(first), static_cast<const int*>(last), S,
+      static_cast<float>(eps), static_cast<float*>(out));
   return cudaGetLastError();
 }
 
@@ -490,12 +615,72 @@ extern "C" int nbody_entries_lohi_eval(int device, int dim, const void* xi, int 
                                        void* stream) {
   cudaError_t err = prepare(device, ntiles, tb);
   if (err != cudaSuccess) return err;
-  const auto kernel = pick(dim, sqrt3, entries_lohi_kernel<2, false>, entries_lohi_kernel<2, true>,
-                           entries_lohi_kernel<3, false>, entries_lohi_kernel<3, true>);
-  if (kernel == nullptr || S <= 0) return cudaErrorInvalidValue;
+  if (S <= 0) return cudaErrorInvalidValue;
+  const auto* m = static_cast<const float*>(mj);
+  const auto* x = static_cast<const float*>(xj);
+  if (dim == 2) {
+    return launch_entries<2>(sqrt3, xi, ntiles, tb, SplitSource<float, 2>{m, x}, nj, entries, lohis,
+                             first, last, S, eps, out, stream);
+  }
+  if (dim == 3) {
+    return launch_entries<3>(sqrt3, xi, ntiles, tb, SplitSource<float, 3>{m, x}, nj, entries, lohis,
+                             first, last, S, eps, out, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The entries kernel with each source body packed as one float4 (x, y,
+// z | 0, m) of xm (nj, 4), 16-byte aligned.
+extern "C" int nbody_entries_lohi_eval_packed(int device, int dim, const void* xi, int ntiles,
+                                              int tb, const void* xm, int nj, const void* entries,
+                                              const void* lohis, const void* first,
+                                              const void* last, int S, int sqrt3, double eps,
+                                              void* out, void* stream) {
+  cudaError_t err = prepare(device, ntiles, tb);
+  if (err != cudaSuccess) return err;
+  if (S <= 0 || reinterpret_cast<uintptr_t>(xm) % alignof(float4) != 0) return cudaErrorInvalidValue;
+  const auto* packed = static_cast<const float4*>(xm);
+  if (dim == 2) {
+    return launch_entries<2>(sqrt3, xi, ntiles, tb, PackedSource<2>{packed}, nj, entries, lohis,
+                             first, last, S, eps, out, stream);
+  }
+  if (dim == 3) {
+    return launch_entries<3>(sqrt3, xi, ntiles, tb, PackedSource<3>{packed}, nj, entries, lohis,
+                             first, last, S, eps, out, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The dense-mask far field: mask (ntiles, W) float32 weights on the W
+// shared nodes mj (W,), xj (W, dim).
+extern "C" int nbody_masked_eval(int device, int dim, const void* xi, int ntiles, int tb,
+                                 const void* mj, const void* xj, int W, const void* mask,
+                                 int sqrt3, double eps, void* out, void* stream) {
+  cudaError_t err = prepare(device, ntiles, tb);
+  if (err != cudaSuccess) return err;
+  const auto kernel = pick(dim, sqrt3, masked_eval_kernel<2, false>, masked_eval_kernel<2, true>,
+                           masked_eval_kernel<3, false>, masked_eval_kernel<3, true>);
+  if (kernel == nullptr || W < 0) return cudaErrorInvalidValue;
   kernel<<<grid_for(ntiles, tb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xi), tb, static_cast<const float*>(mj), static_cast<const float*>(xj), nj,
-      static_cast<const int*>(entries), static_cast<const int*>(lohis), static_cast<const int*>(first),
-      static_cast<const int*>(last), S, static_cast<float>(eps), static_cast<float*>(out));
+      static_cast<const float*>(xi), tb, static_cast<const float*>(mj), static_cast<const float*>(xj), W,
+      static_cast<const float*>(mask), static_cast<float>(eps), static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+// Supertile-shared monopoles: mj (ceil(ntiles / G), M), xj (ceil(ntiles /
+// G), M, dim); tile t reads list t / G with its mask row (ntiles, M).
+extern "C" int nbody_group_shared_masked_eval(int device, int dim, const void* xi, int ntiles,
+                                              int tb, const void* mj, const void* xj, int M, int G,
+                                              const void* mask, int sqrt3, double eps, void* out,
+                                              void* stream) {
+  cudaError_t err = prepare(device, ntiles, tb);
+  if (err != cudaSuccess) return err;
+  const auto kernel = pick(dim, sqrt3, group_shared_masked_kernel<2, false>,
+                           group_shared_masked_kernel<2, true>, group_shared_masked_kernel<3, false>,
+                           group_shared_masked_kernel<3, true>);
+  if (kernel == nullptr || M < 0 || G <= 0) return cudaErrorInvalidValue;
+  kernel<<<grid_for(ntiles, tb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xi), tb, static_cast<const float*>(mj), static_cast<const float*>(xj), M,
+      G, static_cast<const float*>(mask), static_cast<float>(eps), static_cast<float*>(out));
   return cudaGetLastError();
 }

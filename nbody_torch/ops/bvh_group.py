@@ -34,6 +34,11 @@ word limit RW and the same overflow flag (residual_ids). JAX's
 while_loop over overflowed tiles reads one counter on the host: one
 synchronisation per call. refine_levels is 0 (nbody_tpu's default) and
 not a parameter here.
+
+The `ablate` tokens of nbody_tpu that the port runs (BVH_ABLATE), for the
+knob probe (python -m nbody_torch.probe knobs bvh): densemask, the far
+field with the dense float32 mask (masked_eval_cuda) and the dense-mask
+window; packedj, the residual entries reading packed sources.
 """
 
 from __future__ import annotations
@@ -46,13 +51,17 @@ from nbody_torch.ops.bvh import BVHTree
 from nbody_torch.ops.cuda_allpairs import allpairs_block_cuda
 from nbody_torch.ops.cuda_group_eval import (entries_lohi_eval_cuda, group_eval_cuda,
                                              group_eval_torch, masked_eval_bits_cuda,
-                                             pack_mask_bits, window_eval_dense_cuda,
-                                             window_eval_nodemask_cuda)
-from nbody_torch.ops.octree_group import (_box_dist2, compact_rows, exact_fallback,
-                                          merge_contiguous_entries, overflow_causes, tile_boxes)
+                                             masked_eval_cuda, pack_mask_bits,
+                                             window_eval_dense_cuda, window_eval_nodemask_cuda)
+from nbody_torch.ops.octree_group import (_box_dist2, ablate_tokens, compact_rows, exact_fallback,
+                                          merge_contiguous_entries, overflow_causes, tile_boxes,
+                                          unique_blocks)
 
 BIG = 1 << 30  # sort sentinel of the residual node ids
-S_TARGET = 512  # bodies per L* node (nbody_tpu's s_target default)
+# The ablate tokens of nbody_tpu's windowed path that the port runs:
+# densemask and packedj select ported kernels; fheap and sortunperm change
+# nothing (see octree_group.OCTREE_ABLATE).
+BVH_ABLATE = ("densemask", "packedj", "fheap", "sortunperm")
 
 
 def residual_ids(out_open: torch.Tensor, r_slice: int):
@@ -80,13 +89,17 @@ def residual_ids(out_open: torch.Tensor, r_slice: int):
 
 def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tensor,
                                    theta: float, G: float, eps: float, tile: int = 512,
-                                   window_tiles: int = 32, e_chunk: int = 24576):
+                                   window_tiles: int = 32, e_chunk: int = 24576,
+                                   s_target: int = 512, ablate: str = ""):
     """Gather-free grouped BVH force (float32). m, x are the Hilbert-sorted
-    bodies and tree their refit. Returns (G * accel in sorted order, info)
-    with info's counters as device tensors, nbody_tpu's keys: max_nodes,
-    max_leaves, fallback_tiles, node_overflow, leaf_overflow, entries,
-    res_pairs, bad_entries, res_width_sum, res_unique_blocks and
-    res_pass_0..res_pass_nsub."""
+    bodies and tree their refit; an L* node covers min(s_target, tile)
+    bodies. Returns (G * accel in sorted order, info) with info's counters
+    as device tensors, nbody_tpu's keys: max_nodes, max_leaves,
+    fallback_tiles, node_overflow, leaf_overflow, entries, res_pairs,
+    bad_entries, res_width_sum, res_unique_blocks and
+    res_pass_0..res_pass_nsub. ablate: comma-separated tokens of
+    BVH_ABLATE (see the module docstring)."""
+    tokens = ablate_tokens(ablate, BVH_ABLATE)
     n, dim = x.shape
     dev, dtype = x.device, x.dtype
     if dtype != torch.float32:
@@ -110,7 +123,7 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
     xt_real = torch.where(valid[:, :, None], xt, xt[:, :1, :])  # padding tiles sit at the origin
     tmin, tmax = xt_real.amin(1), xt_real.amax(1)
 
-    s_first = min(S_TARGET, tile)
+    s_first = min(s_target, tile)
     level_star = max(0, nlevels - (s_first.bit_length() - 1))
     S = 1 << (nlevels - level_star)
     while S > tile and level_star < nlevels:
@@ -155,7 +168,7 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
     col = w0n[:, None] + torch.arange(wnodes, **i64)[None, :]
     in_win = torch.gather(open_mask, 1, col.clamp_max(nodes_total - 1))  # (T, wnodes)
     w0_i32 = w0.to(torch.int32)
-    if wjf * npt > 64:  # nbody_tpu's dense branch: the S-fold broadcast of in_win
+    if "densemask" in tokens or wjf * npt > 64:  # the dense branch: in_win broadcast S-fold
         body_mask = in_win.to(dtype)[:, :, None].expand(ntiles, wnodes, S).reshape(ntiles, wt * tile)
         near = window_eval_dense_cuda(xp, mp, xp, w0_i32, body_mask, eps, wt, "poly")
     else:
@@ -185,8 +198,11 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
 
     # ---- far field over heap levels 0..L* (:779-800) -------------------
     W = (1 << (level_star + 1)) - 1
-    far = masked_eval_bits_cuda(xp, mm[:W], mx[:W], pack_mask_bits(torch.cat(accept_masks, dim=1)),
-                                eps, "poly")
+    far_bool = torch.cat(accept_masks, dim=1)
+    if "densemask" in tokens:
+        far = masked_eval_cuda(xp, mm[:W], mx[:W], far_bool.to(dtype), eps, "poly")
+    else:
+        far = masked_eval_bits_cuda(xp, mm[:W], mx[:W], pack_mask_bits(far_bool), eps, "poly")
 
     # ---- residual entry lists (:802-920) -------------------------------
     out_count = out_open.sum(1)
@@ -222,7 +238,11 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
     entries = ((entries_gbe & ~0xFFFF) | blk_tbl[gidx]).to(torch.int32)
     entries, lohis, n_merged = merge_contiguous_entries(entries, lohi_tbl[gidx], end_rank[-1],
                                                         (ntiles - 1) << 16)
-    resid = entries_lohi_eval_cuda(xp, mp, xp, entries, lohis, n_merged, Sd, ntiles, eps, "poly")
+    resid_args = (xp, mp, xp, entries, lohis, n_merged, Sd, ntiles, eps, "poly")
+    if "packedj" in tokens:
+        resid = entries_lohi_eval_cuda(*resid_args, packed=True)
+    else:
+        resid = entries_lohi_eval_cuda(*resid_args)
     acc = (far + near) + resid
 
     # ---- exact fallback for overflowed tiles (:338-401) ---------------
@@ -233,11 +253,6 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
         fb = allpairs_block_cuda(xt[over].reshape(-1, dim), m, x, eps, "poly")
         acc.view(ntiles, tile, dim)[over] = fb.view(-1, tile, dim)
 
-    # distinct S-blocks among the real entries, counted on the device
-    never = 0x7FFFFFFF
-    blk = torch.sort(torch.where(torch.arange(entries.shape[0], device=dev) < n_merged,
-                                 entries & 0xFFFF, never)).values
-    new_blk = (blk != torch.cat([blk.new_full((1,), -1), blk[:-1]])) & (blk != never)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     info = {
         # nbody_tpu's windowed path hands zero list counts to its finisher
@@ -248,7 +263,7 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
         "res_pairs": res_pairs,
         "bad_entries": ((entries >> 16) >= ntiles).sum(),
         "res_width_sum": ((lohis >> 16) - (lohis & 0xFFFF)).sum(),
-        "res_unique_blocks": new_blk.sum(),
+        "res_unique_blocks": unique_blocks(entries, n_merged),
         **{f"res_pass_{k}": v for k, v in enumerate(res_pass)},
     }
     return G * acc[:n], info

@@ -20,6 +20,18 @@ BVH fast and list paths. The kernels live in nbody_torch/csrc/group_eval.cu
   entries_lohi_kernel          replaces entries_lohi_eval_pallas (:963; body
                                _entries_lohi_kernel :823): the near-field
                                exact entries
+  masked_eval_kernel           replaces masked_eval_pallas (:216; body
+                               _masked_eval_kernel :184): the far field
+                               with a dense float32 accept mask (ablate
+                               token densemask)
+  group_shared_masked_kernel   replaces group_shared_masked_eval_pallas
+                               (:717; body _group_shared_masked_kernel
+                               :684): supertile-shared monopole lists with
+                               per-tile masks (farcompact, desc1 / desc2)
+  entries_lohi_kernel<packed>  replaces _entries_lohi_packed_kernel (:896;
+                               entries_lohi_eval_pallas(packed_j=True)
+                               :1040): the entries with each source read
+                               as one float4 (x, y, z | 0, m) (packedj)
   group_eval_kernel            computes group_eval_pallas's function (:83;
                                body _group_eval_kernel): the list paths'
                                evaluation, each tile against its own list.
@@ -61,7 +73,8 @@ from nbody_torch.ops.cuda_allpairs import _DTYPE_CODES, _on_cpu, _raise_on_error
 # by instantiation, group_eval_name); the twins never count.
 launch_counts = {"masked_eval_bits_kernel": 0, "window_eval_interval_kernel": 0,
                  "window_eval_nodemask_kernel": 0, "window_eval_dense_kernel": 0,
-                 "entries_lohi_kernel": 0,
+                 "entries_lohi_kernel": 0, "masked_eval_kernel": 0,
+                 "group_shared_masked_kernel": 0, "entries_lohi_kernel<packed>": 0,
                  **{f"group_eval_kernel<{dtype}, {softening}>": 0
                     for dtype in ("float32", "float64") for softening in SOFTENINGS}}
 
@@ -163,6 +176,49 @@ def masked_eval_bits_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
     return out.view_as(xi)
 
 
+def masked_eval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, mask: torch.Tensor,
+                      eps: float, softening: str, absolute: bool = False) -> torch.Tensor:
+    """Far field with a dense weight mask: row tile t against the shared
+    nodes (mj (W,), xj (W, dim)), node l weighted by mask[t, l] (T, W) on
+    its mass -- the plain twin of masked_eval_kernel."""
+    ntiles, w = mask.shape
+    tb = xi.shape[0] // ntiles
+    xt = xi.view(ntiles, tb, -1)
+    out = torch.empty_like(xt)
+    keep = torch.ones((), dtype=torch.bool, device=xi.device)
+    for ts, rs in _chunks(ntiles, tb, w, xi.device):
+        m = mask[ts] * mj
+        out[ts, rs] = _masked_block(xt[ts, rs], m, xj.expand(m.shape[0], *xj.shape),
+                                    keep.expand(m.shape), eps, softening, absolute)
+    return out.view_as(xi)
+
+
+def group_shared_masked_eval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
+                                   mask: torch.Tensor, eps: float, G: int, softening: str,
+                                   absolute: bool = False) -> torch.Tensor:
+    """Supertile-shared monopoles: row tile t against list t // G (mj
+    (nsuper, M), xj (nsuper, M, dim)), entry k weighted by mask[t, k] (T,
+    M) on its mass -- the plain twin of group_shared_masked_kernel."""
+    ntiles, width = mask.shape
+    tb = xi.shape[0] // ntiles
+    xt = xi.view(ntiles, tb, -1)
+    out = torch.empty_like(xt)
+    keep = torch.ones((), dtype=torch.bool, device=xi.device)
+    lists = torch.arange(ntiles, device=xi.device) // G
+    for ts, rs in _chunks(ntiles, tb, width, xi.device):
+        m = mj[lists[ts]] * mask[ts]
+        out[ts, rs] = _masked_block(xt[ts, rs], m, xj[lists[ts]], keep.expand(m.shape), eps,
+                                    softening, absolute)
+    return out.view_as(xi)
+
+
+def pack_sources(mj: torch.Tensor, xj: torch.Tensor) -> torch.Tensor:
+    """The sources as one (nj, 4) array of rows (x, y, z | 0, m): what
+    entries_lohi_kernel<packed> reads, one 16-byte float4 per body."""
+    pad = xj.new_zeros(xj.shape[0], 3 - xj.shape[1])
+    return torch.cat([xj, pad, mj[:, None]], dim=1).contiguous()
+
+
 def window_eval_interval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                                w0: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, eps: float,
                                window_tiles: int, absolute: bool = False) -> torch.Tensor:
@@ -232,13 +288,17 @@ def window_eval_dense_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor
 
 def entries_lohi_eval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                             entries: torch.Tensor, lohis: torch.Tensor, n_real, S: int,
-                            ntiles: int, eps: float, softening: str,
-                            absolute: bool = False) -> torch.Tensor:
+                            ntiles: int, eps: float, softening: str, absolute: bool = False,
+                            packed: bool = False) -> torch.Tensor:
     """Near-field entries: for each of the first n_real entries
     (tile << 16 | blk, lo | hi << 16), row tile `tile` against the bodies
-    blk*S + [lo, hi) -- the plain twin of entries_lohi_kernel. Each entry
-    is cut into pieces of at most 256 bodies; pieces are summed per entry,
-    entries per tile."""
+    blk*S + [lo, hi) -- the plain twin of entries_lohi_kernel, and with
+    packed=True of entries_lohi_kernel<packed>, which reads the sources
+    from pack_sources(mj, xj). Each entry is cut into pieces of at most
+    256 bodies; pieces are summed per entry, entries per tile."""
+    if packed:
+        xm = pack_sources(mj, xj)
+        mj, xj = xm[:, 3], xm[:, :xi.shape[1]]
     tb, nj = xi.shape[0] // ntiles, mj.shape[0]
     dev = xi.device
     e = int(n_real)
@@ -424,22 +484,78 @@ def tile_segments(entries: torch.Tensor, n_real: torch.Tensor, ntiles: int):
 
 def entries_lohi_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                            entries: torch.Tensor, lohis: torch.Tensor, n_real: torch.Tensor,
-                           S: int, ntiles: int, eps: float, softening: str) -> torch.Tensor:
+                           S: int, ntiles: int, eps: float, softening: str,
+                           packed: bool = False) -> torch.Tensor:
     """Near-field entries: the first n_real entries of the tile-sorted list
     (tile << 16 | blk, lo | hi << 16), each adding the pairs of row tile
     `tile` with bodies blk*S + [lo, hi) -- the counterpart of
-    entries_lohi_eval_pallas. A tile with no entries gets zeros."""
+    entries_lohi_eval_pallas. A tile with no entries gets zeros.
+    packed=True (entries_lohi_eval_pallas(packed_j=True)) launches
+    entries_lohi_kernel<packed> on pack_sources(mj, xj), built here once
+    per call; its sums equal the unpacked kernel's bit for bit."""
     _check(xi, ntiles, mj, xj, entries, lohis)
     if entries.shape != lohis.shape or entries.ndim != 1:
         raise ValueError(f"entries {tuple(entries.shape)} and lohis {tuple(lohis.shape)}")
     sqrt3 = _sqrt3(softening)
     if _on_cpu(xi, mj, xj, entries, lohis):
         return entries_lohi_eval_torch(xi, mj, xj, entries, lohis, n_real, S, ntiles, eps,
-                                       softening)
+                                       softening, packed=packed)
     first, last = tile_segments(entries, n_real, ntiles)
+    tail = (entries.data_ptr(), lohis.data_ptr(), first.data_ptr(), last.data_ptr(), int(S), sqrt3,
+            float(eps))
+    if packed:
+        xm = pack_sources(mj, xj)
+        return _launch("entries_lohi_kernel<packed>", "nbody_entries_lohi_eval_packed", xi, ntiles,
+                       xm.data_ptr(), xm.shape[0], *tail)
     return _launch("entries_lohi_kernel", "nbody_entries_lohi_eval", xi, ntiles,
-                   mj.data_ptr(), xj.data_ptr(), mj.shape[0], entries.data_ptr(),
-                   lohis.data_ptr(), first.data_ptr(), last.data_ptr(), int(S), sqrt3, float(eps))
+                   mj.data_ptr(), xj.data_ptr(), mj.shape[0], *tail)
+
+
+def _check_mask(mask: torch.Tensor, xi: torch.Tensor, width: int) -> None:
+    if (mask.dtype != xi.dtype or mask.ndim != 2 or mask.shape[1] != width
+            or not mask.is_contiguous()):
+        raise ValueError(f"mask must be a contiguous (T, {width}) {xi.dtype} tensor, got "
+                         f"{mask.dtype} {tuple(mask.shape)}")
+
+
+def masked_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, mask: torch.Tensor,
+                     eps: float, softening: str) -> torch.Tensor:
+    """Far field of T row tiles against W shared nodes (mj (W,), xj (W,
+    dim)) with a dense float weight mask (T, W) on their masses -- the
+    counterpart of masked_eval_pallas."""
+    _check(xi, mask.shape[0], mj, xj)
+    _check_mask(mask, xi, mj.shape[0])
+    sqrt3 = _sqrt3(softening)
+    if _on_cpu(xi, mj, xj, mask):
+        return masked_eval_torch(xi, mj, xj, mask, eps, softening)
+    return _launch("masked_eval_kernel", "nbody_masked_eval", xi, mask.shape[0], mj.data_ptr(),
+                   xj.data_ptr(), mj.shape[0], mask.data_ptr(), sqrt3, float(eps))
+
+
+def group_shared_masked_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
+                                  mask: torch.Tensor, eps: float, G: int,
+                                  softening: str) -> torch.Tensor:
+    """Supertiles of G consecutive row tiles share one monopole list (mj
+    (nsuper, M), xj (nsuper, M, dim), nsuper = ceil(T / G), padding of
+    mass 0); tile t reads list t // G with its own weight mask row (T, M)
+    -- the counterpart of group_shared_masked_eval_pallas, with xj
+    untransposed."""
+    ntiles = mask.shape[0]
+    if mj.ndim != 2 or xj.shape != (*mj.shape, xi.shape[-1]):
+        raise ValueError(f"lists {tuple(mj.shape)}, {tuple(xj.shape)} do not match rows "
+                         f"{tuple(xi.shape)}")
+    if G <= 0 or mj.shape[0] != -(-ntiles // G):
+        raise ValueError(f"{mj.shape[0]} lists for {ntiles} tiles in supertiles of {G}")
+    if not (mj.is_contiguous() and xj.is_contiguous()):
+        raise ValueError("the kernels take contiguous tensors")
+    _check(xi, ntiles, mj.view(-1), xj.view(-1, xi.shape[-1]))
+    _check_mask(mask, xi, mj.shape[1])
+    sqrt3 = _sqrt3(softening)
+    if _on_cpu(xi, mj, xj, mask):
+        return group_shared_masked_eval_torch(xi, mj, xj, mask, eps, G, softening)
+    return _launch("group_shared_masked_kernel", "nbody_group_shared_masked_eval", xi, ntiles,
+                   mj.data_ptr(), xj.data_ptr(), mj.shape[1], int(G), mask.data_ptr(), sqrt3,
+                   float(eps))
 
 
 def group_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, eps: float,

@@ -91,11 +91,14 @@ def hilbert_keys(cell: torch.Tensor, n_active: int = 2) -> torch.Tensor:
                            dim)
 
 
-def hilbert_sort_perm(x: torch.Tensor, xmin: torch.Tensor, xmax: torch.Tensor) -> torch.Tensor:
+def hilbert_sort_perm(x: torch.Tensor, xmin: torch.Tensor, xmax: torch.Tensor,
+                      true_curve: bool = False) -> torch.Tensor:
     """The permutation that sorts bodies along the reference's quirk curve
     over the box [xmin, xmax] (the counterpart of hilbert_sort_perm,
-    nbody_tpu/ops/hilbert.py:117-134, true_curve=False): a stable sort of
-    the keys read as unsigned 64-bit values, so equal keys keep body
-    order, as jnp.lexsort((lo, hi)) keeps it."""
-    keys = hilbert_keys(quantize(x, xmin, xmax - xmin))
+    nbody_tpu/ops/hilbert.py:117-134): a stable sort of the keys read as
+    unsigned 64-bit values, so equal keys keep body order, as
+    jnp.lexsort((lo, hi)) keeps it. true_curve=True runs the Skilling
+    passes over all dim axes, the true 3-D Hilbert curve (in 2-D the
+    reference's curve already is)."""
+    keys = hilbert_keys(quantize(x, xmin, xmax - xmin), n_active=x.shape[1] if true_curve else 2)
     return torch.sort(keys ^ torch.iinfo(torch.int64).min, stable=True).indices

@@ -33,6 +33,16 @@ and e_chunk only sizes E_cap, which decides tile overflow. sub_width is
 not carried over either: the kernel visits [lo, hi) exactly. JAX's two
 device-side branches (the far heap's lax.cond and the fallback's
 while_loop) read two counters on the host: one synchronisation per call.
+
+The `ablate` tokens of nbody_tpu that the port runs (OCTREE_ABLATE) swap
+in the A/B variants its knob probe times (python -m nbody_torch.probe
+knobs): densemask, the dense float32 far mask (masked_eval_cuda) and the
+dense body-mask window (window_eval_dense_cuda); farcompact, the far field
+compacted per supertile of 8 tiles (group_shared_masked_eval_cuda);
+packedj, the entries reading packed sources; desc1 / desc2, the sparse
+supertile descent one or two levels below L* (descend_levels,
+experimental/tree_descend.py), whose monopoles go to
+group_shared_masked_eval_cuda and whose survivors become the entries.
 """
 
 from __future__ import annotations
@@ -41,15 +51,38 @@ import math
 
 import torch
 
+from nbody_torch.experimental.tree_descend import (BIG32, _compact, fold_bits, supertile_descend,
+                                                   unfold_bits)
 from nbody_torch.ops.cuda_allpairs import allpairs_block_cuda, allpairs_block_torch
 from nbody_torch.ops.cuda_group_eval import (entries_lohi_eval_cuda, group_eval_cuda,
-                                             group_eval_torch, masked_eval_bits_cuda,
-                                             pack_mask_bits, window_eval_interval_cuda)
+                                             group_eval_torch, group_shared_masked_eval_cuda,
+                                             masked_eval_bits_cuda, masked_eval_cuda,
+                                             pack_mask_bits, window_eval_dense_cuda,
+                                             window_eval_interval_cuda)
 from nbody_torch.ops.octree import OctreeLevels
 
 BIGK = 1 << 30  # sort sentinel of the per-tile entry rows (and of compact_rows)
+# The ablate tokens of nbody_tpu's fast paths that the port runs: densemask,
+# farcompact, packedj, desc1 / desc2 select ported kernels; fheap is a no-op
+# alias in nbody_tpu (octree_group.py:1063) and sortunperm belongs to the knob
+# probe (the port's un-permute is already a gather).
+OCTREE_ABLATE = ("densemask", "farcompact", "packedj", "desc1", "desc2", "fheap", "sortunperm")
+
 K_CELL = 16  # bodies expanded per open max-depth cell of the list path (else fallback)
 TILE_CHUNK = 256  # tiles per pass of the list path's traversal
+FAR_G = 8  # farcompact: tiles per supertile of the compacted far field
+
+
+def ablate_tokens(ablate: str, ported) -> set:
+    """The comma-separated tokens of `ablate` (whole tokens, never
+    substrings: "farcompact" is not "far"). A token outside `ported` raises
+    ValueError: nbody_tpu's other A/B knobs and wrong-force probes are not
+    ported, and none is ignored silently."""
+    tokens = {tok for tok in ablate.split(",") if tok}
+    unported = sorted(tokens - set(ported))
+    if unported:
+        raise ValueError(f"ablate token {unported[0]!r} is not yet ported to nbody_torch")
+    return tokens
 
 
 def merge_contiguous_entries(entries: torch.Tensor, lohis: torch.Tensor, n_raw: torch.Tensor,
@@ -106,14 +139,27 @@ def _box_dist2(lo: torch.Tensor, hi: torch.Tensor, com: torch.Tensor) -> torch.T
 def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.Tensor,
                                depth: int, theta: float, G: float, eps: float, tile: int = 512,
                                window_tiles: int = 32, s_block: int | None = None,
-                               far_heap_cap: int | None = None, e_chunk: int = 24576):
+                               far_heap_cap: int | None = None, e_chunk: int = 24576,
+                               ablate: str = "", descend_levels: int = 0, descend_G: int = 8,
+                               descend_caps: tuple = (1024, 1024, 2048), descend_maxb: int = 4):
     """Gather-free grouped octree force (float32). ms, xs, keys are the
     Morton-sorted bodies and their full-depth int64 keys. Returns
     (G * accel in sorted order, info) with info's counters as device
     tensors: entries, fallback_tiles, open_cells, open_mass,
-    near_width_sum, window_span_sum, window_capacity, max_nodes,
-    entries_raw, node_overflow and, when the far heap is compacted,
-    far_heap_nonempty."""
+    near_width_sum, near_unique_blocks, window_span_sum, window_capacity,
+    max_nodes, node_overflow, descend_entries_raw, when the far heap is
+    compacted far_heap_nonempty, with farcompact far_over_tiles (the tiles
+    its supertile cap sent to the fallback), and with descend_levels the
+    descent's descend_open_0, descend_mono_r, descend_open_r and
+    descend_final_mass.
+    ablate: comma-separated tokens of OCTREE_ABLATE (see the module
+    docstring); descend_*: the descent's levels, supertile, caps (k0, k,
+    m) and blocks per survivor, nbody_tpu's names and defaults."""
+    tokens = ablate_tokens(ablate, OCTREE_ABLATE)
+    if "desc1" in tokens:
+        descend_levels = 1
+    if "desc2" in tokens:
+        descend_levels = 2
     n, dim = xs.shape
     dev, dtype = xs.device, xs.dtype
     if dtype != torch.float32:
@@ -155,21 +201,27 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
     if ntiles > (1 << 15):  # the tile id packs into 16 bits of an int32 entry
         raise ValueError("fast octree path supports at most 2^15 tiles; increase tile")
 
-    # ---- dense prefix heap, levels 0..L* ------------------------------
-    cellid = keys >> ((depth - level_star) * dim)                      # (n,) int64
+    # ---- dense prefix heap, levels 0..L* (:717-776) --------------------
+    # one scatter at the deepest level the path reads, L* + r_levels (the
+    # descent's), and sum / min / max pooling up to the root
+    r_levels = min(level_star + descend_levels, depth) - level_star if descend_levels else 0
+    deep = level_star + r_levels
+    cid_d = keys >> ((depth - deep) * dim)                             # (n,) int64
+    Cd = 1 << (dim * deep)
     big = 3.4e38
-    cnt = [torch.zeros(C, **i64).index_add_(0, cellid, torch.ones_like(cellid))]
-    mass = [torch.zeros(C, dtype=dtype, device=dev).index_add_(0, cellid, ms)]
-    mx = [torch.zeros(C, dim, dtype=dtype, device=dev).index_add_(0, cellid, ms[:, None] * xs)]
-    idx2 = cellid[:, None].expand(n, dim)
-    cmin = [torch.full((C, dim), big, dtype=dtype, device=dev).scatter_reduce_(0, idx2, xs, "amin")]
-    cmax = [torch.full((C, dim), -big, dtype=dtype, device=dev).scatter_reduce_(0, idx2, xs, "amax")]
-    for _ in range(level_star):
+    cnt = [torch.zeros(Cd, **i64).index_add_(0, cid_d, torch.ones_like(cid_d))]
+    mass = [torch.zeros(Cd, dtype=dtype, device=dev).index_add_(0, cid_d, ms)]
+    mx = [torch.zeros(Cd, dim, dtype=dtype, device=dev).index_add_(0, cid_d, ms[:, None] * xs)]
+    idx2 = cid_d[:, None].expand(n, dim)
+    cmin = [torch.full((Cd, dim), big, dtype=dtype, device=dev).scatter_reduce_(0, idx2, xs, "amin")]
+    cmax = [torch.full((Cd, dim), -big, dtype=dtype, device=dev).scatter_reduce_(0, idx2, xs, "amax")]
+    for _ in range(deep):
         cnt.insert(0, _pool(cnt[0], nbranch, "sum"))
         mass.insert(0, _pool(mass[0], nbranch, "sum"))
         mx.insert(0, _pool(mx[0], nbranch, "sum"))
         cmin.insert(0, _pool(cmin[0], nbranch, "min"))
         cmax.insert(0, _pool(cmax[0], nbranch, "max"))
+    cellid = cid_d >> (r_levels * dim)                                 # (n,) at L*
     counts_L = cnt[level_star]
     com = []
     for level in range(level_star + 1):
@@ -232,24 +284,135 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
     open_mask = open_mask & ~mono
 
     acc_bool = torch.cat(accept_masks, dim=1)                          # (T, W)
-    mm_heap = torch.cat(mass)
+    mm_heap = torch.cat(mass[:level_star + 1])
     com_heap = torch.cat(com)
     w_heap = acc_bool.shape[1]
     info = {}
 
-    # ---- far heap compaction (octree_group.py:1064-1112) --------------
-    far_cap = far_heap_cap if far_heap_cap is not None else (2048 if dim == 3 else 8192)
-    compact = 0 < far_cap < w_heap
-    if compact:
-        alive_w = torch.cat(cnt) > 0
-        order_key = torch.where(alive_w, 0, w_heap) + torch.arange(w_heap, **i64)
-        keep_idx = torch.argsort(order_key)[:far_cap]  # nonempty cells first, index-stable
-        n_keep = alive_w.sum()
-        info["far_heap_nonempty"] = n_keep
-    else:
-        n_keep = torch.zeros((), **i64)
+    # ---- far field (octree_group.py:975-1112) --------------------------
+    far_over = torch.zeros(ntiles, dtype=torch.bool, device=dev)
+    compact = False
+    if "farcompact" in tokens:
+        # the accepts compacted per supertile of FAR_G tiles (:984-1009): the
+        # supertile's monopole list and each member's mask; a supertile whose
+        # union outgrows far_cap sends its tiles to the exact fallback
+        far_cap = min(w_heap, 8192)
+        tsf = -(-ntiles // FAR_G)
+        accp = torch.nn.functional.pad(acc_bool, (0, 0, 0, tsf * FAR_G - ntiles))
+        fids, fbits, fcnt = _compact(torch.arange(w_heap, **i64).expand(tsf, w_heap),
+                                     fold_bits(accp.view(tsf, FAR_G, w_heap)), far_cap)
+        far_over = (fcnt > far_cap).repeat_interleave(FAR_G)[:ntiles]
+        info["far_over_tiles"] = far_over.sum()
+        fvalid = fids != BIG32
+        fidc = torch.where(fvalid, fids, 0)
+        far_lists = (torch.where(fvalid, mm_heap[fidc], torch.zeros((), dtype=dtype, device=dev)),
+                     com_heap[fidc].contiguous(),
+                     unfold_bits(fbits, FAR_G).to(dtype).reshape(tsf * FAR_G, -1)[:ntiles]
+                     .contiguous())
+    elif "densemask" not in tokens:
+        # the far heap compacted to its nonempty cells (:1064-1112)
+        far_cap = far_heap_cap if far_heap_cap is not None else (2048 if dim == 3 else 8192)
+        compact = 0 < far_cap < w_heap
+        if compact:
+            alive_w = torch.cat(cnt[:level_star + 1]) > 0
+            order_key = torch.where(alive_w, 0, w_heap) + torch.arange(w_heap, **i64)
+            keep_idx = torch.argsort(order_key)[:far_cap]  # nonempty first, index-stable
+            n_keep = alive_w.sum()
+            info["far_heap_nonempty"] = n_keep
 
-    # ---- global (cell, S-block) run table (octree_group.py:1150-1177) -
+    # ---- near field: exact entries of the cells open at L*, or of the
+    #      descent's survivors below it ----------------------------------
+    if r_levels == 0:
+        entries, lohis, n_merged, ent_count, r_slice, tile_over, n_raw = _base_entries(
+            open_mask, cell_of_pad, C, npad, n, S, ntiles, e_chunk, t_idx, dim)
+        mono_args = None
+    else:
+        (entries, lohis, n_merged, ent_count, r_slice, tile_over, n_raw, mono_args,
+         desc_info) = _descend_entries(open_mask, cnt, mass, mx, cmin, cmax, level_star, r_levels,
+                                       xs, tmin, tmax, theta2, ntiles, npad, S, e_chunk, t_idx,
+                                       descend_G, descend_caps, descend_maxb)
+        info.update(desc_info)
+    tile_over = tile_over | far_over
+
+    # ---- the host reads (lax.cond / while_loop in nbody_tpu) -----------
+    n_over_t = tile_over.sum()
+    if compact:  # both in one read
+        cheap, n_over = torch.stack([(n_keep <= far_cap).long(), n_over_t]).tolist()
+    else:
+        cheap, n_over = False, int(n_over_t)
+
+    # ---- evaluation: far + window + near ------------------------------
+    if "farcompact" in tokens:
+        far = group_shared_masked_eval_cuda(xp, *far_lists, eps, FAR_G, "sqrt3")
+    elif "densemask" in tokens:
+        far = masked_eval_cuda(xp, mm_heap, com_heap, acc_bool.to(dtype), eps, "sqrt3")
+    elif compact and cheap:
+        far = masked_eval_bits_cuda(xp, mm_heap[keep_idx], com_heap[keep_idx].contiguous(),
+                                    pack_mask_bits(acc_bool[:, keep_idx]), eps, "sqrt3")
+    else:
+        far = masked_eval_bits_cuda(xp, mm_heap, com_heap, pack_mask_bits(acc_bool), eps, "sqrt3")
+    if "densemask" in tokens:  # the window as a dense body mask (:1117-1126)
+        cols = w0_body[:, None] + torch.arange(wt * tile, **i64)[None, :]
+        bmask = ((cols >= lo_t[:, None]) & (cols < hi_t[:, None])).to(dtype)
+        win = window_eval_dense_cuda(xp, mp, xp, w0.to(torch.int32), bmask, eps, wt, "sqrt3")
+        del cols, bmask
+    else:
+        win = window_eval_interval_cuda(xp, mp, xp, w0.to(torch.int32), lo_t.to(torch.int32),
+                                        hi_t.to(torch.int32), eps, wt)
+    near_args = (xp, mp, xp, entries, lohis, n_merged, S, ntiles, eps, "sqrt3")
+    if "packedj" in tokens:
+        near = entries_lohi_eval_cuda(*near_args, packed=True)
+    else:  # the default path's call, as before the ablation path existed
+        near = entries_lohi_eval_cuda(*near_args)
+    if mono_args is not None:  # the descent's monopoles
+        near = near + group_shared_masked_eval_cuda(xp, *mono_args, eps, descend_G, "sqrt3")
+    acc = (far + win) + near
+
+    # ---- exact fallback for overflowed tiles --------------------------
+    exact_fallback(acc, xt, tile_over, n_over, ms, xs, eps, "sqrt3")
+
+    info.update({
+        "max_nodes": ent_count.clamp_max(r_slice).max(),
+        "fallback_tiles": n_over_t,
+        "entries": n_merged,
+        "descend_entries_raw": n_raw,
+        "open_cells": open_mask.sum(),
+        "open_mass": torch.where(open_mask, counts_L[None, :], 0).sum(),
+        "near_width_sum": ((lohis >> 16) - (lohis & 0xFFFF)).sum(),
+        "near_unique_blocks": unique_blocks(entries, n_merged),
+        "window_span_sum": (hi_t - lo_t).sum(),
+        "window_capacity": torch.full((), ntiles * wt * tile, **i64),
+        "node_overflow": torch.zeros((), dtype=torch.int32, device=dev),
+    })
+    return G * acc[:n], info
+
+
+def unique_blocks(entries: torch.Tensor, n_real: torch.Tensor) -> torch.Tensor:
+    """The distinct S-blocks among the first n_real entries, on the device
+    (nbody_tpu's near_unique_blocks / res_unique_blocks)."""
+    never = 0x7FFFFFFF
+    idx = torch.arange(entries.shape[0], device=entries.device)
+    blk = torch.sort(torch.where(idx < n_real, entries & 0xFFFF, never)).values
+    return ((blk != torch.cat([blk.new_full((1,), -1), blk[:-1]])) & (blk != never)).sum()
+
+
+def _entry_cap(ntiles: int, per_tile_est: int, widest: int, e_chunk: int) -> int:
+    """E_cap, the entry budget beyond which tiles go to the fallback
+    (octree_group.py:1282-1289, :1467-1475; epg 1)."""
+    n_chunks = max(1, min(40, -(-(ntiles * per_tile_est + ntiles) // e_chunk)))
+    e_cap = min(ntiles * (widest + 1), n_chunks * e_chunk)
+    if e_cap > e_chunk:
+        e_cap = -(-e_cap // e_chunk) * e_chunk
+    return e_cap
+
+
+def _base_entries(open_mask, cell_of_pad, C, npad, n, S, ntiles, e_chunk, t_idx, dim):
+    """The exact entries of the cells open at L*: the global (cell,
+    S-block) run table, then per tile the wide extraction
+    (octree_group.py:1150-1324). Returns (entries, lohis, n_merged,
+    ent_count, r_slice, tile_over, n_raw)."""
+    dev = open_mask.device
+    i64 = dict(dtype=torch.int64, device=dev)
     nblocks = npad // S
     bidx = torch.arange(npad, **i64)
     pairkey = cell_of_pad * nblocks + bidx // S
@@ -270,7 +433,7 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
     g_hi = torch.where(gbe_valid, gbe_end - gbe_blk * S, 0)
     lohi_tbl = (g_lo | (g_hi << 16)).to(torch.int32)
 
-    # ---- per-tile entry lists, wide extraction (:1180-1300) -----------
+    # per-tile entry lists, wide extraction
     r_slice = min(gbe_cap + 1, 2048)
     pad_gbe = gbe_cap
     open_c = torch.cat([open_mask, torch.zeros(ntiles, 1, dtype=torch.bool, device=dev)], dim=1)
@@ -287,11 +450,7 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
     flat_v = vflag.reshape(-1)
     flat_ent = ((t_idx[:, None] << 16) | ent_rows).reshape(-1)
     frank = torch.cumsum(flat_v, 0) - 1
-    per_tile_est = 64 + ((560 if dim == 3 else 360) * 256) // S
-    n_chunks = max(1, min(40, -(-(ntiles * per_tile_est + ntiles) // e_chunk)))
-    e_cap = min(ntiles * (r_slice + 1), n_chunks * e_chunk)
-    if e_cap > e_chunk:
-        e_cap = -(-e_cap // e_chunk) * e_chunk
+    e_cap = _entry_cap(ntiles, 64 + ((560 if dim == 3 else 360) * 256) // S, r_slice, e_chunk)
     pad_gbe_entry = ((ntiles - 1) << 16) | pad_gbe
     dst = torch.where(flat_v & (frank < e_cap), frank, e_cap)        # e_cap: dropped
     entries_gbe = torch.full((e_cap + 1,), pad_gbe_entry, **i64).scatter_(0, dst, flat_ent)[:e_cap]
@@ -304,38 +463,113 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
     lohis = lohi_tbl[gidx]
     entries, lohis, n_merged = merge_contiguous_entries(entries, lohis, end_rank[-1],
                                                         (ntiles - 1) << 16)
+    return entries, lohis, n_merged, ent_count, r_slice, tile_over, end_rank[-1]
 
-    # ---- the host reads (lax.cond / while_loop in nbody_tpu) -----------
-    n_over_t = tile_over.sum()
-    cheap, n_over = torch.stack([(n_keep <= far_cap).long(), n_over_t]).tolist()
 
-    # ---- evaluation: far + window + near ------------------------------
-    if compact and cheap:
-        far = masked_eval_bits_cuda(xp, mm_heap[keep_idx], com_heap[keep_idx].contiguous(),
-                                    pack_mask_bits(acc_bool[:, keep_idx]), eps, "sqrt3")
-    else:
-        far = masked_eval_bits_cuda(xp, mm_heap, com_heap, pack_mask_bits(acc_bool), eps, "sqrt3")
-    win = window_eval_interval_cuda(xp, mp, xp, w0.to(torch.int32), lo_t.to(torch.int32),
-                                    hi_t.to(torch.int32), eps, wt)
-    near = entries_lohi_eval_cuda(xp, mp, xp, entries, lohis, n_merged, S, ntiles, eps, "sqrt3")
-    acc = (far + win) + near
+def _descend_entries(open_mask, cnt, mass, mx, cmin, cmax, level_star, r_levels, xs, tmin, tmax,
+                     theta2, ntiles, npad, S, e_chunk, t_idx, Gd, caps, maxb):
+    """The sparse supertile descent r_levels below L* (octree_group.py:
+    1343-1513): per member tile MAC on the deeper cells' true extents, the
+    accepted cells' monopoles (mass, com; a one-body cell is its body) as
+    the args of group_shared_masked_eval_cuda, and the survivors as exact
+    entries of at most maxb S-blocks each. Returns (entries, lohis,
+    n_merged, ent_count, r_slice, tile_over, n_raw, (monopole masses,
+    monopole coms, per-tile mask), info's descend_* counters)."""
+    n, dim = xs.shape
+    dev, dtype = xs.device, xs.dtype
+    i64 = dict(dtype=torch.int64, device=dev)
+    k0_cap, k_cap, m_cap = caps
+    Ts = -(-ntiles // Gd)
+    tp = Ts * Gd
+    tminp = torch.nn.functional.pad(tmin, (0, 0, 0, tp - ntiles)).view(Ts, Gd, dim)
+    tmaxp = torch.nn.functional.pad(tmax, (0, 0, 0, tp - ntiles)).view(Ts, Gd, dim)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    level = {r: level_star + r for r in range(r_levels + 1)}
+    starts = {r: torch.cumsum(cnt[level[r]], 0) - cnt[level[r]] for r in range(1, r_levels + 1)}
 
-    # ---- exact fallback for overflowed tiles --------------------------
-    exact_fallback(acc, xt, tile_over, n_over, ms, xs, eps, "sqrt3")
+    def mac_fn(r, ch):
+        lv = level[r]
+        idc = ch.clamp(0, cnt[lv].shape[0] - 1)
+        c = cnt[lv][idc]
+        alive = c > 0
+        msafe = torch.clamp_min(mass[lv][idc], 1e-30)
+        width = None
+        dmin2 = None
+        for d in range(dim):
+            wd = cmax[lv][:, d][idc] - cmin[lv][:, d][idc]
+            width = wd if width is None else torch.maximum(width, wd)
+            com_d = mx[lv][:, d][idc] / msafe
+            dd = torch.clamp_min(tminp[:, :, d][:, :, None] - com_d[:, None, :], 0)
+            dd = torch.maximum(dd, com_d[:, None, :] - tmaxp[:, :, d][:, :, None])
+            dmin2 = dd * dd if dmin2 is None else dmin2 + dd * dd
+        weff = torch.where(alive, width, zero)
+        accept = ((weff * weff)[:, None, :] < theta2 * dmin2) | (c == 1)[:, None, :]
+        return {"accept": accept, "alive": alive}
 
-    info.update({
-        "max_nodes": ent_count.clamp_max(r_slice).max(),
-        "fallback_tiles": n_over_t,
-        "entries": n_merged,
-        "entries_raw": end_rank[-1],
-        "open_cells": open_mask.sum(),
-        "open_mass": torch.where(open_mask, counts_L[None, :], 0).sum(),
-        "near_width_sum": ((lohis >> 16) - (lohis & 0xFFFF)).sum(),
-        "window_span_sum": (hi_t - lo_t).sum(),
-        "window_capacity": torch.full((), ntiles * wt * tile, **i64),
-        "node_overflow": torch.zeros((), dtype=torch.int32, device=dev),
-    })
-    return G * acc[:n], info
+    def mono_fn(r, mids):
+        lv = level[r]
+        idc = mids.clamp(0, cnt[lv].shape[0] - 1)
+        m, c = mass[lv][idc], cnt[lv][idc]
+        sb = starts[r][idc].clamp(0, n - 1)
+        msafe = torch.clamp_min(m, 1e-30)
+        com = torch.stack([torch.where(c == 1, xs[:, d][sb], mx[lv][:, d][idc] / msafe)
+                           for d in range(dim)], dim=-1)
+        return m, com
+
+    res = supertile_descend(open_mask, 1 << dim, r_levels, Gd, k0=k0_cap, k_caps=[k_cap] * r_levels,
+                            m_caps=[m_cap] * r_levels, mac_fn=mac_fn, mono_fn=mono_fn)
+    mono_args = (res.mono_mass.contiguous(), res.mono_com.contiguous(),
+                 res.mono_mask[:ntiles].contiguous())
+
+    # the final survivors -> self-describing exact [lo, hi) entries
+    cnt_d = cnt[level[r_levels]]
+    kf = res.final_ids.shape[1]
+    fidc = res.final_ids.clamp(0, cnt_d.shape[0] - 1)
+    fst = torch.where(res.final_valid, starts[r_levels][fidc], 0)
+    fcnt = torch.where(res.final_valid, cnt_d[fidc], 0)
+    fend = fst + fcnt
+    memb = unfold_bits(res.final_bits, Gd)                             # (Ts, Gd, kf)
+    stm = fst[:, None, :].expand(Ts, Gd, kf).reshape(tp, kf)[:ntiles]
+    enm = fend[:, None, :].expand(Ts, Gd, kf).reshape(tp, kf)[:ntiles]
+    mem = memb.reshape(tp, kf)[:ntiles]
+    nblocks = npad // S
+    b0 = stm // S
+    # a survivor spanning more than maxb S-blocks sends its tiles to the
+    # exact fallback (no truncation)
+    cell_over = mem & (enm > (b0 + maxb) * S)
+    ent_cols, lohi_cols, val_cols = [], [], []
+    for b in range(maxb):
+        blk_u = b0 + b                                   # unclamped: drives [lo, hi)
+        blk = blk_u.clamp_max(nblocks - 1)
+        lo_b = (stm - blk_u * S).clamp(0, S)
+        hi_b = (enm - blk_u * S).clamp(0, S)
+        ent_cols.append((t_idx[:, None] << 16) | blk)
+        lohi_cols.append(lo_b | (hi_b << 16))
+        val_cols.append(mem & (hi_b > lo_b))
+    # survivor-major columns: each tile's stream is sorted by (block, lo),
+    # so the merge below finds every mergeable pair as a neighbour
+    entm = torch.cat([t_idx[:, None] << 16, torch.stack(ent_cols, 2).reshape(ntiles, -1)], 1)
+    lohim = torch.cat([torch.zeros(ntiles, 1, **i64), torch.stack(lohi_cols, 2).reshape(ntiles, -1)],
+                      1)
+    valm = torch.cat([torch.ones(ntiles, 1, dtype=torch.bool, device=dev),
+                      torch.stack(val_cols, 2).reshape(ntiles, -1)], 1)
+    flat_v = valm.reshape(-1)
+    frank = torch.cumsum(flat_v, 0) - 1
+    e_cap = _entry_cap(ntiles, 128 if dim == 2 else 256, kf * maxb, e_chunk)
+    pad_entry = (ntiles - 1) << 16
+    dst = torch.where(flat_v & (frank < e_cap), frank, e_cap)         # e_cap: dropped
+    entries = torch.full((e_cap + 1,), pad_entry, **i64).scatter_(0, dst, entm.reshape(-1))[:e_cap]
+    lohis = torch.zeros(e_cap + 1, **i64).scatter_(0, dst, lohim.reshape(-1))[:e_cap]
+    ent_count = valm[:, 1:].sum(1)
+    end_rank = torch.cumsum(ent_count + 1, 0)
+    tile_over = res.overflow[:ntiles] | cell_over.any(1) | (end_rank > e_cap)
+    n_raw = end_rank[-1]
+    entries, lohis, n_merged = merge_contiguous_entries(entries.to(torch.int32),
+                                                        lohis.to(torch.int32), n_raw, pad_entry)
+    desc_info = {f"descend_{k}": v for k, v in res.diag.items()}
+    desc_info["descend_final_mass"] = torch.where(memb, fcnt[:, None, :], 0).sum()
+    return (entries, lohis, n_merged, ent_count, kf * maxb, tile_over, n_raw, mono_args,
+            desc_info)
 
 
 # --------------------------------------------------------------------------

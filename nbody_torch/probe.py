@@ -11,6 +11,22 @@
         peak device memory of the K steps, and the host synchronisations
         of one more step (CUDA's sync debug mode).
 
+    python -m nbody_torch.probe knobs {oct|bvh} OUT SPEC [SPEC ...] [--n N]
+                                      [--device cuda|cpu]
+        The port of scripts/probe_oct_knobs.py and probe_bvh_knobs.py: per
+        SPEC, one N-body galaxy (default 1,000,000, float32, theta 0.5),
+        evolved first by 52 engine steps where the SPEC asks, runs the
+        scripts' step (sort, the fast path's force with the SPEC's knobs,
+        un-permute, leapfrog): one untimed step, then 3 timed with CUDA
+        events (the host clock with --device cpu). Appends one JSON line
+        per SPEC to OUT and prints it: probe, spec, n, sec (seconds per
+        step), the scripts' info keys and descend_*, the device, and the
+        kernel launches of the 4 steps. SPEC is the scripts' grammar,
+        octree tile,s_block,window_tiles,ablate|none,dim,evolved and BVH
+        tile,s_target,window_tiles,ablate|none,evolved[,dim], several
+        ablate tokens joined by dots. Runs on the GPU unless --device cpu;
+        an error ends the run with a non-zero exit.
+
     python -m nbody_torch.probe sass OUT.txt
         Compiles each nbody_torch/csrc/*.cu to a cubin with the build's
         nvcc flags and writes `cuobjdump -sass` of them to OUT.txt, for
@@ -65,6 +81,128 @@ def trace(n: int, dim: int, steps: int, algorithm: str, precision: str = "float"
           f"peak memory {peak:.2f} GiB; host synchronisations in one step: {len(syncs)} {syncs}")
 
 
+# the info keys the knob scripts log (probe_oct_knobs.py:104-115,
+# probe_bvh_knobs.py:108-115), where the path reports them
+KNOB_KEYS = {"oct": ("entries", "fallback_tiles", "open_cells", "near_width_sum",
+                     "near_unique_blocks", "window_span_sum", "window_capacity",
+                     "far_heap_nonempty"),
+             "bvh": ("entries", "fallback_tiles", "res_width_sum", "res_pairs",
+                     "res_unique_blocks")}
+
+
+def knob_step(tree: str, spec: str, cfg):
+    """The knob scripts' step for one SPEC on cfg's galaxy: sort, the fast
+    path's force with the SPEC's tile, S (s_block or s_target), window and
+    ablate tokens, un-permute, leapfrog: step(state) -> (state, info).
+    theta is 0.5, as in the scripts."""
+    import dataclasses
+
+    from nbody_torch.ops.integrator import leapfrog_step
+    from nbody_torch.ops.permutation import unpermute_rows
+
+    parts = spec.split(",")
+    tile, width, wt, ablate = int(parts[0]), int(parts[1]), int(parts[2]), parts[3]
+    ablate = "" if ablate == "none" else ablate.replace(".", ",")
+    theta, G, eps = 0.5, cfg.G, cfg.eps
+    if tree == "oct":
+        from nbody_torch.ops.octree import max_depth, morton_sort, robust_quant_box
+        from nbody_torch.ops.octree_group import compute_force_grouped_fast
+
+        depth = max_depth(cfg.n, cfg.dim)
+
+        def force(s):
+            lo_r, hi_r = robust_quant_box(s.x)
+            ms, xs, ks, perm = morton_sort(s.m, s.x, lo_r, hi_r, depth)
+            a, info = compute_force_grouped_fast(ms, xs, ks, depth, theta, G, eps, tile=tile,
+                                                 s_block=width, window_tiles=wt, ablate=ablate)
+            return a, perm, info
+    else:
+        from nbody_torch.ops.bvh import build_tree
+        from nbody_torch.ops.bvh_group import compute_force_grouped_windowed
+        from nbody_torch.ops.geometry import aabb_of_points
+        from nbody_torch.ops.hilbert import hilbert_sort_perm
+
+        def force(s):
+            perm = hilbert_sort_perm(s.x, *aabb_of_points(s.x, eps), true_curve=True)
+            m, x = s.m[perm], s.x[perm]
+            a, info = compute_force_grouped_windowed(build_tree(m, x, eps), m, x, theta, G, eps,
+                                                     tile=tile, s_target=width, window_tiles=wt,
+                                                     ablate=ablate)
+            return a, perm, info
+
+    def step(s):
+        a, perm, info = force(s)
+        return leapfrog_step(dataclasses.replace(s, a=unpermute_rows(a, perm)), cfg.dt), info
+
+    return step
+
+
+def parse_knob_spec(tree: str, spec: str) -> tuple[int, int]:
+    """(dim, evolved) of a SPEC: the octree's fields 5 and 6; the BVH's
+    field 5, and its optional sixth the dim (default 3)."""
+    parts = spec.split(",")
+    if tree == "oct":
+        if len(parts) != 6:
+            raise ValueError(f"octree SPEC is tile,s_block,window_tiles,ablate|none,dim,evolved: "
+                             f"{spec!r}")
+        return int(parts[4]), int(parts[5])
+    if len(parts) not in (5, 6):
+        raise ValueError(f"BVH SPEC is tile,s_target,window_tiles,ablate|none,evolved[,dim]: "
+                         f"{spec!r}")
+    return (int(parts[5]) if len(parts) == 6 else 3), int(parts[4])
+
+
+def knobs(tree: str, out: str, specs: list[str], n: int, device: str) -> None:
+    import json
+
+    import numpy as np
+    import torch
+
+    from nbody_torch.cli import resolve_device
+    from nbody_torch.models import build_model
+    from nbody_torch.ops import cuda_allpairs as ca
+    from nbody_torch.ops import cuda_group_eval as cg
+    from nbody_torch.sim.engines import EngineOptions, get_engine
+
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    name = torch.cuda.get_device_name(dev) if cuda else "cpu"
+    for spec in specs:
+        dim, evolved = parse_knob_spec(tree, spec)
+        cfg, state = build_model("galaxy", n, dim, np.float32, device=dev)
+        step = knob_step(tree, spec, cfg)
+        if evolved:  # the scripts' 4 x 13 engine steps
+            engine_step = get_engine("octree" if tree == "oct" else "bvh").make_step(
+                cfg, EngineOptions(), dev)
+            for _ in range(52):
+                state, _ = engine_step(state)
+        ca.reset_launch_counts()
+        cg.reset_launch_counts()
+        state, info = step(state)  # untimed
+        if cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize(dev)
+            start.record()
+            for _ in range(3):
+                state, _ = step(state)
+            end.record()
+            torch.cuda.synchronize(dev)
+            sec = start.elapsed_time(end) / 3e3
+        else:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                state, _ = step(state)
+            sec = (time.perf_counter() - t0) / 3
+        keys = [k for k in info if k in KNOB_KEYS[tree] or k.startswith(("res_pass_", "descend_"))]
+        launches = {k: v for k, v in {**ca.launch_counts, **cg.launch_counts}.items() if v}
+        row = {"probe": f"{tree}knobs", "spec": spec, "n": n, "sec": sec,
+               **{k: int(info[k]) for k in keys}, "device": name, "launches": launches}
+        with open(out, "a") as f:
+            f.write(json.dumps(row) + "\n")
+        print(json.dumps(row), flush=True)
+        del state, step
+
+
 def sass(out: str) -> None:
     from nbody_torch import _build
 
@@ -90,11 +228,19 @@ def main(argv: list[str] | None = None) -> int:
     t.add_argument("-d", "--dim", type=int, default=3)
     t.add_argument("--steps", type=int, default=3)
     t.add_argument("--precision", choices=("float", "double"), default="float")
+    k = sub.add_parser("knobs", help="the knob scripts' step per SPEC; one JSON line each")
+    k.add_argument("tree", choices=("oct", "bvh"))
+    k.add_argument("out")
+    k.add_argument("specs", nargs="+", metavar="SPEC")
+    k.add_argument("--n", type=int, default=1_000_000)
+    k.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     s = sub.add_parser("sass", help="write the kernels' SASS to a file")
     s.add_argument("out")
     args = parser.parse_args(argv)
     if args.cmd == "trace":
         trace(args.n, args.dim, args.steps, args.algorithm, args.precision)
+    elif args.cmd == "knobs":
+        knobs(args.tree, args.out, args.specs, args.n, args.device)
     else:
         sass(args.out)
     return 0

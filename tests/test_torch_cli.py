@@ -100,8 +100,6 @@ def test_port_flag_values_checked(argv):
     ["--algorithm", "octree", "--traversal", "per-body"],
     ["--algorithm", "bvh", "--mesh", "2"],
     ["--algorithm", "all-pairs", "--mesh", "2"],
-    ["--algorithm", "all-pairs", "--mesh-layout", "partitioned"],
-    ["--algorithm", "all-pairs", "--mesh-tile", "2"],
     ["--algorithm", "all-pairs", "--profile", "trace_dir"],
     ["--algorithm", "bvh", "--sort-every", "2"], ["--algorithm", "bvh", "--refine-levels", "1"],
     ["--algorithm", "bvh", "--traversal", "per-body"],
@@ -112,6 +110,26 @@ def test_unported_features_exit_1(argv, capsys):
         tcli.main(["-n", "8", *argv, "--device", "cpu"], out=io.StringIO())
     assert e.value.code == 1
     assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("algorithm", ["octree", "all-pairs"])
+@pytest.mark.parametrize("mesh", [["--mesh-layout", "partitioned"], ["--mesh-tile", "2"],
+                                  ["--mesh", "0"]])
+def test_mesh_flags_at_one_device_run_like_jax(mesh, algorithm, tmp_path, monkeypatch):
+    """nbody_tpu reads --mesh-layout and --mesh-tile only when --mesh > 1;
+    at one device (or --mesh 0) both packages run the single-device step:
+    both exit 0 with the same CSV header and as many fields (uniform 2-D
+    float32, -n 100 -s 1 --csv-total). nbody_tpu runs on the CPU that
+    tests/conftest.py selects: its --platform cpu would also ask JAX for
+    mesh * mesh-tile virtual devices, which JAX refuses once its backend
+    is up."""
+    argv = ["-n", "100", "-s", "1", "--csv-total", "--algorithm", algorithm, *mesh]
+    j = _run(jcli.main, argv, tmp_path, monkeypatch).strip().splitlines()
+    t = _run(tcli.main, [*argv, "--device", "cpu"], tmp_path, monkeypatch).strip().splitlines()
+    assert len(j) == len(t) == 2 and t[0] == j[0]
+    assert len(t[1].split(",")) == len(j[1].split(","))
+    assert t[1].split(",")[:5] == j[1].split(",")[:5]
+    assert j[1].split(",")[:3] + j[1].split(",")[4:5] == [algorithm, "2", "32", "100"]
 
 
 @pytest.mark.parametrize("argv", [

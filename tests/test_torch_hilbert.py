@@ -47,3 +47,18 @@ def test_hilbert_sort_perm_float64():
     want = np.asarray(j_perm(jx, *j_aabb(jx, 2.0 ** -52)))
     tx = torch.tensor(x)
     np.testing.assert_array_equal(t_perm(tx, *t_aabb(tx, 2.0 ** -52)).numpy(), want)
+
+
+@pytest.mark.parametrize("layout", ["uniform", "clusters"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_hilbert_sort_perm_true_curve_matches_jax(dim, layout):
+    """true_curve=True, the order of the BVH knob probe's sort: the same
+    permutation as nbody_tpu's; in 3-D it differs from the quirk curve's."""
+    x = _positions(layout, 3000, dim)
+    jx = jnp.asarray(x)
+    want = np.asarray(j_perm(jx, *j_aabb(jx, EPS), true_curve=True))
+    tx = torch.tensor(x)
+    got = t_perm(tx, *t_aabb(tx, EPS), true_curve=True).numpy()
+    np.testing.assert_array_equal(got, want)
+    quirk = t_perm(tx, *t_aabb(tx, EPS)).numpy()
+    assert np.array_equal(got, quirk) == (dim == 2)

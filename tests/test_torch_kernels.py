@@ -2,7 +2,9 @@
 card: the all-pairs kernels (csrc/allpairs.cu) and the tree kernels
 (csrc/group_eval.cu): far, the octree's interval window, the BVH's
 node-mask and dense-mask windows, and entries, each far and entries test
-under both softenings, the list paths' kernel in float32 and float64
+under both softenings, the ablation path's dense-mask far field,
+supertile-shared monopoles and packed-source entries (which must equal
+the unpacked kernel bit for bit), the list paths' kernel in float32 and float64
 under both, and the all-pairs variants (the Newton and fast
 instantiations, and the hybrid kernel of csrc/allpairs_mxu.cu, whose
 counts of tile pairs by branch must equal their twins'). Every test
@@ -460,7 +462,8 @@ def test_group_launch_counters(dev):
     cg.group_eval_torch(xj, mj[None], xj[None], EPS32, "sqrt3", *heads)
     assert cg.launch_counts == {"masked_eval_bits_kernel": 1, "window_eval_interval_kernel": 1,
                                 "window_eval_nodemask_kernel": 1, "window_eval_dense_kernel": 1,
-                                "entries_lohi_kernel": 1,
+                                "entries_lohi_kernel": 1, "masked_eval_kernel": 0,
+                                "group_shared_masked_kernel": 0, "entries_lohi_kernel<packed>": 0,
                                 "group_eval_kernel<float32, poly>": 0,
                                 "group_eval_kernel<float32, sqrt3>": 1,
                                 "group_eval_kernel<float64, poly>": 1,
@@ -710,3 +713,142 @@ def test_variant_launch_counters(dev):
     assert ca.launch_counts == {"allpairs_block_kernel": 0, ca.NEWTON: 1, ca.FAST: 2,
                                 "potential_rowsums_kernel": 0}
     assert cm.launch_counts == {cm.PLAIN: 1, cm.FAST: 1}
+
+
+# ------------------------------------------------ the ablation path's kernels
+
+
+def _shared_scale(xi, mj, xj, mask, G, tb, softening):
+    """float64 sum_k |mask m_k (x_k - x_i) / t| per row and component, row
+    tile t against list t // G."""
+    xi, mj, xj, mask = (a.double().cpu().numpy() for a in (xi, mj, xj, mask))
+    out = np.zeros_like(xi)
+    for t in range(mask.shape[0]):
+        rows = slice(t * tb, (t + 1) * tb)
+        d = xj[t // G][None, :, :] - xi[rows][:, None, :]
+        d2 = np.sum(d * d, axis=-1)
+        r = np.sqrt(d2)
+        t3 = (r + EPS32) ** 3 if softening == "sqrt3" else d2 * r + EPS32
+        out[rows] = np.einsum("kn,knd->kd", (mask[t] * mj[t // G])[None, :] / t3, np.abs(d))
+    return torch.tensor(out, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("softening", ["poly", "sqrt3"])
+@pytest.mark.parametrize("tb", [512, 700])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_masked_eval_kernel_vs_twin(dev, dim, tb, softening):
+    """The dense-mask far field: a ragged node count (1500), dead nodes of
+    mass 0, a tile that accepts nothing and one that accepts everything."""
+    ntiles, w = 5, 1500
+    mj, xj = _bodies(w, dim, torch.float32, dev, seed=140 + dim)
+    mj[::17] = 0
+    _, xi = _bodies(ntiles * tb, dim, torch.float32, dev, seed=141 + dim)
+    mask = torch.tensor(np.random.default_rng(142).random((ntiles, w)) < 0.3, device=dev)
+    mask[1], mask[3] = False, True
+    fmask = mask.float().contiguous()
+    got = cg.masked_eval_cuda(xi, mj, xj, fmask, EPS32, softening)
+    ref = cg.masked_eval_torch(xi, mj, xj, fmask, EPS32, softening)
+    _assert_group_within(got, ref, _group_scale(xi, mj, xj, mask.cpu().numpy(), tb, softening))
+    assert not got[tb:2 * tb].any()
+    # the same accepts through the bit-packed far kernel
+    bits = cg.masked_eval_bits_cuda(xi, mj, xj, cg.pack_mask_bits(mask), EPS32, softening)
+    _assert_group_within(got, bits, _group_scale(xi, mj, xj, mask.cpu().numpy(), tb, softening))
+
+
+@pytest.mark.parametrize("softening", ["poly", "sqrt3"])
+@pytest.mark.parametrize("G", [8, 3])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_group_shared_masked_kernel_vs_twin(dev, dim, G, softening):
+    """Supertile-shared lists: 11 tiles (not a multiple of G), a ragged list
+    width (1100) with a padded tail of mass 0, and a tile with an empty
+    mask."""
+    ntiles, tb, width = 11, 512, 1100
+    nsuper = -(-ntiles // G)
+    mj, xj = _bodies(nsuper * width, dim, torch.float32, dev, seed=150 + dim)
+    mj, xj = mj.view(nsuper, width), xj.view(nsuper, width, dim)
+    mj[:, -90:] = 0
+    _, xi = _bodies(ntiles * tb, dim, torch.float32, dev, seed=151 + dim)
+    mask = torch.tensor(np.random.default_rng(152).random((ntiles, width)) < 0.4,
+                        dtype=torch.float32, device=dev)
+    mask[4] = 0
+    got = cg.group_shared_masked_eval_cuda(xi, mj, xj, mask, EPS32, G, softening)
+    ref = cg.group_shared_masked_eval_torch(xi, mj, xj, mask, EPS32, G, softening)
+    _assert_group_within(got, ref, _shared_scale(xi, mj, xj, mask, G, tb, softening))
+    assert not got[4 * tb:5 * tb].any()
+
+
+@pytest.mark.parametrize("softening", ["poly", "sqrt3"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_packed_entries_kernel_equals_unpacked(dev, dim, softening):
+    """entries_lohi_kernel<packed> on the entries test's list: the same
+    sums as the unpacked kernel, bit for bit, and within the tolerance of
+    the twin."""
+    ntiles, tb, S = 7, 512, 1024
+    nj = 4 * S - 100
+    mj, xj = _bodies(nj, dim, torch.float32, dev, seed=160 + dim)
+    _, xi = _bodies(ntiles * tb, dim, torch.float32, dev, seed=161 + dim)
+    rng = np.random.default_rng(162)
+    ents, lohis = [], []
+    sel = np.zeros((ntiles, nj), bool)
+    for tile in (0, 1, 3, 6):
+        ents.append(tile << 16)
+        lohis.append(0)
+        for blk in range(4):
+            lo, hi = (0, S) if tile == 3 else sorted(int(v) for v in rng.integers(0, S + 1, 2))
+            ents.append((tile << 16) | blk)
+            lohis.append(lo | (hi << 16))
+            sel[tile, blk * S + lo:min(blk * S + hi, nj)] = True
+    n_real = torch.tensor(len(ents), device=dev)
+    e = torch.tensor(ents, dtype=torch.int32, device=dev)
+    lh = torch.tensor(lohis, dtype=torch.int32, device=dev)
+    args = (xi, mj, xj, e, lh, n_real, S, ntiles, EPS32, softening)
+    cg.reset_launch_counts()
+    got = cg.entries_lohi_eval_cuda(*args, packed=True)
+    plain = cg.entries_lohi_eval_cuda(*args)
+    torch.cuda.synchronize()
+    assert cg.launch_counts["entries_lohi_kernel<packed>"] == 1
+    assert cg.launch_counts["entries_lohi_kernel"] == 1
+    assert torch.equal(got, plain)
+    _assert_group_within(got, cg.entries_lohi_eval_torch(*args, packed=True),
+                         _group_scale(xi, mj, xj, sel, tb, softening))
+
+
+@pytest.mark.parametrize("tree,ablate", [("octree", "densemask"), ("octree", "farcompact"),
+                                         ("octree", "packedj"), ("octree", "desc2"),
+                                         ("bvh", "densemask"), ("bvh", "packedj")])
+def test_ablate_paths_on_card_match_cpu(dev, tree, ablate):
+    """Each ported ablate token on a 20,000-body 3-D clustered system, on
+    the card and through the CPU twins: equal counters (descend_* included),
+    forces within 1e-5 of sum |a|, and the token's kernel launched once."""
+    from nbody_torch.ops import bvh, bvh_group, octree, octree_group
+    from nbody_torch.state import SystemState
+
+    n, dim = 20000, 3
+    rng = np.random.default_rng(170)
+    centers = rng.uniform(-40, 40, (9, dim))
+    x = (centers[rng.integers(0, 9, n)] + rng.normal(0, 1.2, (n, dim))).astype(np.float32)
+    m = rng.uniform(0.1, 1, n).astype(np.float32)
+    kernel = {"densemask": "masked_eval_kernel", "farcompact": "group_shared_masked_kernel",
+              "desc2": "group_shared_masked_kernel", "packedj": "entries_lohi_kernel<packed>"}
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        cg.reset_launch_counts()
+        if tree == "octree":
+            depth = octree.max_depth(n, dim)
+            lo, hi = octree.robust_quant_box(torch.tensor(x, device=device))
+            ms, xs, ks, _ = octree.morton_sort(torch.tensor(m, device=device),
+                                               torch.tensor(x, device=device), lo, hi, depth)
+            a, info = octree_group.compute_force_grouped_fast(ms, xs, ks, depth, 0.5, 1.0, EPS32,
+                                                              window_tiles=2, ablate=ablate)
+        else:
+            st = bvh.hilbert_sort(SystemState.from_numpy(m, x, np.zeros_like(x), device=device),
+                                  EPS32)
+            a, info = bvh_group.compute_force_grouped_windowed(
+                bvh.build_tree(st.m, st.x, EPS32), st.m, st.x, 0.5, 1.0, EPS32, window_tiles=2,
+                ablate=ablate)
+        out[device.type] = (a.cpu(), {k: int(v) for k, v in info.items()},
+                            cg.launch_counts[kernel[ablate]])
+    (ga, ginfo, glaunch), (ca_, cinfo, claunch) = out["cuda"], out["cpu"]
+    assert ginfo == cinfo and cinfo["entries"] > 0
+    assert ((ga - ca_).abs().sum() / ca_.abs().sum()).item() < 1e-5
+    assert glaunch == 1 and claunch == 0
