@@ -121,7 +121,25 @@ Phases, each printed on its own lines:
         included), forces within 1e-5 of sum |a|;
      c. python -m nbody_torch.probe knobs oct and bvh at 2^20 as two
         subprocesses, one SPEC per token and the default path in 3-D and
-        2-D: one JSON line per SPEC with its s/step and its launches.
+        2-D: one JSON line per SPEC with its s/step and its launches;
+ 10. the entry-cost probes, the ports of scripts/probe_entries_kernel.py,
+     probe_entry_overhead.py and probe_dma_pipeline.py, run in this
+     process through python -m nbody_torch.probe's main, and their
+     kernels: entries_tables_kernel, the ladder's entry_ladder_kernel<rung>
+     and the copy ring dma_ring_kernel<2 | 4> (csrc/entry_probes.cu):
+     a. probe entries at 2^20 bodies, E = 393,216, every mode; each mode's
+        recorded kernel call re-run, timed beside its plain version and
+        held against it on the first 8,192 rows (the (1024, real) call
+        also with poly softening);
+     b. probe entry-overhead all S 128 at S = 1,024 and 512: ideal ==
+        sepmj and sel == when exactly (the probe's rel_err is 0), switch
+        within 1e-5 of sum |term| of the production entries kernel on the
+        same entries (the probe's switch==prod); each rung's S = 1,024 call
+        re-run, timed and held against its plain version on all its rows;
+     c. probe dma-pipeline all with --math 1 and --math 0: each mode's
+        rel_err against blockspec at most 1e-6 (the kernels sum alike,
+        so 0 is expected); each call re-run, timed and held against its
+        plain version.
 Every kernel call that 5a and 6a time prints its pair count, the pairs
 its inputs need (all-pairs N(N-1); a window the columns it visits times
 the rows; entries sum(hi - lo) times the rows; the far field the set
@@ -138,7 +156,13 @@ Phase 8's bounds: newton and fast count 5*dim + 3 operations a pair on
 either chain; the MXU kernel the larger of its FP32 chain (by branch, see
 variant_bound) over 67 TFLOP/s and its MMAs as issued over 989 TFLOP/s
 bf16. Their launches come from the kernel_bench run of 8d, which resets
-the counts before each configuration and prints them after it.
+the counts before each configuration and prints them after it. Phase
+10's bounds: pairs times 19 FLOPs (sqrt3, 3-D), the entries those of
+its live entries' [lo, min(hi, S)), the ladder's rungs those of the
+entries' lanes (all S for ideal and sepmj), so the masked rungs' full-S
+pass counts only the lanes it needs; the --math 0 control E * S reads of
+3 adds each, bound by its bytes (each input once; the copies themselves
+move E * S * 16 bytes, printed as copied_bytes).
 The kernels' launch counts are set to 0 just before each CLI run that
 drives a main path and read just after it: the all-pairs force kernel's
 from the 2^20 run of phase 3, the potential kernel's from the run of
@@ -153,6 +177,11 @@ the fallback launches of the all-pairs kernel are reported beside them),
 and its float32 instantiations from the float32 list-path steps of 7a
 (float32 CLI runs take the fast paths, and --kernel torch the twin). The
 list kernel counts each instantiation (dtype, softening) on its own.
+Phase 10's kernels count from the probe runs: each probe sets the counts
+to 0 just before a mode's calls and reports them just after, in the
+mode's JSON line (entries_tables_kernel from mode (1024, real), each
+rung from its entry-overhead mode at S = 1,024, the ring and the --math 0
+ideal rung from dma-pipeline).
 Launches made to compare a kernel with its twin, and those of the other
 small runs, do not count.
 
@@ -394,6 +423,7 @@ def main() -> int:
     list_kernels, list_fallback = list_phases(dev, big)
     variant_kernels = variant_phases(dev, big)
     ablation_kernels = ablation_phases(dev, big)
+    probe_kernels = probe_phases(dev, big)
 
     entries = []
     for name, replaces, launches, run in (
@@ -412,7 +442,7 @@ def main() -> int:
     entries[0]["float64_list_fallback_launches"] = list_fallback  # 3-D, by tree
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": entries + octree_kernels + bvh_kernels + list_kernels
-                      + variant_kernels + ablation_kernels}))
+                      + variant_kernels + ablation_kernels + probe_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -534,16 +564,18 @@ class Recorded(dict):
 
 
 @contextlib.contextmanager
-def recording(module, attrs):
+def recording(module, attrs, key=None):
     """Wrap module.<attr> for each attr so that each call's args are kept
-    (the last call's, by attr) while the call goes through."""
+    (the last call's, by attr, or by key(attr, args, kwargs)) while the
+    call goes through."""
     recorded = Recorded()
     saved = {attr: getattr(module, attr) for attr in attrs}
 
     def wrap(attr, fn):
         def call(*args, **kwargs):
-            recorded[attr] = args
-            recorded.kwargs[attr] = kwargs
+            k = attr if key is None else key(attr, args, kwargs)
+            recorded[k] = args
+            recorded.kwargs[k] = kwargs
             return fn(*args, **kwargs)
         return call
 
@@ -1389,48 +1421,20 @@ def ablate_pairs(name: str, args) -> int:
 
 
 def measure_ablate(tag: str, name: str, args, dim: int, softening: str) -> dict:
-    """Time an ablation kernel on recorded args (5 launches after a
-    warm-up, CUDA events); hold it against its plain version, and both
-    against the plain version in float64, on the first HEAD_TILES tiles,
-    within 1e-5 of each row's sum of |term|; time the plain version on all
-    tiles where those extrapolate to under 20 s (else plain_ms is the
-    first tiles'); print the pairs the inputs need, the bytes and the
-    bound."""
-    import torch
-
+    """measure_kernel on an ablation kernel's recorded args, its plain
+    version checked on the first HEAD_TILES tiles and timed on all tiles
+    where those extrapolate to under 20 s."""
     from nbody_torch.ops import cuda_group_eval as cg
 
     attr, twin_attr, kw, _ = ABLATE_KERNELS[name]
     kern, twin = getattr(cg, attr), getattr(cg, twin_attr)
-    got = kern(*args, **kw)  # warm-up launch
-    kms = event_ms(lambda: kern(*args, **kw), reps=5)
     ntiles = args[7] if name == "entries_lohi_kernel<packed>" else args[3].shape[0]
-    tiles = min(HEAD_TILES, ntiles)
-    t_args, rows = head_args(name, args, tiles)
-    plain_ms, ref = event_ms(lambda: twin(*t_args, **kw), reps=1, keep=True)
-    scale = twin(*t_args, absolute=True, **kw)
-    err, abs_err = scaled(got[:rows], ref, scale)
-    ref64 = twin(*(a.double() if isinstance(a, torch.Tensor) and a.is_floating_point() else a
-                   for a in t_args), **kw)
-    err64 = [scaled(v, ref64, scale)[0] for v in (got[:rows], ref)]
-    del ref, ref64, scale
-    plain_tiles = tiles
-    if tiles < ntiles and plain_ms * ntiles / tiles <= 20e3:
-        plain_ms, plain_tiles = event_ms(lambda: twin(*args, **kw), reps=1), ntiles
-    pairs, flops = ablate_pairs(name, args), flops_per_pair(dim, softening)
-    nbytes = bytes_of(args)
-    bound_ms, bound_by = bound(pairs, flops, nbytes)
-    print(f"[{tag}] {name}<{softening}>: kernel {kms:.3f} ms, plain {plain_ms:.1f} ms on "
-          f"{plain_tiles} of {ntiles} tiles; on the first {tiles} tiles max |kernel - plain| / "
-          f"sum|term| = {err:.3e} (limit 1e-5), against float64: kernel {err64[0]:.3e}, plain "
-          f"{err64[1]:.3e}; pairs its inputs need {pairs} ({pairs / (kms * 1e-3):.4e} pairs/s); "
-          f"{nbytes} bytes; bound {bound_ms:.3f} ms ({bound_by}, {flops} FLOPs per pair)")
-    check(err <= 1e-5, f"{tag} {name}: scaled error {err:.3e} above 1e-5")
-    check(err64[0] <= 1e-5, f"{tag} {name}: scaled error against float64 {err64[0]:.3e} above 1e-5")
-    return {"ms": kms, "plain_ms": plain_ms, "plain_tiles": plain_tiles, "max_abs_err": abs_err,
-            "max_scaled_err": err, "max_scaled_err_vs_float64": err64[0], "checked_tiles": tiles,
-            "pairs": pairs, "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+    t_args, rows = head_args(name, args, min(HEAD_TILES, ntiles))
+    return measure_kernel(
+        tag, f"{name}<{softening}>", lambda: kern(*args, **kw),
+        lambda conv, absolute: twin(*conv(t_args), absolute=absolute, **kw),
+        ablate_pairs(name, args), flops_per_pair(dim, softening), bytes_of(args), rows=rows,
+        plain_all=lambda: twin(*args, **kw))
 
 
 def ablate_eval(tree: str, dev, bodies, depth: int, token: str, knobs, **kw):
@@ -1642,6 +1646,258 @@ def ablation_phases(dev, big: int):
                         "dtype": "float32", "launches_by_spec": launches[name],
                         "other_calls": {k: v for k, v in measured[name].items()
                                         if k != main_call[name]}})
+    return entries
+
+
+ENTRY_PROBES = "nbody_torch/csrc/entry_probes.cu"
+OVERHEAD_SCRIPT = "scripts/probe_entry_overhead.py"
+DMA_SCRIPT = "scripts/probe_dma_pipeline.py"
+RUNG_REPLACES = {"ideal": f"{OVERHEAD_SCRIPT}:188", "sepmj": f"{OVERHEAD_SCRIPT}:197",
+                 "sel": f"{OVERHEAD_SCRIPT}:210", "when": f"{OVERHEAD_SCRIPT}:210",
+                 "switch": f"{OVERHEAD_SCRIPT}:225", "noskip": f"{PALLAS_GROUP_EVAL}:963"}
+# the entry-overhead mode whose line carries each rung's launches
+RUNG_MODE = {"ideal": "ideal", "sepmj": "sepmj", "sel": "sel", "when": "when",
+             "switch": "switch", "noskip": "prod_noskip"}
+PROBE_ROWS = 8192  # 10a: the plain version of the 2^20 entries calls on the first 8,192 rows
+
+
+def run_probe(tag: str, argv: list[str], records):
+    """python -m nbody_torch.probe <argv> --device cuda in this process,
+    with the wrappers records = [(module, attrs, key)] recorded; returns
+    (its JSON lines, {module name: the recorded calls})."""
+    from nbody_torch import probe
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+        out = os.path.join(tmp, "probe.jsonl")
+        recs = {mod.__name__: stack.enter_context(recording(mod, attrs, key))
+                for mod, attrs, key in records}
+        t0 = time.perf_counter()
+        rc = probe.main([argv[0], out, *argv[1:], "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        rows = [json.loads(line) for line in Path(out).read_text().splitlines()]
+    print(f"[{tag}] python -m nbody_torch.probe {argv[0]} OUT {' '.join(argv[1:])} --device cuda: "
+          f"rc {rc}, {len(rows)} lines in {wall:.1f} s")
+    for r in rows:
+        print(f"[{tag}]   {json.dumps(r)}")
+    check(rc == 0, f"probe {argv[0]} failed")
+    return rows, recs
+
+
+def double(a):
+    """a with its floating tensors (and those of a tuple) in float64."""
+    import torch
+
+    if isinstance(a, tuple):
+        return tuple(double(v) for v in a)
+    return a.double() if isinstance(a, torch.Tensor) and a.is_floating_point() else a
+
+
+def measure_kernel(tag: str, name: str, run, plain, pairs: int, flops: int, nbytes: int,
+                   rows: int | None = None, plain_all=None) -> dict:
+    """Time run() (5 launches after a warm-up, CUDA events) and its plain
+    version plain(conv, absolute) on the first `rows` rows of run()'s
+    output (all when None; one call after an untimed one; conv maps the
+    plain version's inputs, `double` to float64); hold the kernel against
+    it, and both against the plain version in float64, within 1e-5 of each
+    row's sum of |term|; the bound from the pairs (or reads) and bytes its
+    inputs need. plain_all(), where given, is the plain version on every
+    row: its time replaces the first rows' where they extrapolate to
+    under 20 s."""
+    got = run()  # warm-up launch
+    kms = event_ms(run, reps=5)
+    total = got.shape[0]
+    rows = total if rows is None else rows
+    plain(lambda a: a, False)  # its first call (the first of a phase loads torch's kernels)
+    plain_ms, ref = event_ms(lambda: plain(lambda a: a, False), reps=1, keep=True)
+    scale = plain(lambda a: a, True)
+    err, abs_err = scaled(got[:rows], ref, scale)
+    ref64 = plain(double, False)
+    err64 = [scaled(v, ref64, scale)[0] for v in (got[:rows], ref)]
+    del got, ref, ref64, scale
+    plain_rows = rows
+    if plain_all is not None and rows < total and plain_ms * total / rows <= 20e3:
+        plain_ms, plain_rows = event_ms(plain_all, reps=1), total
+    bound_ms, bound_by = bound(pairs, flops, nbytes)
+    print(f"[{tag}] {name}: kernel {kms:.3f} ms, plain {plain_ms:.1f} ms on {plain_rows} of "
+          f"{total} rows; on the first {rows} rows max |kernel - plain| / sum|term| = {err:.3e} "
+          f"(limit 1e-5), against float64: kernel {err64[0]:.3e}, plain {err64[1]:.3e}; {pairs} "
+          f"pairs ({pairs / (kms * 1e-3):.4e} /s), {flops} operations each, {nbytes} bytes; "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
+    check(err <= 1e-5, f"{tag} {name}: scaled error {err:.3e} above 1e-5")
+    check(err64[0] <= 1e-5, f"{tag} {name}: scaled error against float64 {err64[0]:.3e} above 1e-5")
+    return {"ms": kms, "plain_ms": plain_ms, "plain_rows": plain_rows, "checked_rows": rows,
+            "max_abs_err": abs_err, "max_scaled_err": err, "max_scaled_err_vs_float64": err64[0],
+            "pairs": pairs, "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def tensor_bytes(*tensors) -> int:
+    """Each distinct tensor read (or written) once."""
+    seen = {t.data_ptr(): t.numel() * t.element_size() for t in tensors}
+    return sum(seen.values())
+
+
+def probe_phases(dev, big: int):
+    """Phase 10: the entry-cost probes (python -m nbody_torch.probe entries,
+    entry-overhead, dma-pipeline) and their kernels. Returns the JSON
+    entries of entries_tables_kernel, the ladder's rungs and the copy ring."""
+    import torch
+
+    from nbody_torch.ops import cuda_entry_probes as ce
+    from nbody_torch.ops import cuda_group_eval as cg
+
+    t10 = time.perf_counter()
+    entries = []
+
+    # -- (a) probe entries at 2^20, every mode; each recorded call of the
+    #    table-driven kernel re-run, timed, and held against the plain
+    #    version on the first 8,192 rows
+    rows, recs = run_probe("10a", ["entries", "--n", str(big)],
+                           [(cg, ["entries_tables_eval_cuda"], lambda a, args, kw: id(args[3]))])
+    timed = [r for r in rows if r["probe"] == "entries"]
+    check(len(timed) == 5 and rows[-1] == {"probe": "entries_done"}, "probe entries lines")
+    calls = list(recs[cg.__name__].values())
+    check(len(calls) == 5, f"{len(calls)} distinct entries calls recorded, expected 5")
+    measured = {}
+    for r, args in zip(timed, calls):
+        c, m, _, ents, blk, lohi, eps, S, tb = args
+        flat = ents.reshape(-1)
+        g = (flat & 0xFFFF).long()
+        lh = lohi.long()[g]
+        width = (torch.clamp(lh >> 16, max=S) - (lh & 0xFFFF)).clamp_min(0)
+        pairs = int(width.sum()) * tb
+        head = flat[(flat >> 16) < PROBE_ROWS // tb]
+        nbytes = tensor_bytes(c, m, ents, blk, lohi) + c.numel() * c.element_size()
+        label = f"{r['mode']} S={S}"
+        for softening in ("sqrt3", "poly") if (S, r["mode"]) == (1024, "real") else ("sqrt3",):
+            res = measure_kernel(
+                f"10a {label}", f"entries_tables_kernel<{softening}>",
+                lambda: cg.entries_tables_eval_cuda(*args, softening=softening),
+                lambda conv, absolute: cg.entries_tables_eval_torch(
+                    conv(c[:PROBE_ROWS]), conv(m), conv(c), head, blk, lohi, eps, S, tb,
+                    softening, absolute=absolute),
+                pairs, flops_per_pair(3, softening), nbytes, rows=PROBE_ROWS)
+            measured[f"{label} {softening}"] = {**res, "entries": r["E"], **(
+                {"launches": r["launches"].get("entries_tables_kernel", 0)} if softening == "sqrt3"
+                else {"launches": 0, "off_path": "the poly instantiation on this mode's recorded "
+                                                 "call; the probe launches sqrt3 only"})}
+        check(r["launches"].get("entries_tables_kernel", 0) > 0,
+              f"probe entries {label} launched no entries_tables_kernel")
+    main = measured.pop("real S=1024 sqrt3")
+    entries.append({"name": "entries_tables_kernel<sqrt3>", "route": "cuda", "source": GROUP_EVAL,
+                    "replaces": f"{PALLAS_GROUP_EVAL}:1126", **main,
+                    "launches_in": f"phase 10a: python -m nbody_torch.probe entries --n {big}, "
+                                   "mode (1024, real) (1 untimed + 8 timed calls)",
+                    "n": big, "dim": 3, "dtype": "float32", "S": 1024,
+                    "launches_by_mode": {k: v["launches"] for k, v in measured.items()
+                                         if k.endswith("sqrt3")},
+                    "other_calls": measured})
+    del calls, recs
+    torch.cuda.empty_cache()
+
+    # -- (b) probe entry-overhead at S 1,024 and 512, T 128, every mode:
+    #    the equivalence lines checked; each rung's recorded S = 1,024 call
+    #    re-run and held against its plain version on all its rows
+    ladder_calls, overhead_rows = {}, {}
+    for S in (1024, 512):
+        rows, recs = run_probe(f"10b S={S}", ["entry-overhead", "all", str(S), "128"],
+                               [(ce, ["entry_ladder_cuda"], lambda a, args, kw: args[0]),
+                                (cg, ["entries_lohi_eval_cuda"],
+                                 lambda a, args, kw: "prod_packed" if kw.get("packed") else "prod")])
+        equiv = {r["pair"]: r["rel_err"] for r in rows if r["probe"] == "entov_equiv"}
+        overhead_rows[S] = {r["mode"]: r for r in rows if r["probe"] == "entov"}
+        check(len(overhead_rows[S]) == 9 and len(equiv) == 3, f"entry-overhead S={S} lines")
+        check(equiv["ideal==sepmj"] == 0 and equiv["sel==when"] == 0,
+              f"entry-overhead S={S}: ideal / sepmj or sel / when differ: {equiv}")
+        lad, prod = recs[ce.__name__], recs[cg.__name__]
+        sw = ce.entry_ladder_cuda(*lad["switch"], **lad.kwargs["switch"])
+        pr = cg.entries_lohi_eval_cuda(*prod["prod"], **prod.kwargs["prod"])
+        rung, x, src, ents, lohis, S_ = lad["switch"][:6]
+        scale = ce.entry_ladder_torch(rung, x, src, ents, lohis, S_, tb=512, absolute=True)
+        err = scaled(sw, pr, scale)[0]
+        print(f"[10b S={S}] switch vs prod (entries_lohi_kernel) on the same entries: max |diff| "
+              f"/ sum|term| = {err:.3e} (limit 1e-5); the probe's rel_err {equiv['switch==prod']:.3e}")
+        check(err <= 1e-5, f"entry-overhead S={S}: switch and prod differ")
+        if S == 1024:
+            ladder_calls = {k: (v, lad.kwargs[k]) for k, v in lad.items()}
+        del recs, lad, prod, sw, pr, scale
+    for rung in ce.RUNGS:
+        args, kw = ladder_calls[rung]
+        _, x, src, ents, lohis, S = args[:6]
+        tid, start, stop = ce._ladder_ranges(rung, ents, lohis, S)
+        pairs = int((stop - start).clamp_min(0).sum()) * 512
+        srcs = src if isinstance(src, tuple) else (src,)
+        nbytes = tensor_bytes(x, *srcs, ents, *((lohis,) if lohis is not None else ())) \
+            + x.numel() * x.element_size()
+        res = measure_kernel(
+            "10b S=1024", ce.ladder_name(rung), lambda: ce.entry_ladder_cuda(*args, **kw),
+            lambda conv, absolute: ce.entry_ladder_torch(rung, conv(x), conv(src), ents, lohis, S,
+                                                         tb=512, absolute=absolute),
+            pairs, flops_per_pair(3, "sqrt3"), nbytes)
+        line = overhead_rows[1024][RUNG_MODE[rung]]
+        launches = line["launches"].get(ce.ladder_name(rung), 0)
+        check(launches > 0, f"entry-overhead {RUNG_MODE[rung]} launched no {ce.ladder_name(rung)}")
+        entries.append({"name": ce.ladder_name(rung), "route": "cuda", "source": ENTRY_PROBES,
+                        "replaces": RUNG_REPLACES[rung], **res, "launches": launches,
+                        "launches_in": f"phase 10b: python -m nbody_torch.probe entry-overhead "
+                                       f"all 1024 128, mode {RUNG_MODE[rung]} (1 untimed + 12 "
+                                       "timed calls)",
+                        "E": int(ents.shape[0]), "S": S, "T": 128, "dim": 3, "dtype": "float32",
+                        "us_per_entry": {s: overhead_rows[s][RUNG_MODE[rung]]["us_per_entry"]
+                                         for s in (1024, 512)}})
+    del ladder_calls
+    prod_us = {s: {m: overhead_rows[s][m]["us_per_entry"] for m in ("prod", "prod_packed")}
+               for s in (1024, 512)}
+    print(f"[10b] production kernel us per entry (entries_lohi_kernel, <packed>): {prod_us}")
+    torch.cuda.empty_cache()
+
+    # -- (c) probe dma-pipeline with and without the math: the equivalence
+    #    lines checked (limit 1e-6); each recorded call re-run and held
+    #    against its plain version
+    for math in (1, 0):
+        rows, recs = run_probe(f"10c math={math}", ["dma-pipeline", "all", "--math", str(math)],
+                               [(ce, ["entry_ladder_cuda", "dma_ring_cuda"],
+                                 lambda a, args, kw: a if a == "entry_ladder_cuda" else args[4])])
+        equiv = [r for r in rows if r["probe"] == "dmapipe_equiv"]
+        timed = {r["mode"]: r for r in rows if r["probe"] == "dmapipe"}
+        check(len(equiv) == 2 and len(timed) == 3, f"dma-pipeline math={math} lines")
+        check(all(r["rel_err"] <= 1e-6 for r in equiv),
+              f"dma-pipeline math={math}: the modes differ: {equiv}")
+        rec = recs[ce.__name__]
+        for mode, key in (("blockspec", "entry_ladder_cuda"), ("manual2", 2), ("manual4", 4)):
+            args, kw = rec[key], rec.kwargs[key]
+            if key == "entry_ladder_cuda":
+                _, x, xm, ents, _, S = args[:6]
+                name = ce.ladder_name("ideal", bool(math))
+                run = (lambda args=args, kw=kw: ce.entry_ladder_cuda(*args, **kw))
+            else:
+                x, xm, ents, S = args[:4]
+                name = ce.ring_name(key, bool(math))
+                run = (lambda args=args, kw=kw: ce.dma_ring_cuda(*args, **kw))
+            E = int(ents.shape[0])
+            nbytes = tensor_bytes(x, xm, ents) + x.numel() * x.element_size()
+            pairs, flops = (E * S * 512, flops_per_pair(3, "sqrt3")) if math else (E * S, 3)
+            res = measure_kernel(
+                f"10c math={math}", name, run,
+                lambda conv, absolute, x=x, xm=xm, ents=ents, S=S: ce.dma_ring_torch(
+                    conv(x), conv(xm), ents, S, math=bool(math), absolute=absolute),
+                pairs, flops, nbytes)
+            launches = timed[mode]["launches"].get(name, 0)
+            check(launches > 0, f"dma-pipeline {mode} math={math} launched no {name}")
+            if mode == "blockspec" and math:
+                continue  # the ideal rung of (b), on the CE grid: timed, listed there
+            copied = E * S * 16
+            entries.append({"name": name, "route": "cuda", "source": ENTRY_PROBES,
+                            "replaces": f"{DMA_SCRIPT}:{122 if mode == 'blockspec' else 177}",
+                            **res, "launches": launches,
+                            "launches_in": f"phase 10c: python -m nbody_torch.probe "
+                                           f"dma-pipeline all --math {math}, mode {mode} (1 "
+                                           "untimed + 12 timed calls)",
+                            "E": E, "S": S, "dim": 3, "dtype": "float32",
+                            "copied_bytes": copied,
+                            "us_per_entry": timed[mode]["us_per_entry"]})
+        del recs, rec
+    print(f"[10] phase 10 wall time {time.perf_counter() - t10:.0f} s")
     return entries
 
 

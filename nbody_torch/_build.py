@@ -95,9 +95,9 @@ def build() -> Path:
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C interface
-    of csrc/allpairs.cu, csrc/allpairs_mxu.cu and csrc/group_eval.cu (a
-    pointer must be c_void_p: ctypes passes an undeclared one as a 32-bit
-    int)."""
+    of csrc/allpairs.cu, csrc/allpairs_mxu.cu, csrc/group_eval.cu and
+    csrc/entry_probes.cu (a pointer must be c_void_p: ctypes passes an
+    undeclared one as a 32-bit int)."""
     lib = ctypes.CDLL(str(build()))
     i, p, f64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
     for name, args in (
@@ -116,10 +116,18 @@ def load_library() -> ctypes.CDLL:
         ("nbody_window_eval_dense", [i, i, p, i, i, p, p, i, p, p, i, i, f64, p, p]),
         ("nbody_entries_lohi_eval", [i, i, p, i, i, p, p, i, p, p, p, p, i, i, f64, p, p]),
         ("nbody_entries_lohi_eval_packed", [i, i, p, i, i, p, i, p, p, p, p, i, i, f64, p, p]),
+        # (..., mj, xj, nj, entries, blk_tbl, lohi_tbl, ntbl, first, last, S, sqrt3, eps, out,
+        #  stream)
+        ("nbody_entries_tables_eval", [i, i, p, i, i, p, p, i, p, p, p, i, p, p, i, i, f64, p, p]),
         ("nbody_masked_eval", [i, i, p, i, i, p, p, i, p, i, f64, p, p]),
         ("nbody_group_shared_masked_eval", [i, i, p, i, i, p, p, i, i, p, i, f64, p, p]),
         # (device, dtype, dim, xi, ntiles, tb, mj, xj, L, split, n0, n1, sqrt3, eps, out, stream)
         ("nbody_group_eval", [i, i, i, p, i, i, p, p, i, i, p, p, i, f64, p, p]),
+        # (device, dim, rung, math, xi, tb, ntiles, xm, mj, xj, nj, entries, lohis, E,
+        #  per_block, S, eps, out, stream)
+        ("nbody_entry_ladder", [i, i, i, i, p, i, i, p, p, p, i, p, p, i, i, i, f64, p, p]),
+        # (device, dim, nbuf, math, xi, tb, xm, nj, entries, E, ce, S, eps, out, stream)
+        ("nbody_dma_ring", [i, i, i, i, p, i, p, i, p, i, i, i, f64, p, p]),
     ):
         fn = getattr(lib, name)
         fn.argtypes = args

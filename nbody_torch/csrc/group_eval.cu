@@ -42,14 +42,25 @@
 // per (tile, column), mask[t, c], that multiplies m_j. The BVH takes it
 // where a window block would hold more than 64 slots (only tiny systems).
 //
-// entries_lohi_kernel<DIM, SQRT3> replaces entries_lohi_eval_pallas (:963,
-// body _entries_lohi_kernel): the near-field exact entries (the octree's
-// near field, the BVH's residual). The entry list
-// (tile << 16 | blk, lo | hi << 16) is sorted by tile; the wrapper finds each
-// tile's run [first, last) on the device. One block per tile walks its run,
-// visits the bodies blk*S + [lo, hi) of each entry exactly, and writes its
-// rows once: no zeroing on a tile's first entry, no atomics, no chunk loop,
-// and a tile with no entries writes zeros.
+// entries_kernel<DIM, SQRT3, Src, LohiEntries> ("entries_lohi_kernel")
+// replaces entries_lohi_eval_pallas (:963, body _entries_lohi_kernel): the
+// near-field exact entries (the octree's near field, the BVH's residual).
+// The entry list (tile << 16 | blk, lo | hi << 16) is sorted by tile; the
+// wrapper finds each tile's run [first, last) on the device. One block per
+// tile walks its run, visits the bodies blk*S + [lo, hi) of each entry
+// exactly, and writes its rows once: no zeroing on a tile's first entry,
+// no atomics, no chunk loop, and a tile with no entries writes zeros.
+//
+// entries_kernel<DIM, SQRT3, SplitSource, TableEntries>
+// ("entries_tables_kernel") replaces entries_tables_eval_pallas (:1126,
+// body _entries_tables_kernel :777): the table-driven entries that
+// scripts/probe_entries_kernel.py times. The same kernel with another
+// decoder, a template parameter: entry (tile << 16 | g) takes its block
+// blk_tbl[g] and its range lohi_tbl[g] from two tables, the range cut at
+// the block's S lanes (the TPU's lane mask). A pad row (lo == hi) is read
+// and skipped. The TPU's chunks, each a grid pass whose outputs are summed,
+// are one walk here: the wrapper passes the entries of the chunks that
+// would run, which stay tile-sorted.
 //
 // group_eval_kernel<T, DIM, SQRT3> computes group_eval_pallas's function
 // (:83, body _group_eval_kernel): the list paths' evaluation, the octree's
@@ -87,7 +98,8 @@
 // descent's monopoles (desc1 / desc2) take it. Padded monopoles carry
 // m = 0; zero weights are skipped as above.
 //
-// entries_lohi_kernel<DIM, SQRT3, PackedSource> replaces
+// entries_kernel<DIM, SQRT3, PackedSource, LohiEntries>
+// ("entries_lohi_kernel<packed>") replaces
 // _entries_lohi_packed_kernel (:896, entries_lohi_eval_pallas(packed_j=True)
 // :1040): the entries kernel reading each source body as one 16-byte
 // float4 (x, y, z | 0, m) from an (npad, 4) array the wrapper builds, the
@@ -117,83 +129,21 @@
 #include <cstdint>
 
 #include "pair.cuh"
+#include "tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;                              // threads per block
-constexpr int kRows = 2;                                   // rows per thread
-constexpr int kRowsPerBlock = kThreads * kRows;            // 512
+using nbody::add_source;
+using nbody::add_to;
+using nbody::kGroup;
+using nbody::kRows;
+using nbody::kRowsPerBlock;
+using nbody::kThreads;
+using nbody::Rows;
+using nbody::zero;
+
 constexpr int kChunk = kThreads;                           // bodies per shared stage
 constexpr int kNodeChunk = 1024;                           // far-field nodes per stage
-constexpr int kGroup = 32;                                 // terms per innermost running sum
-
-// The block's rows: tile t's rows [row0, row_end), two per thread.
-template <typename T, int DIM>
-struct Rows {
-  T p[kRows][DIM];
-  T acc[kRows][DIM];
-  int row[kRows];
-
-  __device__ __forceinline__ Rows(const T* __restrict__ xi, int tb) {
-    const int t = blockIdx.x;
-    const int row0 = t * tb + blockIdx.y * kRowsPerBlock;
-    const int row_end = (t + 1) * tb;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = row0 + r * kThreads + threadIdx.x;
-      row[r] = i < row_end ? i : -1;
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) {
-        p[r][d] = row[r] >= 0 ? xi[static_cast<size_t>(i) * DIM + d] : T(0);
-        acc[r][d] = T(0);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(T* __restrict__ out) const {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (row[r] < 0) continue;
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) out[static_cast<size_t>(row[r]) * DIM + d] = acc[r][d];
-    }
-  }
-};
-
-template <typename T, int DIM>
-__device__ __forceinline__ void zero(T (&v)[kRows][DIM]) {
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) v[r][d] = T(0);
-}
-
-template <typename T, int DIM>
-__device__ __forceinline__ void add_to(T (&dst)[kRows][DIM], const T (&src)[kRows][DIM]) {
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) dst[r][d] += src[r][d];
-}
-
-// One source (m, x) acting on both rows of the thread.
-template <typename T, int DIM, bool SQRT3>
-__device__ __forceinline__ void add_source(const T (&p)[kRows][DIM], T m, const T (&x)[DIM], T eps,
-                                           T (&part)[kRows][DIM]) {
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    T dx[DIM];
-    T d2 = T(0);
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) {
-      dx[d] = x[d] - p[r][d];
-      d2 += dx[d] * dx[d];
-    }
-    const T w = nbody::pair_weight<T, SQRT3>(m, d2, eps);
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) part[r][d] += w * dx[d];
-  }
-}
 
 // Where a kernel reads source body j: masses and positions in two arrays
 // (m[j], x[j * DIM + d]) ...
@@ -400,22 +350,63 @@ window_eval_dense_kernel(const float* __restrict__ xi, int tb, const float* __re
   rows.store(out);
 }
 
-template <int DIM, bool SQRT3, typename Src>
+// Where an entry's bodies lie: entry e adds the sources [a, b), none when
+// a >= b. The near-field lists carry the block and range in each entry
+// (tile << 16 | blk, lo | hi << 16) ...
+struct LohiEntries {
+  const int* __restrict__ entries;
+  const int* __restrict__ lohis;
+  int S;
+  int nj;
+
+  __device__ __forceinline__ void range(int e, int& a, int& b) const {
+    const int base = (entries[e] & 0xFFFF) * S;
+    const int lohi = lohis[e];
+    a = base + (lohi & 0xFFFF);
+    b = min(base + ((lohi >> 16) & 0xFFFF), nj);
+  }
+};
+
+// ... the table-driven ones (tile << 16 | g) look both up in row g of two
+// tables: the block blk_tbl[g] and lohi_tbl[g] = lo | hi << 16, hi read
+// as nbody_tpu reads it (an arithmetic shift) and cut at the block's S
+// lanes. Row g past the tables (ntbl rows) adds nothing.
+struct TableEntries {
+  const int* __restrict__ entries;
+  const int* __restrict__ blk_tbl;
+  const int* __restrict__ lohi_tbl;
+  int ntbl;
+  int S;
+  int nj;
+
+  __device__ __forceinline__ void range(int e, int& a, int& b) const {
+    const int g = entries[e] & 0xFFFF;
+    if (g >= ntbl) {
+      a = b = 0;
+      return;
+    }
+    const int base = blk_tbl[g] * S;
+    const int lohi = lohi_tbl[g];
+    a = base + (lohi & 0xFFFF);
+    b = min(base + min(lohi >> 16, S), nj);
+  }
+};
+
+// One block per tile walks the tile's run [first[t], last[t]) of the
+// tile-sorted entries and writes its rows once.
+template <int DIM, bool SQRT3, typename Src, typename Entries>
 __global__ void __launch_bounds__(kThreads)
-entries_lohi_kernel(const float* __restrict__ xi, int tb, const Src src, int nj,
-                    const int* __restrict__ entries, const int* __restrict__ lohis,
-                    const int* __restrict__ first, const int* __restrict__ last, int S, float eps,
-                    float* __restrict__ out) {
+entries_kernel(const float* __restrict__ xi, int tb, const Src src, const Entries ents,
+               const int* __restrict__ first, const int* __restrict__ last, float eps,
+               float* __restrict__ out) {
   __shared__ float s_m[kChunk];
   __shared__ float s_x[DIM][kChunk];
 
   Rows<float, DIM> rows(xi, tb);
   const int t = blockIdx.x;
   for (int e = first[t]; e < last[t]; ++e) {
-    const int base = (entries[e] & 0xFFFF) * S;
-    const int lohi = lohis[e];
-    const int a = base + (lohi & 0xFFFF);
-    const int b = min(base + ((lohi >> 16) & 0xFFFF), nj);
+    int a, b;
+    ents.range(e, a, b);
     if (a >= b) continue;  // a lo == hi sentinel or padding entry
     float ent[kRows][DIM];
     zero(ent);
@@ -510,16 +501,15 @@ cudaError_t launch_group_eval(int dim, int sqrt3, const void* xi, int ntiles, in
   return cudaGetLastError();
 }
 
-template <int DIM, typename Src>
-cudaError_t launch_entries(int sqrt3, const void* xi, int ntiles, int tb, const Src& src, int nj,
-                           const void* entries, const void* lohis, const void* first,
-                           const void* last, int S, double eps, void* out, void* stream) {
-  if (sqrt3 != 0 && sqrt3 != 1) return cudaErrorInvalidValue;
-  const auto kernel = sqrt3 ? entries_lohi_kernel<DIM, true, Src> : entries_lohi_kernel<DIM, false, Src>;
+template <int DIM, typename Src, typename Entries>
+cudaError_t launch_entries(int sqrt3, const void* xi, int ntiles, int tb, const Src& src,
+                           const Entries& ents, const void* first, const void* last, double eps,
+                           void* out, void* stream) {
+  if ((sqrt3 != 0 && sqrt3 != 1) || ents.S <= 0) return cudaErrorInvalidValue;
+  const auto kernel = sqrt3 ? entries_kernel<DIM, true, Src, Entries> : entries_kernel<DIM, false, Src, Entries>;
   kernel<<<grid_for(ntiles, tb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xi), tb, src, nj, static_cast<const int*>(entries),
-      static_cast<const int*>(lohis), static_cast<const int*>(first), static_cast<const int*>(last), S,
-      static_cast<float>(eps), static_cast<float*>(out));
+      static_cast<const float*>(xi), tb, src, ents, static_cast<const int*>(first),
+      static_cast<const int*>(last), static_cast<float>(eps), static_cast<float*>(out));
   return cudaGetLastError();
 }
 
@@ -615,16 +605,16 @@ extern "C" int nbody_entries_lohi_eval(int device, int dim, const void* xi, int 
                                        void* stream) {
   cudaError_t err = prepare(device, ntiles, tb);
   if (err != cudaSuccess) return err;
-  if (S <= 0) return cudaErrorInvalidValue;
   const auto* m = static_cast<const float*>(mj);
   const auto* x = static_cast<const float*>(xj);
+  const LohiEntries ents{static_cast<const int*>(entries), static_cast<const int*>(lohis), S, nj};
   if (dim == 2) {
-    return launch_entries<2>(sqrt3, xi, ntiles, tb, SplitSource<float, 2>{m, x}, nj, entries, lohis,
-                             first, last, S, eps, out, stream);
+    return launch_entries<2>(sqrt3, xi, ntiles, tb, SplitSource<float, 2>{m, x}, ents, first, last,
+                             eps, out, stream);
   }
   if (dim == 3) {
-    return launch_entries<3>(sqrt3, xi, ntiles, tb, SplitSource<float, 3>{m, x}, nj, entries, lohis,
-                             first, last, S, eps, out, stream);
+    return launch_entries<3>(sqrt3, xi, ntiles, tb, SplitSource<float, 3>{m, x}, ents, first, last,
+                             eps, out, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -638,15 +628,41 @@ extern "C" int nbody_entries_lohi_eval_packed(int device, int dim, const void* x
                                               void* out, void* stream) {
   cudaError_t err = prepare(device, ntiles, tb);
   if (err != cudaSuccess) return err;
-  if (S <= 0 || reinterpret_cast<uintptr_t>(xm) % alignof(float4) != 0) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(xm) % alignof(float4) != 0) return cudaErrorInvalidValue;
   const auto* packed = static_cast<const float4*>(xm);
+  const LohiEntries ents{static_cast<const int*>(entries), static_cast<const int*>(lohis), S, nj};
   if (dim == 2) {
-    return launch_entries<2>(sqrt3, xi, ntiles, tb, PackedSource<2>{packed}, nj, entries, lohis,
-                             first, last, S, eps, out, stream);
+    return launch_entries<2>(sqrt3, xi, ntiles, tb, PackedSource<2>{packed}, ents, first, last, eps,
+                             out, stream);
   }
   if (dim == 3) {
-    return launch_entries<3>(sqrt3, xi, ntiles, tb, PackedSource<3>{packed}, nj, entries, lohis,
-                             first, last, S, eps, out, stream);
+    return launch_entries<3>(sqrt3, xi, ntiles, tb, PackedSource<3>{packed}, ents, first, last, eps,
+                             out, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The table-driven entries (tile << 16 | g) with the tables blk_tbl and
+// lohi_tbl of ntbl int32 rows each; first / last as for the entries above.
+extern "C" int nbody_entries_tables_eval(int device, int dim, const void* xi, int ntiles, int tb,
+                                         const void* mj, const void* xj, int nj,
+                                         const void* entries, const void* blk_tbl,
+                                         const void* lohi_tbl, int ntbl, const void* first,
+                                         const void* last, int S, int sqrt3, double eps, void* out,
+                                         void* stream) {
+  cudaError_t err = prepare(device, ntiles, tb);
+  if (err != cudaSuccess) return err;
+  const auto* m = static_cast<const float*>(mj);
+  const auto* x = static_cast<const float*>(xj);
+  const TableEntries ents{static_cast<const int*>(entries), static_cast<const int*>(blk_tbl),
+                          static_cast<const int*>(lohi_tbl), ntbl, S, nj};
+  if (dim == 2) {
+    return launch_entries<2>(sqrt3, xi, ntiles, tb, SplitSource<float, 2>{m, x}, ents, first, last,
+                             eps, out, stream);
+  }
+  if (dim == 3) {
+    return launch_entries<3>(sqrt3, xi, ntiles, tb, SplitSource<float, 3>{m, x}, ents, first, last,
+                             eps, out, stream);
   }
   return cudaErrorInvalidValue;
 }

@@ -32,6 +32,10 @@ BVH fast and list paths. The kernels live in nbody_torch/csrc/group_eval.cu
                                entries_lohi_eval_pallas(packed_j=True)
                                :1040): the entries with each source read
                                as one float4 (x, y, z | 0, m) (packedj)
+  entries_tables_kernel        replaces entries_tables_eval_pallas (:1126;
+                               body _entries_tables_kernel :777): the
+                               table-driven entries that python -m
+                               nbody_torch.probe entries times
   group_eval_kernel            computes group_eval_pallas's function (:83;
                                body _group_eval_kernel): the list paths'
                                evaluation, each tile against its own list.
@@ -75,6 +79,7 @@ launch_counts = {"masked_eval_bits_kernel": 0, "window_eval_interval_kernel": 0,
                  "window_eval_nodemask_kernel": 0, "window_eval_dense_kernel": 0,
                  "entries_lohi_kernel": 0, "masked_eval_kernel": 0,
                  "group_shared_masked_kernel": 0, "entries_lohi_kernel<packed>": 0,
+                 "entries_tables_kernel": 0,
                  **{f"group_eval_kernel<{dtype}, {softening}>": 0
                     for dtype in ("float32", "float64") for softening in SOFTENINGS}}
 
@@ -286,6 +291,38 @@ def window_eval_dense_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor
     return _window_twin(xi, mj, xj, w0, mask, eps, softening, absolute)
 
 
+def _entries_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, tid: torch.Tensor,
+                   start: torch.Tensor, stop: torch.Tensor, ntiles: int, eps: float,
+                   softening: str, absolute: bool) -> torch.Tensor:
+    """Entry e adds the pairs of row tile tid[e] with the bodies [start[e],
+    stop[e]) (below nj). Each entry is cut into pieces of at most 256
+    bodies; pieces are summed per entry, entries per tile, in float64 and
+    rounded once: a float32 sum over a tile's thousands of entries drifts
+    to ~7e-6 of the row's sum of |term| (measured on an H100 at 8,192
+    entries a tile)."""
+    tb, nj = xi.shape[0] // ntiles, mj.shape[0]
+    dev = xi.device
+    e = tid.shape[0]
+    piece = 256
+    npieces = ((stop - start).clamp_min(0) + piece - 1) // piece
+    owner = torch.repeat_interleave(torch.arange(e, device=dev), npieces)
+    first = torch.cumsum(npieces, 0) - npieces
+    k = torch.arange(owner.shape[0], device=dev) - first[owner]
+    start = start[owner] + k * piece                               # (pieces,)
+    stop = stop[owner]
+    xt = xi.view(ntiles, tb, -1)
+    per_entry = torch.zeros(e, tb, xi.shape[1], dtype=torch.float64, device=dev)
+    for ps, rs in _chunks(owner.shape[0], tb, piece, dev):
+        cols = start[ps, None] + torch.arange(piece, device=dev)
+        keep = (cols < stop[ps, None]) & (cols < nj)
+        cols = cols.clamp_max(nj - 1)
+        part = _masked_block(xt[tid[owner[ps]], rs], mj[cols], xj[cols], keep, eps, softening,
+                             absolute)
+        per_entry[:, rs].index_add_(0, owner[ps], part.double())
+    out = torch.zeros(ntiles, tb, xi.shape[1], dtype=torch.float64, device=dev)
+    return out.index_add_(0, tid, per_entry).to(xi.dtype).view_as(xi)
+
+
 def entries_lohi_eval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                             entries: torch.Tensor, lohis: torch.Tensor, n_real, S: int,
                             ntiles: int, eps: float, softening: str, absolute: bool = False,
@@ -299,29 +336,53 @@ def entries_lohi_eval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor
     if packed:
         xm = pack_sources(mj, xj)
         mj, xj = xm[:, 3], xm[:, :xi.shape[1]]
-    tb, nj = xi.shape[0] // ntiles, mj.shape[0]
-    dev = xi.device
     e = int(n_real)
     ent, lohi = entries[:e].long(), lohis[:e].long()
-    tid, blk = ent >> 16, ent & 0xFFFF
-    lo, hi = lohi & 0xFFFF, (lohi >> 16) & 0xFFFF
-    piece = 256
-    npieces = ((hi - lo).clamp_min(0) + piece - 1) // piece
-    owner = torch.repeat_interleave(torch.arange(e, device=dev), npieces)
-    first = torch.cumsum(npieces, 0) - npieces
-    k = torch.arange(owner.shape[0], device=dev) - first[owner]
-    start = blk[owner] * S + lo[owner] + k * piece                 # (pieces,)
-    stop = blk[owner] * S + hi[owner]
-    xt = xi.view(ntiles, tb, -1)
-    per_entry = torch.zeros(e, tb, xi.shape[1], dtype=xi.dtype, device=dev)
-    for ps, rs in _chunks(owner.shape[0], tb, piece, dev):
-        cols = start[ps, None] + torch.arange(piece, device=dev)
-        keep = (cols < stop[ps, None]) & (cols < nj)
-        cols = cols.clamp_max(nj - 1)
-        part = _masked_block(xt[tid[owner[ps]], rs], mj[cols], xj[cols], keep, eps, softening,
-                             absolute)
-        per_entry[:, rs].index_add_(0, owner[ps], part)
-    return torch.zeros_like(xt).index_add_(0, tid, per_entry).view_as(xi)
+    base = (ent & 0xFFFF) * S
+    return _entries_torch(xi, mj, xj, ent >> 16, base + (lohi & 0xFFFF),
+                          base + ((lohi >> 16) & 0xFFFF), ntiles, eps, softening, absolute)
+
+
+def live_entries(entries: torch.Tensor,
+                 n_real: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor | int]:
+    """The flattened entries of entries_tables_eval_pallas's chunks and how
+    many of them its chunks evaluate: a 1-D list is one chunk, all of it;
+    of an (nchunks, E) list chunk 0 always runs, and chunk c > 0 when
+    c * E < n_real (n_real None: every chunk), all of a chunk that runs,
+    its entries past n_real included. The count of a tensor n_real is a
+    tensor, computed on its device without a sync."""
+    if entries.ndim == 1:
+        return entries, entries.shape[0]
+    nchunks, width = entries.shape
+    flat = entries.reshape(-1)
+    if n_real is None:
+        return flat, flat.shape[0]
+    chunks = torch.clamp((n_real.long() + width - 1) // width, 1, nchunks)
+    return flat, chunks * width
+
+
+def entries_tables_eval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
+                              entries: torch.Tensor, blk_tbl: torch.Tensor,
+                              lohi_tbl: torch.Tensor, eps: float, S: int, tb: int,
+                              softening: str = "sqrt3", n_real: torch.Tensor | None = None,
+                              absolute: bool = False) -> torch.Tensor:
+    """Table-driven entries: each live entry (tile << 16 | g) adds the
+    pairs of row tile `tile` with the bodies blk_tbl[g]*S + [lo, hi), where
+    lohi_tbl[g] = lo | hi << 16, hi cut at S (live_entries says which are
+    live) -- the plain twin of entries_tables_kernel. Raises on live
+    entries that are not sorted by tile, the precondition the kernel
+    relies on."""
+    flat, live = live_entries(entries, n_real)
+    ent = flat[:int(live)].long()
+    tid = ent >> 16
+    if tid.numel() > 1 and bool((tid[1:] < tid[:-1]).any()):
+        raise ValueError("entries must be sorted by tile within and across chunks")
+    g = ent & 0xFFFF
+    lohi = lohi_tbl.long()[g]
+    base = blk_tbl.long()[g] * S
+    hi = torch.clamp(lohi >> 16, max=S)
+    return _entries_torch(xi, mj, xj, tid, base + (lohi & 0xFFFF), base + hi,
+                          xi.shape[0] // tb, eps, softening, absolute)
 
 
 def group_eval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, eps: float,
@@ -509,6 +570,39 @@ def entries_lohi_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                        xm.data_ptr(), xm.shape[0], *tail)
     return _launch("entries_lohi_kernel", "nbody_entries_lohi_eval", xi, ntiles,
                    mj.data_ptr(), xj.data_ptr(), mj.shape[0], *tail)
+
+
+def entries_tables_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
+                             entries: torch.Tensor, blk_tbl: torch.Tensor, lohi_tbl: torch.Tensor,
+                             eps: float, S: int, tb: int, softening: str = "sqrt3",
+                             n_real: torch.Tensor | None = None) -> torch.Tensor:
+    """Table-driven entries -- the counterpart of entries_tables_eval_pallas,
+    with xj (N, dim) where it takes xjt (dim, N). Entry (tile << 16 | g)
+    adds the pairs of row tile `tile` (rows tile*tb + [0, tb) of xi) with
+    the bodies blk_tbl[g]*S + [lo, hi), lohi_tbl[g] = lo | hi << 16, hi cut
+    at S; lo >= hi adds nothing. entries is 1-D or (nchunks, E); the
+    chunks that nbody_tpu would run (live_entries: under n_real, every
+    chunk c with c * E < n_real, whole, and chunk 0) are one walk here, and
+    a tile in none of them gets zeros. The live entries must be sorted by
+    tile, within and across chunks, as nbody_tpu requires; the kernel does
+    not check it (that would make the host wait), the twin raises."""
+    ntiles = xi.shape[0] // tb if tb > 0 else 0
+    _check(xi, ntiles, mj, xj, entries, blk_tbl, lohi_tbl)
+    if entries.ndim not in (1, 2) or blk_tbl.shape != lohi_tbl.shape or blk_tbl.ndim != 1:
+        raise ValueError(f"entries {tuple(entries.shape)}, tables {tuple(blk_tbl.shape)} and "
+                         f"{tuple(lohi_tbl.shape)}")
+    if S <= 0:
+        raise ValueError(f"S must be positive, got {S}")
+    sqrt3 = _sqrt3(softening)
+    if _on_cpu(xi, mj, xj, entries, blk_tbl, lohi_tbl):
+        return entries_tables_eval_torch(xi, mj, xj, entries, blk_tbl, lohi_tbl, eps, S, tb,
+                                         softening, n_real)
+    flat, live = live_entries(entries, n_real)
+    first, last = tile_segments(flat, live, ntiles)
+    return _launch("entries_tables_kernel", "nbody_entries_tables_eval", xi, ntiles, mj.data_ptr(),
+                   xj.data_ptr(), mj.shape[0], flat.data_ptr(), blk_tbl.data_ptr(),
+                   lohi_tbl.data_ptr(), blk_tbl.shape[0], first.data_ptr(), last.data_ptr(),
+                   int(S), sqrt3, float(eps))
 
 
 def _check_mask(mask: torch.Tensor, xi: torch.Tensor, width: int) -> None:

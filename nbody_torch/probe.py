@@ -27,6 +27,32 @@
         ablate tokens joined by dots. Runs on the GPU unless --device cpu;
         an error ends the run with a non-zero exit.
 
+    python -m nbody_torch.probe entries OUT [--n N] [--e E] [--device cuda|cpu]
+        The port of scripts/probe_entries_kernel.py (nbody_torch/probes/
+        entries_kernel.py): the table-driven entries kernel on n bodies
+        (default 2^20; the script's 1,000,000 does not split into its
+        tiles) and E entries (default 393,216) in the modes (S, real | pad
+        | half_real); one JSON line per mode with the script's keys (probe,
+        S, mode, E, sec, us_per_entry, pairs_per_s) and n, device, kernel,
+        launches.
+
+    python -m nbody_torch.probe entry-overhead OUT [MODE] [S] [T] [--e E]
+                                               [--dim D] [--device cuda|cpu]
+        The port of scripts/probe_entry_overhead.py (probes/
+        entry_overhead.py): MODE all (default) or a comma-separated list of
+        ideal, sepmj, sel, when, switch, prod, prod_noskip, prod_packed,
+        prod_packed_noskip; S 1024, T 128, E 8192, dim 3 by default. The
+        entov_equiv lines, then one entov line per mode.
+
+    python -m nbody_torch.probe dma-pipeline OUT [MODE] [--math 0|1] [--e E]
+                                             [--s S] [--dim D] [--device cuda|cpu]
+        The port of scripts/probe_dma_pipeline.py (probes/dma_pipeline.py):
+        MODE all (default), blockspec, manual2 or manual4; E 8192, S 1024,
+        dim 3 by default; --math 0 is the script's PROBE_MATH=0 control.
+        The dmapipe_equiv lines, then one dmapipe line per mode.
+        These three append to OUT, run on the GPU unless --device cpu (the
+        kernels' plain twins), and end non-zero on an error.
+
     python -m nbody_torch.probe sass OUT.txt
         Compiles each nbody_torch/csrc/*.cu to a cubin with the build's
         nvcc flags and writes `cuobjdump -sass` of them to OUT.txt, for
@@ -153,8 +179,6 @@ def parse_knob_spec(tree: str, spec: str) -> tuple[int, int]:
 
 
 def knobs(tree: str, out: str, specs: list[str], n: int, device: str) -> None:
-    import json
-
     import numpy as np
     import torch
 
@@ -162,6 +186,7 @@ def knobs(tree: str, out: str, specs: list[str], n: int, device: str) -> None:
     from nbody_torch.models import build_model
     from nbody_torch.ops import cuda_allpairs as ca
     from nbody_torch.ops import cuda_group_eval as cg
+    from nbody_torch.probes import log
     from nbody_torch.sim.engines import EngineOptions, get_engine
 
     dev = resolve_device(device)
@@ -195,12 +220,39 @@ def knobs(tree: str, out: str, specs: list[str], n: int, device: str) -> None:
             sec = (time.perf_counter() - t0) / 3
         keys = [k for k in info if k in KNOB_KEYS[tree] or k.startswith(("res_pass_", "descend_"))]
         launches = {k: v for k, v in {**ca.launch_counts, **cg.launch_counts}.items() if v}
-        row = {"probe": f"{tree}knobs", "spec": spec, "n": n, "sec": sec,
-               **{k: int(info[k]) for k in keys}, "device": name, "launches": launches}
-        with open(out, "a") as f:
-            f.write(json.dumps(row) + "\n")
-        print(json.dumps(row), flush=True)
+        log(out, {"probe": f"{tree}knobs", "spec": spec, "n": n, "sec": sec,
+                  **{k: int(info[k]) for k in keys}, "device": name, "launches": launches})
         del state, step
+
+
+def _modes(arg: str, known: tuple[str, ...]) -> list[str]:
+    modes = list(known) if arg == "all" else arg.split(",")
+    bad = [m for m in modes if m not in known]
+    if bad:
+        raise ValueError(f"unknown modes {bad}: expected all or some of {', '.join(known)}")
+    return modes
+
+
+def entry_probe(args) -> None:
+    """entries, entry-overhead or dma-pipeline (nbody_torch/probes/)."""
+    from nbody_torch.cli import resolve_device
+
+    if args.cmd == "entries":
+        from nbody_torch.probes import entries_kernel
+
+        entries_kernel.run(args.out, args.n, args.e, resolve_device(args.device))
+    elif args.cmd == "entry-overhead":
+        from nbody_torch.probes import entry_overhead
+
+        modes = _modes(args.mode, entry_overhead.MODES)
+        entry_overhead.run(args.out, modes, args.S, args.T, args.e, args.dim,
+                           resolve_device(args.device))
+    else:
+        from nbody_torch.probes import dma_pipeline
+
+        modes = _modes(args.mode, dma_pipeline.MODES)
+        dma_pipeline.run(args.out, modes, args.e, args.s, args.dim, bool(args.math),
+                         resolve_device(args.device))
 
 
 def sass(out: str) -> None:
@@ -234,6 +286,26 @@ def main(argv: list[str] | None = None) -> int:
     k.add_argument("specs", nargs="+", metavar="SPEC")
     k.add_argument("--n", type=int, default=1_000_000)
     k.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    en = sub.add_parser("entries", help="the table-driven entries kernel's cost model")
+    en.add_argument("out")
+    en.add_argument("--n", type=int, default=1 << 20)
+    en.add_argument("--e", type=int, default=393_216)
+    eo = sub.add_parser("entry-overhead", help="the entry kernel's overhead ladder")
+    eo.add_argument("out")
+    eo.add_argument("mode", nargs="?", default="all")
+    eo.add_argument("S", nargs="?", type=int, default=1024)
+    eo.add_argument("T", nargs="?", type=int, default=128)
+    eo.add_argument("--e", type=int, default=8192)
+    eo.add_argument("--dim", type=int, choices=(2, 3), default=3)
+    dp = sub.add_parser("dma-pipeline", help="synchronous block copies against a copy ring")
+    dp.add_argument("out")
+    dp.add_argument("mode", nargs="?", default="all")
+    dp.add_argument("--math", type=int, choices=(0, 1), default=1)
+    dp.add_argument("--e", type=int, default=8192)
+    dp.add_argument("--s", type=int, default=1024)
+    dp.add_argument("--dim", type=int, choices=(2, 3), default=3)
+    for p in (en, eo, dp):
+        p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     s = sub.add_parser("sass", help="write the kernels' SASS to a file")
     s.add_argument("out")
     args = parser.parse_args(argv)
@@ -241,6 +313,8 @@ def main(argv: list[str] | None = None) -> int:
         trace(args.n, args.dim, args.steps, args.algorithm, args.precision)
     elif args.cmd == "knobs":
         knobs(args.tree, args.out, args.specs, args.n, args.device)
+    elif args.cmd in ("entries", "entry-overhead", "dma-pipeline"):
+        entry_probe(args)
     else:
         sass(args.out)
     return 0

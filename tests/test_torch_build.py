@@ -21,7 +21,8 @@ def test_library_path_hashes_sources_and_headers(tmp_path, monkeypatch):
 
 def test_repo_sources_and_header():
     names = {p.name for p in _build.CSRC.iterdir()}
-    assert {"allpairs.cu", "allpairs_mxu.cu", "group_eval.cu", "pair.cuh"} <= names
+    assert {"allpairs.cu", "allpairs_mxu.cu", "entry_probes.cu", "group_eval.cu", "pair.cuh",
+            "tiles.cuh"} <= names
     assert [p.name for p in _build.sources()] == ["allpairs.cu", "allpairs_mxu.cu",
-                                                  "group_eval.cu"]
+                                                  "entry_probes.cu", "group_eval.cu"]
     assert _build.library_path().parent == _build.BUILD_DIR

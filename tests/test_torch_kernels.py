@@ -5,7 +5,8 @@ node-mask and dense-mask windows, and entries, each far and entries test
 under both softenings, the ablation path's dense-mask far field,
 supertile-shared monopoles and packed-source entries (which must equal
 the unpacked kernel bit for bit), the list paths' kernel in float32 and float64
-under both, and the all-pairs variants (the Newton and fast
+under both, the table-driven entries and the entry-cost probes' ladder and
+copy-ring kernels (csrc/entry_probes.cu), and the all-pairs variants (the Newton and fast
 instantiations, and the hybrid kernel of csrc/allpairs_mxu.cu, whose
 counts of tile pairs by branch must equal their twins'). Every test
 here needs an NVIDIA GPU with nvcc (the kernels are built from
@@ -464,6 +465,7 @@ def test_group_launch_counters(dev):
                                 "window_eval_nodemask_kernel": 1, "window_eval_dense_kernel": 1,
                                 "entries_lohi_kernel": 1, "masked_eval_kernel": 0,
                                 "group_shared_masked_kernel": 0, "entries_lohi_kernel<packed>": 0,
+                                "entries_tables_kernel": 0,
                                 "group_eval_kernel<float32, poly>": 0,
                                 "group_eval_kernel<float32, sqrt3>": 1,
                                 "group_eval_kernel<float64, poly>": 1,
@@ -852,3 +854,138 @@ def test_ablate_paths_on_card_match_cpu(dev, tree, ablate):
     assert ginfo == cinfo and cinfo["entries"] > 0
     assert ((ga - ca_).abs().sum() / ca_.abs().sum()).item() < 1e-5
     assert glaunch == 1 and claunch == 0
+
+
+# ------------------------------------------- the entry-cost probes' kernels
+from nbody_torch.ops import cuda_entry_probes as ce  # noqa: E402
+
+
+def _scaled_within(got, ref, scale):
+    """|got - ref| <= 1e-5 of each row's sum of |term| (the twin's)."""
+    _assert_group_within(got, ref, scale.cpu())
+
+
+@pytest.mark.parametrize("softening", ["poly", "sqrt3"])
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_entries_tables_kernel_vs_twin(dev, dim, chunked, softening):
+    """entries_tables_kernel on a tile-sorted list with empty tiles, the
+    pad row, lo == hi rows, hi > S (cut at S), and as (4, E) chunks with
+    n_real inside chunk 1: chunks 0-1 run whole (tile 3 in part), 2-3 not."""
+    ntiles, tb, S, nblocks = 6, 512, 256, 9
+    mj, xj = _bodies(nblocks * S, dim, torch.float32, dev, seed=300 + dim)
+    _, xi = _bodies(ntiles * tb, dim, torch.float32, dev, seed=301 + dim)
+    rng = np.random.default_rng(302)
+    lo = rng.integers(0, S // 2, nblocks)
+    hi = lo + rng.integers(0, S, nblocks)
+    hi[2], lo[3], hi[3] = S + 300, 40, 40  # beyond S; an empty range
+    blk = torch.tensor(np.r_[rng.permutation(nblocks), 0], dtype=torch.int32, device=dev)
+    lohi = torch.tensor(np.r_[lo | (hi << 16), 0], dtype=torch.int32, device=dev)
+    ents = np.sort(np.concatenate([np.repeat([0, 1, 3, 5], 10) << 16, [5 << 16] * 8]))
+    ents |= np.r_[rng.integers(0, nblocks + 1, 40), [nblocks] * 8]
+    ents = torch.tensor(ents, dtype=torch.int32, device=dev)
+    n_real = None
+    if chunked:
+        ents, n_real = ents.view(4, 12), torch.tensor(13, device=dev)
+    args = (xi, mj, xj, ents, blk, lohi, EPS32, S, tb, softening, n_real)
+    cg.reset_launch_counts()
+    got = cg.entries_tables_eval_cuda(*args)
+    assert cg.launch_counts["entries_tables_kernel"] == 1
+    ref = cg.entries_tables_eval_torch(*args)
+    _scaled_within(got, ref, cg.entries_tables_eval_torch(*args, absolute=True))
+    assert not got.view(ntiles, tb, dim)[[2, 4]].any()  # tiles without entries
+    if chunked:  # chunks 2-3 (the rest of tile 3, tile 5) do not run
+        assert not got.view(ntiles, tb, dim)[5].any()
+
+
+def _ladder_case(dev, dim, S=256, ntiles=5, per_tile=(7, 0, 12, 3, 9), seed=310):
+    """Packed and split sources of 6 blocks, rows of ntiles tiles of 512,
+    tile-sorted entries (per_tile of each tile) with random blocks and
+    [lo, hi) lanes, one lo == hi and one hi > S."""
+    rng = np.random.default_rng(seed)
+    mj, xj = _bodies(6 * S, dim, torch.float32, dev, seed=seed + 1)
+    _, xi = _bodies(ntiles * 512, dim, torch.float32, dev, seed=seed + 2)
+    tid = np.repeat(np.arange(ntiles), per_tile)
+    ents = torch.tensor((tid << 16) | rng.integers(0, 6, tid.size), dtype=torch.int32, device=dev)
+    lo = rng.integers(0, S // 4, tid.size)
+    hi = S - rng.integers(0, S // 4, tid.size)
+    lo[3], hi[3], hi[5] = 50, 50, S + 77
+    lohi = torch.tensor(lo | (hi << 16), dtype=torch.int32, device=dev)
+    return xi, (mj, xj), cg.pack_sources(mj, xj), ents, lohi
+
+
+@pytest.mark.parametrize("per_block", [1, 8])
+@pytest.mark.parametrize("rung", list(ce.RUNGS))
+@pytest.mark.parametrize("dim", [2, 3])
+def test_entry_ladder_kernel_vs_twin(dev, dim, rung, per_block):
+    """Each rung against its twin. Under switch / noskip, one entry a
+    block writes every tile with atomics; 8 a block holds tile 0's whole
+    run (a plain store) while the others straddle blocks."""
+    xi, split, packed, ents, lohi = _ladder_case(dev, dim)
+    pk, sel, _, switch = ce.RUNGS[rung]
+    src = packed if pk else split
+    x = xi if switch else xi[:512].contiguous()
+    args = (rung, x, src, ents, lohi if sel else None, 256)
+    ce.reset_launch_counts()
+    got = ce.entry_ladder_cuda(*args, tb=512, per_block=per_block)
+    assert ce.launch_counts[ce.ladder_name(rung)] == 1
+    _scaled_within(got, ce.entry_ladder_torch(*args, tb=512),
+                   ce.entry_ladder_torch(*args, tb=512, absolute=True))
+    if switch:
+        assert not got.view(5, 512, dim)[1].any()  # the tile without entries
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_entry_ladder_equal_rungs(dev, dim):
+    """ideal == sepmj and sel == when bit for bit (the same staged values,
+    summed in the same order); switch within the tolerance of the
+    production entries kernel on the same entries."""
+    xi, split, packed, ents, lohi = _ladder_case(dev, dim)
+    x0 = xi[:512].contiguous()
+    call = ce.entry_ladder_cuda
+    assert torch.equal(call("ideal", x0, packed, ents, None, 256),
+                       call("sepmj", x0, split, ents, None, 256))
+    assert torch.equal(call("sel", x0, packed, ents, lohi, 256),
+                       call("when", x0, packed, ents, lohi, 256))
+    # 16 entries a block: at most two blocks add to a tile, (0 + a) + b == (0 + b) + a
+    assert torch.equal(call("switch", xi, packed, ents, lohi, 256, tb=512, per_block=16),
+                       call("noskip", xi, split, ents, lohi, 256, tb=512, per_block=16))
+    n_real = torch.tensor(ents.shape[0], device=dev)
+    prod_lohi = torch.where(lohi >> 16 > 256, (lohi & 0xFFFF) | (256 << 16), lohi)
+    prod = cg.entries_lohi_eval_cuda(xi, *split, ents, prod_lohi, n_real, 256, 5, ce.EPS, "sqrt3")
+    args = ("switch", xi, packed, ents, lohi, 256)
+    _scaled_within(call(*args, tb=512), prod, ce.entry_ladder_torch(*args, tb=512, absolute=True))
+
+
+@pytest.mark.parametrize("math", [True, False])
+@pytest.mark.parametrize("nbuf", [2, 4])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_dma_ring_kernel_vs_twin(dev, dim, nbuf, math):
+    """The copy ring at S = 1,024 (64 KB of ring at nbuf 4) on 200 entries,
+    a ragged last block: within the tolerance of its twin, and equal bit
+    for bit to the ideal rung on the same grid of 64 entries a block."""
+    S = 1024
+    mj, xj = _bodies(7 * S - 5, dim, torch.float32, dev, seed=320 + dim)  # a ragged last block
+    _, xi = _bodies(512, dim, torch.float32, dev, seed=321)
+    xm = cg.pack_sources(mj, xj)
+    ents = torch.tensor(np.random.default_rng(322).integers(0, 7, 200), dtype=torch.int32,
+                        device=dev)
+    ce.reset_launch_counts()
+    got = ce.dma_ring_cuda(xi, xm, ents, S, nbuf, math=math)
+    assert ce.launch_counts[ce.ring_name(nbuf, math)] == 1
+    _scaled_within(got, ce.dma_ring_torch(xi, xm, ents, S, math=math),
+                   ce.dma_ring_torch(xi, xm, ents, S, math=math, absolute=True))
+    blockspec = ce.entry_ladder_cuda("ideal", xi, xm, ents, None, S, per_block=64, math=math)
+    assert torch.equal(got, blockspec)
+
+
+def test_dma_ring_refuses_more_shared_memory_than_the_card_has(dev):
+    """4 slots of S = 4,096 float4 rows (256 KB) exceed the 227 KB a block
+    may have: the wrapper raises and counts no launch."""
+    mj, xj = _bodies(4096 * 2, 3, torch.float32, dev, seed=330)
+    xm = cg.pack_sources(mj, xj)
+    ents = torch.zeros(8, dtype=torch.int32, device=dev)
+    ce.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="dma_ring_kernel<4> launch failed"):
+        ce.dma_ring_cuda(xj[:512].contiguous(), xm, ents, 4096, 4)
+    assert ce.launch_counts[ce.ring_name(4)] == 0
