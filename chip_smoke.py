@@ -7,11 +7,32 @@ machine with one NVIDIA Hopper GPU (H100):
 Phases, each printed on its own lines:
   1. the card (nvidia-smi name and power limit) and the CUDA kernels'
      build from nbody_torch/csrc/;
-  2. the all-pairs kernels against their plain torch twins on the card,
-     on the same inputs: n = 65,536 in float32 and float64, 2-D and 3-D,
-     both softenings, a ragged n and a rectangular block; then both
-     kernels at the main path's shape, N = 2^20 3-D float32, timed beside
-     the twin;
+  2. the all-pairs kernels of csrc/allpairs.cu against their plain torch
+     twins on the card, on the same inputs:
+     a. n = 65,536 in float32 and float64, 2-D and 3-D, both softenings,
+        the chain (exact=False, the default) and the IEEE weight, and the
+        potential;
+     b. ragged rows (ni 1, 31 and 4,099 against 65,573 bodies), G applied
+        after the sum, and the potential of 70,001 bodies on its plan,
+        whose split boundaries cut through float32 row blocks, so that a
+        block's diagonal lies in two splits;
+     c. the main path's shape, N = 2^20 3-D float32: the CLI's force (the
+        Newton chain) and the potential, each launched twice (the two
+        results bit-equal), timed with CUDA events while nvidia-smi samples
+        the SM clock and the draw, beside the twin on all rows; the IEEE
+        instantiation against the same twin; the FLOP bound and the MUFU
+        floor printed beside each time;
+     d. 9,216 rows (18 tiles, the BVH 2-D float64 fallback's count) against
+        the 2^20 bodies in float32, which the plan splits over the bodies:
+        more than one split, bit-equal launches, within 1e-5 of the twin;
+     e. split_sum_kernel on partial rows of that plan's shape: bit-equal to
+        its plain version, timed beside it and beside torch.sum(parts, 0);
+     f. float64, 2^20 rows against 2^20 bodies (the trees' exact fallback
+        at its largest), sqrt3 and poly: bit-equal launches, timed, held
+        against the twin on the first 8,192 rows;
+     g. the 9,216 rows in float64: split, within 1e-12 of the twin, and the
+        chain against the IEEE weight on the same plan (the same order of
+        summation) in half-ulps of each row's sum of |term|;
   3. the all-pairs main path at full size through the CLI: 2^20 galaxy
      bodies in 3-D, and a small run whose final state must match the CPU's;
   4. energies and saving: a 65,536-body 2-D galaxy with --csv-detailed
@@ -71,8 +92,9 @@ Phases, each printed on its own lines:
         card and on the CPU: the same printed state, in the same body
         order, values within 1e-12 relative;
   8. the all-pairs variants that python -m nbody_torch.kernel_bench runs
-     (allpairs_block_kernel<float32, newton | fast>, allpairs_mxu_kernel
-     and its fast instantiation):
+     (allpairs_block_kernel<ieee>, the exact=True instantiation;
+     allpairs_block_kernel<float32, fast>, allpairs_mxu_kernel and its fast
+     instantiation):
      a. each against its twin at n = 65,536 in 2-D and 3-D, on uniform
         bodies unsorted and Hilbert-sorted and on sorted clusters, and at a
         ragged n: the same branch on every tile pair (the per-i-tile counts
@@ -89,7 +111,7 @@ Phases, each printed on its own lines:
         plain_ms is the twin's measured time on those 8,192 rows (the whole
         twin would take over a minute); branch shares and the bound (below);
      c. the outputs of (b) against the float64 kernel on 4,096 sampled rows,
-        with nbody_tpu's tests' bounds: newton and fast within 1e-5 of max
+        with nbody_tpu's tests' bounds: exact and fast within 1e-5 of max
         |a|, mxu within max(4 err32, 6e-5) and mxu-fast within 5e-3 of
         test_mxu_kernel.py's per-row measure, err32 the exact float32
         kernel's;
@@ -140,6 +162,15 @@ Phases, each printed on its own lines:
         rel_err against blockspec at most 1e-6 (the kernels sum alike,
         so 0 is expected); each call re-run, timed and held against its
         plain version.
+Phase 2's bounds (bound_ms in the kernels line): pairs times 5*dim + 3
+FLOPs (+1 under sqrt3; 3*dim + 3 for the potential) over 67 TFLOP/s in
+float32 or 34 in float64. Beside the float32 times it prints, and keeps
+out of the kernels line, the MUFU floor: two multi-function-unit
+operations a pair (a root and a reciprocal) at 16 a clock on each SM at
+the data sheet's 1.98 GHz boost clock, a figure worked out, not measured.
+split_sum_kernel is bound by its bytes (the partials read once, the rows
+written once); library_ms is torch.sum(parts, 0), the one PyTorch call
+that computes its function (in another order of addition).
 Every kernel call that 5a and 6a time prints its pair count, the pairs
 its inputs need (all-pairs N(N-1); a window the columns it visits times
 the rows; entries sum(hi - lo) times the rows; the far field the set
@@ -152,7 +183,7 @@ output written once) over its 3.35 TB/s; the list kernel's pairs are each
 tile's rows times the nonzero-mass entries of its live list heads. No
 single PyTorch call computes a softened gravity
 sum (torch.cdist gives distances, not forces), so library_ms is null.
-Phase 8's bounds: newton and fast count 5*dim + 3 operations a pair on
+Phase 8's bounds: exact and fast count 5*dim + 3 operations a pair on
 either chain; the MXU kernel the larger of its FP32 chain (by branch, see
 variant_bound) over 67 TFLOP/s and its MMAs as issued over 989 TFLOP/s
 bf16. Their launches come from the kernel_bench run of 8d, which resets
@@ -165,8 +196,14 @@ pass counts only the lanes it needs; the --math 0 control E * S reads of
 move E * S * 16 bytes, printed as copied_bytes).
 The kernels' launch counts are set to 0 just before each CLI run that
 drives a main path and read just after it: the all-pairs force kernel's
-from the 2^20 run of phase 3, the potential kernel's from the run of
-phase 4 (the 2^20 --csv-total run computes no energies), the octree
+float32 Newton instantiation (the one the CLI launches: exact=False, as
+nbody_tpu's engine calls allpairs_accel_pallas) from the 2^20 run of
+phase 3, which must launch no IEEE instantiation; its float64
+instantiation from the 3-D octree run of phase 7b (the exact fallback);
+the potential kernel's and split_sum_kernel's from the run of phase 4
+(the 2^20 --csv-total run computes no energies; at 65,536 bodies the
+plans split), the IEEE instantiation's from kernel_bench's exact
+configurations in 8d; the octree
 kernels' from the 3-D run of phase 5b, the BVH's far, node-mask and
 entries kernels' from the 3-D run of phase 6b, the dense-mask
 window's from the small run of phase 6e, the three ablation kernels' from
@@ -264,83 +301,8 @@ def main() -> int:
           f"-> {_build.library_path().name}")
 
     # -- phase 2: kernels vs plain twins -----------------------------------
-    rng = np.random.default_rng(SEED)
-
-    def bodies(n, dim, dtype):
-        m = torch.tensor(rng.uniform(0.1, 1.0, n), dtype=dtype, device=dev)
-        x = torch.tensor(rng.uniform(-1.0, 1.0, (n, dim)), dtype=dtype, device=dev)
-        return m, x
-
-    def report(label, dtype, err):
-        tol = TOL[str(dtype).split(".")[-1]]
-        print(f"[2] {label}: max |kernel - plain| / sum|term| = {err:.3e} (limit {tol:g})")
-        check(err <= tol, f"{label}: scaled error {err:.3e} above {tol:g}")
-
-    n = 65536
-    for dtype in (torch.float32, torch.float64):
-        for dim in (2, 3):
-            m, x = bodies(n, dim, dtype)
-            for soft in ("poly", "sqrt3"):
-                got = ca.allpairs_block_cuda(x, m, x, eps_of(dtype), soft)
-                ref = ca.allpairs_block_torch(x, m, x, eps_of(dtype), soft)
-                scale = ca.allpairs_block_abs_torch(x, m, x, eps_of(dtype), soft)
-                report(f"block {soft} {dim}-D {dtype} n={n}", dtype,
-                       scaled(got, ref, scale)[0])
-            got = ca.potential_rowsums_cuda(m, x, eps_of(dtype))
-            ref = ca.potential_rowsums_torch(m, x, eps_of(dtype))
-            report(f"potential {dim}-D {dtype} n={n}", dtype, scaled(got, ref, ref.abs())[0])
-    # ragged edges: n not a multiple of the 256-row block, and ni != nj
-    for dtype in (torch.float32, torch.float64):
-        mj, xj = bodies(n + 37, 3, dtype)
-        xi = xj[:4099].contiguous()
-        got = ca.allpairs_block_cuda(xi, mj, xj, eps_of(dtype), "poly")
-        ref = ca.allpairs_block_torch(xi, mj, xj, eps_of(dtype), "poly")
-        scale = ca.allpairs_block_abs_torch(xi, mj, xj, eps_of(dtype), "poly")
-        report(f"block poly 3-D {dtype} ni=4099 nj={n + 37}", dtype, scaled(got, ref, scale)[0])
-        G = 6.674e-11
-        got = ca.allpairs_accel_cuda(mj, xj, G, eps_of(dtype))
-        ref = G * ca.allpairs_block_torch(xj, mj, xj, eps_of(dtype))
-        scale = G * ca.allpairs_block_abs_torch(xj, mj, xj, eps_of(dtype))
-        report(f"accel (G={G}) 3-D {dtype} n={n + 37}", dtype, scaled(got, ref, scale)[0])
-        got = ca.potential_rowsums_cuda(mj, xj, eps_of(dtype))
-        ref = ca.potential_rowsums_torch(mj, xj, eps_of(dtype))
-        report(f"potential 3-D {dtype} n={n + 37}", dtype, scaled(got, ref, ref.abs())[0])
-
-    # the main path's shape: N = 2^20, 3-D, float32
     big = 1 << 20
-    m, x = bodies(big, 3, torch.float32)
-    eps = eps_of(torch.float32)
-    kernels = {}
-    for name, kern, plain, scale_fn in (
-        ("allpairs_block_kernel",
-         lambda: ca.allpairs_accel_cuda(m, x, 1.0, eps),
-         lambda: ca.allpairs_block_torch(x, m, x, eps),
-         lambda: ca.allpairs_block_abs_torch(x, m, x, eps)),
-        ("potential_rowsums_kernel",
-         lambda: ca.potential_rowsums_cuda(m, x, eps),
-         lambda: ca.potential_rowsums_torch(m, x, eps),
-         None),
-    ):
-        got = kern()  # warm-up launch
-        ms = event_ms(kern, reps=3)
-        plain_ms, ref = event_ms(plain, reps=1, keep=True)
-        scale = ref.abs() if scale_fn is None else scale_fn()
-        err, abs_err = scaled(got, ref, scale)
-        report(f"{name} at N=2^20 3-D float32 (kernel {ms:.1f} ms, plain {plain_ms:.1f} ms)",
-               torch.float32, err)
-        pairs = big * (big - 1)
-        flops = flops_per_pair(3, "poly") if name == "allpairs_block_kernel" else 3 * 3 + 3
-        nbytes = big * 4 * (3 + 1) + big * 4 * (3 if name == "allpairs_block_kernel" else 1)
-        bound_ms, bound_by = bound(pairs, flops, nbytes)
-        print(f"[2] {name}: {pairs} pairs, {flops} FLOPs per pair, bound {bound_ms:.3f} ms "
-              f"({bound_by})")
-        kernels[name] = {"max_abs_err": abs_err, "max_scaled_err": err,
-                         "scaled_err_limit": TOL["float32"], "ms": ms, "plain_ms": plain_ms,
-                         "pairs": pairs, "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": None}
-        del got, ref, scale
-    del m, x
-    torch.cuda.empty_cache()
+    kernels = allpairs_phase(dev, big)
 
     # -- phase 3: the main path at full size -------------------------------
     ca.reset_launch_counts()
@@ -357,8 +319,10 @@ def main() -> int:
     fields = lines[1].split(",")
     check(fields[:5] == ["all-pairs", "3", "32", "2", str(big)], f"CSV row {lines[1]!r}")
     total = float(fields[5])
-    force_launches = phase3_launches["allpairs_block_kernel"]
-    check(force_launches >= 12, f"force kernel launched {force_launches} times, expected >= 12")
+    force_launches = phase3_launches[ca.NEWTON]
+    check(force_launches >= 12 and phase3_launches[ca.EXACT] == 0,
+          f"the CLI launched {phase3_launches}, expected >= 12 of {ca.NEWTON} (exact=False, as "
+          f"nbody_tpu's engine calls allpairs_accel_pallas) and no IEEE launch")
     per_step = total / 2
     rate = big * (big - 1) * 2 / total if total > 0 else float("inf")
     print(f"[3] python -m nbody_torch.cli {' '.join(argv)}")
@@ -404,8 +368,9 @@ def main() -> int:
     row = out.getvalue().strip().splitlines()[-1].split(",")
     check(row[:5] == ["all-pairs", "2", "32", "3", str(n4)] and len(row) == 8,
           f"detailed CSV row {row!r}")
-    pe_launches = phase4_launches["potential_rowsums_kernel"]
+    pe_launches = phase4_launches[ca.POTENTIAL]
     check(pe_launches >= 4, f"potential kernel launched {pe_launches} times, expected >= 4")
+    check(phase4_launches[ca.SPLIT_SUM] > 0, f"no split_sum_kernel launch at {n4} bodies")
     check(struct.unpack("<II", energy[:8]) == (3, 4), "energy.bin header")
     e = np.frombuffer(energy[8:], np.float32).reshape(-1, 2)
     check(e.shape == (4, 2) and bool(np.isfinite(e).all()), f"energy records {e!r}")
@@ -415,31 +380,31 @@ def main() -> int:
     drift = abs(tot[-1] - tot[0]) / abs(tot[0])
     print(f"[4] {n4}-body 2-D galaxy, 3 steps, --csv-detailed --save all: "
           f"{','.join(row)}; E0 = {tot[0]:.6e}, E3 = {tot[-1]:.6e}, "
-          f"relative drift {drift:.3e} (limit 1e-3); potential kernel launches {pe_launches}")
+          f"relative drift {drift:.3e} (limit 1e-3); launches {phase4_launches}")
     check(drift <= 1e-3, "energy drift too large")
 
     octree_kernels, octree_fallback = octree_phases(dev, big)
     bvh_kernels, bvh_fallback = bvh_phases(dev, big)
-    list_kernels, list_fallback = list_phases(dev, big)
+    list_kernels, list_fallback, list_launches = list_phases(dev, big)
     variant_kernels = variant_phases(dev, big)
     ablation_kernels = ablation_phases(dev, big)
     probe_kernels = probe_phases(dev, big)
 
+    runs = {ca.NEWTON: (phase3_launches, f"phase 3: {big}-body 3-D all-pairs --csv-total"),
+            ca.NEWTON64: (list_launches, f"phase 7b: {big}-body 3-D octree --precision double "
+                                         "--csv-total (the exact fallback)"),
+            ca.POTENTIAL: (phase4_launches, f"phase 4: {n4}-body 2-D all-pairs --csv-detailed "
+                                            "--save all"),
+            ca.SPLIT_SUM: (phase4_launches, f"phase 4: {n4}-body 2-D all-pairs --csv-detailed "
+                                            "--save all (forces and potential split)")}
     entries = []
-    for name, replaces, launches, run in (
-        ("allpairs_block_kernel", "nbody_tpu/ops/pallas_allpairs.py:113", phase3_launches,
-         f"phase 3: {big}-body 3-D all-pairs --csv-total"),
-        ("potential_rowsums_kernel", "nbody_tpu/ops/pallas_allpairs.py:255", phase4_launches,
-         f"phase 4: {n4}-body 2-D all-pairs --csv-detailed --save all"),
-    ):
-        check(launches[name] > 0, f"{name} was not launched on the main path")
+    for name, (launches, run) in runs.items():
+        check(launches[name] > 0, f"{name} was not launched on the main path ({run})")
         entries.append({"name": name, "route": "cuda", "source": "nbody_torch/csrc/allpairs.cu",
-                        "replaces": replaces, "launches": launches[name], "launches_in": run,
-                        **kernels[name], "n": big, "dim": 3, "dtype": "float32"})
-    entries[0]["also_replaces"] = "nbody_tpu/ops/pallas_allpairs.py:181"
-    entries[0]["octree_fallback_launches"] = octree_fallback  # sqrt3
-    entries[0]["bvh_fallback_launches"] = bvh_fallback        # poly
-    entries[0]["float64_list_fallback_launches"] = list_fallback  # 3-D, by tree
+                        "launches": launches[name], "launches_in": run, **kernels[name]})
+    entries[0]["octree_fallback_launches"] = octree_fallback  # float32 sqrt3, by dimension
+    entries[0]["bvh_fallback_launches"] = bvh_fallback        # float32 poly
+    entries[1]["fallback_launches_3d"] = list_fallback        # by tree
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": entries + octree_kernels + bvh_kernels + list_kernels
                       + variant_kernels + ablation_kernels + probe_kernels}))
@@ -454,6 +419,275 @@ def main() -> int:
 F32_FLOPS = 67e12
 F64_FLOPS = 34e12
 HBM_BYTES_PER_S = 3.35e12
+# H100 SXM boost clock (NVIDIA's data sheet) and the multi-function unit's
+# results a clock on an SM (Hopper: 16, against 128 FP32 lanes)
+MAX_SM_CLOCK_HZ = 1.98e9
+MUFU_PER_SM_CLOCK = 16
+FEW_ROWS = 9216  # 18 tiles of 512: the BVH 2-D float64 exact fallback's rows at 2^20
+PLAIN_ROWS = 8192  # 2f: the float64 2^20 calls held against the twin on their first rows
+
+
+def mufu_floor_ms(pairs: int, sms: int) -> float:
+    """Two MUFU operations a pair (a root and a reciprocal: every chain of
+    csrc/allpairs.cu takes both) at MUFU_PER_SM_CLOCK a clock on each SM."""
+    return pairs * 2 / (sms * MUFU_PER_SM_CLOCK * MAX_SM_CLOCK_HZ) * 1e3
+
+
+def timed_with_clock(fn, reps: int):
+    """(mean ms of reps calls by CUDA events, median SM clock in MHz and
+    power draw in W that nvidia-smi sampled during them)."""
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        ms = event_ms(fn, reps)
+    finally:
+        smi.terminate()
+        samples = smi.communicate(timeout=30)[0]
+    vals = [[float(v) for v in ln.split(",")] for ln in samples.splitlines() if ln.count(",") == 1]
+    clock, power = (float(np.median([v[k] for v in vals])) if vals else float("nan")
+                    for k in (0, 1))
+    return ms, clock, power
+
+
+def allpairs_phase(dev, big: int) -> dict:
+    """Phase 2: the all-pairs kernels of csrc/allpairs.cu against their
+    plain twins. Returns name -> the measurements of its kernels-line
+    entry (the CLI's float32 force, the float64 force, the potential and
+    split_sum_kernel)."""
+    import torch
+
+    from nbody_torch.ops import cuda_allpairs as ca
+
+    rng = np.random.default_rng(SEED)
+    sms = ca.sm_count_of(dev.index)
+
+    def bodies(n, dim, dtype):
+        m = torch.tensor(rng.uniform(0.1, 1.0, n), dtype=dtype, device=dev)
+        x = torch.tensor(rng.uniform(-1.0, 1.0, (n, dim)), dtype=dtype, device=dev)
+        return m, x
+
+    def report(label, dtype, err):
+        tol = TOL[str(dtype).split(".")[-1]]
+        print(f"[2] {label}: max |kernel - plain| / sum|term| = {err:.3e} (limit {tol:g})")
+        check(err <= tol, f"{label}: scaled error {err:.3e} above {tol:g}")
+
+    def same_bits(label, call):
+        a, b = call(), call()
+        torch.cuda.synchronize()
+        equal = torch.equal(a, b)
+        print(f"[2] {label}: two launches bit-equal: {equal}")
+        check(equal, f"{label}: two launches differ")
+        return a
+
+    def form(exact):
+        return "ieee" if exact else "chain"
+
+    # -- (a) 65,536 bodies: both dtypes, dimensions, softenings and weights
+    n = 65536
+    for dtype in (torch.float32, torch.float64):
+        eps = eps_of(dtype)
+        for dim in (2, 3):
+            m, x = bodies(n, dim, dtype)
+            for soft in ("poly", "sqrt3"):
+                ref = ca.allpairs_block_torch(x, m, x, eps, soft)
+                scale = ca.allpairs_block_abs_torch(x, m, x, eps, soft)
+                for exact in (False, True):
+                    got = ca.allpairs_block_cuda(x, m, x, eps, soft, exact=exact)
+                    report(f"block {soft} {form(exact)} {dim}-D {dtype} n={n}", dtype,
+                           scaled(got, ref, scale)[0])
+            got = ca.potential_rowsums_cuda(m, x, eps)
+            ref = ca.potential_rowsums_torch(m, x, eps)
+            report(f"potential {dim}-D {dtype} n={n}", dtype, scaled(got, ref, ref.abs())[0])
+
+    # -- (b) ragged rows against 65,573 bodies, G after the sum, and the
+    #    potential of 70,001 bodies on its plan: in float32 the plan's split
+    #    boundaries cut through row blocks of 512 (a block's diagonal in two
+    #    splits); a float64 row block is one tile, so its diagonal lies in
+    #    one split
+    for dtype in (torch.float32, torch.float64):
+        eps = eps_of(dtype)
+        mj, xj = bodies(n + 37, 3, dtype)
+        for ni in (1, 31, 4099):
+            xi = xj[:ni].contiguous()
+            got = ca.allpairs_block_cuda(xi, mj, xj, eps, "poly")
+            ref = ca.allpairs_block_torch(xi, mj, xj, eps, "poly")
+            scale = ca.allpairs_block_abs_torch(xi, mj, xj, eps, "poly")
+            report(f"block poly 3-D {dtype} ni={ni} nj={n + 37}", dtype, scaled(got, ref, scale)[0])
+        G = 6.674e-11
+        got = ca.allpairs_accel_cuda(mj, xj, G, eps)
+        ref = G * ca.allpairs_block_torch(xj, mj, xj, eps)
+        scale = G * ca.allpairs_block_abs_torch(xj, mj, xj, eps)
+        report(f"accel (G={G}) 3-D {dtype} n={n + 37}", dtype, scaled(got, ref, scale)[0])
+        mp, xp = bodies(70001, 3, dtype)
+        ref = ca.potential_rowsums_torch(mp, xp, eps)
+        plan = ca.block_plan(70001, 70001, dtype, sms)
+        check(plan.splits > 1, f"{plan}: the potential of 70,001 bodies does not split")
+        if dtype == torch.float32:
+            check(plan.split_len % plan.rows_per_block != 0,
+                  f"{plan}: no split boundary cuts a row block")
+        got = ca.potential_rowsums_cuda(mp, xp, eps)
+        report(f"potential 3-D {dtype} n=70001, {plan}", dtype, scaled(got, ref, ref.abs())[0])
+    torch.cuda.empty_cache()
+
+    # -- (c) the main path's shape, 2^20 3-D float32: the CLI's force (the
+    #    Newton chain), the IEEE weight and the potential, timed beside the
+    #    twin, with the FLOP bound and the MUFU floor
+    out = {}
+    pairs = big * (big - 1)
+    m, x = bodies(big, 3, torch.float32)
+    eps = eps_of(torch.float32)
+    floor = mufu_floor_ms(pairs, sms)
+    for name, kern, plain, scale_fn, flops, width in (
+        (ca.NEWTON, lambda: ca.allpairs_accel_cuda(m, x, 1.0, eps),
+         lambda: ca.allpairs_block_torch(x, m, x, eps),
+         lambda: ca.allpairs_block_abs_torch(x, m, x, eps), flops_per_pair(3, "poly"), 3),
+        (ca.POTENTIAL, lambda: ca.potential_rowsums_cuda(m, x, eps),
+         lambda: ca.potential_rowsums_torch(m, x, eps), None, 3 * 3 + 3, 1),
+    ):
+        got = same_bits(f"{name} at N=2^20 3-D float32", kern)
+        ms, clock, power = timed_with_clock(kern, reps=3)
+        plain_ms, ref = event_ms(plain, reps=1, keep=True)
+        scale = ref.abs() if scale_fn is None else scale_fn()
+        err, abs_err = scaled(got, ref, scale)
+        report(f"{name} at N=2^20 3-D float32 (kernel {ms:.1f} ms, plain {plain_ms:.1f} ms)",
+               torch.float32, err)
+        bound_ms, bound_by = bound(pairs, flops, big * 4 * (3 + 1) + big * 4 * width)
+        print(f"[2] {name}: {pairs} pairs, {flops} FLOPs a pair: FLOP bound {bound_ms:.3f} ms "
+              f"({bound_by}), MUFU floor {floor:.3f} ms (2 a pair at {MUFU_PER_SM_CLOCK} a "
+              f"clock on {sms} SMs at {MAX_SM_CLOCK_HZ / 1e9} GHz); during the timed launches "
+              f"the SM clock was {clock:.0f} MHz and the draw {power:.1f} W")
+        out[name] = {"max_abs_err": abs_err, "max_scaled_err": err,
+                     "scaled_err_limit": TOL["float32"], "ms": ms, "plain_ms": plain_ms,
+                     "pairs": pairs, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None, "bit_equal": True,
+                     "sm_clock_mhz": clock, "power_w": power, "n": big, "dim": 3,
+                     "dtype": "float32"}
+        if name == ca.NEWTON:
+            ieee = ca.allpairs_accel_cuda(m, x, 1.0, eps, exact=True)
+            ieee_ms = event_ms(lambda: ca.allpairs_accel_cuda(m, x, 1.0, eps, exact=True), reps=2)
+            ieee_err = scaled(ieee, ref, scale)[0]
+            report(f"{ca.EXACT} at N=2^20 3-D float32 (kernel {ieee_ms:.1f} ms)", torch.float32,
+                   ieee_err)
+            out[name]["ieee"] = {"ms": ieee_ms, "max_scaled_err": ieee_err}
+            del ieee
+        del got, ref, scale
+    out[ca.NEWTON].update(replaces=f"{PALLAS_ALLPAIRS}:113",
+                          also_replaces=f"{PALLAS_ALLPAIRS}:181")
+    out[ca.POTENTIAL]["replaces"] = f"{PALLAS_ALLPAIRS}:255"
+
+    # -- (d) few rows: 9,216 rows of the 2^20 bodies, which the plan splits
+    #    over the bodies; float32 here, float64 in (g)
+    few = {}
+    xi = x[:FEW_ROWS].contiguous()
+    plan = ca.block_plan(FEW_ROWS, big, torch.float32, sms)
+    check(plan.splits > 1, f"{FEW_ROWS} rows against 2^20 bodies: {plan} does not split")
+    for soft in ("poly", "sqrt3"):
+        got = same_bits(f"few rows float32 {soft}",
+                        lambda: ca.allpairs_block_cuda(xi, m, x, eps, soft))
+        kms = event_ms(lambda: ca.allpairs_block_cuda(xi, m, x, eps, soft), reps=5)
+        plain_ms, ref = event_ms(lambda: ca.allpairs_block_torch(xi, m, x, eps, soft), reps=1,
+                                 keep=True)
+        err = scaled(got, ref, ca.allpairs_block_abs_torch(xi, m, x, eps, soft))[0]
+        few_pairs = FEW_ROWS * (big - 1)
+        bound_ms = bound(few_pairs, flops_per_pair(3, soft), (FEW_ROWS * 2 + big) * 4 * 3
+                         + big * 4)[0]
+        report(f"few rows {FEW_ROWS} x 2^20 float32 {soft}, {plan} (kernel {kms:.3f} ms, "
+               f"plain {plain_ms:.1f} ms, FLOP bound {bound_ms:.3f} ms, MUFU floor "
+               f"{mufu_floor_ms(few_pairs, sms):.3f} ms)", torch.float32, err)
+        few[soft] = {"ms": kms, "plain_ms": plain_ms, "max_scaled_err": err, "bound_ms": bound_ms,
+                     "splits": plan.splits, "blocks": plan.blocks * plan.splits}
+    out[ca.NEWTON]["few_rows"] = few
+    # -- (e) split_sum_kernel on the partial rows of that plan's shape
+    parts = torch.tensor(rng.standard_normal((plan.splits, FEW_ROWS, 3)), dtype=torch.float32,
+                         device=dev)
+    got = same_bits("split_sum_kernel", lambda: ca.split_sum_cuda(parts))
+    sms_ms = event_ms(lambda: ca.split_sum_cuda(parts), reps=20)
+    plain_ms, ref = event_ms(lambda: ca.split_sum_torch(parts), reps=1, keep=True)
+    lib_ms, lib = event_ms(lambda: torch.sum(parts, 0), reps=20, keep=True)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, ref)
+    lib_err = (lib - got).abs().max().item()
+    nbytes = parts.numel() * 4 + got.numel() * 4
+    bound_ms, bound_by = bound(parts.numel() - got.numel(), 1, nbytes)
+    print(f"[2] split_sum_kernel on ({plan.splits}, {FEW_ROWS}, 3) float32 partials: kernel "
+          f"{sms_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sum(parts, 0) {lib_ms:.4f} ms; kernel "
+          f"== plain bit for bit: {equal}; max |torch.sum - kernel| {lib_err:.3e}; bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    check(equal, "split_sum_kernel differs from its plain version")
+    out[ca.SPLIT_SUM] = {"ms": sms_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "library_call": "torch.sum(parts, 0)", "max_abs_err": 0.0,
+                         "bit_equal_to_plain": True, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "replaces": f"{PALLAS_ALLPAIRS}:107-108 and :250 (the grid's sequential "
+                                     "j axis: out_ref +=)",
+                         "shape": [plan.splits, FEW_ROWS, 3], "dtype": "float32"}
+    del m, x, xi, parts, got, ref, lib
+    torch.cuda.empty_cache()
+
+    # -- (f) float64, 2^20 rows against 2^20 bodies (the trees' exact
+    #    fallback at its largest), sqrt3 and poly: held against the twin on
+    #    the first PLAIN_ROWS rows; then (g) the few rows in float64, and
+    #    the chain against the IEEE weight on the same plan (the same order
+    #    of summation), in half-ulps of sum |term|
+    m, x = bodies(big, 3, torch.float64)
+    eps = eps_of(torch.float64)
+    head = x[:PLAIN_ROWS].contiguous()
+    f64 = {}
+    for soft in ("sqrt3", "poly"):
+        got = same_bits(f"{ca.NEWTON64} {soft} at 2^20 x 2^20",
+                        lambda: ca.allpairs_block_cuda(x, m, x, eps, soft))
+        kms, clock, power = timed_with_clock(lambda: ca.allpairs_block_cuda(x, m, x, eps, soft),
+                                             reps=2)
+        plain_ms, ref = event_ms(lambda: ca.allpairs_block_torch(head, m, x, eps, soft), reps=1,
+                                 keep=True)
+        err, abs_err = scaled(got[:PLAIN_ROWS], ref, ca.allpairs_block_abs_torch(head, m, x, eps,
+                                                                                 soft))
+        flops = flops_per_pair(3, soft)
+        bound_ms, bound_by = bound(pairs, flops, big * 8 * 4 + big * 8 * 3, F64_FLOPS)
+        report(f"{ca.NEWTON64} {soft} 2^20 x 2^20 (kernel {kms:.1f} ms; plain {plain_ms:.1f} ms "
+               f"on the first {PLAIN_ROWS} rows)", torch.float64, err)
+        print(f"[2] {ca.NEWTON64} {soft}: FLOP bound {bound_ms:.3f} ms ({bound_by}, {flops} FLOPs "
+              f"a pair at {F64_FLOPS / 1e12:.0f} TFLOP/s); SM clock {clock:.0f} MHz, draw "
+              f"{power:.1f} W")
+        f64[soft] = {"ms": kms, "plain_ms": plain_ms, "plain_rows": PLAIN_ROWS,
+                     "max_abs_err": abs_err, "max_scaled_err": err,
+                     "scaled_err_limit": TOL["float64"], "pairs": pairs, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None, "bit_equal": True,
+                     "sm_clock_mhz": clock, "power_w": power}
+        del got, ref
+    xi = x[:FEW_ROWS].contiguous()
+    plan = ca.block_plan(FEW_ROWS, big, torch.float64, sms)
+    check(plan.splits > 1, f"{FEW_ROWS} float64 rows against 2^20 bodies: {plan} does not split")
+    few = {}
+    for soft in ("sqrt3", "poly"):
+        got = same_bits(f"few rows float64 {soft}",
+                        lambda: ca.allpairs_block_cuda(xi, m, x, eps, soft))
+        kms = event_ms(lambda: ca.allpairs_block_cuda(xi, m, x, eps, soft), reps=3)
+        ieee = ca.allpairs_block_cuda(xi, m, x, eps, soft, exact=True)
+        plain_ms, ref = event_ms(lambda: ca.allpairs_block_torch(xi, m, x, eps, soft), reps=1,
+                                 keep=True)
+        scale = ca.allpairs_block_abs_torch(xi, m, x, eps, soft)
+        err = scaled(got, ref, scale)[0]
+        half_ulps = scaled(got, ieee, scale)[0] / (eps / 2)
+        few_pairs = FEW_ROWS * (big - 1)
+        bound_ms = bound(few_pairs, flops_per_pair(3, soft), (FEW_ROWS * 2 + big) * 8 * 3
+                         + big * 8, F64_FLOPS)[0]
+        report(f"few rows {FEW_ROWS} x 2^20 float64 {soft}, {plan} (kernel {kms:.3f} ms, plain "
+               f"{plain_ms:.1f} ms, FLOP bound {bound_ms:.3f} ms); the chain against the IEEE "
+               f"weight on the same plan: {half_ulps:.2f} half-ulps of sum|term|", torch.float64,
+               err)
+        few[soft] = {"ms": kms, "plain_ms": plain_ms, "max_scaled_err": err, "bound_ms": bound_ms,
+                     "chain_vs_ieee_half_ulps": half_ulps, "splits": plan.splits,
+                     "blocks": plan.blocks * plan.splits}
+        del got, ieee, ref, scale
+    out[ca.NEWTON64] = {**f64["sqrt3"], "poly": f64["poly"], "few_rows": few, "replaces": f"{PALLAS_ALLPAIRS}:181 (nbody_tpu's "
+                        "float64 trees run its function in jnp)", "n": big, "dim": 3,
+                        "dtype": "float64", "softening": "sqrt3"}
+    del m, x, xi, head
+    torch.cuda.empty_cache()
+    return out
+
+
 GROUP_EVAL = "nbody_torch/csrc/group_eval.cu"
 PALLAS_GROUP_EVAL = "nbody_tpu/ops/pallas_group_eval.py"
 
@@ -604,7 +838,7 @@ def cli_full_size(algorithm: str, dim: int, big: int, tag: str,
     t0 = time.perf_counter()
     rc = cli.main(argv, out=out)
     wall = time.perf_counter() - t0
-    launches = {**cg.launch_counts, "allpairs_block_kernel": ca.launch_counts["allpairs_block_kernel"]}
+    launches = {**cg.launch_counts, **ca.launch_counts}
     lines = out.getvalue().strip().splitlines()
     check(rc == 0 and len(lines) == 2 and lines[0] == "algorithm,dim,precision,nsteps,nbodies,"
           "total [s]", f"{algorithm} CLI run failed: rc={rc}, output {lines!r}")
@@ -701,7 +935,7 @@ def octree_phases(dev, big: int):
                         "launches_in": f"phase 5b: {big}-body 3-D octree --csv-total",
                         **measured[name][3], "n": big, "dim": 3, "dtype": "float32",
                         "launches_2d": launches[2][name], "2d": measured[name][2]})
-    return entries, {dim: launches[dim]["allpairs_block_kernel"] for dim in (3, 2)}
+    return entries, {dim: launches[dim][ca.NEWTON] for dim in (3, 2)}
 
 
 BVH_KERNELS = {  # name -> (wrapper, twin, Pallas function replaced)
@@ -850,7 +1084,7 @@ def bvh_phases(dev, big: int):
                     **dense[3], "n": big, "dim": 3, "dtype": "float32",
                     "timed_on": "a synthetic 2^20 window from the node-mask call's slots",
                     "2d": dense[2], "n16_3d": dense["n16_3d"], "n16_2d": dense["n16_2d"]})
-    return entries, {dim: launches[dim]["allpairs_block_kernel"] for dim in (3, 2)}
+    return entries, {dim: launches[dim][ca.NEWTON] for dim in (3, 2)}
 
 
 LIST_SOFTENING = {"octree": "sqrt3", "bvh": "poly"}
@@ -919,7 +1153,7 @@ def list_step_float32(tree: str, dev, n: int):
         else:
             out, _ = bvh.bvh_step_force(state, cfg.theta, cfg.G, cfg.eps, list_path=True)
         torch.cuda.synchronize()
-    launches = {**cg.launch_counts, "allpairs_block_kernel": ca.launch_counts["allpairs_block_kernel"]}
+    launches = {**cg.launch_counts, **ca.launch_counts}
     check(bool(torch.isfinite(out.a).all()), f"float32 {tree} list-path step force is not finite")
     print(f"[7a] {n}-body 3-D float32 galaxy, {tree}_step_force(list_path=True): launches "
           f"{launches}")
@@ -1019,11 +1253,13 @@ def measure_list(tag: str, args, n: int, twin_budget_ms: float = 20e3) -> dict:
 
 def list_phases(dev, big: int):
     """Phase 7: the trees' list paths at 2^20. Returns the JSON entries of
-    group_eval_kernel (float64 and float32, sqrt3 and poly) and the
-    all-pairs kernel's fallback launches in the 3-D CLI runs, by tree."""
+    group_eval_kernel (float64 and float32, sqrt3 and poly), the float64
+    all-pairs kernel's fallback launches in the 3-D CLI runs, by tree, and
+    the launch counts of the 3-D octree run."""
     import torch
 
     from nbody_torch import cli
+    from nbody_torch.ops import cuda_allpairs as ca
     from nbody_torch.ops import cuda_group_eval as cg
 
     measured, causes, checked = {}, {}, {}
@@ -1128,8 +1364,8 @@ def list_phases(dev, big: int):
                         "launches_in": f"phase 7a: {tree}_step_force(list_path=True) on a "
                                        f"{big}-body 3-D float32 galaxy",
                         **f32[tree][1], "n": big, "dim": 3, "dtype": "float32"})
-    fallback = {tree: launches[tree]["allpairs_block_kernel"] for tree in LIST_SOFTENING}
-    return entries, fallback
+    fallback = {tree: launches[tree][ca.NEWTON64] for tree in LIST_SOFTENING}
+    return entries, fallback, launches["octree"]
 
 
 PALLAS_ALLPAIRS = "nbody_tpu/ops/pallas_allpairs.py"
@@ -1148,10 +1384,10 @@ def variant_calls(eps: float):
 
     mxu_fast = {"fast": True, "far_thresh": 1e-2}  # kernel_bench.py:63-64
     return {
-        ca.NEWTON: (lambda m, x: (ca.allpairs_accel_cuda(m, x, 1.0, eps, exact=False), None),
-                    lambda m, x, rows: (ca.allpairs_block_torch(x[:rows], m, x, eps), None),
-                    f"{PALLAS_ALLPAIRS}:113 (exact=False, :79-84)", None, TOL["float32"],
-                    "newton"),
+        ca.EXACT: (lambda m, x: (ca.allpairs_accel_cuda(m, x, 1.0, eps, exact=True), None),
+                   lambda m, x, rows: (ca.allpairs_block_torch(x[:rows], m, x, eps), None),
+                   f"{PALLAS_ALLPAIRS}:113 (exact=True, :77-78)", None, TOL["float32"],
+                   "exact"),
         ca.FAST: (lambda m, x: ca.allpairs_accel_cuda(m, x, 1.0, eps, exact=False, fast=True,
                                                       return_counts=True),
                   lambda m, x, rows: ca.allpairs_fast_torch(m, x, 1.0, eps, rows=rows),
@@ -1291,10 +1527,10 @@ def variant_phases(dev, big: int):
             def oracle_err(a):
                 return ((a[idx].double() - a64).norm(dim=1) / oracle).max().item()
 
-            a_exact = ca.allpairs_accel_cuda(m, x, 1.0, eps)
+            a_exact = res[ca.EXACT][0]
             err32 = oracle_err(a_exact)
             for name, limit, how in (
-                (ca.NEWTON, 1e-5, "max |a - a64| / max |a64|"),
+                (ca.EXACT, 1e-5, "max |a - a64| / max |a64|"),
                 (ca.FAST, 1e-5, "max |a - a64| / max |a64|"),
                 ("allpairs_mxu_kernel<float32>", max(4 * err32, 6e-5), "oracle error"),
                 ("allpairs_mxu_kernel<float32, fast>", 5e-3, "oracle error"),
@@ -1312,22 +1548,22 @@ def variant_phases(dev, big: int):
                                       "tile_pairs": dict(zip(branches, totals)) if totals else None,
                                       "accuracy_vs_float64": err, "accuracy_limit": limit})
             if dim == 3 and order == "Hilbert-sorted":
-                exact_ms = event_ms(lambda: ca.allpairs_accel_cuda(m, x, 1.0, eps), reps=3)
+                newton_ms = event_ms(lambda: ca.allpairs_accel_cuda(m, x, 1.0, eps), reps=3)
                 for name, (_, _, replaces, branches, tol, label) in calls.items():
                     accel = kb.accel_fn(label, eps)  # kernel_bench's call, without counts
                     ms = event_ms(lambda: accel(m, x), reps=3)
                     _, totals, err, abs_err, twin_ms = res[name]
                     bound_ms, by, t32, tmma = variant_bound(name, totals, 512 * 1024, big, 3)
-                    print(f"[8b] {name} ({label}), {what}: kernel {ms:.1f} ms (exact kernel "
-                          f"{exact_ms:.1f} ms); plain version {twin_ms:.1f} ms on its first "
-                          f"{rows} rows (not extrapolated); bound {bound_ms:.3f} ms ({by}; FP32 "
-                          f"chain {t32:.3f} ms, tensor cores {tmma:.3f} ms)")
+                    print(f"[8b] {name} ({label}), {what}: kernel {ms:.1f} ms (the CLI's "
+                          f"Newton kernel {newton_ms:.1f} ms); plain version {twin_ms:.1f} ms on "
+                          f"its first {rows} rows (not extrapolated); bound {bound_ms:.3f} ms "
+                          f"({by}; FP32 chain {t32:.3f} ms, tensor cores {tmma:.3f} ms)")
                     measured[name] = {"ms": ms, "plain_ms": twin_ms, "plain_rows": rows,
                                       "max_abs_err": abs_err, "max_scaled_err": err,
                                       "scaled_err_limit": tol, "bound_ms": bound_ms,
                                       "bound_by": by, "library_ms": None,
                                       "bound_fp32_ms": t32, "bound_tensor_core_ms": tmma,
-                                      "exact_kernel_ms": exact_ms, "replaces": replaces,
+                                      "newton_kernel_ms": newton_ms, "replaces": replaces,
                                       "tile_pairs": dict(zip(branches, totals)) if totals else None}
             del res, a64, oracle, a_exact, m, x
             torch.cuda.empty_cache()
@@ -1352,7 +1588,7 @@ def variant_phases(dev, big: int):
         for k, v in r["launches"].items():
             launches[k] = launches.get(k, 0) + v
     entries = []
-    sources = {ca.NEWTON: "nbody_torch/csrc/allpairs.cu", ca.FAST: "nbody_torch/csrc/allpairs.cu"}
+    sources = {ca.EXACT: "nbody_torch/csrc/allpairs.cu", ca.FAST: "nbody_torch/csrc/allpairs.cu"}
     for name in calls:
         check(launches.get(name, 0) > 0, f"{name} was not launched by kernel_bench")
         entries.append({"name": name, "route": "cuda",

@@ -10,9 +10,12 @@ header is rebuilt and an unchanged one is not. The build happens at first
 use (each kernel wrapper calls load_library before its first launch),
 never at import.
 
-Flags: sm_90a code for Hopper, and no --use_fast_math -- nvcc's defaults
-keep IEEE division and square root (-prec-div, -prec-sqrt) and denormals,
-which the close-pair softening terms need.
+Flags: sm_90a code for Hopper, and no --use_fast_math: nvcc's defaults
+keep IEEE division and square root (-prec-div, -prec-sqrt) and denormals
+wherever a source writes / or sqrt, as the IEEE instantiations (exact=True)
+and the tree kernels of group_eval.cu do. The all-pairs kernels' default
+chain takes its approximations explicitly (rsqrt.approx, rcp.approx and
+their refinement, csrc/allpairs.cu), so a flag changes neither form.
 """
 
 from __future__ import annotations
@@ -101,11 +104,14 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     i, p, f64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
     for name, args in (
-        ("nbody_allpairs_block", [i, i, i, i, p, i, p, p, i, f64, f64, p, p]),
-        ("nbody_potential_rowsums", [i, i, i, p, p, i, f64, p, p]),
-        # (device, dim, fast, x, m, n, npad, tile_i, tile_j, eps, far_thresh, scale,
-        #  out, counts, stream)
-        ("nbody_allpairs_variant", [i, i, i, p, p, i, i, i, i, f64, f64, f64, p, p, p]),
+        # (device, dtype, dim, kind, sqrt3, exact, xi, ni, mj, xj, nj, blocks, splits,
+        #  split_len, eps, scale, mi, out, stream)
+        ("nbody_allpairs_rows", [i, i, i, i, i, i, p, i, p, p, i, i, i, i, f64, f64, p, p, p]),
+        # (device, dtype, parts, splits, count, width, scale, mi, out, stream)
+        ("nbody_split_sum", [i, i, p, i, i, i, f64, p, p, p]),
+        # (device, dim, x, m, n, npad, tile_i, tile_j, eps, far_thresh, scale, out, counts,
+        #  stream)
+        ("nbody_allpairs_fast", [i, i, p, p, i, i, i, i, f64, f64, f64, p, p, p]),
         # (device, dim, fast, x, m, n, npad, tile_i, tile_j, eps, near_coef,
         #  far_thresh, scale, out, counts, stream)
         ("nbody_allpairs_mxu", [i, i, i, p, p, i, i, i, i, f64, f64, f64, f64, p, p, p]),

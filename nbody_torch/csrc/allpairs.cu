@@ -1,71 +1,85 @@
 // All-pairs gravity kernels for Hopper (sm_90a), with a plain C interface
 // that nbody_torch/ops/cuda_allpairs.py loads through ctypes.
 //
-// allpairs_block_kernel<T, DIM, SQRT3> replaces the Pallas functions
-// allpairs_accel_pallas and allpairs_block_pallas
-// (nbody_tpu/ops/pallas_allpairs.py, both run the body _allpairs_kernel).
-// It computes raw accelerations of `ni` query rows xi against `nj` bodies
-// (mj, xj), times `scale` (G for the square all-pairs force, 1 for a block):
-//     out_i = scale * sum_j m_j * (x_j - x_i) / t
-// with t the poly or sqrt3 softening of pair.cuh, whose pair_weight every
-// kernel of csrc/ shares. The diagonal needs no mask: its numerator
-// x_j - x_i is exactly zero.
+// What they replace (nbody_tpu/ops/pallas_allpairs.py):
+//   allpairs_block_kernel<T, DIM, R, Weight>  allpairs_accel_pallas (:113) and
+//       allpairs_block_pallas (:181), whose body is _allpairs_kernel (:44-110):
+//       raw accelerations of ni query rows xi against nj bodies (mj, xj),
+//       times `scale` (G for the square force, 1 for a block),
+//           out_i = scale * sum_j m_j * (x_j - x_i) / t,
+//       t the poly (d2 sqrt(d2) + eps) or sqrt3 ((sqrt(d2) + eps)^3) softening;
+//   potential_rowsums_kernel<T, DIM, R>  potential_rowsums_pallas (:255,
+//       body _pe_kernel :224-250): pe_i = m_i * sum_{j != i} m_j / (sqrt(d2) + eps);
+//   allpairs_fast_kernel<DIM>  allpairs_accel_pallas(fast=True) (:93-105);
+//   split_sum_kernel<T>  the Pallas grid's sequential j axis, which adds each
+//       j-tile into the same output block (out_ref +=, :107-108, :250).
 //
-// potential_rowsums_kernel<T, DIM> replaces potential_rowsums_pallas (body
-// _pe_kernel): pe_i = m_i * sum_{j != i} m_j / (sqrt(d2) + eps). Here the
-// diagonal term m_i / eps is not zero, so it is masked by global index.
-//
-// What bounds them on an H100: not bytes. Each pair costs ~20 FP32
-// instructions plus two multi-function-unit operations (the reciprocal and
-// square-root seeds of IEEE division and sqrt), against (DIM+1) values read
-// once per block from device memory; the j-bodies are staged through shared
-// memory and every thread reads the same shared word (a broadcast), so the
-// kernel is bound by FP32 and SFU issue. The design keeps the per-pair work
-// minimal: one thread per row, the row's position and its accumulators in
-// registers, no cross-block reduction. Division and sqrt stay IEEE (no
-// --use_fast_math): the softening adds eps ~ 1.19e-7 to d2*sqrt(d2), and
-// approximate division changes exactly those close-pair terms.
-//
-// Summation: each thread sums one shared tile (kThreads bodies) into a
-// tile-local partial and adds it to the row total after the tile
-// (pair.cuh add_row_part, which the FAST body and allpairs_mxu.cu's near
-// branch share).
-//
-// The ragged edges are masked here, not padded: rows past ni compute but do
-// not store (they still take part in the tile loads and barriers), and the
-// last tile loops only over the bodies that exist.
-//
-// Two template flags give the Pallas kernel's other variants, float32 only
-// (the Pallas kernel was float32-only, pallas_allpairs.py:127-128):
-//   NEWTON  the softened weight by the approximate reciprocal plus one
-//           Newton step (exact=False, :79-84; pair.cuh newton_recip);
-//   FAST    fast=True (:93-105): one decision per (i-tile, j-tile) pair. If
-//           the least d2 over the tile's pairs exceeds far_thresh =
-//           (eps / fast_tol)^(2/3), the tile takes the shorter rsqrt^3
-//           chain without the softening, else the Newton-softened chain.
-//           The tile is JAX's, tile_i rows by tile_j bodies, over the
-//           square evaluation padded as allpairs_accel_pallas pads it
-//           (bodies at the origin with m = 0, the padding virtual here: an
-//           index past the array reads as 0).
-//           Padded rows and bodies enter the tile's minimum, as they enter
-//           JAX's jnp.min(d2), so kernel, twin and JAX take the same branch
-//           on every tile. One block per i-tile, two rows per thread
-//           (blockDim = tile_i / 2); each j-tile is staged whole in dynamic
-//           shared memory; a first pass computes only d2 and a block-wide
-//           minimum, a second the chosen chain. A unit of decision cheaper
-//           than JAX's tile (a warp's rows against a shared chunk) would
-//           take the short chain on more pairs; that is for a later change.
+// What bounds the force and the potential on an H100: operations, not bytes
+// (each body is read once per row block; 2^20 bodies are 16 MB). Two floors:
+//   - FLOPs: 5*dim + 3 a force pair (+1 under sqrt3), 3*dim + 3 a potential
+//     pair, over 67 TFLOP/s (float32) or 34 (float64): 295 ms for the 2^20
+//     3-D float32 force;
+//   - the multi-function unit (MUFU), 16 operations a clock on each SM against
+//     128 FP32 lanes: a pair needs a square root and a reciprocal, so at least
+//     two MUFU operations, 1.0995e12 pairs * 2 / (132 * 16 * 1.98e9 /s) = 0.53 s
+//     at 2^20, above the FLOP floor.
+// The IEEE chain takes ~38 instructions a 3-D pair in SASS, most of them
+// the sqrt and the division with their slow-path checks; one row a thread
+// that reads a body's mass and each coordinate apart issues four shared
+// loads a pair. This design:
+//   - the two-MUFU chain (ChainWeight): d2 summed from the least normal
+//     number (so a coincident pair has a finite weight and dx = 0, not
+//     0 * inf), s = d2 * rsqrt.approx(d2), t = d2 * s + eps (poly) or
+//     (s + eps)^3 (sqrt3), w = m * newton_recip(t): the approximate
+//     reciprocal and one Newton step of pallas_allpairs.py:79-84
+//     (exact=False, what nbody_tpu's CLI runs). 14 FP32 instructions and 2
+//     MUFU a 3-D poly pair; the potential, w = m * newton_recip(s + eps),
+//     12 and 2. In float64 (JAX's float64 paths divide exactly in jnp) the
+//     MUFU seeds rsqrt.approx.f64 and rcp.approx.f64 (~20 bits) are
+//     refined to within an ulp or two of IEEE sqrt and division: two
+//     residual corrections of the root, s <- s + (y/2)(d2 - s^2), and two
+//     of the quotient, q <- q + y (m - t q), each multiplying the relative
+//     error by the seed's: 21 DP operations a 3-D poly pair. The IEEE
+//     weight (pair.cuh SoftenedWeight) is an instantiation of the same
+//     body, for exact=True;
+//   - R rows a thread (kRows: float32 2, float64 1, the fastest of 2, 4, 8
+//     and 1, 2, 4 on an H100, PERF.md), strided by blockDim.x so that row
+//     loads and stores coalesce: each staged body feeds R pairs, and the R
+//     chains are independent work;
+//   - packed staging: a body is one 16-byte record, (x, y, z, m) or
+//     (x, y, m, 0) (two 16-byte halves in float64), so one broadcast shared
+//     load feeds a pair's operands;
+//   - bodies split over blocks: blockIdx.y takes the bodies
+//     [y * split_len, (y + 1) * split_len), so that a call with few rows (an
+//     exact fallback of a few tiles) still fills the card. Each split writes
+//     its rows' partial sums to its own slice of a scratch, and
+//     split_sum_kernel adds the slices in split order: no atomics, so two
+//     launches give the same bits. The wrapper's block_plan picks the row
+//     blocks and the splits (one split for the 2^20 square call);
+//   - the potential's diagonal: only a body tile that overlaps the block's
+//     own rows takes the masked loop, as a branch uniform over the block.
+// The potential takes the chain too, w = m * newton_recip(s + eps), although
+// nbody_tpu's _pe_kernel takes an IEEE sqrt and a true division
+// (pallas_allpairs.py:243-244): a departure from nbody_tpu's numerics, so
+// that the potential runs at the force's MUFU floor; its error stays within
+// the kernels' tolerance of the IEEE twin (1e-5 of |pe| in float32).
+// Each row sums a staged tile of kPartBodies bodies into a partial and adds
+// the partial to its total, as pair.cuh add_row_part argues. The ragged
+// edges are masked, not padded: rows past ni compute but do not store, and
+// the last tile of a split loops over the bodies that exist.
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 
 #include "pair.cuh"
 
 namespace {
 
-using nbody::root;
+// ---------------------------------------------------------------------------
+// the FAST variant (row 1f), one block per JAX i-tile
 
-constexpr int kThreads = 256;  // rows per block, and bodies per shared tile
+constexpr int kFastMaxRows = 512;  // the largest i-tile: 256 threads of 2 rows
 
 // The FAST body: this block's i-tile of 2 * blockDim.x rows of x against
 // every j-tile of the padded bodies [0, npad). counts: null, or two ints
@@ -130,196 +144,378 @@ __device__ void fast_tiles(const float* __restrict__ x, const float* __restrict_
   }
 }
 
-// The IEEE and NEWTON body: one thread per row, kThreads bodies per shared tile.
-template <typename T, int DIM, bool SQRT3, bool NEWTON>
-__device__ void row_sums(const T* __restrict__ xi, int ni, const T* __restrict__ mj,
-                         const T* __restrict__ xj, int nj, T eps, T scale, T* __restrict__ out) {
-  __shared__ T s_m[kThreads];
-  __shared__ T s_x[DIM][kThreads];
-
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = i < ni;
-  T p[DIM];
-  T acc[DIM];
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) {
-    p[d] = live ? xi[static_cast<size_t>(i) * DIM + d] : T(0);
-    acc[d] = T(0);
-  }
-
-  for (int j0 = 0; j0 < nj; j0 += kThreads) {
-    const int j = j0 + threadIdx.x;
-    if (j < nj) {
-      s_m[threadIdx.x] = mj[j];
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) s_x[d][threadIdx.x] = xj[static_cast<size_t>(j) * DIM + d];
-    }
-    __syncthreads();
-
-    const int len = min(kThreads, nj - j0);
-    if constexpr (NEWTON) {
-      static_assert(sizeof(T) == 4 && !SQRT3, "NEWTON is float32 and poly");
-      nbody::add_row_part<T, DIM>(p, s_m, &s_x[0][0], kThreads, 0, len, nbody::NewtonWeight{eps},
-                                  acc);
-    } else {
-      nbody::add_row_part<T, DIM>(p, s_m, &s_x[0][0], kThreads, 0, len,
-                                  nbody::SoftenedWeight<T, SQRT3>{eps}, acc);
-    }
-    __syncthreads();
-  }
-
-  if (live) {
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) out[static_cast<size_t>(i) * DIM + d] = scale * acc[d];
-  }
+template <int DIM>
+__global__ void __launch_bounds__(kFastMaxRows / 2)
+allpairs_fast_kernel(const float* __restrict__ x, const float* __restrict__ m, int n, int npad,
+                     int tile_j, float eps, float far_thresh, float scale,
+                     float* __restrict__ out, int* __restrict__ counts) {
+  fast_tiles<DIM>(x, m, n, npad, tile_j, eps, far_thresh, scale, out, counts);
 }
 
-template <typename T, int DIM, bool SQRT3, bool NEWTON, bool FAST>
-__global__ void __launch_bounds__(kThreads)
-allpairs_block_kernel(const T* __restrict__ xi, int ni,
-                      const T* __restrict__ mj, const T* __restrict__ xj, int nj,
-                      T eps, T scale, T* __restrict__ out, int njp, int tile_j, T far_thresh,
-                      int* __restrict__ counts) {
-  if constexpr (FAST) {  // square: xi = xj, ni = nj, and njp the padded count
-    static_assert(sizeof(T) == 4 && NEWTON && !SQRT3, "FAST is float32, Newton, poly");
-    fast_tiles<DIM>(xi, mj, ni, njp, tile_j, eps, far_thresh, scale, out, counts);
-  } else {
-    row_sums<T, DIM, SQRT3, NEWTON>(xi, ni, mj, xj, nj, eps, scale, out);
-  }
-}
+// ---------------------------------------------------------------------------
+// the force and the potential: one body over an interaction policy
+
+constexpr int kRowThreads = 256;               // threads a block
+constexpr int kTile = nbody::kPartBodies;      // bodies staged at once, one partial sum
+// Rows a thread: R, the wrapper's ROWS (cuda_allpairs.py).
+template <typename T>
+constexpr int kRows = sizeof(T) == 4 ? 2 : 1;
+
+// One staged body: (x, y, z, m) in 3-D, (x, y, m, 0) in 2-D.
+template <typename T>
+struct alignas(16) Body {
+  T c[4];
+};
 
 template <typename T, int DIM>
-__global__ void __launch_bounds__(kThreads)
-potential_rowsums_kernel(const T* __restrict__ m, const T* __restrict__ x, int n,
-                         T eps, T* __restrict__ out) {
-  __shared__ T s_m[kThreads];
-  __shared__ T s_x[DIM][kThreads];
-
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = i < n;
-  T p[DIM];
+__device__ __forceinline__ Body<T> load_body(const T* __restrict__ m, const T* __restrict__ x,
+                                             int j) {
+  Body<T> b;
 #pragma unroll
-  for (int d = 0; d < DIM; ++d) p[d] = live ? x[static_cast<size_t>(i) * DIM + d] : T(0);
-  T acc = T(0);
+  for (int d = 0; d < DIM; ++d) b.c[d] = x[static_cast<size_t>(j) * DIM + d];
+  b.c[DIM] = m[j];
+  if constexpr (DIM == 2) b.c[3] = T(0);
+  return b;
+}
 
-  for (int j0 = 0; j0 < n; j0 += kThreads) {
-    const int j = j0 + threadIdx.x;
-    if (j < n) {
-      s_m[threadIdx.x] = m[j];
+// The least normal number. The chain sums d2 from it instead of from 0, so
+// that its MUFU seeds see a normal input and a coincident pair (dx = 0)
+// gets a finite weight and a zero term, not 0 * inf. That changes no d2
+// above 2^-102 (float32) or 2^-969 (float64), pairs closer than ~1e-15,
+// and costs no instruction: the first square becomes a fused multiply-add
+// (a clamp, fmax(d2, least), costs one a pair).
+__device__ __forceinline__ float least_normal(float) { return FLT_MIN; }
+__device__ __forceinline__ double least_normal(double) { return DBL_MIN; }
+
+// d2 = start + sum_d dx[d]^2 in dimension order; from 0 it is nbody::sep2.
+template <typename T, int DIM>
+__device__ __forceinline__ T sep2_from(T start, const T* dx) {
+  T d2 = start;
 #pragma unroll
-      for (int d = 0; d < DIM; ++d) s_x[d][threadIdx.x] = x[static_cast<size_t>(j) * DIM + d];
+  for (int d = 0; d < DIM; ++d) d2 += dx[d] * dx[d];
+  return d2;
+}
+
+// sqrt(v) and m / t for normal v > 0 and t > 0. float32: one MUFU each,
+// the reciprocal refined by one Newton step as pallas_allpairs.py:79-84 does.
+__device__ __forceinline__ float chain_root(float v) {
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return v * r;
+}
+__device__ __forceinline__ float chain_div(float m, float t) { return m * nbody::newton_recip(t); }
+
+// float64: the MUFU seeds (relative error e ~ 2^-20), each refined by two
+// residual corrections that multiply the error by e: e^3 < 2^-53.
+__device__ __forceinline__ double chain_root(double v) {
+  double y;
+  asm("rsqrt.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(v));
+  const double hy = 0.5 * y;
+  double s = v * y;
+  s = fma(hy, fma(-s, s, v), s);
+  return fma(hy, fma(-s, s, v), s);
+}
+__device__ __forceinline__ double chain_div(double m, double t) {
+  double y;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(t));
+  double q = m * y;
+  q = fma(y, fma(-t, q, m), q);
+  return fma(y, fma(-t, q, m), q);
+}
+
+// The force weight w(m, d2) of a pair by the chain (exact=False), for d2 >=
+// the least normal number; nbody::SoftenedWeight is the IEEE one (exact=True).
+template <typename T, bool SQRT3>
+struct ChainWeight {
+  T eps;
+  __device__ __forceinline__ T operator()(T m, T d2) const {
+    const T s = chain_root(d2);
+    T t;
+    if constexpr (SQRT3) {
+      const T u = s + eps;
+      t = u * u * u;
+    } else {
+      t = d2 * s + eps;
     }
-    __syncthreads();
+    return chain_div(m, t);
+  }
+};
 
-    const int len = min(kThreads, n - j0);
-    T part = T(0);
-#pragma unroll 4
-    for (int k = 0; k < len; ++k) {
-      T d2 = T(0);
+// Where a weight's d2 sum starts: the chain's at the least normal number,
+// the IEEE weight's at 0, as every kernel of csrc/ sums it.
+template <typename T, bool SQRT3>
+__device__ __forceinline__ T d2_start(const ChainWeight<T, SQRT3>&) { return least_normal(T(0)); }
+template <typename T, bool SQRT3>
+__device__ __forceinline__ T d2_start(const nbody::SoftenedWeight<T, SQRT3>&) { return T(0); }
+
+// The interaction policies: kWidth accumulators a row; kSkipsSelf masks
+// the pair j == i (on the tiles that hold the block's own rows).
+template <typename T, int DIM, class Weight>
+struct ForcePair {
+  static constexpr int kWidth = DIM;
+  static constexpr bool kSkipsSelf = false;
+  Weight weight;
+  __device__ __forceinline__ void add(const T* p, const Body<T>& b, bool, T* part) const {
+    T dx[DIM];
 #pragma unroll
-      for (int d = 0; d < DIM; ++d) {
-        const T dx = s_x[d][k] - p[d];
-        d2 += dx * dx;
-      }
-      const T w = s_m[k] / (root(d2) + eps);
-      part += (j0 + k == i) ? T(0) : w;  // global-index diagonal mask
-    }
-    acc += part;
-    __syncthreads();
+    for (int d = 0; d < DIM; ++d) dx[d] = b.c[d] - p[d];
+    const T w = weight(b.c[DIM], sep2_from<T, DIM>(d2_start(weight), dx));
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) part[d] += w * dx[d];
   }
+};
 
-  if (live) out[i] = m[i] * acc;
-}
-
-inline unsigned blocks_for(int rows) { return static_cast<unsigned>((rows + kThreads - 1) / kThreads); }
-
-template <typename T, int DIM, bool SQRT3>
-cudaError_t launch_block(const void* xi, int ni, const void* mj, const void* xj, int nj,
-                         double eps, double scale, void* out, cudaStream_t stream) {
-  allpairs_block_kernel<T, DIM, SQRT3, false, false><<<blocks_for(ni), kThreads, 0, stream>>>(
-      static_cast<const T*>(xi), ni, static_cast<const T*>(mj), static_cast<const T*>(xj), nj,
-      static_cast<T>(eps), static_cast<T>(scale), static_cast<T*>(out), nj, 0, T(0), nullptr);
-  return cudaGetLastError();
-}
-
-// float32 poly, square (x against itself): NEWTON over kThreads-row
-// blocks, or FAST over JAX's tiles (npad / tile_i blocks of tile_i / 2
-// threads, a j-tile in shared memory).
-template <int DIM>
-cudaError_t launch_variant(int fast, const float* x, const float* m, int n, int npad, int tile_i,
-                           int tile_j, float eps, float far_thresh, float scale, float* out,
-                           int* counts, cudaStream_t stream) {
-  if (!fast) {
-    allpairs_block_kernel<float, DIM, false, true, false><<<blocks_for(n), kThreads, 0, stream>>>(
-        x, n, m, x, n, eps, scale, out, n, 0, 0.0f, nullptr);
-    return cudaGetLastError();
+template <typename T, int DIM>
+struct PotentialPair {
+  static constexpr int kWidth = 1;
+  static constexpr bool kSkipsSelf = true;
+  T eps;
+  __device__ __forceinline__ void add(const T* p, const Body<T>& b, bool self, T* part) const {
+    T dx[DIM];
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) dx[d] = b.c[d] - p[d];
+    const T w = chain_div(b.c[DIM], chain_root(sep2_from<T, DIM>(least_normal(T(0)), dx)) + eps);
+    part[0] += self ? T(0) : w;
   }
-  const size_t smem = static_cast<size_t>(tile_j) * (DIM + 1) * sizeof(float);
-  if (tile_i < 64 || tile_i > 2 * kThreads || tile_i % 64 != 0 || tile_j <= 0 ||
-      smem > 48 * 1024 || npad < n || npad % tile_i != 0 || npad % tile_j != 0) {
-    return cudaErrorInvalidValue;
-  }
-  allpairs_block_kernel<float, DIM, false, true, true>
-      <<<static_cast<unsigned>(npad / tile_i), static_cast<unsigned>(tile_i / 2), smem, stream>>>(
-          x, n, m, x, n, eps, scale, out, npad, tile_j, far_thresh, counts);
-  return cudaGetLastError();
-}
+};
 
 template <typename T>
-cudaError_t dispatch_block(int dim, int sqrt3, const void* xi, int ni, const void* mj,
-                           const void* xj, int nj, double eps, double scale, void* out,
-                           cudaStream_t stream) {
-  if (dim == 2 && !sqrt3) return launch_block<T, 2, false>(xi, ni, mj, xj, nj, eps, scale, out, stream);
-  if (dim == 2 && sqrt3) return launch_block<T, 2, true>(xi, ni, mj, xj, nj, eps, scale, out, stream);
-  if (dim == 3 && !sqrt3) return launch_block<T, 3, false>(xi, ni, mj, xj, nj, eps, scale, out, stream);
-  if (dim == 3 && sqrt3) return launch_block<T, 3, true>(xi, ni, mj, xj, nj, eps, scale, out, stream);
+struct RowArgs {
+  const T* xi;
+  int ni;
+  const T* mj;
+  const T* xj;
+  int nj;
+  int split_len;  // bodies a split (blockIdx.y); a multiple of kTile
+  T eps;
+  T scale;        // out = scale * sum, or, with mi, mi[i] * sum
+  const T* mi;
+  T* out;         // (gridDim.y, ni, kWidth): split y writes slice y
+};
+
+// One staged tile of len bodies (global index j0 + k) into the R rows'
+// partials, then into their totals. MASKED skips j0 + k == row[r].
+template <typename T, int DIM, int R, bool MASKED, class Pair>
+__device__ __forceinline__ void add_tile(const T (&p)[R][DIM], const Body<T>* s_body, int len,
+                                         int j0, const int (&row)[R], const Pair& pair,
+                                         T (&acc)[R][Pair::kWidth]) {
+  constexpr int W = Pair::kWidth;
+  T part[R][W];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) part[r][w] = T(0);
+  }
+#pragma unroll 2
+  for (int k = 0; k < len; ++k) {
+    const Body<T> b = s_body[k];
+#pragma unroll
+    for (int r = 0; r < R; ++r) pair.add(p[r], b, MASKED && j0 + k == row[r], part[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) acc[r][w] += part[r][w];
+  }
+}
+
+// This block's R * kRowThreads rows against its split's bodies.
+template <typename T, int DIM, int R, class Pair>
+__device__ __forceinline__ void row_block(const RowArgs<T>& a, const Pair& pair) {
+  constexpr int W = Pair::kWidth;
+  __shared__ Body<T> s_body[kTile];
+  const int first = static_cast<int>(blockIdx.x) * R * kRowThreads;
+  int row[R];
+  T p[R][DIM];
+  T acc[R][W];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    row[r] = first + r * kRowThreads + static_cast<int>(threadIdx.x);
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) {
+      p[r][d] = row[r] < a.ni ? a.xi[static_cast<size_t>(row[r]) * DIM + d] : T(0);
+    }
+#pragma unroll
+    for (int w = 0; w < W; ++w) acc[r][w] = T(0);
+  }
+  const int j_begin = static_cast<int>(blockIdx.y) * a.split_len;
+  const int j_end = min(a.nj, j_begin + a.split_len);
+  for (int j0 = j_begin; j0 < j_end; j0 += kTile) {
+    const int len = min(kTile, j_end - j0);
+    for (int k = threadIdx.x; k < len; k += kRowThreads) {
+      s_body[k] = load_body<T, DIM>(a.mj, a.xj, j0 + k);
+    }
+    __syncthreads();
+    if constexpr (Pair::kSkipsSelf) {
+      if (j0 < first + R * kRowThreads && first < j0 + len) {  // uniform over the block
+        add_tile<T, DIM, R, true>(p, s_body, len, j0, row, pair, acc);
+      } else {
+        add_tile<T, DIM, R, false>(p, s_body, len, j0, row, pair, acc);
+      }
+    } else {
+      add_tile<T, DIM, R, false>(p, s_body, len, j0, row, pair, acc);
+    }
+    __syncthreads();
+  }
+  T* out = a.out + static_cast<size_t>(blockIdx.y) * a.ni * W;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (row[r] < a.ni) {
+      const T f = a.mi != nullptr ? a.mi[row[r]] : a.scale;
+#pragma unroll
+      for (int w = 0; w < W; ++w) out[static_cast<size_t>(row[r]) * W + w] = f * acc[r][w];
+    }
+  }
+}
+
+template <typename T, int DIM, int R, class Weight>
+__global__ void __launch_bounds__(kRowThreads) allpairs_block_kernel(RowArgs<T> a) {
+  row_block<T, DIM, R>(a, ForcePair<T, DIM, Weight>{Weight{a.eps}});
+}
+
+template <typename T, int DIM, int R>
+__global__ void __launch_bounds__(kRowThreads) potential_rowsums_kernel(RowArgs<T> a) {
+  row_block<T, DIM, R>(a, PotentialPair<T, DIM>{a.eps});
+}
+
+// out[k] = f * sum_{s < splits} parts[s * count + k], the splits added in
+// order; f = mi[k / width] with mi, else scale.
+template <typename T>
+__global__ void split_sum_kernel(const T* __restrict__ parts, int splits, int count, int width,
+                                 T scale, const T* __restrict__ mi, T* __restrict__ out) {
+  const int k = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
+  if (k >= count) return;
+  T v = parts[k];
+  for (int s = 1; s < splits; ++s) v += parts[static_cast<size_t>(s) * count + k];
+  out[k] = (mi != nullptr ? mi[k / width] : scale) * v;
+}
+
+// ---------------------------------------------------------------------------
+// launches
+
+template <typename T, int DIM>
+cudaError_t launch_rows(int kind, int sqrt3, int exact, int blocks, int splits,
+                        const RowArgs<T>& a, cudaStream_t stream) {
+  using nbody::SoftenedWeight;
+  constexpr int R = kRows<T>;
+  const dim3 grid(blocks, splits);
+  if (kind == 1) {
+    potential_rowsums_kernel<T, DIM, R><<<grid, kRowThreads, 0, stream>>>(a);
+  } else if (exact && sqrt3) {
+    allpairs_block_kernel<T, DIM, R, SoftenedWeight<T, true>><<<grid, kRowThreads, 0, stream>>>(a);
+  } else if (exact) {
+    allpairs_block_kernel<T, DIM, R, SoftenedWeight<T, false>><<<grid, kRowThreads, 0, stream>>>(a);
+  } else if (sqrt3) {
+    allpairs_block_kernel<T, DIM, R, ChainWeight<T, true>><<<grid, kRowThreads, 0, stream>>>(a);
+  } else {
+    allpairs_block_kernel<T, DIM, R, ChainWeight<T, false>><<<grid, kRowThreads, 0, stream>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+// The row blocks must cover [0, ni) with none empty: ceil(ni / (R * 256)).
+template <typename T>
+cudaError_t rows_call(int dim, int kind, int sqrt3, int exact, const void* xi, int ni,
+                      const void* mj, const void* xj, int nj, int blocks, int splits,
+                      int split_len, double eps, double scale, const void* mi, void* out,
+                      cudaStream_t stream) {
+  if (blocks != (ni + kRows<T> * kRowThreads - 1) / (kRows<T> * kRowThreads)) {
+    return cudaErrorInvalidValue;
+  }
+  const RowArgs<T> a{static_cast<const T*>(xi), ni, static_cast<const T*>(mj),
+                     static_cast<const T*>(xj), nj, split_len, static_cast<T>(eps),
+                     static_cast<T>(scale), static_cast<const T*>(mi), static_cast<T*>(out)};
+  if (dim == 2) return launch_rows<T, 2>(kind, sqrt3, exact, blocks, splits, a, stream);
+  if (dim == 3) return launch_rows<T, 3>(kind, sqrt3, exact, blocks, splits, a, stream);
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
-cudaError_t dispatch_potential(int dim, const void* m, const void* x, int n, double eps,
-                               void* out, cudaStream_t stream) {
-  const T* mt = static_cast<const T*>(m);
-  const T* xt = static_cast<const T*>(x);
-  T* ot = static_cast<T*>(out);
-  if (dim == 2) {
-    potential_rowsums_kernel<T, 2><<<blocks_for(n), kThreads, 0, stream>>>(mt, xt, n, static_cast<T>(eps), ot);
-  } else if (dim == 3) {
-    potential_rowsums_kernel<T, 3><<<blocks_for(n), kThreads, 0, stream>>>(mt, xt, n, static_cast<T>(eps), ot);
-  } else {
+// float32 poly, square (x against itself), fast=True over JAX's tiles
+// (npad / tile_i blocks of tile_i / 2 threads, a j-tile in shared memory).
+template <int DIM>
+cudaError_t launch_fast(const float* x, const float* m, int n, int npad, int tile_i, int tile_j,
+                        float eps, float far_thresh, float scale, float* out, int* counts,
+                        cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(tile_j) * (DIM + 1) * sizeof(float);
+  if (tile_i < 64 || tile_i > kFastMaxRows || tile_i % 64 != 0 || tile_j <= 0 ||
+      smem > 48 * 1024 || npad < n || npad % tile_i != 0 || npad % tile_j != 0) {
     return cudaErrorInvalidValue;
   }
+  allpairs_fast_kernel<DIM>
+      <<<static_cast<unsigned>(npad / tile_i), static_cast<unsigned>(tile_i / 2), smem, stream>>>(
+          x, m, n, npad, tile_j, eps, far_thresh, scale, out, counts);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float64. Pointers are device pointers to
-// contiguous row-major arrays (x: n rows of dim values). Returns the
-// cudaError_t of the launch (0 on success); the kernel runs on `stream`
-// and nothing here synchronises.
-extern "C" int nbody_allpairs_block(int device, int dtype, int dim, int sqrt3,
-                                    const void* xi, int ni, const void* mj, const void* xj,
-                                    int nj, double eps, double scale, void* out, void* stream) {
-  if (ni <= 0 || nj < 0) return cudaErrorInvalidValue;
+// dtype: 0 = float32, 1 = float64; kind: 0 = force, 1 = potential (xi = xj,
+// ni = nj; sqrt3 and exact ignored); exact: 1 = IEEE weight, 0 = the chain.
+// The grid is `blocks` row blocks of R * 256 rows (R = 2 in float32, 1 in
+// float64; blocks must be ceil(ni / (R * 256))) by `splits` body ranges of
+// split_len bodies (a multiple of 256 covering nj). out: (splits, ni, width) with width = dim
+// (force) or 1 (potential); each value is f * sum, f = mi[i] with mi,
+// else scale. Pointers are device pointers to contiguous row-major arrays.
+// Returns the launch's cudaError_t (0 on success); the kernel runs on
+// `stream` and nothing here synchronises.
+extern "C" int nbody_allpairs_rows(int device, int dtype, int dim, int kind, int sqrt3,
+                                   int exact, const void* xi, int ni, const void* mj,
+                                   const void* xj, int nj, int blocks, int splits,
+                                   int split_len, double eps, double scale, const void* mi,
+                                   void* out, void* stream) {
+  if (ni <= 0 || nj < 0 || splits < 1 || splits > 65535 ||
+      split_len < kTile || split_len % kTile != 0 ||
+      static_cast<long long>(splits) * split_len < nj ||
+      (splits > 1 && static_cast<long long>(splits - 1) * split_len >= nj)) {
+    return cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_block<float>(dim, sqrt3, xi, ni, mj, xj, nj, eps, scale, out, s);
-  if (dtype == 1) return dispatch_block<double>(dim, sqrt3, xi, ni, mj, xj, nj, eps, scale, out, s);
+  if (dtype == 0) {
+    return rows_call<float>(dim, kind, sqrt3, exact, xi, ni, mj, xj, nj, blocks, splits,
+                            split_len, eps, scale, mi, out, s);
+  }
+  if (dtype == 1) {
+    return rows_call<double>(dim, kind, sqrt3, exact, xi, ni, mj, xj, nj, blocks, splits,
+                             split_len, eps, scale, mi, out, s);
+  }
   return cudaErrorInvalidValue;
 }
 
-// The float32 variants of the square evaluation (fast = 0: NEWTON, 1:
-// FAST), x: n rows of dim values, m: n masses. npad is JAX's padded count
-// (a multiple of tile_i and tile_j); only FAST reads it, the tiles and
-// `counts`: null, or npad / tile_i pairs of zeroed ints, which get each
-// i-tile's [softened, far] j-tiles. Returns the launch's cudaError_t, as
-// nbody_allpairs_block.
-extern "C" int nbody_allpairs_variant(int device, int dim, int fast, const void* x, const void* m,
-                                      int n, int npad, int tile_i, int tile_j, double eps,
-                                      double far_thresh, double scale, void* out, void* counts,
-                                      void* stream) {
+// out[k] = f * sum_{s < splits} parts[s * count + k] in split order, f =
+// mi[k / width] with mi, else scale (parts: splits * count values).
+// Returns the launch's cudaError_t, as nbody_allpairs_rows.
+extern "C" int nbody_split_sum(int device, int dtype, const void* parts, int splits, int count,
+                               int width, double scale, const void* mi, void* out,
+                               void* stream) {
+  if (splits < 1 || count <= 0 || width < 1) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>((count + 255) / 256);
+  if (dtype == 0) {
+    split_sum_kernel<float><<<blocks, 256, 0, s>>>(
+        static_cast<const float*>(parts), splits, count, width, static_cast<float>(scale),
+        static_cast<const float*>(mi), static_cast<float*>(out));
+  } else if (dtype == 1) {
+    split_sum_kernel<double><<<blocks, 256, 0, s>>>(
+        static_cast<const double*>(parts), splits, count, width, scale,
+        static_cast<const double*>(mi), static_cast<double*>(out));
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// fast=True of the float32 square evaluation, x: n rows of dim values, m:
+// n masses. npad is JAX's padded count (a multiple of tile_i and tile_j);
+// counts: null, or npad / tile_i pairs of zeroed ints, which get each
+// i-tile's [softened, far] j-tiles. Returns the launch's cudaError_t.
+extern "C" int nbody_allpairs_fast(int device, int dim, const void* x, const void* m, int n,
+                                   int npad, int tile_i, int tile_j, double eps,
+                                   double far_thresh, double scale, void* out, void* counts,
+                                   void* stream) {
   if (n <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -330,20 +526,8 @@ extern "C" int nbody_allpairs_variant(int device, int dim, int fast, const void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float e = static_cast<float>(eps), ft = static_cast<float>(far_thresh);
   const float sc = static_cast<float>(scale);
-  if (dim == 2) return launch_variant<2>(fast, xf, mf, n, npad, tile_i, tile_j, e, ft, sc, o, c, s);
-  if (dim == 3) return launch_variant<3>(fast, xf, mf, n, npad, tile_i, tile_j, e, ft, sc, o, c, s);
-  return cudaErrorInvalidValue;
-}
-
-extern "C" int nbody_potential_rowsums(int device, int dtype, int dim, const void* m,
-                                       const void* x, int n, double eps, void* out,
-                                       void* stream) {
-  if (n <= 0) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_potential<float>(dim, m, x, n, eps, out, s);
-  if (dtype == 1) return dispatch_potential<double>(dim, m, x, n, eps, out, s);
+  if (dim == 2) return launch_fast<2>(xf, mf, n, npad, tile_i, tile_j, e, ft, sc, o, c, s);
+  if (dim == 3) return launch_fast<3>(xf, mf, n, npad, tile_i, tile_j, e, ft, sc, o, c, s);
   return cudaErrorInvalidValue;
 }
 

@@ -6,12 +6,16 @@
 //     w = m_j / t
 //     poly:  t = d2 * sqrt(d2) + eps        (vec.h:249-252; all-pairs, bvh)
 //     sqrt3: t = (sqrt(d2) + eps)^3          (the octree quirk, octree.h:156-160)
-// where d2 = |x_j - x_i|^2. Division and square root are IEEE (nvcc's
-// defaults -prec-div=true -prec-sqrt=true; the build never passes
-// --use_fast_math): the softening adds eps ~ 1.19e-7 to a tiny d2*sqrt(d2),
-// and approximate division changes exactly those close-pair terms. The
-// Pallas kernels used an approximate reciprocal plus one Newton step, which
-// lies within 1 ulp of the division.
+// where d2 = |x_j - x_i|^2. pair_weight divides and takes the root in IEEE
+// (nvcc's defaults -prec-div=true -prec-sqrt=true; the build never passes
+// --use_fast_math); the tree kernels of group_eval.cu and the all-pairs
+// kernel's exact=True instantiation use it. The Pallas kernels take the
+// approximate reciprocal plus one Newton step (pallas_allpairs.py:79-84,
+// their default exact=False), within 1 ulp of the division: newton_recip
+// below. A bare rcp.approx, without the Newton step, would lose bits of
+// the close-pair terms, whose t is eps plus a tiny d2*sqrt(d2); the step
+// restores them. The all-pairs kernels (allpairs.cu) run the Newton form
+// by default, as nbody_tpu's CLI does.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -34,10 +38,10 @@ __device__ __forceinline__ T pair_weight(T m, T d2, T eps) {
   return m / t;
 }
 
-// The Pallas kernels' reciprocal, float32 only (pallas_allpairs.py:79-84):
-// the hardware's approximate reciprocal, then one Newton step, within 1 ulp
-// of IEEE division. Float64 keeps the division: the Pallas kernel was
-// float32-only.
+// The Pallas kernels' reciprocal, float32 (pallas_allpairs.py:79-84): the
+// hardware's approximate reciprocal, then one Newton step, within 1 ulp of
+// IEEE division. The Pallas kernel was float32-only; allpairs.cu refines
+// its own float64 seeds.
 __device__ __forceinline__ float newton_recip(float t) {
   float r;
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(t));

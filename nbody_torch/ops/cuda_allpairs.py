@@ -8,47 +8,68 @@ nbody_torch/csrc/allpairs.cu (see its header for the design):
                             :181; body _allpairs_kernel)
   potential_rowsums_kernel  replaces potential_rowsums_pallas (:255; body
                             _pe_kernel)
+  split_sum_kernel          adds the body splits of a launch plan in order
+                            (the Pallas grid's sequential j axis)
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-output with torch.empty, launches on the current stream, raises if the
-launch returns a CUDA error, and adds one to `launch_counts` for the
-kernel it launched. A wrapper runs the plain torch twin beside it
-(allpairs_block_torch, allpairs_fast_torch, potential_rowsums_torch)
-only when its tensors lie on the CPU; on a CUDA tensor it launches the
-kernel or raises.
+output (and a split plan's scratch) with torch.empty, launches on the
+current stream, raises if a launch returns a CUDA error, and adds one to
+`launch_counts` for each kernel it launched. A wrapper runs the plain
+torch twin beside it (allpairs_block_torch, allpairs_fast_torch,
+potential_rowsums_torch, split_sum_torch) only when its tensors lie on the
+CPU; on a CUDA tensor it launches the kernel or raises.
 
-The Pallas knobs `exact` and `fast` of allpairs_accel_cuda select float32
-instantiations of the same kernel, each counted under its own name:
-  exact=True (the default)   IEEE division, float32 and float64; the CLI's
-                             paths and the trees' fallbacks take it;
-  exact=False                allpairs_block_kernel<float32, newton>: the
-                             approximate reciprocal plus one Newton step;
-  fast=True, exact=False     allpairs_block_kernel<float32, fast>: per
-                             (i-tile, j-tile) pair, rsqrt^3 without the
-                             softening where the tile's least d2 exceeds
-                             (eps / fast_tol)^(2/3), else the Newton chain.
-The defaults differ from allpairs_accel_pallas's exact=False on purpose:
-the port's paths keep IEEE division, within 1 ulp of the Newton form.
-Neither variant takes float64 (the Pallas kernel was float32-only), and
-fast requires exact=False: nbody_tpu only ever calls it so. The block
-wrapper allpairs_block_cuda, which the trees' fallbacks call, takes
-neither: no caller of allpairs_block_pallas in nbody_tpu passes them.
-The twin of the Newton form is allpairs_block_torch, in IEEE division:
+The weight of a pair, by the wrappers' `exact` (each form counted under
+its own name):
+  exact=False (the default)  NEWTON in float32: rsqrt.approx for the root
+                             and the approximate reciprocal plus one Newton
+                             step (pallas_allpairs.py:79-84), what
+                             allpairs_accel_pallas and allpairs_block_pallas
+                             run by default and so what nbody_tpu's CLI
+                             runs; NEWTON64 in float64: the MUFU seeds
+                             refined to within an ulp or two of IEEE sqrt
+                             and division. The CLI's all-pairs engine and
+                             the trees' exact fallbacks take it;
+  exact=True                 EXACT: IEEE sqrt and division, float32 and
+                             float64 (kernel_bench's `exact`);
+  fast=True, exact=False     FAST, float32: per (i-tile, j-tile) pair,
+                             rsqrt^3 without the softening where the tile's
+                             least d2 exceeds (eps / fast_tol)^(2/3), else
+                             the Newton chain.
+The Newton form lies within 1 ulp of the division (JAX measured 1.7e-7
+relative, pallas_allpairs.py:81-82), so the twins divide exactly in IEEE:
 the hardware's approximate reciprocal cannot be reproduced on the CPU.
+
+The potential takes the chain (rsqrt.approx and the Newton reciprocal in
+float32, the refined seeds in float64) although nbody_tpu's _pe_kernel
+takes an IEEE sqrt and a true division (pallas_allpairs.py:243-244): a
+departure from nbody_tpu's numerics, made so that the potential shares
+the force's two-MUFU chain and its speed. Its error stays within the
+kernels' tolerance of the IEEE twin (1e-5 of |pe| in float32, 1e-12 in
+float64; tests/test_torch_kernels.py, chip_smoke.py phase 2).
+
+block_plan chooses a launch's row blocks and its body splits.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 
 from nbody_torch.ops.allpairs import (SOFTENINGS, accel_rows_raw, cat_rows, pair_terms,
                                       pairs_per_chunk, row_chunks, sum_terms)
 
+EXACT = "allpairs_block_kernel<ieee>"
 NEWTON = "allpairs_block_kernel<float32, newton>"
+NEWTON64 = "allpairs_block_kernel<float64, newton>"
 FAST = "allpairs_block_kernel<float32, fast>"
+POTENTIAL = "potential_rowsums_kernel"
+SPLIT_SUM = "split_sum_kernel"
 # Kernel launches since the last reset, by kernel name. Only a launch of
 # the CUDA kernel counts; a CPU call of a wrapper runs the twin and does not.
-launch_counts = {"allpairs_block_kernel": 0, NEWTON: 0, FAST: 0, "potential_rowsums_kernel": 0}
+launch_counts = {EXACT: 0, NEWTON: 0, NEWTON64: 0, FAST: 0, POTENTIAL: 0, SPLIT_SUM: 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
@@ -56,6 +77,56 @@ _DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def block_name(dtype: torch.dtype, exact: bool = False) -> str:
+    """The launch_counts name of the force instantiation that a call in
+    `dtype` with `exact` launches."""
+    if exact:
+        return EXACT
+    return NEWTON if dtype == torch.float32 else NEWTON64
+
+
+# --------------------------------------------------------------------------
+# launch plan
+
+THREADS = 256  # threads a block (csrc/allpairs.cu kRowThreads)
+TILE = 256     # bodies staged at once, one partial sum (kTile = kPartBodies)
+# rows a thread (csrc/allpairs.cu kRows<T>): the fastest on an H100 of
+# float32 2, 4, 8 and float64 1, 2, 4 (PERF.md)
+ROWS = {torch.float32: 2, torch.float64: 1}
+BLOCKS_PER_SM = 4  # the least blocks a plan aims for, per SM
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One launch: `blocks` row blocks of rows_per_block rows (block b
+    takes rows [b * rows_per_block, (b + 1) * rows_per_block)) by `splits`
+    body ranges (split s takes bodies [s * split_len, (s + 1) * split_len)),
+    each pair of them one CUDA block: the grid is (blocks, splits)."""
+
+    rows_per_block: int
+    blocks: int
+    splits: int
+    split_len: int
+
+
+def block_plan(ni: int, nj: int, dtype: torch.dtype, sm_count: int) -> Plan:
+    """The plan of ni rows against nj bodies: row blocks of ROWS[dtype] *
+    THREADS rows, and the bodies split into ranges of whole tiles, enough
+    that blocks * splits comes to about BLOCKS_PER_SM * sm_count (one split
+    when the row blocks alone reach it; never less than a tile a split)."""
+    rows_per_block = ROWS[dtype] * THREADS
+    blocks = max(1, -(-ni // rows_per_block))
+    tiles = max(1, -(-nj // TILE))
+    splits = max(1, min(tiles, -(-BLOCKS_PER_SM * sm_count // blocks)))
+    split_len = -(-tiles // splits) * TILE
+    return Plan(rows_per_block, blocks, max(1, -(-nj // split_len)), split_len)
+
+
+@functools.cache
+def sm_count_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # --------------------------------------------------------------------------
@@ -166,6 +237,17 @@ def potential_rowsums_torch(m: torch.Tensor, x: torch.Tensor, eps: float) -> tor
     return m * cat_rows(parts, m)
 
 
+def split_sum_torch(parts: torch.Tensor, scale: float = 1.0,
+                    mi: torch.Tensor | None = None) -> torch.Tensor:
+    """f * (parts[0] + parts[1] + ...) over the splits of (splits, ni,
+    width) partial rows, added in split order as split_sum_kernel adds
+    them (so equal to it bit for bit); f = mi[i] with mi, else scale."""
+    v = parts[0]
+    for s in range(1, parts.shape[0]):
+        v = v + parts[s]
+    return (scale * v) if mi is None else mi[:, None] * v
+
+
 # --------------------------------------------------------------------------
 # kernel wrappers
 
@@ -205,44 +287,92 @@ def _raise_on_error(kernel: str, err: int) -> None:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
 
 
-def _launch_block(xi, mj, xj, eps: float, softening: str, scale: float) -> torch.Tensor:
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def split_sum_cuda(parts: torch.Tensor, scale: float = 1.0,
+                   mi: torch.Tensor | None = None) -> torch.Tensor:
+    """The (ni, width) rows f * sum_s parts[s] of a plan's (splits, ni,
+    width) partial rows, the splits added in order; f = mi[i] (a (ni,)
+    tensor) with mi, else scale."""
+    if parts.ndim != 3 or parts.dtype not in _DTYPE_CODES or not parts.is_contiguous():
+        raise ValueError(f"parts must be a contiguous (splits, ni, width) float32 or float64 "
+                         f"tensor, got {tuple(parts.shape)} {parts.dtype}")
+    if mi is not None and (mi.shape != (parts.shape[1],) or mi.dtype != parts.dtype
+                           or not mi.is_contiguous()):
+        raise ValueError(f"mi {tuple(mi.shape)} does not match parts {tuple(parts.shape)}")
+    if _on_cpu(parts, *([] if mi is None else [mi])):
+        return split_sum_torch(parts, scale, mi)
+    from nbody_torch._build import load_library
+
+    splits, ni, width = parts.shape
+    out = torch.empty((ni, width), dtype=parts.dtype, device=parts.device)
+    if ni * width == 0:
+        return out
+    err = load_library().nbody_split_sum(
+        parts.device.index, _DTYPE_CODES[parts.dtype], parts.data_ptr(), splits, ni * width,
+        width, float(scale), None if mi is None else mi.data_ptr(), out.data_ptr(),
+        _stream(parts))
+    _raise_on_error(SPLIT_SUM, err)
+    launch_counts[SPLIT_SUM] += 1
+    return out
+
+
+def _launch_rows(name: str, xi, mj, xj, eps: float, softening: str, exact: bool,
+                 scale: float, mi, plan: Plan | None) -> torch.Tensor:
+    """One plan of the rows kernel (the force, or with mi the potential),
+    and, when the plan splits the bodies, split_sum_kernel over its
+    partial rows. Returns (ni, width) rows."""
     from nbody_torch._build import load_library
 
     if softening not in SOFTENINGS:
         raise ValueError(f"softening must be one of {SOFTENINGS}, got {softening!r}")
-    out = torch.empty_like(xi)
-    if xi.shape[0] == 0:
-        return out
-    err = load_library().nbody_allpairs_block(
-        xi.device.index, _DTYPE_CODES[xi.dtype], xi.shape[1], int(softening == "sqrt3"),
-        xi.data_ptr(), xi.shape[0], mj.data_ptr(), xj.data_ptr(), xj.shape[0],
-        float(eps), float(scale), out.data_ptr(),
-        torch.cuda.current_stream(xi.device).cuda_stream)
-    _raise_on_error("allpairs_block_kernel", err)
-    launch_counts["allpairs_block_kernel"] += 1
-    return out
+    (ni, dim), nj = xi.shape, xj.shape[0]
+    width = 1 if mi is not None else dim
+    if ni == 0:
+        return xi.new_empty((0, width))
+    if plan is None:
+        plan = block_plan(ni, nj, xi.dtype, sm_count_of(xi.device.index))
+    if plan.rows_per_block != ROWS[xi.dtype] * THREADS:
+        raise ValueError(f"{plan} is not a plan of {xi.dtype} rows: its blocks hold "
+                         f"{ROWS[xi.dtype] * THREADS} rows")
+    split = plan.splits > 1
+    out = torch.empty((plan.splits, ni, width), dtype=xi.dtype, device=xi.device)
+    err = load_library().nbody_allpairs_rows(
+        xi.device.index, _DTYPE_CODES[xi.dtype], dim, int(mi is not None),
+        int(softening == "sqrt3"), int(exact), xi.data_ptr(), ni, mj.data_ptr(), xj.data_ptr(),
+        nj, plan.blocks, plan.splits, plan.split_len, float(eps),
+        1.0 if split else float(scale), None if split or mi is None else mi.data_ptr(),
+        out.data_ptr(), _stream(xi))
+    _raise_on_error(name, err)
+    launch_counts[name] += 1
+    return split_sum_cuda(out, scale, mi) if split else out[0]
 
 
 def allpairs_block_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, eps: float,
-                        softening: str = "poly") -> torch.Tensor:
+                        softening: str = "poly", exact: bool = False,
+                        plan: Plan | None = None) -> torch.Tensor:
     """Raw (G-less) accelerations of the rows xi against the body block
-    (mj, xj) -- the counterpart of allpairs_block_pallas."""
+    (mj, xj) -- the counterpart of allpairs_block_pallas, whose default
+    exact=False it shares. plan: block_plan's by default."""
     _check_bodies(xi, mj, xj)
     if _on_cpu(xi, mj, xj):
         return allpairs_block_torch(xi, mj, xj, eps, softening)
-    return _launch_block(xi, mj, xj, eps, softening, 1.0)
+    return _launch_rows(block_name(xi.dtype, exact), xi, mj, xj, eps, softening, exact, 1.0,
+                        None, plan)
 
 
 def _check_variant(dtype: torch.dtype, exact: bool, fast: bool, return_counts: bool) -> None:
     if return_counts and not fast:
         raise ValueError("return_counts counts the fast variant's branches: pass fast=True")
-    if exact and not fast:
+    if not fast:
         return
-    if fast and exact:
+    if exact:
         raise ValueError("fast=True runs the Newton chain on its near tiles, as nbody_tpu "
                          "calls it: pass exact=False")
     if dtype != torch.float32:
-        raise TypeError(f"exact=False and fast=True are float32 only, got {dtype}")
+        raise TypeError(f"fast=True is float32 only, got {dtype}")
 
 
 def tile_counts(npad: int, tile_i: int, branches: int, like: torch.Tensor) -> torch.Tensor:
@@ -252,15 +382,15 @@ def tile_counts(npad: int, tile_i: int, branches: int, like: torch.Tensor) -> to
 
 
 def allpairs_accel_cuda(m: torch.Tensor, x: torch.Tensor, G: float, eps: float,
-                        exact: bool = True, fast: bool = False, fast_tol: float = 1e-6,
+                        exact: bool = False, fast: bool = False, fast_tol: float = 1e-6,
                         tile_i: int = 512, tile_j: int = 2048,
-                        return_counts: bool = False):
+                        return_counts: bool = False, plan: Plan | None = None):
     """All-pairs accelerations G * block(x, m, x) -- the counterpart of
-    allpairs_accel_pallas. The kernel applies G after the sum, as the
-    Pallas wrapper does (pallas_allpairs.py:173). exact=True (the
-    default, unlike the Pallas function's) keeps IEEE division; the tiles
-    and fast_tol matter to fast=True only. With return_counts (fast=True
-    only) returns (a, counts), counts the int (i-tiles, 2) tensor of each
+    allpairs_accel_pallas, whose default exact=False it shares. The kernel
+    applies G after the sum, as the Pallas wrapper does
+    (pallas_allpairs.py:173). The tiles and fast_tol matter to fast=True
+    only, `plan` to fast=False only. With return_counts (fast=True only)
+    returns (a, counts), counts the int (i-tiles, 2) tensor of each
     i-tile's [softened, far] j-tiles, as allpairs_fast_torch returns them."""
     _check_bodies(x, m, x)
     _check_variant(x.dtype, exact, fast, return_counts)
@@ -269,44 +399,34 @@ def allpairs_accel_cuda(m: torch.Tensor, x: torch.Tensor, G: float, eps: float,
             return G * allpairs_block_torch(x, m, x, eps)
         a, counts = allpairs_fast_torch(m, x, G, eps, fast_tol, tile_i, tile_j)
         return (a, counts) if return_counts else a
-    if exact:
-        return _launch_block(x, m, x, eps, "poly", G)
+    if not fast:
+        return _launch_rows(block_name(x.dtype, exact), x, m, x, eps, "poly", exact, G, None,
+                            plan)
     from nbody_torch._build import load_library
 
     n, dim = x.shape
     npad, tile_j = fast_tiling(n, dim, tile_i, tile_j)
-    if fast and (tile_i % 64 or not 64 <= tile_i <= 512 or tile_j * (dim + 1) > 12288):
+    if tile_i % 64 or not 64 <= tile_i <= 512 or tile_j * (dim + 1) > 12288:
         raise ValueError(f"fast takes tile_i a multiple of 64 in [64, 512] and a j-tile of at "
                          f"most 48 KB, got tile_i={tile_i}, tile_j={tile_j}")
     out = torch.empty_like(x)
     counts = tile_counts(npad, tile_i, 2, x) if return_counts else None
     if n == 0:
         return (out, counts) if return_counts else out
-    err = load_library().nbody_allpairs_variant(
-        x.device.index, dim, int(fast), x.data_ptr(), m.data_ptr(), n, npad, tile_i, tile_j,
-        float(eps), far_threshold(eps, fast_tol), float(G), out.data_ptr(),
-        None if counts is None else counts.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    name = FAST if fast else NEWTON
-    _raise_on_error(name, err)
-    launch_counts[name] += 1
+    err = load_library().nbody_allpairs_fast(
+        x.device.index, dim, x.data_ptr(), m.data_ptr(), n, npad, tile_i, tile_j, float(eps),
+        far_threshold(eps, fast_tol), float(G), out.data_ptr(),
+        None if counts is None else counts.data_ptr(), _stream(x))
+    _raise_on_error(FAST, err)
+    launch_counts[FAST] += 1
     return (out, counts) if return_counts else out
 
 
-def potential_rowsums_cuda(m: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
+def potential_rowsums_cuda(m: torch.Tensor, x: torch.Tensor, eps: float,
+                           plan: Plan | None = None) -> torch.Tensor:
     """Per-body pe_i = m_i * sum_{j != i} m_j / dist(i, j); the total PE is
     -0.5 * G * sum(pe). The counterpart of potential_rowsums_pallas."""
     _check_bodies(x, m, x)
     if _on_cpu(m, x):
         return potential_rowsums_torch(m, x, eps)
-    from nbody_torch._build import load_library
-
-    out = torch.empty_like(m)
-    if m.shape[0] == 0:
-        return out
-    err = load_library().nbody_potential_rowsums(
-        x.device.index, _DTYPE_CODES[x.dtype], x.shape[1], m.data_ptr(), x.data_ptr(),
-        x.shape[0], float(eps), out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on_error("potential_rowsums_kernel", err)
-    launch_counts["potential_rowsums_kernel"] += 1
-    return out
+    return _launch_rows(POTENTIAL, x, m, x, eps, "poly", False, 1.0, m, plan).view(-1)

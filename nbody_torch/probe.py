@@ -55,14 +55,23 @@
 
     python -m nbody_torch.probe sass OUT.txt
         Compiles each nbody_torch/csrc/*.cu to a cubin with the build's
-        nvcc flags and writes `cuobjdump -sass` of them to OUT.txt, for
-        counting the instructions per pair of each kernel instantiation.
+        nvcc flags and -Xptxas -v, writes `cuobjdump -sass` of them to
+        OUT.txt, and prints one JSON line per kernel (also written to
+        OUT.txt.json): its registers and spill bytes, and its hot loop, the
+        innermost loop with the most MUFU operations: instructions, MUFU,
+        FP32, FP64 and shared-load instructions in it, and the
+        instructions a pair, counting two MUFU operations a pair (a root
+        and a reciprocal, as every chain of csrc/ but the fast variant's
+        far branch takes).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import re
+import shutil
 import subprocess
 import time
 import warnings
@@ -255,6 +264,85 @@ def entry_probe(args) -> None:
                          resolve_device(args.device))
 
 
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+SASS_TARGET = re.compile(r"(0x[0-9a-f]+|\.L_x_\d+)")
+FP32_OPS = ("FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP")
+FP64_OPS = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX")
+
+
+def sass_loops(text: str) -> dict[str, dict]:
+    """function -> its hot loop, from `cuobjdump -sass` text: the
+    innermost loop (a backward branch's range that holds no other loop
+    with MUFU) with the most MUFU operations, ties to the shorter one;
+    {} counts for a function with no such loop."""
+    out = {}
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        name, body = chunk.split("\n", 1)
+        insts, labels = [], {}
+        for line in body.splitlines():
+            lab = SASS_LABEL.match(line)
+            if lab:
+                labels[lab.group(1)] = len(insts)
+                continue
+            ins = SASS_LINE.search(line)
+            if ins:
+                insts.append((int(ins.group(1), 16), ins.group(3), ins.group(4)))
+        index = {addr: k for k, (addr, _, _) in enumerate(insts)}
+        loops = []
+        for k, (_, op, args) in enumerate(insts):
+            target = SASS_TARGET.search(args) if op.startswith("BRA") else None
+            if target is None:
+                continue
+            t = target.group(1)
+            first = labels.get(t) if t.startswith(".L") else index.get(int(t, 16))
+            if first is not None and first <= k:
+                loops.append((first, k))
+
+        def count(lo, hi, ops):
+            return sum(1 for _, op, _ in insts[lo:hi + 1] if op.split(".")[0] in ops)
+
+        def mufu(lo, hi):
+            return sum(1 for _, op, _ in insts[lo:hi + 1] if op.startswith("MUFU"))
+
+        inner = [(lo, hi) for lo, hi in loops if mufu(lo, hi) and not any(
+            (a, b) != (lo, hi) and lo <= a and b <= hi and mufu(a, b) for a, b in loops)]
+        if not inner:
+            out[name.strip()] = {}
+            continue
+        lo, hi = max(inner, key=lambda r: (mufu(*r), -(r[1] - r[0])))
+        n, mu = hi - lo + 1, mufu(lo, hi)
+        out[name.strip()] = {"loop_instructions": n, "mufu": mu,
+                             "fp32": count(lo, hi, FP32_OPS), "fp64": count(lo, hi, FP64_OPS),
+                             "lds": count(lo, hi, ("LDS",)),
+                             "instructions_per_pair": n * 2 / mu}
+    return out
+
+
+def ptxas_usage(text: str) -> dict[str, dict]:
+    """function -> {registers, spill_stores, spill_loads} from nvcc
+    -Xptxas -v output."""
+    usage, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            usage.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            usage[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage.setdefault(name, {})["registers"] = int(m.group(1))
+    return usage
+
+
 def sass(out: str) -> None:
     from nbody_torch import _build
 
@@ -262,13 +350,27 @@ def sass(out: str) -> None:
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
     nvcc = _build.find_nvcc()
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    filt = shutil.which("cu++filt") or os.path.join(os.path.dirname(nvcc), "cu++filt")
+    rows = []
     with open(out, "w") as f:
         for src in _build.sources():
             cubin = _build.BUILD_DIR / f"probe.{src.stem}.cubin"
-            subprocess.run([nvcc, *flags, "-cubin", "-o", str(cubin), str(src)], check=True)
-            f.flush()
-            subprocess.run([cuobjdump, "-sass", str(cubin)], stdout=f, check=True)
-    print(f"wrote {out}")
+            log = subprocess.run([nvcc, *flags, "-Xptxas", "-v", "-cubin", "-o", str(cubin),
+                                  str(src)], check=True, capture_output=True, text=True)
+            text = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True,
+                                  capture_output=True, text=True).stdout
+            f.write(log.stdout + log.stderr + text)
+            usage = ptxas_usage(log.stdout + log.stderr)
+            for name, loop in sass_loops(text).items():
+                demangled = (subprocess.run([filt, name], capture_output=True, text=True).stdout
+                             .strip() if os.access(filt, os.X_OK) else name)
+                rows.append({"source": src.name, "kernel": demangled or name,
+                             **usage.get(name, {}), **loop})
+    with open(out + ".json", "w") as f:
+        for row in rows:
+            print(json.dumps(row))
+            f.write(json.dumps(row) + "\n")
+    print(f"wrote {out} and {out}.json")
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -171,8 +171,10 @@ def test_cpu_wrappers_do_not_count_launches():
     ca.allpairs_accel_cuda(_t(m), _t(x), 1.0, 1e-7)
     ca.allpairs_block_cuda(_t(x), _t(m), _t(x), 1e-7)
     ca.potential_rowsums_cuda(_t(m), _t(x), 1e-7)
-    assert ca.launch_counts == {"allpairs_block_kernel": 0, ca.NEWTON: 0, ca.FAST: 0,
-                                "potential_rowsums_kernel": 0}
+    ca.allpairs_block_cuda(_t(x), _t(m), _t(x), 1e-7, exact=True)
+    ca.split_sum_cuda(_t(np.ones((2, 20, 2), np.float32)))
+    assert ca.launch_counts == {ca.EXACT: 0, ca.NEWTON: 0, ca.NEWTON64: 0, ca.FAST: 0,
+                                ca.POTENTIAL: 0, ca.SPLIT_SUM: 0}
 
 
 @pytest.mark.parametrize("case", ["dtype", "mixed", "dim", "mass", "stride", "int", "softening"])

@@ -163,15 +163,16 @@ def test_fast_tiling_matches_jax(n, dim, tile_i, tile_j, expect):
 def test_variants_reject_what_the_kernel_does_not_take(case):
     m, x = _random_system(8, 3)
     m, x = torch.tensor(m), torch.tensor(x)
-    if case == "float64-newton":
-        with pytest.raises(TypeError):
-            ca.allpairs_accel_cuda(m.double(), x.double(), 1.0, EPS, exact=False)
+    if case == "float64-newton":  # taken since the float64 chain: the twin, on the CPU
+        got = ca.allpairs_accel_cuda(m.double(), x.double(), 1.0, EPS, exact=False)
+        assert torch.equal(got, ca.allpairs_accel_cuda(m.double(), x.double(), 1.0, EPS,
+                                                       exact=True))
     elif case == "float64-fast":
         with pytest.raises(TypeError):
             ca.allpairs_accel_cuda(m.double(), x.double(), 1.0, EPS, exact=False, fast=True)
     elif case == "fast-exact":
         with pytest.raises(ValueError):
-            ca.allpairs_accel_cuda(m, x, 1.0, EPS, fast=True)
+            ca.allpairs_accel_cuda(m, x, 1.0, EPS, exact=True, fast=True)
     else:
         with pytest.raises(ValueError):
             ca.allpairs_accel_cuda(m, x, 1.0, EPS, exact=False, return_counts=True)

@@ -26,3 +26,45 @@ def test_repo_sources_and_header():
     assert [p.name for p in _build.sources()] == ["allpairs.cu", "allpairs_mxu.cu",
                                                   "entry_probes.cu", "group_eval.cu"]
     assert _build.library_path().parent == _build.BUILD_DIR
+
+
+SASS = """
+        code for sm_90a
+                Function : _Zkernel
+        .headerflags    @"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   S2R R0, SR_TID.X ;
+.L_x_1:
+        /*0020*/                   LDS.128 R4, [R2] ;
+.L_x_2:
+        /*0030*/                   FADD R5, R4, -R8 ;
+        /*0040*/                   MUFU.RSQ R6, R5 ;
+        /*0050*/                   FFMA R7, R5, R6, R3 ;
+        /*0060*/                   MUFU.RCP R9, R7 ;
+        /*0070*/                   DFMA R10, R4, R4, R10 ;
+        /*0080*/              @!P0 BRA `(.L_x_2) ;
+        /*0090*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*00a0*/               @P1 BRA 0x20 ;
+        /*00b0*/                   EXIT ;
+                Function : _Zplain
+        /*0000*/                   EXIT ;
+"""
+PTXAS = """ptxas info    : Compiling entry function '_Zkernel' for 'sm_90a'
+ptxas info    : Function properties for _Zkernel
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 4096 bytes smem, 400 bytes cmem[0]
+"""
+
+
+def test_probe_sass_counts_the_innermost_mufu_loop():
+    """probe sass: the hot loop is the innermost backward branch's range
+    with MUFU (labels or addresses as targets), counted by class; two MUFU
+    a pair; registers and spills from -Xptxas -v."""
+    from nbody_torch.probe import ptxas_usage, sass_loops
+
+    loops = sass_loops(SASS)
+    assert loops["_Zplain"] == {}
+    assert loops["_Zkernel"] == {"loop_instructions": 6, "mufu": 2, "fp32": 2, "fp64": 1,
+                                 "lds": 0, "instructions_per_pair": 6.0}
+    assert ptxas_usage(PTXAS) == {"_Zkernel": {"spill_stores": 8, "spill_loads": 4,
+                                               "registers": 40}}

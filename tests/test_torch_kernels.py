@@ -77,14 +77,17 @@ def _assert_within(got, ref, scale, dtype):
         ((got - ref).abs() / scale).max().item()
 
 
+@pytest.mark.parametrize("exact", [False, True])
 @pytest.mark.parametrize("n", [1000, 4099])
 @pytest.mark.parametrize("softening", ["poly", "sqrt3"])
 @pytest.mark.parametrize("dim", [2, 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_block_kernel_vs_twin(dev, dtype, dim, softening, n):
+def test_block_kernel_vs_twin(dev, dtype, dim, softening, n, exact):
+    """The chain (exact=False: Newton in float32, the refined seeds in
+    float64) and the IEEE weight, both within TOL of the IEEE twin."""
     m, x = _bodies(n, dim, dtype, dev, seed=n + dim)
     eps = float(torch.finfo(dtype).eps)
-    got = ca.allpairs_block_cuda(x, m, x, eps, softening)
+    got = ca.allpairs_block_cuda(x, m, x, eps, softening, exact=exact)
     _assert_within(got, ca.allpairs_block_torch(x, m, x, eps, softening),
                    ca.allpairs_block_abs_torch(x, m, x, eps, softening), dtype)
 
@@ -95,9 +98,10 @@ def test_block_kernel_rectangular(dev, dtype):
     mj, xj = _bodies(2051, 3, dtype, dev, seed=2)
     eps = float(torch.finfo(dtype).eps)
     for soft in ("poly", "sqrt3"):
-        got = ca.allpairs_block_cuda(xi, mj, xj, eps, soft)
-        _assert_within(got, ca.allpairs_block_torch(xi, mj, xj, eps, soft),
-                       ca.allpairs_block_abs_torch(xi, mj, xj, eps, soft), dtype)
+        for exact in (False, True):
+            got = ca.allpairs_block_cuda(xi, mj, xj, eps, soft, exact=exact)
+            _assert_within(got, ca.allpairs_block_torch(xi, mj, xj, eps, soft),
+                           ca.allpairs_block_abs_torch(xi, mj, xj, eps, soft), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -182,29 +186,155 @@ def test_potential_diagonal_masked_by_global_index(dev):
     assert one.item() == 0.0
 
 
-def test_self_and_coincident_force_terms_vanish(dev):
-    eps = float(torch.finfo(torch.float32).eps)
-    m = torch.tensor([1.0, 2.0], device=dev)
-    x = torch.tensor([[0.5, 0.5], [0.5, 0.5]], device=dev)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_self_and_coincident_force_terms_vanish(dev, dtype):
+    """A pair at d2 = 0: the chain lifts d2 to the least normal, so its
+    weight is finite and its term w * 0 is zero; the IEEE weight is m / eps."""
+    eps = float(torch.finfo(dtype).eps)
+    m = torch.tensor([1.0, 2.0], dtype=dtype, device=dev)
+    x = torch.tensor([[0.5, 0.5], [0.5, 0.5]], dtype=dtype, device=dev)
     for soft in ("poly", "sqrt3"):
-        a = ca.allpairs_block_cuda(x, m, x, eps, soft)
-        torch.cuda.synchronize()
-        assert torch.equal(a, torch.zeros_like(a))
+        for exact in (False, True):
+            a = ca.allpairs_block_cuda(x, m, x, eps, soft, exact=exact)
+            torch.cuda.synchronize()
+            assert torch.equal(a, torch.zeros_like(a))
+    pe = ca.potential_rowsums_cuda(m, x, eps)
+    torch.cuda.synchronize()
+    assert torch.isfinite(pe).all() and torch.allclose(pe, m * m.flip(0) / eps, rtol=1e-6)
 
 
 def test_launch_counters(dev):
+    """One count per launch, by instantiation; a plan with splits also
+    launches split_sum_kernel (300 bodies are two tiles: two splits)."""
     m, x = _bodies(300, 2, torch.float32, dev, seed=5)
+    assert ca.block_plan(300, 300, torch.float32, ca.sm_count_of(0)).splits == 2
     ca.reset_launch_counts()
     ca.allpairs_accel_cuda(m, x, 1.0, 1e-7)
     ca.allpairs_block_cuda(x, m, x, 1e-7, "sqrt3")
+    ca.allpairs_block_cuda(x, m, x, 1e-7, exact=True)
+    ca.allpairs_block_cuda(x.double(), m.double(), x.double(), 1e-7)
     ca.potential_rowsums_cuda(m, x, 1e-7)
     ca.allpairs_block_cuda(x[:0], m, x, 1e-7)  # no rows: no launch
     ca.allpairs_block_torch(x, m, x, 1e-7)     # the twin never counts
-    assert ca.launch_counts == {"allpairs_block_kernel": 2, ca.NEWTON: 0, ca.FAST: 0,
-                                "potential_rowsums_kernel": 1}
+    assert ca.launch_counts == {ca.EXACT: 1, ca.NEWTON: 2, ca.NEWTON64: 1, ca.FAST: 0,
+                                ca.POTENTIAL: 1, ca.SPLIT_SUM: 5}
     ca.reset_launch_counts()
-    assert ca.launch_counts == {"allpairs_block_kernel": 0, ca.NEWTON: 0, ca.FAST: 0,
-                                "potential_rowsums_kernel": 0}
+    assert set(ca.launch_counts.values()) == {0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_few_rows_take_the_split_path(dev, dtype):
+    """Few rows against many bodies (chip_smoke.py phase 2's 9,216 x 2^20 at
+    test size): the plan splits the bodies, and the split sums stay within
+    TOL of the twin, under both softenings and both weights."""
+    mj, xj = _bodies(40000, 3, dtype, dev, seed=21)
+    xi = xj[:300].contiguous()
+    assert ca.block_plan(300, 40000, dtype, ca.sm_count_of(0)).splits > 1
+    eps = float(torch.finfo(dtype).eps)
+    for soft in ("poly", "sqrt3"):
+        for exact in (False, True):
+            _assert_within(ca.allpairs_block_cuda(xi, mj, xj, eps, soft, exact=exact),
+                           ca.allpairs_block_torch(xi, mj, xj, eps, soft),
+                           ca.allpairs_block_abs_torch(xi, mj, xj, eps, soft), dtype)
+
+
+@pytest.mark.parametrize("ni", [1, 31, 4099])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ragged_rows_vs_twin(dev, dtype, ni):
+    mj, xj = _bodies(20011, 3, dtype, dev, seed=ni)
+    xi = xj[:ni].contiguous()
+    eps = float(torch.finfo(dtype).eps)
+    for soft in ("poly", "sqrt3"):
+        _assert_within(ca.allpairs_block_cuda(xi, mj, xj, eps, soft),
+                       ca.allpairs_block_torch(xi, mj, xj, eps, soft),
+                       ca.allpairs_block_abs_torch(xi, mj, xj, eps, soft), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_split_and_unsplit_plans_vs_twin(dev, dtype):
+    """The force and the potential on a plan of one split (a 1-SM card's)
+    and on one of several (the H100's)."""
+    m, x = _bodies(2500, 3, dtype, dev, seed=22)
+    eps = float(torch.finfo(dtype).eps)
+    ref, scale = ca.allpairs_block_torch(x, m, x, eps), ca.allpairs_block_abs_torch(x, m, x, eps)
+    pe_ref = ca.potential_rowsums_torch(m, x, eps)
+    plans = [ca.block_plan(2500, 2500, dtype, sms) for sms in (1, 132)]
+    assert plans[0].splits == 1 and plans[1].splits > 1
+    for plan in plans:
+        _assert_within(ca.allpairs_block_cuda(x, m, x, eps, plan=plan), ref, scale, dtype)
+        _assert_within(ca.potential_rowsums_cuda(m, x, eps, plan=plan), pe_ref, pe_ref.abs(),
+                       dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_potential_diagonal_across_a_split_boundary(dev, dtype):
+    """3,001 bodies against 12 splits of 256 bodies: in float32 the split
+    boundaries cut through the row blocks of 512, so the diagonal of a
+    block lies in two splits (a float64 row block is one tile). Coincident
+    unit masses at eps = 0.5 give exactly (n - 1) / eps; random bodies stay
+    within TOL of the twin."""
+    n = 3001
+    plan = ca.block_plan(n, n, dtype, ca.sm_count_of(0))
+    assert plan.splits > 1
+    if dtype == torch.float32:
+        assert plan.split_len % plan.rows_per_block != 0
+    m = torch.ones(n, dtype=dtype, device=dev)
+    pe = ca.potential_rowsums_cuda(m, torch.zeros(n, 3, dtype=dtype, device=dev), 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(pe, torch.full_like(pe, (n - 1) / 0.5))
+    m, x = _bodies(n, 3, dtype, dev, seed=23)
+    eps = float(torch.finfo(dtype).eps)
+    ref = ca.potential_rowsums_torch(m, x, eps)
+    _assert_within(ca.potential_rowsums_cuda(m, x, eps), ref, ref.abs(), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_two_launches_are_bit_equal(dev, dtype):
+    """No atomics: the same call twice gives the same bits, split or not."""
+    m, x = _bodies(5000, 3, dtype, dev, seed=24)
+    eps = float(torch.finfo(dtype).eps)
+    for sms in (1, 132):
+        plan = ca.block_plan(5000, 5000, dtype, sms)
+        for call in (lambda: ca.allpairs_block_cuda(x, m, x, eps, "sqrt3", plan=plan),
+                     lambda: ca.allpairs_accel_cuda(m, x, 2.0, eps, plan=plan),
+                     lambda: ca.potential_rowsums_cuda(m, x, eps, plan=plan)):
+            a, b = call(), call()
+            torch.cuda.synchronize()
+            assert torch.equal(a, b)
+
+
+def test_wrapper_refuses_a_plan_of_the_other_dtype(dev):
+    """A float32 plan's row blocks hold 512 rows, a float64 kernel's 256."""
+    m, x = _bodies(1000, 3, torch.float64, dev, seed=27)
+    plan = ca.block_plan(1000, 1000, torch.float32, ca.sm_count_of(0))
+    with pytest.raises(ValueError):
+        ca.allpairs_block_cuda(x, m, x, 1e-7, plan=plan)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_split_sum_kernel_equals_twin(dev, dtype):
+    """split_sum_kernel adds in split order, as its twin does: bit for bit."""
+    rng = np.random.default_rng(25)
+    parts = torch.tensor(rng.standard_normal((7, 1000, 3)), dtype=dtype, device=dev)
+    mi = torch.tensor(rng.uniform(0.1, 1, 1000), dtype=dtype, device=dev)
+    assert torch.equal(ca.split_sum_cuda(parts, 0.3), ca.split_sum_torch(parts, 0.3))
+    one = parts[:, :, :1].contiguous()
+    assert torch.equal(ca.split_sum_cuda(one, mi=mi), ca.split_sum_torch(one, mi=mi))
+
+
+def test_float64_chain_within_ulps_of_ieee(dev):
+    """The refined float64 seeds against the IEEE weight on the same plan
+    (the same order of summation): within 16 ulps of each row's sum of
+    |term|, so within a few ulps per term."""
+    mj, xj = _bodies(50000, 3, torch.float64, dev, seed=26)
+    xi = xj[:3000].contiguous()
+    eps = float(torch.finfo(torch.float64).eps)
+    for soft in ("poly", "sqrt3"):
+        chain = ca.allpairs_block_cuda(xi, mj, xj, eps, soft)
+        ieee = ca.allpairs_block_cuda(xi, mj, xj, eps, soft, exact=True)
+        scale = ca.allpairs_block_abs_torch(xi, mj, xj, eps, soft)
+        torch.cuda.synchronize()
+        assert ((chain - ieee).abs() <= 16 * eps * scale).all()
 
 
 def test_wrapper_raises_on_mixed_devices(dev):
@@ -564,7 +694,7 @@ def test_list_paths_on_card_match_cpu(dev, tree, dim):
         out[device.type] = (a.cpu(), {k: int(v) for k, v in info.items()},
                             cg.launch_counts[cg.group_eval_name(
                                 torch.float64, "sqrt3" if tree == "octree" else "poly")],
-                            ca.launch_counts["allpairs_block_kernel"])
+                            ca.launch_counts[ca.NEWTON64])
     (ga, ginfo, glaunch, gfb), (pa, pinfo, plaunch, pfb) = out["cuda"], out["cpu"]
     assert ginfo == pinfo and pinfo["fallback_tiles"] < -(-n // 512)
     assert pinfo["fallback_tiles"] > 0 or (tree, dim) == ("bvh", 2)
@@ -712,8 +842,8 @@ def test_variant_launch_counters(dev):
     ca.allpairs_accel_cuda(m, x, 1.0, 1e-7, exact=False, fast=True, return_counts=True)
     cm.allpairs_accel_mxu_cuda(m, x, 1.0, 1e-7)
     cm.allpairs_accel_mxu_cuda(m, x, 1.0, 1e-7, fast=True)
-    assert ca.launch_counts == {"allpairs_block_kernel": 0, ca.NEWTON: 1, ca.FAST: 2,
-                                "potential_rowsums_kernel": 0}
+    assert ca.launch_counts == {ca.EXACT: 0, ca.NEWTON: 1, ca.NEWTON64: 0, ca.FAST: 2,
+                                ca.POTENTIAL: 0, ca.SPLIT_SUM: 1}
     assert cm.launch_counts == {cm.PLAIN: 1, cm.FAST: 1}
 
 
