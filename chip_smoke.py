@@ -41,7 +41,13 @@ Phases, each printed on its own lines:
      a. one octree force evaluation of a 2^20-body galaxy, in 3-D and in
         2-D, whose far, window and entries kernel calls are recorded; each
         kernel is then run again on its recorded inputs and timed beside
-        its plain twin;
+        its plain twin; the entries call is launched twice (the results
+        bit-equal), the plan the wrapper made printed (parts, part length,
+        blocks) and timed alone, its second pass entries_sum_kernel timed
+        on partial rows of the plan's shape beside its plain version
+        (bit-equal) and index_add_, and the call timed again on a plan of
+        one part a tile (the grid of one block a tile), beside the MUFU
+        floor;
      b. the CLI at full size, -n 1048576 -s 12 --algorithm octree in 3-D
         and in 2-D;
      c. the 3-D force of (a) against the sqrt3 all-pairs kernel on the
@@ -51,7 +57,8 @@ Phases, each printed on its own lines:
   6. the BVH fast path (--algorithm bvh):
      a. one BVH force evaluation of a 2^20-body galaxy, in 3-D and in 2-D,
         whose far, node-mask window and entries kernel calls are recorded
-        and re-run as in 5a, each timed beside its twin; the dense-mask
+        and re-run as in 5a, each timed beside its twin, the entries call
+        checked and its plan printed as in 5a; the dense-mask
         window, which the BVH reaches only at n <= 16, is timed on a
         synthetic 2^20 window built from the node-mask window's slots and
         on the inputs of an n = 16 evaluation;
@@ -171,6 +178,11 @@ the data sheet's 1.98 GHz boost clock, a figure worked out, not measured.
 split_sum_kernel is bound by its bytes (the partials read once, the rows
 written once); library_ms is torch.sum(parts, 0), the one PyTorch call
 that computes its function (in another order of addition).
+entries_sum_kernel is bound by its bytes (the parts read once, the rows
+written once); library_ms is index_add_ of the parts into their tiles'
+rows, the one PyTorch call that computes its function (in another order
+of addition). Beside the entries kernel's float32 times 5a and 6a print
+its MUFU floor, as phase 2 does.
 Every kernel call that 5a and 6a time prints its pair count, the pairs
 its inputs need (all-pairs N(N-1); a window the columns it visits times
 the rows; entries sum(hi - lo) times the rows; the far field the set
@@ -204,7 +216,8 @@ the potential kernel's and split_sum_kernel's from the run of phase 4
 (the 2^20 --csv-total run computes no energies; at 65,536 bodies the
 plans split), the IEEE instantiation's from kernel_bench's exact
 configurations in 8d; the octree
-kernels' from the 3-D run of phase 5b, the BVH's far, node-mask and
+kernels' (and the entries calls' second pass entries_sum_kernel) from the
+3-D run of phase 5b, the BVH's far, node-mask and
 entries kernels' from the 3-D run of phase 6b, the dense-mask
 window's from the small run of phase 6e, the three ablation kernels' from
 the 3-D octree SPEC of their token in 9c (densemask, farcompact, packedj;
@@ -616,8 +629,9 @@ def allpairs_phase(dev, big: int) -> dict:
           f"{bound_ms:.4f} ms ({bound_by})")
     check(equal, "split_sum_kernel differs from its plain version")
     out[ca.SPLIT_SUM] = {"ms": sms_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                         "library_call": "torch.sum(parts, 0)", "max_abs_err": 0.0,
-                         "bit_equal_to_plain": True, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_call": "torch.sum(parts, 0)",
+                         "max_abs_err": (got - ref).abs().max().item(),
+                         "bit_equal_to_plain": equal, "bound_ms": bound_ms, "bound_by": bound_by,
                          "replaces": f"{PALLAS_ALLPAIRS}:107-108 and :250 (the grid's sequential "
                                      "j axis: out_ref +=)",
                          "shape": [plan.splits, FEW_ROWS, 3], "dtype": "float32"}
@@ -788,20 +802,87 @@ def measure(tag: str, name: str, kern, twin, args, dim: int, softening: str) -> 
             "bound_by": bound_by, "library_ms": None}
 
 
+def entries_extras(tag: str, args, pairs: int) -> dict:
+    """5a / 6a, the entries call beyond measure(): two launches bit-equal;
+    the plan the wrapper made (entries_plan, recorded from its call)
+    printed and timed alone on its inputs; its second pass
+    (entries_sum_kernel) timed on partial rows of the plan's shape beside
+    its plain version and index_add_; the same call on a plan of one part
+    a tile (parts=1: the grid of one block a tile) held to 1e-4; the MUFU
+    floor printed. Returns the extras of the kernel's entry, and the second
+    pass's measurements under "sum_pass"."""
+    import torch
+
+    from nbody_torch.ops import cuda_allpairs as ca
+    from nbody_torch.ops import cuda_group_eval as cg
+
+    xi, ntiles = args[0], args[7]
+    dev, dim, tb = xi.device, xi.shape[1], xi.shape[0] // ntiles
+    kern = (lambda **kw: cg.entries_lohi_eval_cuda(*args, **kw))
+    with recording(cg, ["entries_plan"], results=True) as recorded:
+        first = kern()
+    again = kern()
+    torch.cuda.synchronize()
+    same = torch.equal(first, again)
+    plan, plan_args = recorded.results["entries_plan"], recorded["entries_plan"]
+    target, n_parts, part_len = plan_args[5], int(plan.part_start[-1]), int(plan.part_len)
+    plan_ms = event_ms(lambda: cg.entries_plan(*plan_args), reps=5)
+    one_ms, one = event_ms(lambda: kern(parts=1), reps=3, keep=True)
+    one_diff = ((one - first).abs().max() / first.abs().max()).item()
+    kms = event_ms(kern, reps=5)
+    scratch = torch.rand((plan.blocks, tb, dim), device=dev)
+    got = cg.entries_sum_cuda(scratch, plan.part_start)
+    sum_ms = event_ms(lambda: cg.entries_sum_cuda(scratch, plan.part_start), reps=20)
+    plain_ms, ref = event_ms(lambda: cg.entries_sum_torch(scratch, plan.part_start), reps=1,
+                             keep=True)
+    owner, flat = plan.tile[:n_parts].long(), scratch[:n_parts].view(n_parts, -1)
+    lib_ms, lib = event_ms(lambda: torch.zeros(ntiles, tb * dim, device=dev).index_add_(
+        0, owner, flat), reps=20, keep=True)
+    torch.cuda.synchronize()
+    sum_equal = torch.equal(got, ref)
+    sum_err = (got - ref).abs().max().item()
+    lib_err = (lib.view_as(got) - got).abs().max().item()
+    nbytes = (n_parts + ntiles) * tb * dim * 4 + plan.part_start.numel() * 4
+    sum_bound, sum_by = bound((n_parts - ntiles) * tb * dim, 1, nbytes)
+    floor = mufu_floor_ms(pairs, ca.sm_count_of(dev.index))
+    print(f"[{tag}] entries_lohi_kernel plan: {n_parts} parts of {part_len} bodies over {ntiles} "
+          f"tiles, {plan.blocks} blocks (target {target}); the plan alone {plan_ms:.3f} ms "
+          f"({plan_ms / kms:.3f} of the call); two launches "
+          f"{'bit-equal' if same else 'DIFFER'}; call {kms:.3f} ms against {one_ms:.3f} ms on one "
+          f"part a tile (max |diff| / max |a| {one_diff:.3e}); MUFU floor {floor:.3f} ms "
+          f"({floor / kms:.3f} of it)")
+    print(f"[{tag}] entries_sum_kernel on ({plan.blocks}, {tb}, {dim}) partial rows, {n_parts} "
+          f"parts: kernel {sum_ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms; "
+          f"kernel == plain bit for bit: {sum_equal}; max |index_add_ - kernel| {lib_err:.3e}; "
+          f"bound {sum_bound:.4f} ms ({sum_by})")
+    check(same, f"{tag}: two entries launches on the same inputs differ")
+    check(sum_equal, f"{tag}: entries_sum_kernel differs from its plain version")
+    check(one_diff <= 1e-4, f"{tag}: the one-part-a-tile plan differs by {one_diff:.3e}")
+    return {"bit_equal_launches": same, "one_part_a_tile_ms": one_ms,
+            "plan": {"target": target, "blocks": plan.blocks, "parts": n_parts,
+                     "part_len": part_len, "tiles": ntiles, "plan_ms": plan_ms},
+            "sum_pass": {"ms": sum_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "library_call": "torch.zeros(ntiles, tb * dim).index_add_(0, tile, parts)",
+                         "max_abs_err": sum_err, "bit_equal_to_plain": sum_equal,
+                         "bound_ms": sum_bound, "bound_by": sum_by,
+                         "shape": [plan.blocks, tb, dim], "parts": n_parts, "dtype": "float32"}}
+
+
 class Recorded(dict):
     """attr -> the last call's positional args; .kwargs: attr -> its
-    keyword args."""
+    keyword args; .results: attr -> what it returned."""
 
     def __init__(self):
         super().__init__()
         self.kwargs = {}
+        self.results = {}
 
 
 @contextlib.contextmanager
-def recording(module, attrs, key=None):
+def recording(module, attrs, key=None, results=False):
     """Wrap module.<attr> for each attr so that each call's args are kept
     (the last call's, by attr, or by key(attr, args, kwargs)) while the
-    call goes through."""
+    call goes through; with results=True, what it returned too."""
     recorded = Recorded()
     saved = {attr: getattr(module, attr) for attr in attrs}
 
@@ -810,7 +891,10 @@ def recording(module, attrs, key=None):
             k = attr if key is None else key(attr, args, kwargs)
             recorded[k] = args
             recorded.kwargs[k] = kwargs
-            return fn(*args, **kwargs)
+            out = fn(*args, **kwargs)
+            if results:
+                recorded.results[k] = out
+            return out
         return call
 
     for attr in attrs:
@@ -851,6 +935,7 @@ def cli_full_size(algorithm: str, dim: int, big: int, tag: str,
     return launches
 
 
+ENTRIES_SUM = "entries_sum_kernel"  # the entries calls' second pass
 OCTREE_KERNELS = {  # name -> (wrapper in ops.cuda_group_eval, twin, Pallas function replaced)
     "masked_eval_bits_kernel": ("masked_eval_bits_cuda", "masked_eval_bits_torch",
                                 f"{PALLAS_GROUP_EVAL}:310"),
@@ -875,6 +960,7 @@ def octree_phases(dev, big: int):
 
     eps = eps_of(torch.float32)
     measured = {name: {} for name in OCTREE_KERNELS}
+    sum_pass = {}  # the entries call's second pass, by dimension
     wrappers = [attr for attr, _, _ in OCTREE_KERNELS.values()]
 
     # -- (a) one real evaluation per dimension, its kernel inputs recorded
@@ -901,6 +987,9 @@ def octree_phases(dev, big: int):
         for name, (attr, twin_attr, _) in OCTREE_KERNELS.items():
             measured[name][dim] = measure(f"5a {dim}-D", name, getattr(cg, attr),
                                           getattr(cg, twin_attr), recorded[attr], dim, "sqrt3")
+        ent = measured["entries_lohi_kernel"][dim]
+        ent.update(entries_extras(f"5a {dim}-D", recorded["entries_lohi_eval_cuda"], ent["pairs"]))
+        sum_pass[dim] = ent.pop("sum_pass")
         del recorded
         if dim == 3:
             # -- (c) the 3-D force against the exact sqrt3 sum on the same bodies
@@ -913,7 +1002,7 @@ def octree_phases(dev, big: int):
     # -- (b) the CLI at full size; counts from 0 just before each run ------
     launches = {dim: cli_full_size("octree", dim, big, "5b") for dim in (3, 2)}
     for dim in (3, 2):
-        for name in OCTREE_KERNELS:
+        for name in (*OCTREE_KERNELS, ENTRIES_SUM):
             check(launches[dim][name] > 0, f"{name} was not launched in the {dim}-D octree run")
 
     # -- (d) 17,000 bodies, 3-D: the card against the CPU twins -------------
@@ -935,6 +1024,13 @@ def octree_phases(dev, big: int):
                         "launches_in": f"phase 5b: {big}-body 3-D octree --csv-total",
                         **measured[name][3], "n": big, "dim": 3, "dtype": "float32",
                         "launches_2d": launches[2][name], "2d": measured[name][2]})
+    entries.append({"name": ENTRIES_SUM, "route": "cuda", "source": GROUP_EVAL,
+                    "replaces": f"{PALLAS_GROUP_EVAL}:851, :881 (the entries grid's sequential "
+                                "walk of a tile's run: zero on its first entry, then out_ref +=)",
+                    "launches": launches[3][ENTRIES_SUM],
+                    "launches_in": f"phase 5b: {big}-body 3-D octree --csv-total",
+                    **sum_pass[3], "timed_on": "random partial rows of the 5a 3-D call's plan",
+                    "launches_2d": launches[2][ENTRIES_SUM], "2d": sum_pass[2]})
     return entries, {dim: launches[dim][ca.NEWTON] for dim in (3, 2)}
 
 
@@ -998,6 +1094,9 @@ def bvh_phases(dev, big: int):
         for name, (attr, twin_attr, _) in BVH_KERNELS.items():
             measured[name][dim] = measure(f"6a {dim}-D", name, getattr(cg, attr),
                                           getattr(cg, twin_attr), recorded[attr], dim, "poly")
+        ent = measured["entries_lohi_kernel"][dim]
+        ent.update(entries_extras(f"6a {dim}-D", ent_args, ent["pairs"]))
+        ent["sum_pass_ms"] = ent.pop("sum_pass")["ms"]  # the kernels line's entry is 5a's
         if "allpairs_block_cuda" in recorded:
             xi, mj, xj = recorded["allpairs_block_cuda"][:3]
             print(f"[6a] the exact fallback ran on {xi.shape[0]} rows")
@@ -1031,7 +1130,7 @@ def bvh_phases(dev, big: int):
     # -- (b) the CLI at full size; counts from 0 just before each run ------
     launches = {dim: cli_full_size("bvh", dim, big, "6b") for dim in (3, 2)}
     for dim in (3, 2):
-        for name in BVH_KERNELS:
+        for name in (*BVH_KERNELS, ENTRIES_SUM):
             check(launches[dim][name] > 0, f"{name} was not launched in the {dim}-D BVH run")
 
     # -- (d) 17,000 bodies, 3-D: residual and fallback, card against CPU ----

@@ -13,9 +13,10 @@ never at import.
 Flags: sm_90a code for Hopper, and no --use_fast_math: nvcc's defaults
 keep IEEE division and square root (-prec-div, -prec-sqrt) and denormals
 wherever a source writes / or sqrt, as the IEEE instantiations (exact=True)
-and the tree kernels of group_eval.cu do. The all-pairs kernels' default
-chain takes its approximations explicitly (rsqrt.approx, rcp.approx and
-their refinement, csrc/allpairs.cu), so a flag changes neither form.
+and the tree kernels of group_eval.cu but the entries kernel do. The
+all-pairs kernels' default chain and the entries kernel take their
+approximations explicitly (rsqrt.approx, rcp.approx and their refinement,
+csrc/pair.cuh), so a flag changes neither form.
 """
 
 from __future__ import annotations
@@ -120,11 +121,11 @@ def load_library() -> ctypes.CDLL:
         ("nbody_window_eval_interval", [i, i, p, i, i, p, p, i, p, p, p, i, f64, p, p]),
         ("nbody_window_eval_nodemask", [i, i, p, i, i, p, p, i, p, p, i, i, i, f64, p, p]),
         ("nbody_window_eval_dense", [i, i, p, i, i, p, p, i, p, p, i, i, f64, p, p]),
-        ("nbody_entries_lohi_eval", [i, i, p, i, i, p, p, i, p, p, p, p, i, i, f64, p, p]),
-        ("nbody_entries_lohi_eval_packed", [i, i, p, i, i, p, i, p, p, p, p, i, i, f64, p, p]),
-        # (..., mj, xj, nj, entries, blk_tbl, lohi_tbl, ntbl, first, last, S, sqrt3, eps, out,
-        #  stream)
-        ("nbody_entries_tables_eval", [i, i, p, i, i, p, p, i, p, p, p, i, p, p, i, i, f64, p, p]),
+        # the entries kernels: (device, dim, xi, ntiles, tb, mj, xj, xm, sqrt3, eps, cum,
+        #  start, tile, e0, e1, u0, u1, blocks, parts, stream)
+        ("nbody_entries_eval", [i, i, p, i, i, p, p, p, i, f64, p, p, p, p, p, p, p, i, p, p]),
+        # (device, dim, parts, part_start, ntiles, tb, out, stream)
+        ("nbody_entries_sum", [i, i, p, p, i, i, p, p]),
         ("nbody_masked_eval", [i, i, p, i, i, p, p, i, p, i, f64, p, p]),
         ("nbody_group_shared_masked_eval", [i, i, p, i, i, p, p, i, i, p, i, f64, p, p]),
         # (device, dtype, dim, xi, ntiles, tb, mj, xj, L, split, n0, n1, sqrt3, eps, out, stream)

@@ -27,7 +27,8 @@
 // the sqrt and the division with their slow-path checks; one row a thread
 // that reads a body's mass and each coordinate apart issues four shared
 // loads a pair. This design:
-//   - the two-MUFU chain (ChainWeight): d2 summed from the least normal
+//   - the two-MUFU chain (pair.cuh ChainWeight, which the entries kernel of
+//     group_eval.cu shares): d2 summed from the least normal
 //     number (so a coincident pair has a finite weight and dx = 0, not
 //     0 * inf), s = d2 * rsqrt.approx(d2), t = d2 * s + eps (poly) or
 //     (s + eps)^3 (sqrt3), w = m * newton_recip(t): the approximate
@@ -69,7 +70,6 @@
 // the last tile of a split loops over the bodies that exist.
 
 #include <cuda_runtime.h>
-#include <float.h>
 #include <math.h>
 
 #include "pair.cuh"
@@ -178,68 +178,11 @@ __device__ __forceinline__ Body<T> load_body(const T* __restrict__ m, const T* _
   return b;
 }
 
-// The least normal number. The chain sums d2 from it instead of from 0, so
-// that its MUFU seeds see a normal input and a coincident pair (dx = 0)
-// gets a finite weight and a zero term, not 0 * inf. That changes no d2
-// above 2^-102 (float32) or 2^-969 (float64), pairs closer than ~1e-15,
-// and costs no instruction: the first square becomes a fused multiply-add
-// (a clamp, fmax(d2, least), costs one a pair).
-__device__ __forceinline__ float least_normal(float) { return FLT_MIN; }
-__device__ __forceinline__ double least_normal(double) { return DBL_MIN; }
-
-// d2 = start + sum_d dx[d]^2 in dimension order; from 0 it is nbody::sep2.
-template <typename T, int DIM>
-__device__ __forceinline__ T sep2_from(T start, const T* dx) {
-  T d2 = start;
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) d2 += dx[d] * dx[d];
-  return d2;
-}
-
-// sqrt(v) and m / t for normal v > 0 and t > 0. float32: one MUFU each,
-// the reciprocal refined by one Newton step as pallas_allpairs.py:79-84 does.
-__device__ __forceinline__ float chain_root(float v) {
-  float r;
-  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return v * r;
-}
-__device__ __forceinline__ float chain_div(float m, float t) { return m * nbody::newton_recip(t); }
-
-// float64: the MUFU seeds (relative error e ~ 2^-20), each refined by two
-// residual corrections that multiply the error by e: e^3 < 2^-53.
-__device__ __forceinline__ double chain_root(double v) {
-  double y;
-  asm("rsqrt.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(v));
-  const double hy = 0.5 * y;
-  double s = v * y;
-  s = fma(hy, fma(-s, s, v), s);
-  return fma(hy, fma(-s, s, v), s);
-}
-__device__ __forceinline__ double chain_div(double m, double t) {
-  double y;
-  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(t));
-  double q = m * y;
-  q = fma(y, fma(-t, q, m), q);
-  return fma(y, fma(-t, q, m), q);
-}
-
-// The force weight w(m, d2) of a pair by the chain (exact=False), for d2 >=
-// the least normal number; nbody::SoftenedWeight is the IEEE one (exact=True).
-template <typename T, bool SQRT3>
-struct ChainWeight {
-  T eps;
-  __device__ __forceinline__ T operator()(T m, T d2) const {
-    const T s = chain_root(d2);
-    T t;
-    if constexpr (SQRT3) {
-      const T u = s + eps;
-      t = u * u * u;
-    } else {
-      t = d2 * s + eps;
-    }
-    return chain_div(m, t);
-  }
-};
+using nbody::chain_div;
+using nbody::chain_root;
+using nbody::ChainWeight;
+using nbody::least_normal;
+using nbody::sep2_from;
 
 // Where a weight's d2 sum starts: the chain's at the least normal number,
 // the IEEE weight's at 0, as every kernel of csrc/ sums it.

@@ -42,25 +42,32 @@
 // per (tile, column), mask[t, c], that multiplies m_j. The BVH takes it
 // where a window block would hold more than 64 slots (only tiny systems).
 //
-// entries_kernel<DIM, SQRT3, Src, LohiEntries> ("entries_lohi_kernel")
-// replaces entries_lohi_eval_pallas (:963, body _entries_lohi_kernel): the
+// entries_kernel<DIM, SQRT3, Src> ("entries_lohi_kernel") replaces
+// entries_lohi_eval_pallas (:963, body _entries_lohi_kernel): the
 // near-field exact entries (the octree's near field, the BVH's residual).
-// The entry list (tile << 16 | blk, lo | hi << 16) is sorted by tile; the
-// wrapper finds each tile's run [first, last) on the device. One block per
-// tile walks its run, visits the bodies blk*S + [lo, hi) of each entry
-// exactly, and writes its rows once: no zeroing on a tile's first entry,
-// no atomics, no chunk loop, and a tile with no entries writes zeros.
+// The entry list (tile << 16 | blk, lo | hi << 16) is sorted by tile;
+// entry e adds the bodies blk*S + [lo, hi) to its tile's rows. The
+// wrapper's plan (cuda_group_eval.entries_plan, on the device) decodes
+// each live entry to its first body start[e], numbers the live entries'
+// bodies in list order (cum[e] of them before entry e) and cuts each
+// tile's run of them into parts of at most part_len bodies, inside an
+// entry where it must; block b takes one part, walks it 256 bodies at a
+// time across entry boundaries (a part's bodies all act on the same rows;
+// body u of entry e is source start[e] + u - cum[e]), and writes its rows'
+// partial sums to its own slice of a scratch. entries_sum_kernel then adds
+// each tile's parts in part order: no atomics, so two launches give the
+// same bits. A tile with no bodies gets one empty part, and so zeros.
 //
-// entries_kernel<DIM, SQRT3, SplitSource, TableEntries>
-// ("entries_tables_kernel") replaces entries_tables_eval_pallas (:1126,
-// body _entries_tables_kernel :777): the table-driven entries that
-// scripts/probe_entries_kernel.py times. The same kernel with another
-// decoder, a template parameter: entry (tile << 16 | g) takes its block
+// The same kernel ("entries_tables_kernel") replaces
+// entries_tables_eval_pallas (:1126, body _entries_tables_kernel :777):
+// the table-driven entries that scripts/probe_entries_kernel.py times.
+// Only the plan's decoder differs: entry (tile << 16 | g) takes its block
 // blk_tbl[g] and its range lohi_tbl[g] from two tables, the range cut at
-// the block's S lanes (the TPU's lane mask). A pad row (lo == hi) is read
-// and skipped. The TPU's chunks, each a grid pass whose outputs are summed,
-// are one walk here: the wrapper passes the entries of the chunks that
-// would run, which stay tile-sorted.
+// the block's S lanes (the TPU's lane mask); a pad row (lo == hi) adds no
+// bodies. The TPU's chunks, each a grid pass whose outputs are summed, are
+// one walk here: the wrapper passes the entries of the chunks that would
+// run, which stay tile-sorted. The entries are decoded once, on the
+// device, by the plan; the kernel reads only start[e].
 //
 // group_eval_kernel<T, DIM, SQRT3> computes group_eval_pallas's function
 // (:83, body _group_eval_kernel): the list paths' evaluation, the octree's
@@ -98,31 +105,44 @@
 // descent's monopoles (desc1 / desc2) take it. Padded monopoles carry
 // m = 0; zero weights are skipped as above.
 //
-// entries_kernel<DIM, SQRT3, PackedSource, LohiEntries>
-// ("entries_lohi_kernel<packed>") replaces
-// _entries_lohi_packed_kernel (:896, entries_lohi_eval_pallas(packed_j=True)
-// :1040): the entries kernel reading each source body as one 16-byte
-// float4 (x, y, z | 0, m) from an (npad, 4) array the wrapper builds, the
-// GPU form of the TPU's one (4, S) block per entry (ablation token
-// packedj). Only the staging load differs; the staged values and the pair
-// arithmetic after them are the unpacked kernel's, so the two agree bit for
-// bit.
+// entries_kernel<DIM, SQRT3, PackedSource> ("entries_lohi_kernel<packed>")
+// replaces _entries_lohi_packed_kernel (:896, entries_lohi_eval_pallas(
+// packed_j=True) :1040): the entries kernel reading each source body as
+// one 16-byte float4 (x, y, z | 0, m) from an (npad, 4) array the wrapper
+// builds, the GPU form of the TPU's one (4, S) block per entry (ablation
+// token packedj). The unpacked kernel stages the same float4 from the
+// split arrays, so the staged values, the plan and the pair arithmetic
+// after them are the same, and the two agree bit for bit.
 //
-// What bounds them on an H100: as for allpairs_block_kernel (PERF.md), FP32
-// and SFU issue per pair -- the IEEE sqrt and division of pair_weight --
-// not bytes: the sources are staged once per block through shared memory
-// and read as broadcasts. The design keeps the per-pair work minimal and
-// halves the shared loads per pair: each thread holds two rows (256 threads,
-// 512 rows per block, one default tile), and every staged source is used
-// for both. A tile of more than 512 rows gets several blocks.
+// What bounds them on an H100: FP32 and SFU issue per pair, not bytes: the
+// sources are staged once per block through shared memory and read as
+// broadcasts. The far field, the windows and the list kernel still take
+// pair.cuh's IEEE pair_weight (~38 instructions a 3-D pair); the design
+// keeps the per-pair work minimal and halves the shared loads per pair:
+// each thread holds two rows (256 threads, 512 rows per block, one default
+// tile), and every staged source is used for both. A tile of more than 512
+// rows gets several blocks. The entries kernel, which is most of an f32
+// tree step (PERF.md), is bound by the two MUFU operations of its pair
+// chain and by the tail of its heaviest tiles. Its design:
+//   - the two-MUFU chain of pair.cuh (ChainWeight), d2 summed from the
+//     least normal number (the sources include the rows themselves, and a
+//     self-pair's dx = 0 then gets a finite weight and a zero term): the
+//     approximate reciprocal and one Newton step that
+//     _entries_lohi_kernel takes (pallas_group_eval.py:877-878);
+//   - equal-work parts: per-tile work varies 2.5-10x, so one block a tile
+//     ended the call on a tail of its heaviest tiles; the plan's parts
+//     carry about the same bodies wherever they lie, and the grid (target
+//     parts + ntiles blocks) is sized from shapes alone;
+//   - one 16-byte staged body, (x, y, z | 0, m), read as one broadcast.
 //
 // Summation: a thread sums groups of kGroup = 32 terms, adds each group to
 // its shared stage's sum (kChunk bodies, or one kNodeChunk node stage),
-// each stage to the entry's (entries kernel) and then to the row total.
-// A single running sum over a 256-body stage lost up to ~150 ulps of the
-// row's sum of |term| where the terms share a sign (measured on an H100:
-// 8.7e-6 against float64 at the 2^20 window, ~13x the twin's error). The
-// longest running sums left are a row's over its stages or its entries.
+// and each stage to the row total (in the entries kernel, the part's; a
+// stage there may span entries). A single running sum over a 256-body
+// stage lost up to ~150 ulps of the row's sum of |term| where the terms
+// share a sign (measured on an H100: 8.7e-6 against float64 at the 2^20
+// window, ~13x the twin's error). The longest running sums left are a
+// row's over its stages, or over a tile's parts (entries_sum_kernel).
 
 #include <cuda_runtime.h>
 
@@ -163,15 +183,19 @@ struct SplitSource {
 template <int DIM>
 struct PackedSource {
   const float4* __restrict__ xm;
-
-  __device__ __forceinline__ void load(int j, float& mj, float (&xj)[DIM]) const {
-    const float4 v = xm[j];
-    mj = v.w;
-    xj[0] = v.x;
-    xj[1] = v.y;
-    if constexpr (DIM == 3) xj[2] = v.z;
-  }
 };
+
+// Body j as the entries kernel stages it, (x, y, z | 0, m), from either
+// layout: the same values, so the two layouts sum alike.
+template <int DIM>
+__device__ __forceinline__ float4 staged(const SplitSource<float, DIM>& src, int j) {
+  const float* x = src.x + static_cast<size_t>(j) * DIM;
+  return make_float4(x[0], x[1], DIM == 3 ? x[2] : 0.0f, src.m[j]);
+}
+template <int DIM>
+__device__ __forceinline__ float4 staged(const PackedSource<DIM>& src, int j) {
+  return src.xm[j];
+}
 
 // The contiguous sources [a, b) of `src`, staged kChunk at a time, added to
 // `sum` stage by stage. Called by every thread with block-uniform a, b.
@@ -350,70 +374,105 @@ window_eval_dense_kernel(const float* __restrict__ xi, int tb, const float* __re
   rows.store(out);
 }
 
-// Where an entry's bodies lie: entry e adds the sources [a, b), none when
-// a >= b. The near-field lists carry the block and range in each entry
-// (tile << 16 | blk, lo | hi << 16) ...
-struct LohiEntries {
-  const int* __restrict__ entries;
-  const int* __restrict__ lohis;
-  int S;
-  int nj;
-
-  __device__ __forceinline__ void range(int e, int& a, int& b) const {
-    const int base = (entries[e] & 0xFFFF) * S;
-    const int lohi = lohis[e];
-    a = base + (lohi & 0xFFFF);
-    b = min(base + ((lohi >> 16) & 0xFFFF), nj);
-  }
+// An entries launch's plan (cuda_group_eval.entries_plan): block b takes
+// the bodies [u0[b], u1[b]) of tile tile[b] in the live entries' body
+// order (cum[e] bodies before entry e, the first of them source start[e]),
+// which lie in the entries [e0[b], e1[b]); tile[b] < 0 marks a block past
+// the plan's parts.
+struct EntriesPlan {
+  const long long* __restrict__ cum;
+  const long long* __restrict__ start;
+  const int* __restrict__ tile;
+  const int* __restrict__ e0;
+  const int* __restrict__ e1;
+  const long long* __restrict__ u0;
+  const long long* __restrict__ u1;
 };
 
-// ... the table-driven ones (tile << 16 | g) look both up in row g of two
-// tables: the block blk_tbl[g] and lohi_tbl[g] = lo | hi << 16, hi read
-// as nbody_tpu reads it (an arithmetic shift) and cut at the block's S
-// lanes. Row g past the tables (ntbl rows) adds nothing.
-struct TableEntries {
-  const int* __restrict__ entries;
-  const int* __restrict__ blk_tbl;
-  const int* __restrict__ lohi_tbl;
-  int ntbl;
-  int S;
-  int nj;
-
-  __device__ __forceinline__ void range(int e, int& a, int& b) const {
-    const int g = entries[e] & 0xFFFF;
-    if (g >= ntbl) {
-      a = b = 0;
-      return;
-    }
-    const int base = blk_tbl[g] * S;
-    const int lohi = lohi_tbl[g];
-    a = base + (lohi & 0xFFFF);
-    b = min(base + min(lohi >> 16, S), nj);
+// One staged body v = (x, y, z | 0, m) acting on both rows of the thread,
+// by the chain.
+template <int DIM, bool SQRT3>
+__device__ __forceinline__ void add_staged(const float (&p)[kRows][DIM], const float4& v,
+                                           const nbody::ChainWeight<float, SQRT3>& weight,
+                                           float (&part)[kRows][DIM]) {
+  const float x[3] = {v.x, v.y, v.z};
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    float dx[DIM];
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) dx[d] = x[d] - p[r][d];
+    const float w = weight(v.w, nbody::sep2_from<float, DIM>(nbody::least_normal(0.0f), dx));
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) part[r][d] += w * dx[d];
   }
-};
+}
 
-// One block per tile walks the tile's run [first[t], last[t]) of the
-// tile-sorted entries and writes its rows once.
-template <int DIM, bool SQRT3, typename Src, typename Entries>
+// Block (b, sub) sums its part's bodies into rows sub*512.. of its tile and
+// writes them to slice b of parts (blocks, tb, DIM).
+template <int DIM, bool SQRT3, typename Src>
 __global__ void __launch_bounds__(kThreads)
-entries_kernel(const float* __restrict__ xi, int tb, const Src src, const Entries ents,
-               const int* __restrict__ first, const int* __restrict__ last, float eps,
-               float* __restrict__ out) {
-  __shared__ float s_m[kChunk];
-  __shared__ float s_x[DIM][kChunk];
+entries_kernel(const float* __restrict__ xi, int tb, const Src src, const EntriesPlan plan,
+               float eps, float* __restrict__ parts) {
+  __shared__ float4 s_body[kChunk];
 
-  Rows<float, DIM> rows(xi, tb);
-  const int t = blockIdx.x;
-  for (int e = first[t]; e < last[t]; ++e) {
-    int a, b;
-    ents.range(e, a, b);
-    if (a >= b) continue;  // a lo == hi sentinel or padding entry
-    float ent[kRows][DIM];
-    zero(ent);
-    add_range<float, DIM, SQRT3>(rows, src, a, b, eps, s_m, s_x, ent);
-    add_to(rows.acc, ent);
+  const int b = blockIdx.x;
+  const int t = plan.tile[b];
+  if (t < 0) return;  // past the plan's parts: no rows to write
+  Rows<float, DIM> rows(xi, tb, t, blockIdx.y);
+  const nbody::ChainWeight<float, SQRT3> weight{eps};
+  const long long u1 = plan.u1[b];
+  const int e0 = plan.e0[b], e1 = plan.e1[b];
+  for (long long j0 = plan.u0[b]; j0 < u1; j0 += kChunk) {
+    const int len = static_cast<int>(min(static_cast<long long>(kChunk), u1 - j0));
+    if (threadIdx.x < len) {
+      // body u of the order lies in the last entry e of [e0, e1) with cum[e] <= u
+      const long long u = j0 + threadIdx.x;
+      int lo = e0, hi = e1 - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (plan.cum[mid] <= u) {
+          lo = mid;
+        } else {
+          hi = mid - 1;
+        }
+      }
+      s_body[threadIdx.x] = staged(src, static_cast<int>(plan.start[lo] + (u - plan.cum[lo])));
+    }
+    __syncthreads();
+    float part[kRows][DIM];
+    zero(part);
+    for (int k0 = 0; k0 < len; k0 += kGroup) {
+      float group[kRows][DIM];
+      zero(group);
+      const int k1 = min(len, k0 + kGroup);
+#pragma unroll 4
+      for (int k = k0; k < k1; ++k) add_staged<DIM, SQRT3>(rows.p, s_body[k], weight, group);
+      add_to(part, group);
+    }
+    add_to(rows.acc, part);
+    __syncthreads();
   }
-  rows.store(out);
+  // b >= t (every tile has a part), so slice b starts (b - t) * tb rows in
+  rows.store(parts + static_cast<size_t>(b - t) * tb * DIM);
+}
+
+// out (ntiles * tb, dim): each row the sum of its tile's parts
+// [part_start[t], part_start[t + 1]) of parts (blocks, tb, dim), added in
+// part order.
+__global__ void entries_sum_kernel(const float* __restrict__ parts,
+                                   const int* __restrict__ part_start, int tb, int dim,
+                                   long long count, float* __restrict__ out) {
+  const long long k = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (k >= count) return;
+  const long long i = k / dim;
+  const int t = static_cast<int>(i / tb);
+  const size_t within = static_cast<size_t>(k - static_cast<long long>(t) * tb * dim);
+  const size_t slice = static_cast<size_t>(tb) * dim;
+  const int p1 = part_start[t + 1];
+  int p = part_start[t];
+  float v = parts[p * slice + within];
+  for (++p; p < p1; ++p) v += parts[p * slice + within];
+  out[k] = v;
 }
 
 template <int DIM, bool SQRT3>
@@ -501,15 +560,15 @@ cudaError_t launch_group_eval(int dim, int sqrt3, const void* xi, int ntiles, in
   return cudaGetLastError();
 }
 
-template <int DIM, typename Src, typename Entries>
-cudaError_t launch_entries(int sqrt3, const void* xi, int ntiles, int tb, const Src& src,
-                           const Entries& ents, const void* first, const void* last, double eps,
-                           void* out, void* stream) {
-  if ((sqrt3 != 0 && sqrt3 != 1) || ents.S <= 0) return cudaErrorInvalidValue;
-  const auto kernel = sqrt3 ? entries_kernel<DIM, true, Src, Entries> : entries_kernel<DIM, false, Src, Entries>;
-  kernel<<<grid_for(ntiles, tb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xi), tb, src, ents, static_cast<const int*>(first),
-      static_cast<const int*>(last), static_cast<float>(eps), static_cast<float*>(out));
+template <int DIM, typename Src>
+cudaError_t launch_entries(int sqrt3, const void* xi, int tb, const Src& src,
+                           const EntriesPlan& plan, int blocks, double eps, void* parts,
+                           void* stream) {
+  if ((sqrt3 != 0 && sqrt3 != 1) || blocks <= 0) return cudaErrorInvalidValue;
+  const auto kernel = sqrt3 ? entries_kernel<DIM, true, Src> : entries_kernel<DIM, false, Src>;
+  kernel<<<grid_for(blocks, tb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xi), tb, src, plan, static_cast<float>(eps),
+      static_cast<float*>(parts));
   return cudaGetLastError();
 }
 
@@ -598,73 +657,57 @@ extern "C" int nbody_window_eval_dense(int device, int dim, const void* xi, int 
   return cudaGetLastError();
 }
 
-extern "C" int nbody_entries_lohi_eval(int device, int dim, const void* xi, int ntiles,
-                                       int tb, const void* mj, const void* xj, int nj,
-                                       const void* entries, const void* lohis, const void* first,
-                                       const void* last, int S, int sqrt3, double eps, void* out,
-                                       void* stream) {
+// The entries kernels write their parts' partial rows to parts (blocks,
+// tb, dim) by the plan (cum (E + 1,) and start (E,) int64, tile / e0 / e1
+// (blocks,) int32, u0 / u1 (blocks,) int64: EntriesPlan); nbody_entries_sum
+// adds them into the rows. The sources are (mj, xj), or with xm != null
+// packed as one float4 (x, y, z | 0, m) each in xm (nj, 4), 16-byte
+// aligned; nj is not read: the plan addresses only sources below it.
+extern "C" int nbody_entries_eval(int device, int dim, const void* xi, int ntiles, int tb,
+                                  const void* mj, const void* xj, const void* xm, int sqrt3,
+                                  double eps, const void* cum, const void* start,
+                                  const void* tile, const void* e0, const void* e1,
+                                  const void* u0, const void* u1, int blocks, void* parts,
+                                  void* stream) {
   cudaError_t err = prepare(device, ntiles, tb);
   if (err != cudaSuccess) return err;
+  if (xm != nullptr && reinterpret_cast<uintptr_t>(xm) % alignof(float4) != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const EntriesPlan plan{static_cast<const long long*>(cum), static_cast<const long long*>(start),
+                         static_cast<const int*>(tile), static_cast<const int*>(e0),
+                         static_cast<const int*>(e1), static_cast<const long long*>(u0),
+                         static_cast<const long long*>(u1)};
   const auto* m = static_cast<const float*>(mj);
   const auto* x = static_cast<const float*>(xj);
-  const LohiEntries ents{static_cast<const int*>(entries), static_cast<const int*>(lohis), S, nj};
-  if (dim == 2) {
-    return launch_entries<2>(sqrt3, xi, ntiles, tb, SplitSource<float, 2>{m, x}, ents, first, last,
-                             eps, out, stream);
-  }
-  if (dim == 3) {
-    return launch_entries<3>(sqrt3, xi, ntiles, tb, SplitSource<float, 3>{m, x}, ents, first, last,
-                             eps, out, stream);
-  }
-  return cudaErrorInvalidValue;
-}
-
-// The entries kernel with each source body packed as one float4 (x, y,
-// z | 0, m) of xm (nj, 4), 16-byte aligned.
-extern "C" int nbody_entries_lohi_eval_packed(int device, int dim, const void* xi, int ntiles,
-                                              int tb, const void* xm, int nj, const void* entries,
-                                              const void* lohis, const void* first,
-                                              const void* last, int S, int sqrt3, double eps,
-                                              void* out, void* stream) {
-  cudaError_t err = prepare(device, ntiles, tb);
-  if (err != cudaSuccess) return err;
-  if (reinterpret_cast<uintptr_t>(xm) % alignof(float4) != 0) return cudaErrorInvalidValue;
   const auto* packed = static_cast<const float4*>(xm);
-  const LohiEntries ents{static_cast<const int*>(entries), static_cast<const int*>(lohis), S, nj};
   if (dim == 2) {
-    return launch_entries<2>(sqrt3, xi, ntiles, tb, PackedSource<2>{packed}, ents, first, last, eps,
-                             out, stream);
+    return xm != nullptr
+               ? launch_entries<2>(sqrt3, xi, tb, PackedSource<2>{packed}, plan, blocks, eps, parts, stream)
+               : launch_entries<2>(sqrt3, xi, tb, SplitSource<float, 2>{m, x}, plan, blocks, eps, parts, stream);
   }
   if (dim == 3) {
-    return launch_entries<3>(sqrt3, xi, ntiles, tb, PackedSource<3>{packed}, ents, first, last, eps,
-                             out, stream);
+    return xm != nullptr
+               ? launch_entries<3>(sqrt3, xi, tb, PackedSource<3>{packed}, plan, blocks, eps, parts, stream)
+               : launch_entries<3>(sqrt3, xi, tb, SplitSource<float, 3>{m, x}, plan, blocks, eps, parts, stream);
   }
   return cudaErrorInvalidValue;
 }
 
-// The table-driven entries (tile << 16 | g) with the tables blk_tbl and
-// lohi_tbl of ntbl int32 rows each; first / last as for the entries above.
-extern "C" int nbody_entries_tables_eval(int device, int dim, const void* xi, int ntiles, int tb,
-                                         const void* mj, const void* xj, int nj,
-                                         const void* entries, const void* blk_tbl,
-                                         const void* lohi_tbl, int ntbl, const void* first,
-                                         const void* last, int S, int sqrt3, double eps, void* out,
-                                         void* stream) {
+// out (ntiles * tb, dim): each tile's parts of parts (blocks, tb, dim),
+// [part_start[t], part_start[t + 1]) by the int32 (ntiles + 1,)
+// part_start, added in part order.
+extern "C" int nbody_entries_sum(int device, int dim, const void* parts, const void* part_start,
+                                 int ntiles, int tb, void* out, void* stream) {
   cudaError_t err = prepare(device, ntiles, tb);
   if (err != cudaSuccess) return err;
-  const auto* m = static_cast<const float*>(mj);
-  const auto* x = static_cast<const float*>(xj);
-  const TableEntries ents{static_cast<const int*>(entries), static_cast<const int*>(blk_tbl),
-                          static_cast<const int*>(lohi_tbl), ntbl, S, nj};
-  if (dim == 2) {
-    return launch_entries<2>(sqrt3, xi, ntiles, tb, SplitSource<float, 2>{m, x}, ents, first, last,
-                             eps, out, stream);
-  }
-  if (dim == 3) {
-    return launch_entries<3>(sqrt3, xi, ntiles, tb, SplitSource<float, 3>{m, x}, ents, first, last,
-                             eps, out, stream);
-  }
-  return cudaErrorInvalidValue;
+  if (dim != 2 && dim != 3) return cudaErrorInvalidValue;
+  const long long count = static_cast<long long>(ntiles) * tb * dim;
+  entries_sum_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(parts), static_cast<const int*>(part_start), tb, dim, count,
+      static_cast<float*>(out));
+  return cudaGetLastError();
 }
 
 // The dense-mask far field: mask (ntiles, W) float32 weights on the W

@@ -8,17 +8,20 @@
 //     sqrt3: t = (sqrt(d2) + eps)^3          (the octree quirk, octree.h:156-160)
 // where d2 = |x_j - x_i|^2. pair_weight divides and takes the root in IEEE
 // (nvcc's defaults -prec-div=true -prec-sqrt=true; the build never passes
-// --use_fast_math); the tree kernels of group_eval.cu and the all-pairs
-// kernel's exact=True instantiation use it. The Pallas kernels take the
-// approximate reciprocal plus one Newton step (pallas_allpairs.py:79-84,
-// their default exact=False), within 1 ulp of the division: newton_recip
-// below. A bare rcp.approx, without the Newton step, would lose bits of
-// the close-pair terms, whose t is eps plus a tiny d2*sqrt(d2); the step
-// restores them. The all-pairs kernels (allpairs.cu) run the Newton form
-// by default, as nbody_tpu's CLI does.
+// --use_fast_math); the tree kernels of group_eval.cu other than the
+// entries kernel, and the all-pairs kernel's exact=True instantiation, use
+// it. The Pallas kernels take the approximate reciprocal plus one Newton
+// step (pallas_allpairs.py:79-84, their default exact=False;
+// pallas_group_eval.py:877-878 in the entries kernels), within 1 ulp of
+// the division: newton_recip below. A bare rcp.approx, without the Newton
+// step, would lose bits of the close-pair terms, whose t is eps plus a
+// tiny d2*sqrt(d2); the step restores them. The all-pairs kernels
+// (allpairs.cu) by default, and the entries kernel (group_eval.cu), run
+// the Newton form in ChainWeight below, as nbody_tpu's CLI does.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 
 namespace nbody {
@@ -86,6 +89,75 @@ struct NewtonWeight {
 };
 struct FarWeight {
   __device__ __forceinline__ float operator()(float m, float d2) const { return far_weight(m, d2); }
+};
+
+// The two-MUFU chain, which the all-pairs kernels (allpairs.cu) and the
+// near-field entries kernel (group_eval.cu) share: a root and a reciprocal
+// a pair, each one MUFU seed (refined in float64), against the IEEE
+// pair_weight's sqrt and division with their slow-path checks (38.25 SASS
+// instructions a 3-D float32 pair against 17.75 on an H100, PERF.md).
+//
+// The least normal number. The chain sums d2 from it instead of from 0, so
+// that its MUFU seeds see a normal input and a coincident pair (dx = 0)
+// gets a finite weight and a zero term, not 0 * inf. That changes no d2
+// above 2^-102 (float32) or 2^-969 (float64), pairs closer than ~1e-15,
+// and costs no instruction: the first square becomes a fused multiply-add
+// (a clamp, fmax(d2, least), costs one a pair).
+__device__ __forceinline__ float least_normal(float) { return FLT_MIN; }
+__device__ __forceinline__ double least_normal(double) { return DBL_MIN; }
+
+// d2 = start + sum_d dx[d]^2 in dimension order; from 0 it is nbody::sep2.
+template <typename T, int DIM>
+__device__ __forceinline__ T sep2_from(T start, const T* dx) {
+  T d2 = start;
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) d2 += dx[d] * dx[d];
+  return d2;
+}
+
+// sqrt(v) and m / t for normal v > 0 and t > 0. float32: one MUFU each,
+// the reciprocal refined by one Newton step as pallas_allpairs.py:79-84 does.
+__device__ __forceinline__ float chain_root(float v) {
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return v * r;
+}
+__device__ __forceinline__ float chain_div(float m, float t) { return m * newton_recip(t); }
+
+// float64: the MUFU seeds (relative error e ~ 2^-20), each refined by two
+// residual corrections that multiply the error by e: e^3 < 2^-53.
+__device__ __forceinline__ double chain_root(double v) {
+  double y;
+  asm("rsqrt.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(v));
+  const double hy = 0.5 * y;
+  double s = v * y;
+  s = fma(hy, fma(-s, s, v), s);
+  return fma(hy, fma(-s, s, v), s);
+}
+__device__ __forceinline__ double chain_div(double m, double t) {
+  double y;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(t));
+  double q = m * y;
+  q = fma(y, fma(-t, q, m), q);
+  return fma(y, fma(-t, q, m), q);
+}
+
+// The force weight w(m, d2) of a pair by the chain (exact=False), for d2 >=
+// the least normal number; nbody::SoftenedWeight is the IEEE one (exact=True).
+template <typename T, bool SQRT3>
+struct ChainWeight {
+  T eps;
+  __device__ __forceinline__ T operator()(T m, T d2) const {
+    const T s = chain_root(d2);
+    T t;
+    if constexpr (SQRT3) {
+      const T u = s + eps;
+      t = u * u * u;
+    } else {
+      t = d2 * s + eps;
+    }
+    return chain_div(m, t);
+  }
 };
 
 // One row's sum over the bodies [k0, k1) of a tile staged in shared memory

@@ -26,8 +26,10 @@ struct Rows {
 
   // tile blockIdx.x, its part blockIdx.y
   __device__ __forceinline__ Rows(const T* __restrict__ xi, int tb) { load(xi, tb, blockIdx.x, blockIdx.y); }
-  // tile t, its first kRowsPerBlock rows
-  __device__ __forceinline__ Rows(const T* __restrict__ xi, int tb, int t) { load(xi, tb, t, 0); }
+  // tile t, its part `sub` of kRowsPerBlock rows (the first by default)
+  __device__ __forceinline__ Rows(const T* __restrict__ xi, int tb, int t, int sub = 0) {
+    load(xi, tb, t, sub);
+  }
 
   // Take the rows of tile t, part `sub`, with zero sums.
   __device__ __forceinline__ void load(const T* __restrict__ xi, int tb, int t, int sub) {

@@ -19,7 +19,11 @@ BVH fast and list paths. The kernels live in nbody_torch/csrc/group_eval.cu
                                window with a dense body mask
   entries_lohi_kernel          replaces entries_lohi_eval_pallas (:963; body
                                _entries_lohi_kernel :823): the near-field
-                               exact entries
+                               exact entries, in equal-work parts
+                               (entries_plan), by the Newton chain
+  entries_sum_kernel           adds each tile's parts in part order after
+                               any of the three entries kernels (the TPU
+                               grid's sequential walk of a tile's run)
   masked_eval_kernel           replaces masked_eval_pallas (:216; body
                                _masked_eval_kernel :184): the far field
                                with a dense float32 accept mask (ablate
@@ -51,14 +55,21 @@ array, and return their raw (G-less) accelerations in the same layout.
 which the BVH passes, as in nbody_tpu) or "sqrt3" (t = (sqrt(d2) + eps)^3,
 octree.h:156-160, which the octree passes); the interval window is sqrt3
 only.
-Each wrapper checks its inputs, allocates the output with torch.empty,
-launches on the current stream, raises on a CUDA error and adds one to
-`launch_counts` for the kernel it launched. It runs the plain twin beside
+Each wrapper checks its inputs, allocates the output (and the entries
+kernels' scratch of partial rows) with torch.empty, launches on the
+current stream, raises on a CUDA error and adds one to `launch_counts`
+for each kernel it launched. It runs the plain twin beside
 it only when its tensors lie on the CPU; on a CUDA tensor it launches the
 kernel or raises. The fast paths' kernels take float32 only, as the Pallas
 kernels do; group_eval_kernel takes float32 and float64 (the list paths
 are what float64 runs take; float32 reaches them through the list_path
 branch of the step functions); the twins take either precision.
+
+The entries kernels divide by nbody_tpu's own reciprocal, the approximate
+one and a Newton step (pallas_group_eval.py:877-878), within 1 ulp of the
+division; the other kernels and every twin divide in IEEE (the hardware's
+approximate reciprocal cannot be reproduced on the CPU), and the kernels'
+tolerance against the twins covers the ulp.
 
 The accept mask is packed node l -> word l // 32, bit l % 32
 (pack_mask_bits / unpack_mask_bits). nbody_tpu's strided order
@@ -68,10 +79,12 @@ carried over.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from nbody_torch.ops.allpairs import SOFTENINGS, pairs_per_chunk
-from nbody_torch.ops.cuda_allpairs import _DTYPE_CODES, _on_cpu, _raise_on_error
+from nbody_torch.ops.cuda_allpairs import _DTYPE_CODES, _on_cpu, _raise_on_error, sm_count_of
 
 # Kernel launches since the last reset, by kernel name (the list kernel's
 # by instantiation, group_eval_name); the twins never count.
@@ -79,7 +92,7 @@ launch_counts = {"masked_eval_bits_kernel": 0, "window_eval_interval_kernel": 0,
                  "window_eval_nodemask_kernel": 0, "window_eval_dense_kernel": 0,
                  "entries_lohi_kernel": 0, "masked_eval_kernel": 0,
                  "group_shared_masked_kernel": 0, "entries_lohi_kernel<packed>": 0,
-                 "entries_tables_kernel": 0,
+                 "entries_tables_kernel": 0, "entries_sum_kernel": 0,
                  **{f"group_eval_kernel<{dtype}, {softening}>": 0
                     for dtype in ("float32", "float64") for softening in SOFTENINGS}}
 
@@ -323,6 +336,31 @@ def _entries_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, tid: to
     return out.index_add_(0, tid, per_entry).to(xi.dtype).view_as(xi)
 
 
+def lohi_ranges(entries: torch.Tensor, lohis: torch.Tensor, S: int):
+    """(tile, start, stop), int64, of each near-field entry (tile << 16 |
+    blk, lo | hi << 16): the bodies blk*S + [lo, hi). The twin and the
+    kernels' plan (entries_plan's start) decode the entries here alone."""
+    ent, lohi = entries.long(), lohis.long()
+    base = (ent & 0xFFFF) * S
+    return ent >> 16, base + (lohi & 0xFFFF), base + ((lohi >> 16) & 0xFFFF)
+
+
+def table_ranges(entries: torch.Tensor, blk_tbl: torch.Tensor, lohi_tbl: torch.Tensor, S: int):
+    """(tile, start, stop), int64, of each table-driven entry (tile << 16 |
+    g): the bodies blk_tbl[g]*S + [lo, min(hi, S)), lohi_tbl[g] = lo | hi
+    << 16 with hi read by an arithmetic shift; a row g past the tables adds
+    nothing. The twin and the kernels' plan decode the entries here alone."""
+    ent = entries.long()
+    if blk_tbl.shape[0] == 0:  # every entry lies past the tables
+        return ent >> 16, torch.zeros_like(ent), torch.zeros_like(ent)
+    inside = (ent & 0xFFFF) < blk_tbl.shape[0]
+    g = torch.where(inside, ent & 0xFFFF, 0)
+    lohi = lohi_tbl.long()[g]
+    base = blk_tbl.long()[g] * S
+    start = base + (lohi & 0xFFFF)
+    return ent >> 16, start, torch.where(inside, base + torch.clamp(lohi >> 16, max=S), start)
+
+
 def entries_lohi_eval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                             entries: torch.Tensor, lohis: torch.Tensor, n_real, S: int,
                             ntiles: int, eps: float, softening: str, absolute: bool = False,
@@ -337,10 +375,8 @@ def entries_lohi_eval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor
         xm = pack_sources(mj, xj)
         mj, xj = xm[:, 3], xm[:, :xi.shape[1]]
     e = int(n_real)
-    ent, lohi = entries[:e].long(), lohis[:e].long()
-    base = (ent & 0xFFFF) * S
-    return _entries_torch(xi, mj, xj, ent >> 16, base + (lohi & 0xFFFF),
-                          base + ((lohi >> 16) & 0xFFFF), ntiles, eps, softening, absolute)
+    return _entries_torch(xi, mj, xj, *lohi_ranges(entries[:e], lohis[:e], S), ntiles, eps,
+                          softening, absolute)
 
 
 def live_entries(entries: torch.Tensor,
@@ -373,16 +409,11 @@ def entries_tables_eval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tens
     entries that are not sorted by tile, the precondition the kernel
     relies on."""
     flat, live = live_entries(entries, n_real)
-    ent = flat[:int(live)].long()
-    tid = ent >> 16
+    tid, start, stop = table_ranges(flat[:int(live)], blk_tbl, lohi_tbl, S)
     if tid.numel() > 1 and bool((tid[1:] < tid[:-1]).any()):
         raise ValueError("entries must be sorted by tile within and across chunks")
-    g = ent & 0xFFFF
-    lohi = lohi_tbl.long()[g]
-    base = blk_tbl.long()[g] * S
-    hi = torch.clamp(lohi >> 16, max=S)
-    return _entries_torch(xi, mj, xj, tid, base + (lohi & 0xFFFF), base + hi,
-                          xi.shape[0] // tb, eps, softening, absolute)
+    return _entries_torch(xi, mj, xj, tid, start, stop, xi.shape[0] // tb, eps, softening,
+                          absolute)
 
 
 def group_eval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, eps: float,
@@ -543,39 +574,183 @@ def tile_segments(entries: torch.Tensor, n_real: torch.Tensor, ntiles: int):
     return first, last
 
 
+# --------------------------------------------------------------------------
+# the entries kernels' plan
+
+ENTRY_CHUNK = 256   # bodies a block stages at once (csrc/group_eval.cu kChunk)
+PARTS_PER_SM = 64   # the plan's target parts a call: at most this many per SM,
+PARTS_PER_TILE = 8  # this many per row tile, and one per ENTRY_CHUNK of E * S
+
+
+@dataclass(frozen=True)
+class EntriesPlan:
+    """An entries launch: block b (of `blocks`) takes the bodies [u0[b],
+    u1[b]) of row tile tile[b] in the live entries' body order, cum[e]
+    (int64, (E + 1,)) of them before entry e, whose body u is the source
+    start[e] + u - cum[e] (int64, (E,)); they lie in the entries [e0[b],
+    e1[b]). tile[b] = -1 past the parts. Tile t's parts, in order, are the
+    blocks [part_start[t], part_start[t + 1]), at least one each; all but
+    a tile's last hold part_len bodies."""
+
+    cum: torch.Tensor
+    start: torch.Tensor
+    tile: torch.Tensor
+    e0: torch.Tensor
+    e1: torch.Tensor
+    u0: torch.Tensor
+    u1: torch.Tensor
+    part_start: torch.Tensor
+    part_len: torch.Tensor
+
+    @property
+    def blocks(self) -> int:
+        return self.tile.shape[0]
+
+
+def plan_target(n_entries: int, S: int, ntiles: int, sm_count: int) -> int:
+    """The parts an entries call aims for, from its shapes alone."""
+    return max(1, min(PARTS_PER_SM * sm_count, PARTS_PER_TILE * ntiles,
+                      -(-n_entries * S // ENTRY_CHUNK)))
+
+
+def entries_plan(entries: torch.Tensor, start: torch.Tensor, stop: torch.Tensor, n_live,
+                 ntiles: int, target: int) -> EntriesPlan:
+    """Cut each tile's run of bodies into parts of about equal work, on
+    the entries' device and without a host sync. Entry e < n_live (an int
+    or a tensor) adds the bodies [start[e], stop[e]) to row tile entries[e]
+    >> 16; the live entries are sorted by tile, and the later ones add
+    nothing. The
+    live bodies, numbered in entry order (cum), are cut into parts of
+    part_len = ceil(total / target) bodies rounded up to ENTRY_CHUNK, each
+    tile's run on its own (a part never spans two tiles; it may cut an
+    entry); a tile with no bodies gets one empty part, so that its rows are
+    written. There are target + ntiles blocks, enough for every part."""
+    dev = entries.device
+    live = torch.arange(entries.shape[0], device=dev) < n_live
+    width = torch.where(live, (stop - start).clamp_min(0), 0)
+    cum = torch.cat([width.new_zeros(1), width.cumsum(0)])
+    first, last = tile_segments(entries, n_live, ntiles)
+    base = cum[first.long()]
+    work = cum[last.long()] - base
+    per_part = ((cum[-1] + target - 1) // target).clamp_min(1)
+    part_len = (per_part + ENTRY_CHUNK - 1) // ENTRY_CHUNK * ENTRY_CHUNK
+    n_parts = ((work + part_len - 1) // part_len).clamp_min(1)
+    part_start = torch.cat([work.new_zeros(1), n_parts.cumsum(0)])
+    b = torch.arange(target + ntiles, device=dev)
+    t = torch.searchsorted(part_start, b, right=True) - 1  # ntiles past the parts
+    tc = t.clamp_max(ntiles - 1)
+    end = base[tc] + work[tc]
+    u0 = torch.minimum(base[tc] + (b - part_start[tc]) * part_len, end)
+    u1 = torch.minimum(u0 + part_len, end)
+    return EntriesPlan(cum=cum, start=start.long().contiguous(),
+                       tile=torch.where(t < ntiles, t, -1).int(),
+                       e0=(torch.searchsorted(cum, u0, right=True) - 1).int(),
+                       e1=torch.searchsorted(cum, u1).int(), u0=u0, u1=u1,
+                       part_start=part_start.int(), part_len=part_len)
+
+
+def entries_sum_torch(parts: torch.Tensor, part_start: torch.Tensor) -> torch.Tensor:
+    """(ntiles * tb, dim) rows: tile t's parts [part_start[t], part_start[t +
+    1]) of parts (blocks, tb, dim) added in part order, as entries_sum_kernel
+    adds them (so equal to it bit for bit)."""
+    first, stop = part_start[:-1].long(), part_start[1:].long()
+    v = parts[first]
+    for k in range(1, int((stop - first).max()) if first.numel() else 0):
+        idx = first + k
+        more = (idx < stop)[:, None, None]
+        v = torch.where(more, v + parts[idx.clamp_max(parts.shape[0] - 1)], v)
+    return v.reshape(-1, parts.shape[2])
+
+
+def entries_sum_cuda(parts: torch.Tensor, part_start: torch.Tensor) -> torch.Tensor:
+    """The rows of an entries plan's partial rows parts (blocks, tb, dim),
+    each tile's parts [part_start[t], part_start[t + 1]) added in part order."""
+    if (parts.ndim != 3 or parts.dtype != torch.float32 or parts.shape[2] not in (2, 3)
+            or not parts.is_contiguous()):
+        raise ValueError(f"parts must be a contiguous (blocks, tb, 2 | 3) float32 tensor, got "
+                         f"{parts.dtype} {tuple(parts.shape)}")
+    if part_start.dtype != torch.int32 or part_start.ndim != 1 or not part_start.is_contiguous():
+        raise TypeError("part_start must be a contiguous 1-D int32 tensor")
+    if _on_cpu(parts, part_start):
+        return entries_sum_torch(parts, part_start)
+    from nbody_torch._build import load_library
+
+    ntiles, (tb, dim) = part_start.shape[0] - 1, parts.shape[1:]
+    out = torch.empty((ntiles * tb, dim), dtype=parts.dtype, device=parts.device)
+    if out.numel() == 0:
+        return out
+    err = load_library().nbody_entries_sum(parts.device.index, dim, parts.data_ptr(),
+                                           part_start.data_ptr(), ntiles, tb, out.data_ptr(),
+                                           torch.cuda.current_stream(parts.device).cuda_stream)
+    _raise_on_error("entries_sum_kernel", err)
+    launch_counts["entries_sum_kernel"] += 1
+    return out
+
+
+def _launch_entries(kernel: str, xi: torch.Tensor, ntiles: int, mj: torch.Tensor,
+                    xj: torch.Tensor, xm: torch.Tensor | None, ranges, n_live, S: int,
+                    softening: str, eps: float, parts: int | None) -> torch.Tensor:
+    """One entries kernel (csrc/group_eval.cu nbody_entries_eval, on the
+    sources (mj, xj) or, given xm, the packed ones) on the plan of the
+    entries' decoded ranges (entries, start, stop), then entries_sum_kernel
+    over its parts."""
+    from nbody_torch._build import load_library
+
+    if xi.dtype != torch.float32:
+        raise TypeError(f"{kernel} takes float32, got {xi.dtype}")
+    if xi.shape[0] == 0:
+        return torch.empty_like(xi)
+    tb = xi.shape[0] // ntiles
+    nj = mj.shape[0]
+    entries, start, stop = ranges
+    if parts is None:
+        parts = plan_target(entries.shape[0], S, ntiles, sm_count_of(xi.device.index))
+    plan = entries_plan(entries, start.clamp_max(nj), stop.clamp_max(nj), n_live, ntiles, parts)
+    scratch = torch.empty((plan.blocks, tb, xi.shape[1]), dtype=xi.dtype, device=xi.device)
+    err = load_library().nbody_entries_eval(
+        xi.device.index, xi.shape[1], xi.data_ptr(), ntiles, tb, mj.data_ptr(), xj.data_ptr(),
+        None if xm is None else xm.data_ptr(), _sqrt3(softening), float(eps),
+        plan.cum.data_ptr(), plan.start.data_ptr(), plan.tile.data_ptr(), plan.e0.data_ptr(),
+        plan.e1.data_ptr(), plan.u0.data_ptr(), plan.u1.data_ptr(), plan.blocks,
+        scratch.data_ptr(), torch.cuda.current_stream(xi.device).cuda_stream)
+    _raise_on_error(kernel, err)
+    launch_counts[kernel] += 1
+    return entries_sum_cuda(scratch, plan.part_start)
+
+
 def entries_lohi_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                            entries: torch.Tensor, lohis: torch.Tensor, n_real: torch.Tensor,
                            S: int, ntiles: int, eps: float, softening: str,
-                           packed: bool = False) -> torch.Tensor:
+                           packed: bool = False, parts: int | None = None) -> torch.Tensor:
     """Near-field entries: the first n_real entries of the tile-sorted list
     (tile << 16 | blk, lo | hi << 16), each adding the pairs of row tile
     `tile` with bodies blk*S + [lo, hi) -- the counterpart of
     entries_lohi_eval_pallas. A tile with no entries gets zeros.
     packed=True (entries_lohi_eval_pallas(packed_j=True)) launches
     entries_lohi_kernel<packed> on pack_sources(mj, xj), built here once
-    per call; its sums equal the unpacked kernel's bit for bit."""
+    per call; its sums equal the unpacked kernel's bit for bit. The call
+    runs on entries_plan's parts (`parts`: its target, plan_target's by
+    default) and adds them with entries_sum_kernel."""
     _check(xi, ntiles, mj, xj, entries, lohis)
     if entries.shape != lohis.shape or entries.ndim != 1:
         raise ValueError(f"entries {tuple(entries.shape)} and lohis {tuple(lohis.shape)}")
-    sqrt3 = _sqrt3(softening)
+    if S <= 0:
+        raise ValueError(f"S must be positive, got {S}")
+    _sqrt3(softening)  # raises on an unknown softening
     if _on_cpu(xi, mj, xj, entries, lohis):
         return entries_lohi_eval_torch(xi, mj, xj, entries, lohis, n_real, S, ntiles, eps,
                                        softening, packed=packed)
-    first, last = tile_segments(entries, n_real, ntiles)
-    tail = (entries.data_ptr(), lohis.data_ptr(), first.data_ptr(), last.data_ptr(), int(S), sqrt3,
-            float(eps))
-    if packed:
-        xm = pack_sources(mj, xj)
-        return _launch("entries_lohi_kernel<packed>", "nbody_entries_lohi_eval_packed", xi, ntiles,
-                       xm.data_ptr(), xm.shape[0], *tail)
-    return _launch("entries_lohi_kernel", "nbody_entries_lohi_eval", xi, ntiles,
-                   mj.data_ptr(), xj.data_ptr(), mj.shape[0], *tail)
+    _, start, stop = lohi_ranges(entries, lohis, S)
+    name = "entries_lohi_kernel<packed>" if packed else "entries_lohi_kernel"
+    return _launch_entries(name, xi, ntiles, mj, xj, pack_sources(mj, xj) if packed else None,
+                           (entries, start, stop), n_real, S, softening, eps, parts)
 
 
 def entries_tables_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                              entries: torch.Tensor, blk_tbl: torch.Tensor, lohi_tbl: torch.Tensor,
                              eps: float, S: int, tb: int, softening: str = "sqrt3",
-                             n_real: torch.Tensor | None = None) -> torch.Tensor:
+                             n_real: torch.Tensor | None = None,
+                             parts: int | None = None) -> torch.Tensor:
     """Table-driven entries -- the counterpart of entries_tables_eval_pallas,
     with xj (N, dim) where it takes xjt (dim, N). Entry (tile << 16 | g)
     adds the pairs of row tile `tile` (rows tile*tb + [0, tb) of xi) with
@@ -585,7 +760,8 @@ def entries_tables_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tenso
     chunk c with c * E < n_real, whole, and chunk 0) are one walk here, and
     a tile in none of them gets zeros. The live entries must be sorted by
     tile, within and across chunks, as nbody_tpu requires; the kernel does
-    not check it (that would make the host wait), the twin raises."""
+    not check it (that would make the host wait), the twin raises. The
+    plan and `parts` as in entries_lohi_eval_cuda."""
     ntiles = xi.shape[0] // tb if tb > 0 else 0
     _check(xi, ntiles, mj, xj, entries, blk_tbl, lohi_tbl)
     if entries.ndim not in (1, 2) or blk_tbl.shape != lohi_tbl.shape or blk_tbl.ndim != 1:
@@ -593,16 +769,14 @@ def entries_tables_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tenso
                          f"{tuple(lohi_tbl.shape)}")
     if S <= 0:
         raise ValueError(f"S must be positive, got {S}")
-    sqrt3 = _sqrt3(softening)
+    _sqrt3(softening)  # raises on an unknown softening
     if _on_cpu(xi, mj, xj, entries, blk_tbl, lohi_tbl):
         return entries_tables_eval_torch(xi, mj, xj, entries, blk_tbl, lohi_tbl, eps, S, tb,
                                          softening, n_real)
     flat, live = live_entries(entries, n_real)
-    first, last = tile_segments(flat, live, ntiles)
-    return _launch("entries_tables_kernel", "nbody_entries_tables_eval", xi, ntiles, mj.data_ptr(),
-                   xj.data_ptr(), mj.shape[0], flat.data_ptr(), blk_tbl.data_ptr(),
-                   lohi_tbl.data_ptr(), blk_tbl.shape[0], first.data_ptr(), last.data_ptr(),
-                   int(S), sqrt3, float(eps))
+    _, start, stop = table_ranges(flat, blk_tbl, lohi_tbl, S)
+    return _launch_entries("entries_tables_kernel", xi, ntiles, mj, xj, None,
+                           (flat, start, stop), live, S, softening, eps, parts)
 
 
 def _check_mask(mask: torch.Tensor, xi: torch.Tensor, width: int) -> None:

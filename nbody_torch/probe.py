@@ -53,6 +53,15 @@
         These three append to OUT, run on the GPU unless --device cpu (the
         kernels' plain twins), and end non-zero on an error.
 
+    python -m nbody_torch.probe entries-plan OUT [--n N] [--dims 3,2] [--device cuda|cpu]
+        The entries kernel's plan at other part counts (probes/
+        entries_plan.py): the entries call that one f32 octree and one BVH
+        force evaluation make on an N-body galaxy (default 2^20), timed on
+        plans of one part a tile, ntiles parts, and 1/4 to 4 times the
+        default target, and the plan alone; one JSON line per (tree, dim),
+        appended to OUT. A one-off design sweep; on the CPU the wrapper
+        runs its twin, which takes no plan.
+
     python -m nbody_torch.probe sass OUT.txt
         Compiles each nbody_torch/csrc/*.cu to a cubin with the build's
         nvcc flags and -Xptxas -v, writes `cuobjdump -sass` of them to
@@ -406,7 +415,11 @@ def main(argv: list[str] | None = None) -> int:
     dp.add_argument("--e", type=int, default=8192)
     dp.add_argument("--s", type=int, default=1024)
     dp.add_argument("--dim", type=int, choices=(2, 3), default=3)
-    for p in (en, eo, dp):
+    ep = sub.add_parser("entries-plan", help="the entries call on plans of other part counts")
+    ep.add_argument("out")
+    ep.add_argument("--n", type=int, default=1 << 20)
+    ep.add_argument("--dims", default="3,2")
+    for p in (en, eo, dp, ep):
         p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     s = sub.add_parser("sass", help="write the kernels' SASS to a file")
     s.add_argument("out")
@@ -417,6 +430,12 @@ def main(argv: list[str] | None = None) -> int:
         knobs(args.tree, args.out, args.specs, args.n, args.device)
     elif args.cmd in ("entries", "entry-overhead", "dma-pipeline"):
         entry_probe(args)
+    elif args.cmd == "entries-plan":
+        from nbody_torch.cli import resolve_device
+        from nbody_torch.probes import entries_plan
+
+        entries_plan.run(args.out, args.n, tuple(int(d) for d in args.dims.split(",")),
+                         resolve_device(args.device))
     else:
         sass(args.out)
     return 0

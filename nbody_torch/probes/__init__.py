@@ -4,7 +4,9 @@ nbody_torch.probe entries | entry-overhead | dma-pipeline. Each module
 builds its script's workload with the script's numpy draws (workload),
 times each mode with the script's chained loop and
 utils.measure.scan_seconds_per_step, and appends one JSON line per mode
-with the script's keys, plus the device, the kernel and its launches."""
+with the script's keys, plus the device, the kernel and its launches.
+entries_plan (python -m nbody_torch.probe entries-plan) is this port's own
+one-off sweep of the entries kernel's plan."""
 
 from __future__ import annotations
 

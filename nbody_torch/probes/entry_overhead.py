@@ -17,8 +17,9 @@ time (ops/cuda_entry_probes, csrc/entry_probes.cu):
            and the full-width pass on packed sources (the switch rung)
 
 Every rung runs on T blocks (one wave on the card) of E / T consecutive
-entries, and the production kernel on one block per tile, T again; the
-script's grid of E steps ran in order on one TPU core.
+entries, and the production kernel on its plan's equal-work parts
+(cuda_group_eval.entries_plan); the script's grid of E steps ran in order
+on one TPU core.
 """
 
 from __future__ import annotations

@@ -460,6 +460,25 @@ def test_entries_kernel_vs_twin(dev, dim, softening):
     _assert_group_within(got, ref, _group_scale(xi, mj, xj, sel, tb, softening))
     for tile in (2, 4, 5):
         assert not got[tile * tb:(tile + 1) * tb].any()
+    # two launches give the same bits; other plans (one part a tile, many
+    # parts cutting inside entries) the same sums within the tolerance
+    assert torch.equal(got, cg.entries_lohi_eval_cuda(xi, mj, xj, e, lh, n_real, S, ntiles,
+                                                      EPS32, softening))
+    for parts in (1, 5, 64):
+        other = cg.entries_lohi_eval_cuda(xi, mj, xj, e, lh, n_real, S, ntiles, EPS32, softening,
+                                          parts=parts)
+        _assert_group_within(other, ref, _group_scale(xi, mj, xj, sel, tb, softening))
+
+
+def test_entries_sum_kernel_equals_twin(dev):
+    """Tiles of 1, 3 and 2 parts, added in part order, bit for bit."""
+    rng = np.random.default_rng(63)
+    parts = torch.tensor(rng.standard_normal((7, 300, 3)), dtype=torch.float32, device=dev)
+    start = torch.tensor([0, 1, 4, 6], dtype=torch.int32, device=dev)
+    got = cg.entries_sum_cuda(parts, start)
+    assert got.shape == (900, 3)
+    assert torch.equal(got, cg.entries_sum_torch(parts, start))
+    assert torch.equal(got[300:600], (parts[1] + parts[2] + parts[3]).view(300, 3))
 
 
 def _window_case(dev, dim, tb, wt, S, seed):
@@ -595,7 +614,7 @@ def test_group_launch_counters(dev):
                                 "window_eval_nodemask_kernel": 1, "window_eval_dense_kernel": 1,
                                 "entries_lohi_kernel": 1, "masked_eval_kernel": 0,
                                 "group_shared_masked_kernel": 0, "entries_lohi_kernel<packed>": 0,
-                                "entries_tables_kernel": 0,
+                                "entries_tables_kernel": 0, "entries_sum_kernel": 1,
                                 "group_eval_kernel<float32, poly>": 0,
                                 "group_eval_kernel<float32, sqrt3>": 1,
                                 "group_eval_kernel<float64, poly>": 1,
