@@ -58,12 +58,17 @@ Phases, each printed on its own lines:
      a. one BVH force evaluation of a 2^20-body galaxy, in 3-D and in 2-D,
         whose far, node-mask window and entries kernel calls are recorded
         and re-run as in 5a, each timed beside its twin, the entries call
-        checked and its plan printed as in 5a; the dense-mask
+        checked and its plan printed as in 5a; the node-mask window's two
+        launches bit-equal, its call on one part a tile (P = 1) timed
+        beside the default P and its MUFU floor, its second pass
+        parts_sum_kernel timed on partial rows of the call's shape beside
+        its plain version (bit-equal) and torch.sum; the dense-mask
         window, which the BVH reaches only at n <= 16, is timed on a
         synthetic 2^20 window built from the node-mask window's slots and
         on the inputs of an n = 16 evaluation;
      b. the CLI at full size, -n 1048576 -s 12 --algorithm bvh in 3-D and
-        in 2-D;
+        in 2-D, then python -m nbody_torch.probe trace --algorithm bvh of 3
+        steps in each (the idle share);
      c. the 3-D force of (a) against the poly all-pairs kernel on the same
         Hilbert-sorted bodies (the sanity bounds of 5c);
      d. a 17,000-body 3-D evaluation with a window of 2 tiles and a small
@@ -78,14 +83,21 @@ Phases, each printed on its own lines:
      a. one float64 list-path force evaluation of a 2^20-body galaxy per
         tree (octree sqrt3, BVH poly) in 3-D and in 2-D, printing how many
         tiles each overflow cause (frontier, node cap, leaf cap, K_CELL)
-        sent to the exact fallback; the 3-D list kernel call is recorded
-        and re-run, timed beside its twin (on all tiles when the first 256
-        extrapolate to under 20 s, else on those 256); then the float32
+        sent to the exact fallback; the list kernel call is recorded and
+        re-run in both dimensions, on the CLI's work (the heads of the
+        fallback's tiles zero, as the list paths pass them) and on every
+        tile's heads (nbody_tpu's work, which the earlier kernel was timed on), each
+        timed beside its twin (on all tiles when the first 256 extrapolate
+        to under 20 s, else on those 256), held within 1e-12 of sum |term|,
+        two launches bit-equal, with its pairs, bound and DP floor; the
+        second pass timed on the 3-D octree call's shape; then the float32
         instantiation, driven through octree_step_force / bvh_step_force
         with list_path=True on a 2^20-body 3-D float32 galaxy, its call
         recorded and timed the same way;
      b. the CLI at full size, -n 1048576 -s 12 --precision double with
-        --algorithm octree and bvh, in 3-D and in 2-D;
+        --algorithm octree and bvh, in 3-D and in 2-D; then probe trace
+        --precision double of 2 steps of each: the list kernel's (and its
+        second pass's) device ms a step;
      c. the rows of (a) that went through the lists (their tiles did not
         fall back), 65,536 at most, against the float64 all-pairs kernel
         with the same softening on the same sorted bodies (the sanity
@@ -183,6 +195,13 @@ written once); library_ms is index_add_ of the parts into their tiles'
 rows, the one PyTorch call that computes its function (in another order
 of addition). Beside the entries kernel's float32 times 5a and 6a print
 its MUFU floor, as phase 2 does.
+parts_sum_kernel, the second pass of the node-mask window and the list
+kernel, is bound by its bytes (the written parts read once, the rows
+written once); library_ms is torch.sum over the parts, which computes
+its sums once the unwritten slices are zero, as there. Beside the list
+kernel's float64 times 7a prints its DP floor: the float64 chain's DP
+instructions a pair (23 sqrt3, 21 poly in 3-D; 20 / 18 in 2-D) at 64 a
+clock on each SM at the boost clock, worked out, not measured.
 Every kernel call that 5a and 6a time prints its pair count, the pairs
 its inputs need (all-pairs N(N-1); a window the columns it visits times
 the rows; entries sum(hi - lo) times the rows; the far field the set
@@ -218,7 +237,8 @@ plans split), the IEEE instantiation's from kernel_bench's exact
 configurations in 8d; the octree
 kernels' (and the entries calls' second pass entries_sum_kernel) from the
 3-D run of phase 5b, the BVH's far, node-mask and
-entries kernels' from the 3-D run of phase 6b, the dense-mask
+entries kernels' (and the window's second pass parts_sum_kernel) from the
+3-D run of phase 6b, the dense-mask
 window's from the small run of phase 6e, the three ablation kernels' from
 the 3-D octree SPEC of their token in 9c (densemask, farcompact, packedj;
 each SPEC's run counts from 0 inside the probe), the list kernel's float64
@@ -868,6 +888,107 @@ def entries_extras(tag: str, args, pairs: int) -> dict:
                          "shape": [plan.blocks, tb, dim], "parts": n_parts, "dtype": "float32"}}
 
 
+# float64 operations a clock on an H100 SM (64 FP64 lanes), and the float64
+# chain's DP instructions a pair (csrc/pair.cuh: dim subtractions, dim for
+# d2, dim for the force, 6 to refine the root, 5 the quotient, and the
+# softening: 3 under sqrt3, 1 under poly; 23 / 21 a 3-D pair, as the SASS
+# of allpairs.cu's float64 chain counts them)
+DP_PER_SM_CLOCK = 64
+
+
+def dp_floor_ms(pairs: int, dim: int, softening: str, sms: int) -> float:
+    """The float64 chain's DP instructions at DP_PER_SM_CLOCK a clock on
+    each SM, a figure worked out, not measured."""
+    per_pair = 3 * dim + 11 + (3 if softening == "sqrt3" else 1)
+    return pairs * per_pair / (sms * DP_PER_SM_CLOCK * MAX_SM_CLOCK_HZ) * 1e3
+
+
+def parts_sum_extras(tag: str, nparts, P: int, tb: int, dim: int, dtype) -> dict:
+    """The split kernels' second pass, parts_sum_kernel, on partial rows of
+    a call's shape ((ntiles * P, tb, dim), the call's part counts nparts):
+    timed beside its plain version (bit-equal) and beside torch.sum over
+    the parts, which computes the same sums (in another order) once the
+    unwritten slices are zero, as here."""
+    import torch
+
+    from nbody_torch.ops import cuda_group_eval as cg
+
+    ntiles, dev = nparts.shape[0], nparts.device
+    scratch = torch.rand((ntiles, P, tb, dim), dtype=dtype, device=dev)
+    scratch *= (torch.arange(P, device=dev)[None, :] < nparts[:, None])[:, :, None, None]
+    scratch = scratch.view(ntiles * P, tb, dim)
+    got = cg.parts_sum_cuda(scratch, nparts, P)
+    ms = event_ms(lambda: cg.parts_sum_cuda(scratch, nparts, P), reps=20)
+    plain_ms, ref = event_ms(lambda: cg.parts_sum_torch(scratch, nparts, P), reps=1, keep=True)
+    view = scratch.view(ntiles, P, tb * dim)
+    lib_ms, lib = event_ms(lambda: torch.sum(view, 1), reps=20, keep=True)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, ref)
+    lib_err = (lib.view_as(got) - got).abs().max().item()
+    written = int(nparts.sum())
+    nbytes = (written + ntiles) * tb * dim * scratch.element_size() + ntiles * 4
+    bound_ms, bound_by = bound(max(written - ntiles, 0) * tb * dim, 1, nbytes)
+    name = str(dtype).split(".")[-1]
+    print(f"[{tag}] parts_sum_kernel<{name}> on ({ntiles * P}, {tb}, {dim}) partial rows, "
+          f"{written} parts written: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sum "
+          f"{lib_ms:.4f} ms; kernel == plain bit for bit: {equal}; max |torch.sum - kernel| "
+          f"{lib_err:.3e}; bound {bound_ms:.4f} ms ({bound_by})")
+    check(equal, f"{tag}: parts_sum_kernel differs from its plain version")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_call": "torch.sum(parts.view(ntiles, P, tb * dim), 1) (unwritten slices 0)",
+            "max_abs_err": (got - ref).abs().max().item(), "bit_equal_to_plain": equal,
+            "bound_ms": bound_ms, "bound_by": bound_by, "shape": [ntiles * P, tb, dim],
+            "parts": written, "dtype": name}
+
+
+def launched_parts(call):
+    """Run call(), one launch of a split kernel (the list kernel or the
+    node-mask window), and return what it returned and the part counts
+    (ntiles,) int32 that the kernel wrote and its wrapper passed to
+    parts_sum_cuda."""
+    from nbody_torch.ops import cuda_group_eval as cg
+
+    with recording(cg, ["parts_sum_cuda"]) as recorded:
+        out = call()
+    return out, recorded["parts_sum_cuda"][1]
+
+
+def window_extras(tag: str, args, pairs: int) -> dict:
+    """6a, the node-mask window beyond measure(): two launches bit-equal;
+    the call on one part a tile (parts=1: the grid of one block a tile)
+    timed and held to 1e-4 of the default's max |a|; the MUFU floor and
+    the default P printed; its second pass timed (parts_sum_extras) on the
+    part counts the first launch wrote. Returns the extras of the kernel's
+    entry, the second pass's measurements under "sum_pass"."""
+    import torch
+
+    from nbody_torch.ops import cuda_allpairs as ca
+    from nbody_torch.ops import cuda_group_eval as cg
+
+    xi, _, _, w0, _, _, wt, _, softening = args
+    ntiles, tb, dim, dev = w0.shape[0], xi.shape[0] // w0.shape[0], xi.shape[1], xi.device
+    sms = ca.sm_count_of(dev.index)
+    P = cg.split_parts(ntiles, wt * tb, sms)
+    first, nparts = launched_parts(lambda: cg.window_eval_nodemask_cuda(*args))
+    again = cg.window_eval_nodemask_cuda(*args)
+    one_ms, one = event_ms(lambda: cg.window_eval_nodemask_cuda(*args, parts=1), reps=3, keep=True)
+    kms = event_ms(lambda: cg.window_eval_nodemask_cuda(*args), reps=5)
+    torch.cuda.synchronize()
+    same = torch.equal(first, again)
+    one_diff = ((one - first).abs().max() / first.abs().max()).item()
+    floor = mufu_floor_ms(pairs, sms)
+    print(f"[{tag}] window_eval_nodemask_kernel<{softening}>: P = {P} parts a tile "
+          f"({int(nparts.sum())} parts over {ntiles} tiles), two launches "
+          f"{'bit-equal' if same else 'DIFFER'}; call {kms:.3f} ms against {one_ms:.3f} ms on one "
+          f"part a tile (max |diff| / max |a| {one_diff:.3e}); MUFU floor {floor:.3f} ms "
+          f"({floor / kms:.3f} of it)")
+    check(same, f"{tag}: two node-mask window launches on the same inputs differ")
+    check(one_diff <= 1e-4, f"{tag}: the one-part-a-tile window differs by {one_diff:.3e}")
+    return {"bit_equal_launches": same, "one_part_a_tile_ms": one_ms, "parts_a_tile": P,
+            "parts": int(nparts.sum()),
+            "sum_pass": parts_sum_extras(tag, nparts, P, tb, dim, xi.dtype)}
+
+
 class Recorded(dict):
     """attr -> the last call's positional args; .kwargs: attr -> its
     keyword args; .results: attr -> what it returned."""
@@ -936,6 +1057,25 @@ def cli_full_size(algorithm: str, dim: int, big: int, tag: str,
 
 
 ENTRIES_SUM = "entries_sum_kernel"  # the entries calls' second pass
+PARTS_SUM = "parts_sum_kernel"  # the node-mask window's and the list kernel's second pass
+
+
+def traced(tag: str, n: int, dim: int, algorithm: str, precision: str = "float",
+           steps: int = 3) -> dict:
+    """python -m nbody_torch.probe trace's summary of `steps` steps of an
+    n-body galaxy (its kernel table not printed): wall and device time, the
+    idle share, the kernels' device seconds by name."""
+    import torch
+
+    from nbody_torch import probe
+
+    torch.cuda.empty_cache()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = probe.trace(n, dim, steps, algorithm, precision, table=False)
+    print(f"[{tag}] probe trace --algorithm {algorithm} -d {dim} --precision {precision} "
+          f"--steps {steps}: {out.getvalue().strip()}")
+    return res
 OCTREE_KERNELS = {  # name -> (wrapper in ops.cuda_group_eval, twin, Pallas function replaced)
     "masked_eval_bits_kernel": ("masked_eval_bits_cuda", "masked_eval_bits_torch",
                                 f"{PALLAS_GROUP_EVAL}:310"),
@@ -1062,6 +1202,7 @@ def bvh_phases(dev, big: int):
 
     eps = eps_of(torch.float32)
     measured = {name: {} for name in (*BVH_KERNELS, DENSE[0])}
+    window_sum = {}  # the window call's second pass, by dimension
     wrappers = [attr for attr, _, _ in BVH_KERNELS.values()]
     dense_kern, dense_twin = getattr(cg, DENSE[1]), getattr(cg, DENSE[2])
 
@@ -1097,6 +1238,10 @@ def bvh_phases(dev, big: int):
         ent = measured["entries_lohi_kernel"][dim]
         ent.update(entries_extras(f"6a {dim}-D", ent_args, ent["pairs"]))
         ent["sum_pass_ms"] = ent.pop("sum_pass")["ms"]  # the kernels line's entry is 5a's
+        win = measured["window_eval_nodemask_kernel"][dim]
+        win.update(window_extras(f"6a {dim}-D", recorded["window_eval_nodemask_cuda"],
+                                 win["pairs"]))
+        window_sum[dim] = win.pop("sum_pass")
         if "allpairs_block_cuda" in recorded:
             xi, mj, xj = recorded["allpairs_block_cuda"][:3]
             print(f"[6a] the exact fallback ran on {xi.shape[0]} rows")
@@ -1127,11 +1272,13 @@ def bvh_phases(dev, big: int):
         measured[DENSE[0]][f"n16_{dim}d"] = measure(f"6a {dim}-D n=16", DENSE[0], dense_kern,
                                                     dense_twin, recorded[DENSE[1]], dim, "poly")
 
-    # -- (b) the CLI at full size; counts from 0 just before each run ------
+    # -- (b) the CLI at full size; counts from 0 just before each run; then
+    #    probe trace's idle share of 3 steps
     launches = {dim: cli_full_size("bvh", dim, big, "6b") for dim in (3, 2)}
     for dim in (3, 2):
-        for name in (*BVH_KERNELS, ENTRIES_SUM):
+        for name in (*BVH_KERNELS, ENTRIES_SUM, PARTS_SUM):
             check(launches[dim][name] > 0, f"{name} was not launched in the {dim}-D BVH run")
+    traces = {dim: traced("6b", big, dim, "bvh") for dim in (3, 2)}
 
     # -- (d) 17,000 bodies, 3-D: residual and fallback, card against CPU ----
     m, x = clusters(17000, 3)
@@ -1176,6 +1323,16 @@ def bvh_phases(dev, big: int):
                         "launches": launches[3][name], "launches_in": run3,
                         **measured[name][3], "n": big, "dim": 3, "dtype": "float32",
                         "launches_2d": launches[2][name], "2d": measured[name][2]})
+    entries.append({"name": PARTS_SUM, "route": "cuda", "source": GROUP_EVAL,
+                    "replaces": f"{PALLAS_GROUP_EVAL}:576-580, :598 (the window grid's "
+                                "sequential walk of a tile's window blocks: zero on its first "
+                                "block, then out_ref +=; the list's at :52-56, :77)",
+                    "launches": launches[3][PARTS_SUM], "launches_in": run3,
+                    **window_sum[3], "timed_on": "random partial rows of the 6a 3-D window "
+                                                 "call's shape and part counts",
+                    "launches_2d": launches[2][PARTS_SUM], "2d": window_sum[2]})
+    entries[1]["trace"] = {dim: {k: traces[dim][k] for k in ("wall_s", "device_s", "idle_share")}
+                           for dim in (3, 2)}
     dense = measured[DENSE[0]]
     entries.append({"name": DENSE[0], "route": "cuda", "source": GROUP_EVAL, "replaces": DENSE[3],
                     "launches": small_launches[DENSE[0]],
@@ -1195,8 +1352,10 @@ LIST_TILE = 512  # the list paths' default tile
 def list_evaluation(tree: str, dev, n: int, dim: int, caps=(None, None)):
     """One float64 list-path force evaluation of an n-body galaxy on `dev`:
     (G * accel in the tree's sorted order, its counters as ints, G, the
-    sorted (m, x), the group_eval_cuda call's args, the tiles sent to the
-    exact fallback ((T,) bool), wall seconds, peak GiB above the inputs)."""
+    sorted (m, x), the group_eval_cuda call's args and the same args with
+    every tile's heads live (live_heads' inputs: nbody_tpu's work), the
+    tiles sent to the exact fallback ((T,) bool), wall seconds, peak GiB
+    above the inputs)."""
     import torch
 
     from nbody_torch.models import build_model
@@ -1215,7 +1374,7 @@ def list_evaluation(tree: str, dev, n: int, dim: int, caps=(None, None)):
         module, args = bvh_group, (bvh.build_tree(m, x, cfg.eps), m, x)
     del state
     cuda = dev.type == "cuda"
-    with recording(module, ["group_eval_cuda", "exact_fallback"]) as recorded:
+    with recording(module, ["group_eval_cuda", "exact_fallback", "live_heads"]) as recorded:
         if cuda:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1226,7 +1385,10 @@ def list_evaluation(tree: str, dev, n: int, dim: int, caps=(None, None)):
             torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30 if cuda else 0.0
-    return (a, {k: int(v) for k, v in info.items()}, cfg.G, (m, x), recorded["group_eval_cuda"],
+    ncnt, lcnt, _ = recorded["live_heads"]
+    args = recorded["group_eval_cuda"]
+    every = (*args[:6], ncnt.to(torch.int32), lcnt.to(torch.int32))  # no tile skipped
+    return (a, {k: int(v) for k, v in info.items()}, cfg.G, (m, x), (args, every),
             recorded["exact_fallback"][2], wall, peak)
 
 
@@ -1234,7 +1396,8 @@ def list_step_float32(tree: str, dev, n: int):
     """The float32 list path through the step function a user calls,
     octree_step_force / bvh_step_force with list_path=True, on an n-body
     3-D galaxy: the launch counts set to 0 just before and read just after,
-    and its group_eval_cuda call's args."""
+    its group_eval_cuda call's args, and the same args with every tile's
+    heads live (live_heads' inputs)."""
     import torch
 
     from nbody_torch.models import build_model
@@ -1245,7 +1408,8 @@ def list_step_float32(tree: str, dev, n: int):
     cfg, state = build_model("galaxy", n, 3, np.float32, device=dev)
     ca.reset_launch_counts()
     cg.reset_launch_counts()
-    with recording(octree_group if tree == "octree" else bvh_group, ["group_eval_cuda"]) as rec:
+    with recording(octree_group if tree == "octree" else bvh_group,
+                   ["group_eval_cuda", "live_heads"]) as rec:
         if tree == "octree":
             out, _ = octree.octree_step_force(state, cfg.theta, cfg.G, cfg.eps,
                                               octree.max_depth(n, 3), list_path=True)
@@ -1256,7 +1420,9 @@ def list_step_float32(tree: str, dev, n: int):
     check(bool(torch.isfinite(out.a).all()), f"float32 {tree} list-path step force is not finite")
     print(f"[7a] {n}-body 3-D float32 galaxy, {tree}_step_force(list_path=True): launches "
           f"{launches}")
-    return launches, rec["group_eval_cuda"]
+    args = rec["group_eval_cuda"]
+    ncnt, lcnt, _ = rec["live_heads"]
+    return launches, args, (*args[:6], ncnt.to(torch.int32), lcnt.to(torch.int32))
 
 
 def list_accuracy(tree: str, n: int, dim: int, a, G: float, m, x, tile_over) -> int:
@@ -1309,17 +1475,23 @@ def measure_list(tag: str, args, n: int, twin_budget_ms: float = 20e3) -> dict:
     """Time group_eval_kernel on recorded list args (5 launches after a
     warm-up, CUDA events) and its twin: on all tiles if the first 256
     tiles extrapolate to under twin_budget_ms, else on those 256. Holds the
-    kernel against the twin within TOL of each row's sum of |term|, counts
-    its pairs and computes its bound."""
+    kernel against the twin within TOL of each row's sum of |term| and
+    checks that two launches are bit-equal; counts its pairs, computes its
+    bound and prints its DP floor (float64) or MUFU floor (float32)."""
     import torch
 
+    from nbody_torch.ops import cuda_allpairs as ca
     from nbody_torch.ops import cuda_group_eval as cg
 
     xi, mj, xj, eps, softening, split, n0, n1 = args
     dtype = str(xi.dtype).split(".")[-1]
     ntiles, tb = mj.shape[0], xi.shape[0] // mj.shape[0]
     got = cg.group_eval_cuda(*args)  # warm-up launch
+    again = cg.group_eval_cuda(*args)
     kms = event_ms(lambda: cg.group_eval_cuda(*args), reps=5)
+    torch.cuda.synchronize()
+    same = torch.equal(got, again)
+    del again
 
     def twin_args(t1):
         return (xi[:t1 * tb], mj[:t1], xj[:t1], eps, softening, split, n0[:t1], n1[:t1])
@@ -1337,17 +1509,28 @@ def measure_list(tag: str, args, n: int, twin_budget_ms: float = 20e3) -> dict:
     pairs, nbytes = list_pairs_and_bytes(args, n)
     flops = flops_per_pair(xi.shape[1], softening)
     bound_ms, bound_by = bound(pairs, flops, nbytes, F64_FLOPS if dtype == "float64" else F32_FLOPS)
-    print(f"[{tag}] group_eval_kernel<{dtype}, {softening}>: {ntiles} tiles, L = {mj.shape[1]} "
-          f"(split {split}); kernel {kms:.3f} ms, plain {plain_ms:.1f} ms on "
-          f"{'all' if tiles == ntiles else 'the first'} {tiles} tiles; max |kernel - plain| / "
-          f"sum|term| = {err:.3e} (limit {TOL[dtype]:g}); {pairs} pairs "
-          f"({pairs / (kms * 1e-3):.4e} pairs/s), bound {bound_ms:.3f} ms ({bound_by}, {flops} "
-          f"FLOPs per pair)")
+    sms = ca.sm_count_of(xi.device.index)
+    live = int(((n0 + n1) > 0).sum())
+    P = cg.split_parts(ntiles, mj.shape[1], sms)
+    if dtype == "float64":
+        floor, floor_name = dp_floor_ms(pairs, xi.shape[1], softening, sms), "DP floor"
+    else:
+        floor, floor_name = mufu_floor_ms(pairs, sms), "MUFU floor"
+    print(f"[{tag}] group_eval_kernel<{dtype}, {softening}>: {ntiles} tiles ({live} with live "
+          f"heads), L = {mj.shape[1]} (split {split}), P = {P} parts a tile, "
+          f"kernel {kms:.3f} ms, plain {plain_ms:.1f} ms "
+          f"on {'all' if tiles == ntiles else 'the first'} {tiles} tiles; two launches "
+          f"{'bit-equal' if same else 'DIFFER'}; max |kernel - plain| / sum|term| = {err:.3e} "
+          f"(limit {TOL[dtype]:g}); {pairs} pairs ({pairs / (kms * 1e-3):.4e} pairs/s), bound "
+          f"{bound_ms:.3f} ms ({bound_by}, {flops} FLOPs per pair), {floor_name} {floor:.3f} ms "
+          f"({floor / kms:.3f} of it)")
     check(err <= TOL[dtype],
           f"{tag} group_eval_kernel: scaled error {err:.3e} above {TOL[dtype]:g}")
+    check(same, f"{tag} group_eval_kernel: two launches on the same inputs differ")
     return {"ms": kms, "plain_ms": plain_ms, "plain_tiles": tiles, "max_abs_err": abs_err,
             "max_scaled_err": err, "scaled_err_limit": TOL[dtype], "pairs": pairs,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bit_equal_launches": same, "live_tiles": live, "parts_a_tile": P}
 
 
 def list_phases(dev, big: int):
@@ -1367,17 +1550,26 @@ def list_phases(dev, big: int):
     #    (c) the rows it evaluated through the lists against the exact sum
     for tree in LIST_SOFTENING:
         for dim in (3, 2):
-            a, counters, G, (m, x), args, tile_over, wall, peak = list_evaluation(tree, dev, big,
-                                                                                  dim)
+            a, counters, G, (m, x), (args, every), tile_over, wall, peak = list_evaluation(
+                tree, dev, big, dim)
             print(f"[7a] {big}-body {dim}-D float64 galaxy, one {tree} list-path force evaluation: "
                   f"{wall:.3f} s wall{' (first call)' if dim == 3 else ''}, peak memory above its "
                   f"inputs {peak:.2f} GiB; {counters}")
             check(bool(torch.isfinite(a).all()), f"{tree} {dim}-D list force is not finite")
+            check(not bool(((args[6] + args[7]) > 0)[tile_over].any()),
+                  f"7a {tree} {dim}-D: a tile of the exact fallback has live heads")
             causes[f"{tree}_{dim}d"] = {k: v for k, v in counters.items()
                                         if k.startswith("over_") or k == "fallback_tiles"}
-            if dim == 3:
-                measured[tree] = measure_list(f"7a {tree}", args, big)
-            del args
+            # (b) the CLI's work (the fallback's tiles skipped), (a) every tile's heads
+            measured[(tree, dim)] = measure_list(f"7a {tree} {dim}-D CLI work", args, big)
+            measured[(tree, dim)]["all_heads_live"] = measure_list(
+                f"7a {tree} {dim}-D every head live", every, big)
+            if (tree, dim) == ("octree", 3):
+                _, nparts = launched_parts(lambda: cg.group_eval_cuda(*args))
+                list_sum = parts_sum_extras("7a octree 3-D", nparts,
+                                            measured[(tree, dim)]["parts_a_tile"],
+                                            args[0].shape[0] // nparts.shape[0], 3, args[0].dtype)
+            del args, every
             checked[(tree, dim)] = list_accuracy(tree, big, dim, a, G, m, x, tile_over)
             del a, m, x, tile_over
             torch.cuda.empty_cache()
@@ -1392,17 +1584,38 @@ def list_phases(dev, big: int):
             check(checked[(tree, dim)] >= MIN_LIST_ROWS,
                   f"7c {tree} {dim}-D: too few rows went through the lists to check")
 
-    # the float32 instantiation, through the step functions' list branch
+    # the float32 instantiation, through the step functions' list branch:
+    #  on the step's work and on every tile's heads (at 2^20 3-D nearly every
+    #  tile falls back, so the step's call has few live tiles or none)
     f32 = {}
     for tree in LIST_SOFTENING:
-        launches, args = list_step_float32(tree, dev, big)
-        f32[tree] = (launches, measure_list(f"7a {tree} float32", args, big))
-        del args
+        launches, args, every = list_step_float32(tree, dev, big)
+        res = measure_list(f"7a {tree} float32 step's work", args, big)
+        res["all_heads_live"] = measure_list(f"7a {tree} float32 every head live", every, big)
+        live = (res["live_tiles"], res["all_heads_live"]["live_tiles"])
+        print(f"[7a] float32 {tree}: live tiles on the step's work {live[0]}, on every head "
+              f"{live[1]}")
+        check(max(live) > 0, f"7a float32 {tree}: the list kernel was held on no live tile")
+        f32[tree] = (launches, res)
+        del args, every
         torch.cuda.empty_cache()
 
-    # -- (b) the CLI at full size in double precision; counts from 0 just before
+    # -- (b) the CLI at full size in double precision; counts from 0 just before;
+    #    then probe trace of 2 steps, the list kernel's device time a step
     launches = {tree: cli_full_size(tree, 3, big, "7b", "double") for tree in LIST_SOFTENING}
     launches_2d = {tree: cli_full_size(tree, 2, big, "7b", "double") for tree in LIST_SOFTENING}
+    list_trace = {}
+    for tree in LIST_SOFTENING:
+        for dim in (3, 2):
+            res = traced("7b", big, dim, tree, "double", steps=2)
+            per_step = {k: v / res["steps"] * 1e3 for k, v in res["device_s_by_kernel"].items()
+                        if "group_eval_kernel" in k or "parts_sum_kernel" in k}
+            list_trace[(tree, dim)] = {"list_kernel_ms_a_step": per_step,
+                                       **{k: res[k] for k in ("wall_s", "device_s", "idle_share")}}
+            print(f"[7b] {tree} {dim}-D float64: the list kernel and its second pass a step "
+                  f"(device ms, probe trace): {per_step}; idle share {res['idle_share']:.4f}")
+            check(any("group_eval_kernel" in k for k in per_step),
+                  f"7b {tree} {dim}-D: the trace shows no list kernel")
     group_keys = [k for k in cg.launch_counts if k.startswith("group_eval_kernel<")]
     for tree, softening in LIST_SOFTENING.items():
         key = cg.group_eval_name(torch.float64, softening)
@@ -1453,9 +1666,15 @@ def list_phases(dev, big: int):
                         "replaces": f"{PALLAS_GROUP_EVAL}:83", "launches": launches[tree][key],
                         "launches_in": f"phase 7b: {big}-body 3-D {tree} --precision double "
                                        "--csv-total",
-                        **measured[tree], "n": big, "dim": 3, "dtype": "float64",
-                        "launches_2d": launches_2d[tree][key],
+                        **measured[(tree, 3)], "n": big, "dim": 3, "dtype": "float64",
+                        "timed_on": "the 7a call's inputs (the fallback's tiles skipped, as the "
+                                    "CLI runs it); all_heads_live: every tile's heads",
+                        "launches_2d": launches_2d[tree][key], "2d": measured[(tree, 2)],
+                        "trace": {dim: list_trace[(tree, dim)] for dim in (3, 2)},
                         "overflow": {dim: causes[f"{tree}_{dim}d"] for dim in (3, 2)}})
+    entries[0]["parts_sum_float64"] = {**list_sum, "launches": launches["octree"][PARTS_SUM],
+                                       "timed_on": "random partial rows of the 7a 3-D octree "
+                                                   "call's shape and part counts"}
     for tree, softening in LIST_SOFTENING.items():
         key = cg.group_eval_name(torch.float32, softening)
         entries.append({"name": key, "route": "cuda", "source": GROUP_EVAL,

@@ -13,10 +13,10 @@ never at import.
 Flags: sm_90a code for Hopper, and no --use_fast_math: nvcc's defaults
 keep IEEE division and square root (-prec-div, -prec-sqrt) and denormals
 wherever a source writes / or sqrt, as the IEEE instantiations (exact=True)
-and the tree kernels of group_eval.cu but the entries kernel do. The
-all-pairs kernels' default chain and the entries kernel take their
-approximations explicitly (rsqrt.approx, rcp.approx and their refinement,
-csrc/pair.cuh), so a flag changes neither form.
+and the tree kernels of group_eval.cu but the entries, list and node-mask
+window kernels do. The all-pairs kernels' default chain and those three
+take their approximations explicitly (rsqrt.approx, rcp.approx and their
+refinement, csrc/pair.cuh), so a flag changes neither form.
 """
 
 from __future__ import annotations
@@ -96,49 +96,60 @@ def build() -> Path:
     return out
 
 
+i, p, f64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
+# The C interface of csrc/allpairs.cu, csrc/allpairs_mxu.cu, csrc/group_eval.cu
+# and csrc/entry_probes.cu: each function's argument types (a pointer must
+# be c_void_p: ctypes passes an undeclared one as a 32-bit int); each
+# returns an int, its cudaError_t.
+SIGNATURES = (
+    # (device, dtype, dim, kind, sqrt3, exact, xi, ni, mj, xj, nj, blocks, splits,
+    #  split_len, eps, scale, mi, out, stream)
+    ("nbody_allpairs_rows", [i, i, i, i, i, i, p, i, p, p, i, i, i, i, f64, f64, p, p, p]),
+    # (device, dtype, parts, splits, count, width, scale, mi, out, stream)
+    ("nbody_split_sum", [i, i, p, i, i, i, f64, p, p, p]),
+    # (device, dim, x, m, n, npad, tile_i, tile_j, eps, far_thresh, scale, out, counts,
+    #  stream)
+    ("nbody_allpairs_fast", [i, i, p, p, i, i, i, i, f64, f64, f64, p, p, p]),
+    # (device, dim, fast, x, m, n, npad, tile_i, tile_j, eps, near_coef,
+    #  far_thresh, scale, out, counts, stream)
+    ("nbody_allpairs_mxu", [i, i, i, p, p, i, i, i, i, f64, f64, f64, f64, p, p, p]),
+    # (device, dim, xi, ntiles, tb, ...) as in ops/cuda_group_eval._launch
+    ("nbody_masked_eval_bits", [i, i, p, i, i, p, p, i, p, i, i, f64, p, p]),
+    ("nbody_window_eval_interval", [i, i, p, i, i, p, p, i, p, p, p, i, f64, p, p]),
+    # the node-mask window: (..., w0, in_win, wnodes, S, sqrt3, eps, P, nparts, parts,
+    #  stream)
+    ("nbody_window_eval_nodemask", [i, i, p, i, i, p, p, i, p, p, i, i, i, f64, i, p, p, p]),
+    ("nbody_window_eval_dense", [i, i, p, i, i, p, p, i, p, p, i, i, f64, p, p]),
+    # the entries kernels: (device, dim, xi, ntiles, tb, mj, xj, xm, sqrt3, eps, cum,
+    #  start, tile, e0, e1, u0, u1, blocks, parts, stream)
+    ("nbody_entries_eval", [i, i, p, i, i, p, p, p, i, f64, p, p, p, p, p, p, p, i, p, p]),
+    # (device, dim, parts, part_start, ntiles, tb, out, stream)
+    ("nbody_entries_sum", [i, i, p, p, i, i, p, p]),
+    ("nbody_masked_eval", [i, i, p, i, i, p, p, i, p, i, f64, p, p]),
+    ("nbody_group_shared_masked_eval", [i, i, p, i, i, p, p, i, i, p, i, f64, p, p]),
+    # (device, dtype, dim, xi, ntiles, tb, mj, xj, L, split, n0, n1, sqrt3, eps, P, nparts,
+    #  parts, stream)
+    ("nbody_group_eval", [i, i, i, p, i, i, p, p, i, i, p, p, i, f64, i, p, p, p]),
+    # (device, dtype, dim, parts, nparts, P, ntiles, tb, out, stream)
+    ("nbody_parts_sum", [i, i, i, p, p, i, i, i, p, p]),
+    # (device, dim, rung, math, xi, tb, ntiles, xm, mj, xj, nj, entries, lohis, E,
+    #  per_block, S, eps, out, stream)
+    ("nbody_entry_ladder", [i, i, i, i, p, i, i, p, p, p, i, p, p, i, i, i, f64, p, p]),
+    # (device, dim, nbuf, math, xi, tb, xm, nj, entries, E, ce, S, eps, out, stream)
+    ("nbody_dma_ring", [i, i, i, i, p, i, p, i, p, i, i, i, f64, p, p]),
+)
+del i, p, f64
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C interface
-    of csrc/allpairs.cu, csrc/allpairs_mxu.cu, csrc/group_eval.cu and
-    csrc/entry_probes.cu (a pointer must be c_void_p: ctypes passes an
-    undeclared one as a 32-bit int)."""
+    (SIGNATURES)."""
     lib = ctypes.CDLL(str(build()))
-    i, p, f64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
-    for name, args in (
-        # (device, dtype, dim, kind, sqrt3, exact, xi, ni, mj, xj, nj, blocks, splits,
-        #  split_len, eps, scale, mi, out, stream)
-        ("nbody_allpairs_rows", [i, i, i, i, i, i, p, i, p, p, i, i, i, i, f64, f64, p, p, p]),
-        # (device, dtype, parts, splits, count, width, scale, mi, out, stream)
-        ("nbody_split_sum", [i, i, p, i, i, i, f64, p, p, p]),
-        # (device, dim, x, m, n, npad, tile_i, tile_j, eps, far_thresh, scale, out, counts,
-        #  stream)
-        ("nbody_allpairs_fast", [i, i, p, p, i, i, i, i, f64, f64, f64, p, p, p]),
-        # (device, dim, fast, x, m, n, npad, tile_i, tile_j, eps, near_coef,
-        #  far_thresh, scale, out, counts, stream)
-        ("nbody_allpairs_mxu", [i, i, i, p, p, i, i, i, i, f64, f64, f64, f64, p, p, p]),
-        # (device, dim, xi, ntiles, tb, ...) as in ops/cuda_group_eval._launch
-        ("nbody_masked_eval_bits", [i, i, p, i, i, p, p, i, p, i, i, f64, p, p]),
-        ("nbody_window_eval_interval", [i, i, p, i, i, p, p, i, p, p, p, i, f64, p, p]),
-        ("nbody_window_eval_nodemask", [i, i, p, i, i, p, p, i, p, p, i, i, i, f64, p, p]),
-        ("nbody_window_eval_dense", [i, i, p, i, i, p, p, i, p, p, i, i, f64, p, p]),
-        # the entries kernels: (device, dim, xi, ntiles, tb, mj, xj, xm, sqrt3, eps, cum,
-        #  start, tile, e0, e1, u0, u1, blocks, parts, stream)
-        ("nbody_entries_eval", [i, i, p, i, i, p, p, p, i, f64, p, p, p, p, p, p, p, i, p, p]),
-        # (device, dim, parts, part_start, ntiles, tb, out, stream)
-        ("nbody_entries_sum", [i, i, p, p, i, i, p, p]),
-        ("nbody_masked_eval", [i, i, p, i, i, p, p, i, p, i, f64, p, p]),
-        ("nbody_group_shared_masked_eval", [i, i, p, i, i, p, p, i, i, p, i, f64, p, p]),
-        # (device, dtype, dim, xi, ntiles, tb, mj, xj, L, split, n0, n1, sqrt3, eps, out, stream)
-        ("nbody_group_eval", [i, i, i, p, i, i, p, p, i, i, p, p, i, f64, p, p]),
-        # (device, dim, rung, math, xi, tb, ntiles, xm, mj, xj, nj, entries, lohis, E,
-        #  per_block, S, eps, out, stream)
-        ("nbody_entry_ladder", [i, i, i, i, p, i, i, p, p, p, i, p, p, i, i, i, f64, p, p]),
-        # (device, dim, nbuf, math, xi, tb, xm, nj, entries, E, ce, S, eps, out, stream)
-        ("nbody_dma_ring", [i, i, i, i, p, i, p, i, p, i, i, i, f64, p, p]),
-    ):
+    for name, args in SIGNATURES:
         fn = getattr(lib, name)
         fn.argtypes = args
-        fn.restype = i
-    lib.nbody_error_string.argtypes = [i]
+        fn.restype = ctypes.c_int
+    lib.nbody_error_string.argtypes = [ctypes.c_int]
     lib.nbody_error_string.restype = ctypes.c_char_p
     return lib

@@ -30,12 +30,17 @@
 // window_eval_nodemask_pallas (:614, body _window_nodemask_kernel): the
 // BVH's near window. Tile t's window is the window_tiles*tb bodies from
 // w0*tb, cut into wnodes slots of S bodies; slot v counts when its node is
-// open for the tile (in_win[t, v], one byte). The block walks the slots
-// with a block-uniform loop and adds each run of consecutive open slots
-// as one range of bodies; a closed slot is skipped outright, which is
-// exact for the reason above and is nbody_tpu's skip_outside carried to
-// the slot. The TPU's limit of 64 slots per block (unrolled selects) does
-// not apply.
+// open for the tile (in_win[t, v], one byte). Each of P blocks of the tile
+// stages the tile's in_win row in shared memory, counts its open bodies
+// (those of the open slots below nj) with a block sum, and takes the p-th
+// of at most P equal shares of them, in slot order (tile_parts): it walks
+// the runs of consecutive open slots with a block-uniform loop and adds
+// the part of each run that lies in its share as one range of bodies. A
+// closed slot is never visited, which is exact for the reason above and is
+// nbody_tpu's skip_outside carried to the slot. The TPU's limit of 64 slots
+// per block (unrolled selects) does not apply. Each part writes its partial
+// rows to its own slice; parts_sum_kernel adds them in order.
+// (ops/cuda_group_eval.window_parts mirrors the split in Python.)
 //
 // window_eval_dense_kernel<DIM, SQRT3> replaces window_eval_pallas (:383,
 // body _masked_eval_kernel): the same window with a dense float32 weight
@@ -54,9 +59,10 @@
 // entry where it must; block b takes one part, walks it 256 bodies at a
 // time across entry boundaries (a part's bodies all act on the same rows;
 // body u of entry e is source start[e] + u - cum[e]), and writes its rows'
-// partial sums to its own slice of a scratch. entries_sum_kernel then adds
-// each tile's parts in part order: no atomics, so two launches give the
-// same bits. A tile with no bodies gets one empty part, and so zeros.
+// partial sums to its own slice of a scratch. entries_sum_kernel
+// (parts_sum_kernel on the plan's part_start) then adds each tile's parts
+// in part order: no atomics, so two launches give the same bits. A tile
+// with no bodies gets one empty part, and so zeros.
 //
 // The same kernel ("entries_tables_kernel") replaces
 // entries_tables_eval_pallas (:1126, body _entries_tables_kernel :777):
@@ -79,12 +85,18 @@
 // take the fast paths). Tile t's rows see the tile's own gathered list, mj[t, :]
 // and xj[t, :, :] (accepted monopoles, then opened leaf bodies). The list
 // holds two segments, nodes [0, split) and leaf bodies [split, L), each
-// padded with mass-0 entries; the block visits only each segment's live
+// padded with mass-0 entries; the kernel visits only each segment's live
 // head, [0, n0[t]) and [split, split + n1[t]), which is exact: a padding
-// entry adds 0 * dx / t = 0. The TPU's padding of L to 1,024 lanes is not
-// carried over. Unlike the other kernels here it is templated on T in
-// {float, double}, as allpairs.cu is; on an H100 float64 issue (its
-// division and square root) is what bounds it.
+// entry adds 0 * dx / t = 0. The callers pass heads of zero for the tiles
+// that the exact fallback overwrites, so those tiles cost nothing here. The
+// TPU's padding of L to 1,024 lanes is not carried over. Unlike the other
+// kernels here it is templated on T in {float, double}, as allpairs.cu is,
+// with its rows a thread fixed by T (kListRows: float32 2, float64 1, 4-8%
+// faster than 2 at 2^20). Each of P blocks of a tile takes the
+// p-th of at most P equal shares of its concatenated heads (tile_parts,
+// from n0[t] and n1[t] in the kernel: no plan launches, no host sync); a
+// tile whose heads are both empty has no part and its blocks exit at once;
+// parts_sum_kernel adds each tile's parts in order.
 //
 // masked_eval_kernel<DIM, SQRT3> replaces masked_eval_pallas (:216, body
 // _masked_eval_kernel :184): the far field with a dense float32 accept mask
@@ -114,26 +126,36 @@
 // split arrays, so the staged values, the plan and the pair arithmetic
 // after them are the same, and the two agree bit for bit.
 //
-// What bounds them on an H100: FP32 and SFU issue per pair, not bytes: the
-// sources are staged once per block through shared memory and read as
-// broadcasts. The far field, the windows and the list kernel still take
-// pair.cuh's IEEE pair_weight (~38 instructions a 3-D pair); the design
-// keeps the per-pair work minimal and halves the shared loads per pair:
-// each thread holds two rows (256 threads, 512 rows per block, one default
-// tile), and every staged source is used for both. A tile of more than 512
-// rows gets several blocks. The entries kernel, which is most of an f32
-// tree step (PERF.md), is bound by the two MUFU operations of its pair
-// chain and by the tail of its heaviest tiles. Its design:
+// What bounds them on an H100: FP32 and SFU issue per pair (float64 issue
+// in the float64 list kernel), not bytes: the sources are staged once per
+// block through shared memory and read as broadcasts. The far field, the
+// interval and dense windows and the ablation kernels still take pair.cuh's
+// IEEE pair_weight (~38 instructions a 3-D float32 pair) through
+// add_range; each thread holds two rows (256 threads, 512 rows per block,
+// one default tile), and every staged source is used for both. A tile of
+// more than 512 rows gets several blocks. The entries kernel, the list
+// kernel and the node-mask window, which carry the trees' near fields, are
+// bound by the pair chain and by the tail of their heaviest tiles, and
+// share one design:
 //   - the two-MUFU chain of pair.cuh (ChainWeight), d2 summed from the
 //     least normal number (the sources include the rows themselves, and a
-//     self-pair's dx = 0 then gets a finite weight and a zero term): the
-//     approximate reciprocal and one Newton step that
-//     _entries_lohi_kernel takes (pallas_group_eval.py:877-878);
-//   - equal-work parts: per-tile work varies 2.5-10x, so one block a tile
-//     ended the call on a tail of its heaviest tiles; the plan's parts
-//     carry about the same bodies wherever they lie, and the grid (target
-//     parts + ntiles blocks) is sized from shapes alone;
-//   - one 16-byte staged body, (x, y, z | 0, m), read as one broadcast.
+//     self-pair's dx = 0 then gets a finite weight and a zero term): in
+//     float32 the approximate reciprocal and one Newton step that
+//     _entries_lohi_kernel (pallas_group_eval.py:877-878), _group_eval_kernel
+//     (:73-74) and _window_nodemask_kernel (:595, _pair_weight :143-144)
+//     take; in float64 the MUFU seeds refined twice, within a few ulps of
+//     the IEEE division that nbody_tpu's float64 jnp evaluation takes;
+//   - parts of about equal work: one block a tile ends a call on a tail of
+//     its heaviest tiles (the entries' work varies 2.5-10x a tile) or in a
+//     part-empty last wave (2,048 blocks of 512 rows at 2^20); the entries'
+//     parts come from a plan (entries_plan), the list's and the window's
+//     are computed in the kernel from what each tile holds, P a tile from
+//     shapes alone; each part writes its own slice of partial rows and
+//     parts_sum_kernel adds them in order, so two launches give the same
+//     bits;
+//   - one staged loop (add_staged_run): each body staged once as
+//     (x, y, z | 0, m), 16 bytes in float32 and 32 in float64, and read as
+//     broadcasts.
 //
 // Summation: a thread sums groups of kGroup = 32 terms, adds each group to
 // its shared stage's sum (kChunk bodies, or one kNodeChunk node stage),
@@ -142,7 +164,7 @@
 // stage lost up to ~150 ulps of the row's sum of |term| where the terms
 // share a sign (measured on an H100: 8.7e-6 against float64 at the 2^20
 // window, ~13x the twin's error). The longest running sums left are a
-// row's over its stages, or over a tile's parts (entries_sum_kernel).
+// row's over its stages, or over a tile's parts (parts_sum_kernel).
 
 #include <cuda_runtime.h>
 
@@ -164,6 +186,7 @@ using nbody::zero;
 
 constexpr int kChunk = kThreads;                           // bodies per shared stage
 constexpr int kNodeChunk = 1024;                           // far-field nodes per stage
+constexpr int kMaxWindowSlots = 32768;                     // node-mask window slots a tile
 
 // Where a kernel reads source body j: masses and positions in two arrays
 // (m[j], x[j * DIM + d]) ...
@@ -185,12 +208,31 @@ struct PackedSource {
   const float4* __restrict__ xm;
 };
 
-// Body j as the entries kernel stages it, (x, y, z | 0, m), from either
+// A body as the chain's kernels stage it, (x, y, z | 0, m) of type T: one
+// 16-byte float4 in float32, two 16-byte halves in float64; each thread
+// reads a staged body as one broadcast (one or two 16-byte shared loads).
+struct alignas(32) Double4 {
+  double x, y, z, w;
+};
+template <typename T>
+struct StagedOf;
+template <>
+struct StagedOf<float> {
+  using type = float4;
+};
+template <>
+struct StagedOf<double> {
+  using type = Double4;
+};
+template <typename T>
+using Staged = typename StagedOf<T>::type;
+
+// Body j as the chain's kernels stage it, (x, y, z | 0, m), from either
 // layout: the same values, so the two layouts sum alike.
-template <int DIM>
-__device__ __forceinline__ float4 staged(const SplitSource<float, DIM>& src, int j) {
-  const float* x = src.x + static_cast<size_t>(j) * DIM;
-  return make_float4(x[0], x[1], DIM == 3 ? x[2] : 0.0f, src.m[j]);
+template <typename T, int DIM>
+__device__ __forceinline__ Staged<T> staged(const SplitSource<T, DIM>& src, int j) {
+  const T* x = src.x + static_cast<size_t>(j) * DIM;
+  return Staged<T>{x[0], x[1], DIM == 3 ? x[2] : T(0), src.m[j]};
 }
 template <int DIM>
 __device__ __forceinline__ float4 staged(const PackedSource<DIM>& src, int j) {
@@ -251,6 +293,74 @@ __device__ __forceinline__ void add_range(const Rows<T, DIM>& rows, const Src& s
 template <typename T, int DIM>
 __device__ __forceinline__ SplitSource<T, DIM> split_source(const T* m, const T* x) {
   return SplitSource<T, DIM>{m, x};
+}
+
+// One staged body v = (x, y, z | 0, m) acting on all rows of the thread,
+// by the chain.
+template <typename T, int DIM, bool SQRT3, int R>
+__device__ __forceinline__ void add_staged(const T (&p)[R][DIM], const Staged<T>& v,
+                                           const nbody::ChainWeight<T, SQRT3>& weight,
+                                           T (&part)[R][DIM]) {
+  const T x[3] = {v.x, v.y, v.z};
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    T dx[DIM];
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) dx[d] = x[d] - p[r][d];
+    const T w = weight(v.w, nbody::sep2_from<T, DIM>(nbody::least_normal(T(0)), dx));
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) part[r][d] += w * dx[d];
+  }
+}
+
+// The staged loop of the chain's kernels (entries, list, node-mask window):
+// the bodies u in [u0, u1) of a block-uniform order, fetch(u) giving body u
+// staged, added to rows.acc by the chain. Each thread fetches one body of a
+// stage of kChunk; every thread then reads each staged body as a broadcast
+// and sums groups of kGroup terms into the stage's sum, added to the rows'.
+// Called by every thread of the block with the same u0, u1.
+template <typename T, int DIM, bool SQRT3, int R, typename Fetch>
+__device__ __forceinline__ void add_staged_run(Rows<T, DIM, R>& rows, long long u0, long long u1,
+                                               const nbody::ChainWeight<T, SQRT3>& weight,
+                                               Staged<T>* s_body, const Fetch& fetch) {
+  for (long long j0 = u0; j0 < u1; j0 += kChunk) {
+    const int len = static_cast<int>(min(static_cast<long long>(kChunk), u1 - j0));
+    if (threadIdx.x < len) s_body[threadIdx.x] = fetch(j0 + threadIdx.x);
+    __syncthreads();
+    T part[R][DIM];
+    zero(part);
+    for (int k0 = 0; k0 < len; k0 += kGroup) {
+      T group[R][DIM];
+      zero(group);
+      const int k1 = min(len, k0 + kGroup);
+#pragma unroll 4
+      for (int k = k0; k < k1; ++k) add_staged<T, DIM, SQRT3>(rows.p, s_body[k], weight, group);
+      add_to(part, group);
+    }
+    add_to(rows.acc, part);
+    __syncthreads();
+  }
+}
+
+// The parts of a tile whose work (bodies, in its order) is `work`, split by
+// the list and node-mask window kernels: one part per kChunk bodies, at most
+// P; part p of np takes the bodies [work * p / np, work * (p + 1) / np).
+// No part for a tile without work.
+__device__ __forceinline__ int tile_parts(long long work, int P) {
+  return static_cast<int>(min(static_cast<long long>(P), (work + kChunk - 1) / kChunk));
+}
+
+// The sum of v over the block (kThreads threads), returned to every
+// thread; s_red holds kThreads / 32 ints.
+__device__ __forceinline__ int block_sum(int v, int* s_red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) total += s_red[w];
+  return total;
 }
 
 template <int DIM, bool SQRT3>
@@ -322,38 +432,63 @@ window_eval_interval_kernel(const float* __restrict__ xi, int tb, const float* _
   rows.store(out);
 }
 
+// The bodies of window slot v that lie below nj: min(S, nj - (col0 + v*S)), >= 0.
+__device__ __forceinline__ int slot_bodies(long long col0, int v, int S, int nj) {
+  return static_cast<int>(max(0LL, min(static_cast<long long>(S), nj - (col0 + static_cast<long long>(v) * S))));
+}
+
+// Block (t*P + p, sub): part p of tile t's open window bodies, in slot
+// order, into rows sub*512.. of the tile, written to slice t*P + p of
+// parts (ntiles * P, tb, DIM); block (t*P, 0) writes the tile's part count
+// to nparts[t]. The tile's in_win row is staged in dynamic shared memory.
 template <int DIM, bool SQRT3>
 __global__ void __launch_bounds__(kThreads)
 window_eval_nodemask_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
                             const float* __restrict__ xj, int nj, const int* __restrict__ w0,
-                            const unsigned char* __restrict__ in_win, int wnodes, int S, float eps,
-                            float* __restrict__ out) {
-  __shared__ float s_m[kChunk];
-  __shared__ float s_x[DIM][kChunk];
+                            const unsigned char* __restrict__ in_win, int wnodes, int S, int P,
+                            float eps, int* __restrict__ nparts, float* __restrict__ parts) {
+  extern __shared__ unsigned char s_open[];
+  __shared__ float4 s_body[kChunk];
+  __shared__ int s_red[kThreads / 32];
 
-  Rows<float, DIM> rows(xi, tb);
-  const int t = blockIdx.x;
-  const int col0 = w0[t] * tb;
+  const int t = blockIdx.x / P, p = blockIdx.x % P;
+  const long long col0 = static_cast<long long>(w0[t]) * tb;
   const unsigned char* slot_open = in_win + static_cast<size_t>(t) * wnodes;
+  int open = 0;
+  for (int v = threadIdx.x; v < wnodes; v += kThreads) {
+    const unsigned char o = slot_open[v];
+    s_open[v] = o;
+    if (o) open += slot_bodies(col0, v, S, nj);
+  }
+  const int work = block_sum(open, s_red);  // its barrier also publishes s_open
+  const int np = tile_parts(work, P);
+  if (p == 0 && blockIdx.y == 0 && threadIdx.x == 0) nparts[t] = np;
+  if (p >= np) return;  // no open body, or a part past the tile's count
+  Rows<float, DIM> rows(xi, tb, t, blockIdx.y);
+  const long long u0 = static_cast<long long>(work) * p / np;
+  const long long u1 = static_cast<long long>(work) * (p + 1) / np;
+  const nbody::ChainWeight<float, SQRT3> weight{eps};
+  const SplitSource<float, DIM> src{mj, xj};
+  const auto fetch = [&](long long j) { return staged(src, static_cast<int>(j)); };
   // the same slots for every thread: a block-uniform walk over the runs of
-  // open slots, each run one contiguous range of bodies
-  int v = 0;
-  while (v < wnodes) {
-    if (!slot_open[v]) {
+  // open slots, each run one contiguous range of bodies; c of the tile's
+  // open bodies lie before the run
+  long long c = 0;
+  for (int v = 0; v < wnodes && c < u1;) {
+    if (!s_open[v]) {
       ++v;
       continue;
     }
     int v1 = v + 1;
-    while (v1 < wnodes && slot_open[v1]) ++v1;
-    const int a = col0 + v * S;
-    const int b = min(col0 + v1 * S, nj);
-    if (a < b) {
-      add_range<float, DIM, SQRT3>(rows, split_source<float, DIM>(mj, xj), a, b, eps, s_m, s_x,
-                                   rows.acc);
-    }
+    while (v1 < wnodes && s_open[v1]) ++v1;
+    const long long a = col0 + static_cast<long long>(v) * S;
+    const long long len = max(0LL, min(col0 + static_cast<long long>(v1) * S, static_cast<long long>(nj)) - a);
+    const long long lo = max(u0 - c, 0LL), hi = min(u1 - c, len);
+    if (lo < hi) add_staged_run(rows, a + lo, a + hi, weight, s_body, fetch);
+    c += len;
     v = v1;
   }
-  rows.store(out);
+  rows.store(parts + static_cast<size_t>(blockIdx.x - t) * tb * DIM);
 }
 
 template <int DIM, bool SQRT3>
@@ -389,24 +524,6 @@ struct EntriesPlan {
   const long long* __restrict__ u1;
 };
 
-// One staged body v = (x, y, z | 0, m) acting on both rows of the thread,
-// by the chain.
-template <int DIM, bool SQRT3>
-__device__ __forceinline__ void add_staged(const float (&p)[kRows][DIM], const float4& v,
-                                           const nbody::ChainWeight<float, SQRT3>& weight,
-                                           float (&part)[kRows][DIM]) {
-  const float x[3] = {v.x, v.y, v.z};
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    float dx[DIM];
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) dx[d] = x[d] - p[r][d];
-    const float w = weight(v.w, nbody::sep2_from<float, DIM>(nbody::least_normal(0.0f), dx));
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) part[r][d] += w * dx[d];
-  }
-}
-
 // Block (b, sub) sums its part's bodies into rows sub*512.. of its tile and
 // writes them to slice b of parts (blocks, tb, DIM).
 template <int DIM, bool SQRT3, typename Src>
@@ -419,59 +536,63 @@ entries_kernel(const float* __restrict__ xi, int tb, const Src src, const Entrie
   const int t = plan.tile[b];
   if (t < 0) return;  // past the plan's parts: no rows to write
   Rows<float, DIM> rows(xi, tb, t, blockIdx.y);
-  const nbody::ChainWeight<float, SQRT3> weight{eps};
-  const long long u1 = plan.u1[b];
   const int e0 = plan.e0[b], e1 = plan.e1[b];
-  for (long long j0 = plan.u0[b]; j0 < u1; j0 += kChunk) {
-    const int len = static_cast<int>(min(static_cast<long long>(kChunk), u1 - j0));
-    if (threadIdx.x < len) {
-      // body u of the order lies in the last entry e of [e0, e1) with cum[e] <= u
-      const long long u = j0 + threadIdx.x;
-      int lo = e0, hi = e1 - 1;
-      while (lo < hi) {
-        const int mid = (lo + hi + 1) >> 1;
-        if (plan.cum[mid] <= u) {
-          lo = mid;
-        } else {
-          hi = mid - 1;
-        }
+  // body u of the order lies in the last entry e of [e0, e1) with cum[e] <= u
+  const auto fetch = [&](long long u) {
+    int lo = e0, hi = e1 - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (plan.cum[mid] <= u) {
+        lo = mid;
+      } else {
+        hi = mid - 1;
       }
-      s_body[threadIdx.x] = staged(src, static_cast<int>(plan.start[lo] + (u - plan.cum[lo])));
     }
-    __syncthreads();
-    float part[kRows][DIM];
-    zero(part);
-    for (int k0 = 0; k0 < len; k0 += kGroup) {
-      float group[kRows][DIM];
-      zero(group);
-      const int k1 = min(len, k0 + kGroup);
-#pragma unroll 4
-      for (int k = k0; k < k1; ++k) add_staged<DIM, SQRT3>(rows.p, s_body[k], weight, group);
-      add_to(part, group);
-    }
-    add_to(rows.acc, part);
-    __syncthreads();
-  }
+    return staged(src, static_cast<int>(plan.start[lo] + (u - plan.cum[lo])));
+  };
+  add_staged_run(rows, plan.u0[b], plan.u1[b], nbody::ChainWeight<float, SQRT3>{eps}, s_body, fetch);
   // b >= t (every tile has a part), so slice b starts (b - t) * tb rows in
   rows.store(parts + static_cast<size_t>(b - t) * tb * DIM);
 }
 
-// out (ntiles * tb, dim): each row the sum of its tile's parts
-// [part_start[t], part_start[t + 1]) of parts (blocks, tb, dim), added in
-// part order.
-__global__ void entries_sum_kernel(const float* __restrict__ parts,
-                                   const int* __restrict__ part_start, int tb, int dim,
-                                   long long count, float* __restrict__ out) {
+// Where tile t's parts lie in a scratch of partial rows, in part order:
+// [first, stop). An entries plan's, from its part_start ...
+struct PartStart {
+  const int* __restrict__ part_start;
+  __device__ __forceinline__ int2 operator()(int t) const {
+    return make_int2(part_start[t], part_start[t + 1]);
+  }
+};
+// ... or P slices a tile, of which the first nparts[t] were written (the
+// list and node-mask window kernels).
+struct PartCount {
+  const int* __restrict__ nparts;
+  int P;
+  __device__ __forceinline__ int2 operator()(int t) const {
+    return make_int2(t * P, t * P + nparts[t]);
+  }
+};
+
+// out (ntiles * tb, dim): each row the sum of its tile's parts of parts
+// (slices, tb, dim), added in part order; zero for a tile without parts.
+// On an entries plan (PartStart, float) it is "entries_sum_kernel".
+template <typename T, typename Parts>
+__global__ void parts_sum_kernel(const T* __restrict__ parts, const Parts ranges, int tb, int dim,
+                                 long long count, T* __restrict__ out) {
   const long long k = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (k >= count) return;
   const long long i = k / dim;
   const int t = static_cast<int>(i / tb);
   const size_t within = static_cast<size_t>(k - static_cast<long long>(t) * tb * dim);
   const size_t slice = static_cast<size_t>(tb) * dim;
-  const int p1 = part_start[t + 1];
-  int p = part_start[t];
-  float v = parts[p * slice + within];
-  for (++p; p < p1; ++p) v += parts[p * slice + within];
+  const int2 range = ranges(t);
+  int p = range.x;
+  if (p >= range.y) {
+    out[k] = T(0);
+    return;
+  }
+  T v = parts[p * slice + within];
+  for (++p; p < range.y; ++p) v += parts[p * slice + within];
   out[k] = v;
 }
 
@@ -506,24 +627,41 @@ group_shared_masked_kernel(const float* __restrict__ xi, int tb, const float* __
   rows.store(out);
 }
 
+// The list kernel's rows a thread: float32 2, float64 1 (measured on an
+// H100 at 2^20: 4-8% faster than 2, PERF.md).
+template <typename T>
+constexpr int kListRows = sizeof(T) == 4 ? 2 : 1;
+
+// Block (t*P + p, sub): part p of tile t's live heads, nodes [0, n0[t])
+// then leaf bodies [split, split + n1[t]), into rows sub*kThreads*R.. of
+// the tile, written to slice t*P + p of parts (ntiles * P, tb, DIM);
+// block (t*P, 0) writes the tile's part count to nparts[t]. A tile whose
+// heads are both empty has no part: its blocks exit at once.
 template <typename T, int DIM, bool SQRT3>
 __global__ void __launch_bounds__(kThreads)
 group_eval_kernel(const T* __restrict__ xi, int tb, const T* __restrict__ mj,
                   const T* __restrict__ xj, int L, int split, const int* __restrict__ n0,
-                  const int* __restrict__ n1, T eps, T* __restrict__ out) {
-  __shared__ T s_m[kChunk];
-  __shared__ T s_x[DIM][kChunk];
+                  const int* __restrict__ n1, int P, T eps, int* __restrict__ nparts,
+                  T* __restrict__ parts) {
+  __shared__ Staged<T> s_body[kChunk];
 
-  Rows<T, DIM> rows(xi, tb);
-  const int t = blockIdx.x;
+  const int t = blockIdx.x / P, p = blockIdx.x % P;
+  const long long a = min(max(n0[t], 0), split);
+  const long long work = a + min(max(n1[t], 0), L - split);
+  const int np = tile_parts(work, P);
+  if (p == 0 && blockIdx.y == 0 && threadIdx.x == 0) nparts[t] = np;
+  if (p >= np) return;
+  Rows<T, DIM, kListRows<T>> rows(xi, tb, t, blockIdx.y);
+  const long long u0 = work * p / np, u1 = work * (p + 1) / np;
   const T* tile_m = mj + static_cast<size_t>(t) * L;
   const T* tile_x = xj + static_cast<size_t>(t) * L * DIM;
-  // the live head of each segment: nodes [0, n0), leaf bodies [split, split + n1)
+  const nbody::ChainWeight<T, SQRT3> weight{eps};
   const SplitSource<T, DIM> src{tile_m, tile_x};
-  add_range<T, DIM, SQRT3>(rows, src, 0, min(max(n0[t], 0), split), eps, s_m, s_x, rows.acc);
-  add_range<T, DIM, SQRT3>(rows, src, split, split + min(max(n1[t], 0), L - split), eps, s_m, s_x,
-                           rows.acc);
-  rows.store(out);
+  const auto fetch = [&](long long i) { return staged(src, static_cast<int>(i)); };
+  // the share's nodes, then its leaf bodies: order u < a is entry u, else split + u - a
+  add_staged_run(rows, min(u0, a), min(u1, a), weight, s_body, fetch);
+  add_staged_run(rows, split + max(u0, a) - a, split + max(u1, a) - a, weight, s_body, fetch);
+  rows.store(parts + static_cast<size_t>(blockIdx.x - t) * tb * DIM);
 }
 
 inline dim3 grid_for(int ntiles, int tb) {
@@ -547,16 +685,37 @@ cudaError_t prepare(int device, int ntiles, int tb) {
   return cudaSetDevice(device);
 }
 
+// The split kernels' grid: P blocks a tile, each with tb / (kThreads * R)
+// row blocks; {0, 0, 0} when ntiles * P does not fit a grid.
+inline dim3 split_grid(int ntiles, int P, int tb, int rows_per_block) {
+  if (P <= 0 || static_cast<long long>(ntiles) * P > 0x7fffffffLL) return dim3(0, 0, 0);
+  return dim3(static_cast<unsigned>(ntiles * P),
+              static_cast<unsigned>((tb + rows_per_block - 1) / rows_per_block));
+}
+
 template <typename T>
 cudaError_t launch_group_eval(int dim, int sqrt3, const void* xi, int ntiles, int tb, const void* mj,
                               const void* xj, int L, int split, const void* n0, const void* n1,
-                              double eps, void* out, cudaStream_t stream) {
+                              int P, double eps, void* nparts, void* parts, cudaStream_t stream) {
   const auto kernel = pick(dim, sqrt3, group_eval_kernel<T, 2, false>, group_eval_kernel<T, 2, true>,
                            group_eval_kernel<T, 3, false>, group_eval_kernel<T, 3, true>);
-  if (kernel == nullptr || L < 0 || split < 0 || split > L) return cudaErrorInvalidValue;
-  kernel<<<grid_for(ntiles, tb), kThreads, 0, stream>>>(
+  const dim3 grid = split_grid(ntiles, P, tb, kThreads * kListRows<T>);
+  if (kernel == nullptr || grid.x == 0 || L < 0 || split < 0 || split > L) return cudaErrorInvalidValue;
+  kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(xi), tb, static_cast<const T*>(mj), static_cast<const T*>(xj), L, split,
-      static_cast<const int*>(n0), static_cast<const int*>(n1), static_cast<T>(eps), static_cast<T*>(out));
+      static_cast<const int*>(n0), static_cast<const int*>(n1), P, static_cast<T>(eps),
+      static_cast<int*>(nparts), static_cast<T*>(parts));
+  return cudaGetLastError();
+}
+
+template <typename T, typename Parts>
+cudaError_t launch_parts_sum(int dim, const void* parts, const Parts& ranges, int ntiles, int tb,
+                             void* out, void* stream) {
+  if (dim != 2 && dim != 3) return cudaErrorInvalidValue;
+  const long long count = static_cast<long long>(ntiles) * tb * dim;
+  parts_sum_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0,
+                     static_cast<cudaStream_t>(stream)>>>(static_cast<const T*>(parts), ranges, tb,
+                                                          dim, count, static_cast<T*>(out));
   return cudaGetLastError();
 }
 
@@ -577,15 +736,39 @@ cudaError_t launch_entries(int sqrt3, const void* xi, int tb, const Src& src,
 // Each tile's own list: mj (ntiles, L) and xj (ntiles, L, dim) of `dtype`
 // (0 float32, 1 float64), the same type as the rows xi (ntiles*tb, dim);
 // n0 and n1 are int32 (ntiles,) live lengths of the list's two segments
-// [0, split) and [split, L). Returns the cudaError_t of the launch.
+// [0, split) and [split, L). Each tile's heads are split into at most P
+// parts (kListRows rows a thread: float32 2, float64 1): the kernel
+// writes each part's partial rows to parts (ntiles * P, tb, dim) and each
+// tile's part count to nparts (ntiles,) int32, which nbody_parts_sum adds.
+// Returns the cudaError_t of the launch.
 extern "C" int nbody_group_eval(int device, int dtype, int dim, const void* xi, int ntiles, int tb,
                                 const void* mj, const void* xj, int L, int split, const void* n0,
-                                const void* n1, int sqrt3, double eps, void* out, void* stream) {
+                                const void* n1, int sqrt3, double eps, int P, void* nparts,
+                                void* parts, void* stream) {
   cudaError_t err = prepare(device, ntiles, tb);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_group_eval<float>(dim, sqrt3, xi, ntiles, tb, mj, xj, L, split, n0, n1, eps, out, s);
-  if (dtype == 1) return launch_group_eval<double>(dim, sqrt3, xi, ntiles, tb, mj, xj, L, split, n0, n1, eps, out, s);
+  if (dtype == 0) {
+    return launch_group_eval<float>(dim, sqrt3, xi, ntiles, tb, mj, xj, L, split, n0, n1, P, eps, nparts, parts, s);
+  }
+  if (dtype == 1) {
+    return launch_group_eval<double>(dim, sqrt3, xi, ntiles, tb, mj, xj, L, split, n0, n1, P, eps, nparts, parts, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// out (ntiles * tb, dim) of `dtype` (0 float32, 1 float64): each row the
+// sum of its tile's first nparts[t] slices [t * P, t * P + nparts[t]) of
+// parts (ntiles * P, tb, dim), added in part order; zero where nparts[t] is
+// 0. The second pass of the list and node-mask window kernels.
+extern "C" int nbody_parts_sum(int device, int dtype, int dim, const void* parts, const void* nparts,
+                               int P, int ntiles, int tb, void* out, void* stream) {
+  cudaError_t err = prepare(device, ntiles, tb);
+  if (err != cudaSuccess) return err;
+  if (P <= 0) return cudaErrorInvalidValue;
+  const PartCount ranges{static_cast<const int*>(nparts), P};
+  if (dtype == 0) return launch_parts_sum<float>(dim, parts, ranges, ntiles, tb, out, stream);
+  if (dtype == 1) return launch_parts_sum<double>(dim, parts, ranges, ntiles, tb, out, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -624,20 +807,28 @@ extern "C" int nbody_window_eval_interval(int device, int dim, const void* xi, i
   return cudaGetLastError();
 }
 
+// The node-mask window in at most P parts a tile: each part's partial
+// rows to parts (ntiles * P, tb, dim), each tile's part count to nparts
+// (ntiles,) int32, for nbody_parts_sum; in_win (ntiles, wnodes) bytes, at
+// most kMaxWindowSlots a tile.
 extern "C" int nbody_window_eval_nodemask(int device, int dim, const void* xi, int ntiles,
                                           int tb, const void* mj, const void* xj, int nj,
                                           const void* w0, const void* in_win, int wnodes, int S,
-                                          int sqrt3, double eps, void* out, void* stream) {
+                                          int sqrt3, double eps, int P, void* nparts, void* parts,
+                                          void* stream) {
   cudaError_t err = prepare(device, ntiles, tb);
   if (err != cudaSuccess) return err;
   const auto kernel = pick(dim, sqrt3, window_eval_nodemask_kernel<2, false>,
                            window_eval_nodemask_kernel<2, true>, window_eval_nodemask_kernel<3, false>,
                            window_eval_nodemask_kernel<3, true>);
-  if (kernel == nullptr || wnodes <= 0 || S <= 0) return cudaErrorInvalidValue;
-  kernel<<<grid_for(ntiles, tb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid = split_grid(ntiles, P, tb, kRowsPerBlock);
+  if (kernel == nullptr || grid.x == 0 || wnodes <= 0 || wnodes > kMaxWindowSlots || S <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  kernel<<<grid, kThreads, static_cast<size_t>(wnodes), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xi), tb, static_cast<const float*>(mj), static_cast<const float*>(xj), nj,
-      static_cast<const int*>(w0), static_cast<const unsigned char*>(in_win), wnodes, S,
-      static_cast<float>(eps), static_cast<float*>(out));
+      static_cast<const int*>(w0), static_cast<const unsigned char*>(in_win), wnodes, S, P,
+      static_cast<float>(eps), static_cast<int*>(nparts), static_cast<float*>(parts));
   return cudaGetLastError();
 }
 
@@ -701,13 +892,8 @@ extern "C" int nbody_entries_sum(int device, int dim, const void* parts, const v
                                  int ntiles, int tb, void* out, void* stream) {
   cudaError_t err = prepare(device, ntiles, tb);
   if (err != cudaSuccess) return err;
-  if (dim != 2 && dim != 3) return cudaErrorInvalidValue;
-  const long long count = static_cast<long long>(ntiles) * tb * dim;
-  entries_sum_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(parts), static_cast<const int*>(part_start), tb, dim, count,
-      static_cast<float*>(out));
-  return cudaGetLastError();
+  return launch_parts_sum<float>(dim, parts, PartStart{static_cast<const int*>(part_start)}, ntiles,
+                                 tb, out, stream);
 }
 
 // The dense-mask far field: mask (ntiles, W) float32 weights on the W

@@ -9,15 +9,16 @@
 // where d2 = |x_j - x_i|^2. pair_weight divides and takes the root in IEEE
 // (nvcc's defaults -prec-div=true -prec-sqrt=true; the build never passes
 // --use_fast_math); the tree kernels of group_eval.cu other than the
-// entries kernel, and the all-pairs kernel's exact=True instantiation, use
-// it. The Pallas kernels take the approximate reciprocal plus one Newton
+// entries kernel, the list kernel and the node-mask window, and the
+// all-pairs kernel's exact=True instantiation, use it. The Pallas kernels take the approximate reciprocal plus one Newton
 // step (pallas_allpairs.py:79-84, their default exact=False;
 // pallas_group_eval.py:877-878 in the entries kernels), within 1 ulp of
 // the division: newton_recip below. A bare rcp.approx, without the Newton
 // step, would lose bits of the close-pair terms, whose t is eps plus a
 // tiny d2*sqrt(d2); the step restores them. The all-pairs kernels
-// (allpairs.cu) by default, and the entries kernel (group_eval.cu), run
-// the Newton form in ChainWeight below, as nbody_tpu's CLI does.
+// (allpairs.cu) by default, and the entries kernel, the list kernel and
+// the node-mask window (group_eval.cu), run the Newton form in ChainWeight
+// below, as nbody_tpu's CLI does.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -92,7 +93,7 @@ struct FarWeight {
 };
 
 // The two-MUFU chain, which the all-pairs kernels (allpairs.cu) and the
-// near-field entries kernel (group_eval.cu) share: a root and a reciprocal
+// entries, list and node-mask window kernels (group_eval.cu) share: a root and a reciprocal
 // a pair, each one MUFU seed (refined in float64), against the IEEE
 // pair_weight's sqrt and division with their slow-path checks (38.25 SASS
 // instructions a 3-D float32 pair against 17.75 on an H100, PERF.md).

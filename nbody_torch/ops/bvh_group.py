@@ -54,8 +54,8 @@ from nbody_torch.ops.cuda_group_eval import (entries_lohi_eval_cuda, group_eval_
                                              masked_eval_cuda, pack_mask_bits,
                                              window_eval_dense_cuda, window_eval_nodemask_cuda)
 from nbody_torch.ops.octree_group import (_box_dist2, ablate_tokens, compact_rows, exact_fallback,
-                                          merge_contiguous_entries, overflow_causes, tile_boxes,
-                                          unique_blocks)
+                                          live_heads, merge_contiguous_entries, overflow_causes,
+                                          tile_boxes, unique_blocks)
 
 BIG = 1 << 30  # sort sentinel of the residual node ids
 # The ablate tokens of nbody_tpu's windowed path that the port runs:
@@ -301,8 +301,9 @@ def compute_force_grouped(tree: BVHTree, m: torch.Tensor, x: torch.Tensor, theta
     Every rule is nbody_tpu's, so the counters of `info` match it; the
     widest arrays at 2^20 bodies are (T, 8,191), so the walk takes all
     tiles at once. The evaluation takes group_eval_cuda over the live
-    heads of the node segment and the 2 * lcnt leaf bodies, or its plain
-    twin where not use_cuda (--kernel torch); the fallback
+    heads of the node segment and the 2 * lcnt leaf bodies (empty for the
+    tiles that overflow, which the fallback overwrites: live_heads), or its
+    plain twin where not use_cuda (--kernel torch); the fallback
     allpairs_block_cuda(..., "poly") or its twin. One host read per call.
     Returns (G * accel in sorted order, info)."""
     n, dim = x.shape
@@ -380,22 +381,22 @@ def compute_force_grouped(tree: BVHTree, m: torch.Tensor, x: torch.Tensor, theta
     xj_list = torch.cat([mx[nidx], x[bc]], dim=1)
     del nidx, mj_n, s0, bidx, bvalid, bc
     evaluate = group_eval_cuda if use_cuda else group_eval_torch
+    tile_over = causes.any(1)
     acc = evaluate(xt.reshape(-1, dim), mj_list, xj_list, eps, "poly", cap_nodes,
-                   ncnt.to(torch.int32), (2 * lcnt).to(torch.int32))
+                   *live_heads(ncnt, 2 * lcnt, tile_over))
     del mj_list, xj_list
-    return _finish_grouped(acc, xt, causes, ncnt, lcnt, m, x, G, eps, use_cuda)
+    return _finish_grouped(acc, xt, causes, tile_over, ncnt, lcnt, m, x, G, eps, use_cuda)
 
 
 BVH_CAUSES = ("frontier", "nodes", "leaves")
 
 
 def _finish_grouped(acc: torch.Tensor, xt: torch.Tensor, causes: torch.Tensor,
-                    ncnt: torch.Tensor, lcnt: torch.Tensor, m: torch.Tensor, x: torch.Tensor,
-                    G: float, eps: float, use_cuda: bool):
+                    tile_over: torch.Tensor, ncnt: torch.Tensor, lcnt: torch.Tensor,
+                    m: torch.Tensor, x: torch.Tensor, G: float, eps: float, use_cuda: bool):
     """The exact poly fallback over the tiles that overflowed (causes (T,
-    3) bool: frontier, node cap, leaf cap) and the info dict
-    (bvh_group.py:338-415)."""
-    tile_over = causes.any(1)
+    3) bool: frontier, node cap, leaf cap; tile_over, any of them) and the
+    info dict (bvh_group.py:338-415)."""
     n_over = tile_over.sum()
     exact_fallback(acc, xt, tile_over, int(n_over), m, x, eps, "poly", use_cuda)
     zero = torch.zeros((), dtype=torch.int32, device=x.device)

@@ -13,7 +13,10 @@ BVH fast and list paths. The kernels live in nbody_torch/csrc/group_eval.cu
                                octree's near window
   window_eval_nodemask_kernel  replaces window_eval_nodemask_pallas (:614;
                                body _window_nodemask_kernel :563): the
-                               BVH's near window
+                               BVH's near window, each tile's open bodies
+                               split in the kernel into at most P parts
+                               (window_parts mirrors the split), by the
+                               Newton chain
   window_eval_dense_kernel     replaces window_eval_pallas (:383; body
                                _masked_eval_kernel :184): the BVH's near
                                window with a dense body mask
@@ -24,6 +27,9 @@ BVH fast and list paths. The kernels live in nbody_torch/csrc/group_eval.cu
   entries_sum_kernel           adds each tile's parts in part order after
                                any of the three entries kernels (the TPU
                                grid's sequential walk of a tile's run)
+  parts_sum_kernel             the same second pass after the list kernel
+                               and the node-mask window: P slices a tile,
+                               the first nparts[t] of them written
   masked_eval_kernel           replaces masked_eval_pallas (:216; body
                                _masked_eval_kernel :184): the far field
                                with a dense float32 accept mask (ablate
@@ -47,7 +53,13 @@ BVH fast and list paths. The kernels live in nbody_torch/csrc/group_eval.cu
                                runs its jnp evaluation (octree_group.py:375-
                                416, bvh_group.py:295-331): nbody_tpu reaches
                                group_eval_pallas only through
-                               compute_force_grouped(use_pallas=...)
+                               compute_force_grouped(use_pallas=...).
+                               Each tile's live heads are split in the
+                               kernel into at most P parts; a tile whose
+                               heads are both empty costs nothing (the list
+                               paths pass such heads for the tiles that the
+                               exact fallback overwrites). The Newton chain
+                               in float32, refined MUFU seeds in float64
 
 All of them take the rows xi of T tiles of tb rows each, as an (T*tb, dim)
 array, and return their raw (G-less) accelerations in the same layout.
@@ -65,11 +77,14 @@ kernels do; group_eval_kernel takes float32 and float64 (the list paths
 are what float64 runs take; float32 reaches them through the list_path
 branch of the step functions); the twins take either precision.
 
-The entries kernels divide by nbody_tpu's own reciprocal, the approximate
-one and a Newton step (pallas_group_eval.py:877-878), within 1 ulp of the
-division; the other kernels and every twin divide in IEEE (the hardware's
-approximate reciprocal cannot be reproduced on the CPU), and the kernels'
-tolerance against the twins covers the ulp.
+The entries kernels, the list kernel and the node-mask window take the
+two-MUFU chain of csrc/pair.cuh: in float32 nbody_tpu's own reciprocal,
+the approximate one and a Newton step (pallas_group_eval.py:73-74,
+:143-144, :877-878), within 1 ulp of the division; in float64 (the list
+kernel) MUFU seeds refined twice, within a few ulps of it. The other
+kernels and every twin divide in IEEE (the hardware's approximate
+reciprocal cannot be reproduced on the CPU), and the kernels' tolerance
+against the twins covers the ulps.
 
 The accept mask is packed node l -> word l // 32, bit l % 32
 (pack_mask_bits / unpack_mask_bits). nbody_tpu's strided order
@@ -92,7 +107,7 @@ launch_counts = {"masked_eval_bits_kernel": 0, "window_eval_interval_kernel": 0,
                  "window_eval_nodemask_kernel": 0, "window_eval_dense_kernel": 0,
                  "entries_lohi_kernel": 0, "masked_eval_kernel": 0,
                  "group_shared_masked_kernel": 0, "entries_lohi_kernel<packed>": 0,
-                 "entries_tables_kernel": 0, "entries_sum_kernel": 0,
+                 "entries_tables_kernel": 0, "entries_sum_kernel": 0, "parts_sum_kernel": 0,
                  **{f"group_eval_kernel<{dtype}, {softening}>": 0
                     for dtype in ("float32", "float64") for softening in SOFTENINGS}}
 
@@ -294,6 +309,57 @@ def window_eval_nodemask_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Ten
     the plain twin of window_eval_nodemask_kernel."""
     return _window_twin(xi, mj, xj, w0, in_win.repeat_interleave(S, dim=1), eps, softening,
                         absolute)
+
+
+def tile_parts(work, P: int):
+    """The parts the list kernel and the node-mask window split a tile of
+    `work` bodies (an int, or a tensor of them) into (csrc/group_eval.cu
+    tile_parts): one per ENTRY_CHUNK bodies, at most P; none without work.
+    Part p of np takes the bodies [work * p // np, work * (p + 1) // np) of
+    the tile's order."""
+    n = -(-work // ENTRY_CHUNK)
+    return n.clamp(max=P) if isinstance(n, torch.Tensor) else min(P, n)
+
+
+def window_parts(in_win: torch.Tensor, S: int, nj: int, w0: torch.Tensor, tb: int,
+                 P: int) -> list[list[list[tuple[int, int]]]]:
+    """The node-mask window kernel's split, in Python: for each tile t, its
+    parts in order, each the ranges [a, b) of sources it adds, in slot
+    order. Tile t's open bodies are those of the slots v with in_win[t, v]
+    (the bodies w0[t]*tb + v*S + [0, S) below nj); tile_parts(their count,
+    P) parts take equal shares of them in slot order, each walking the runs
+    of consecutive open slots as ranges. The tests use it; the card's path
+    computes the same split in the kernel."""
+    out = []
+    for t in range(in_win.shape[0]):
+        col0 = int(w0[t]) * tb
+        runs, v, slots = [], 0, in_win[t].tolist()
+        while v < len(slots):
+            if not slots[v]:
+                v += 1
+                continue
+            v1 = v + 1
+            while v1 < len(slots) and slots[v1]:
+                v1 += 1
+            a = col0 + v * S
+            b = min(col0 + v1 * S, nj)
+            if a < b:
+                runs.append((a, b))
+            v = v1
+        work = sum(b - a for a, b in runs)
+        n = tile_parts(work, P)
+        parts = []
+        for p in range(n):
+            u0, u1 = work * p // n, work * (p + 1) // n
+            ranges, c = [], 0
+            for a, b in runs:
+                lo, hi = max(u0 - c, 0), min(u1 - c, b - a)
+                if lo < hi:
+                    ranges.append((a + lo, a + hi))
+                c += b - a
+            parts.append(ranges)
+        out.append(parts)
+    return out
 
 
 def window_eval_dense_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
@@ -524,23 +590,37 @@ def _check_window(xi: torch.Tensor, w0: torch.Tensor, wb: int, window_tiles: int
 
 def window_eval_nodemask_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                               w0: torch.Tensor, in_win: torch.Tensor, eps: float,
-                              window_tiles: int, S: int, softening: str) -> torch.Tensor:
+                              window_tiles: int, S: int, softening: str,
+                              parts: int | None = None) -> torch.Tensor:
     """BVH near window of each row tile t: the bodies w0[t]*tb +
     [0, window_tiles*tb) in slots of S, a slot counting where in_win[t, v]
     (bool, (T, window_tiles*tb // S)) -- the counterpart of
     window_eval_nodemask_pallas with skip_outside (closed slots are not
-    visited)."""
+    visited). Each tile's open bodies are split in the kernel into at most
+    `parts` parts (split_parts' P by default; window_parts mirrors the
+    split), added in order by parts_sum_kernel."""
     _check(xi, w0.shape[0], mj, xj, w0)
     if in_win.dtype != torch.bool or in_win.shape[0] != w0.shape[0] or not in_win.is_contiguous():
         raise ValueError(f"in_win must be a contiguous (T, slots) bool tensor, got "
                          f"{in_win.dtype} {tuple(in_win.shape)}")
+    if in_win.shape[1] > MAX_WINDOW_SLOTS:
+        raise ValueError(f"{in_win.shape[1]} window slots a tile, at most {MAX_WINDOW_SLOTS}")
     _check_window(xi, w0, in_win.shape[1] * S, window_tiles)
     sqrt3 = _sqrt3(softening)
     if _on_cpu(xi, mj, xj, w0, in_win):
         return window_eval_nodemask_torch(xi, mj, xj, w0, in_win, eps, window_tiles, S, softening)
-    return _launch("window_eval_nodemask_kernel", "nbody_window_eval_nodemask", xi, w0.shape[0],
-                   mj.data_ptr(), xj.data_ptr(), mj.shape[0], w0.data_ptr(), in_win.data_ptr(),
-                   in_win.shape[1], int(S), sqrt3, float(eps))
+    if xi.dtype != torch.float32:
+        raise TypeError(f"window_eval_nodemask_kernel takes float32, got {xi.dtype}")
+    ntiles, tb = w0.shape[0], xi.shape[0] // w0.shape[0]
+    P = split_parts(ntiles, window_tiles * tb, sm_count_of(xi.device.index)) if parts is None \
+        else parts
+
+    def launch(lib, nparts, scratch, stream):
+        return lib.nbody_window_eval_nodemask(
+            xi.device.index, xi.shape[1], xi.data_ptr(), ntiles, tb, mj.data_ptr(), xj.data_ptr(),
+            mj.shape[0], w0.data_ptr(), in_win.data_ptr(), in_win.shape[1], int(S), sqrt3,
+            float(eps), P, nparts, scratch, stream)
+    return _launch_split("window_eval_nodemask_kernel", xi, ntiles, P, launch)
 
 
 def window_eval_dense_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
@@ -687,6 +767,83 @@ def entries_sum_cuda(parts: torch.Tensor, part_start: torch.Tensor) -> torch.Ten
     return out
 
 
+# --------------------------------------------------------------------------
+# the list kernel's and the node-mask window's parts
+
+MAX_WINDOW_SLOTS = 32768  # node-mask window slots a tile (csrc/group_eval.cu kMaxWindowSlots)
+
+
+def split_parts(ntiles: int, work_max: int, sm_count: int) -> int:
+    """P, the parts a tile that the list kernel and the node-mask window
+    split each tile's work into, from shapes alone: about PARTS_PER_SM
+    parts an SM, at most PARTS_PER_TILE a tile, and no more than one per
+    ENTRY_CHUNK of the longest work a tile can hold."""
+    return max(1, min(PARTS_PER_SM * sm_count // ntiles, PARTS_PER_TILE,
+                      -(-work_max // ENTRY_CHUNK)))
+
+
+def parts_sum_torch(parts: torch.Tensor, nparts: torch.Tensor, P: int) -> torch.Tensor:
+    """(ntiles * tb, dim) rows: tile t's slices [t*P, t*P + nparts[t]) of
+    parts (ntiles * P, tb, dim) added in part order, zero where nparts[t]
+    is 0 -- parts_sum_kernel's plain version (equal to it bit for bit)."""
+    tiles = parts.view(-1, P, *parts.shape[1:])
+    count = nparts.long()[:, None, None]
+    v = torch.where(count > 0, tiles[:, 0], torch.zeros((), dtype=parts.dtype,
+                                                         device=parts.device))
+    for k in range(1, P):
+        v = torch.where(count > k, v + tiles[:, k], v)
+    return v.reshape(-1, parts.shape[2])
+
+
+def parts_sum_cuda(parts: torch.Tensor, nparts: torch.Tensor, P: int) -> torch.Tensor:
+    """The rows of the list kernel's or the node-mask window's partial rows
+    parts (ntiles * P, tb, dim), each tile's first nparts[t] slices added
+    in part order (parts_sum_kernel)."""
+    if (parts.ndim != 3 or parts.dtype not in _DTYPE_CODES or parts.shape[2] not in (2, 3)
+            or not parts.is_contiguous() or P <= 0 or parts.shape[0] % P):
+        raise ValueError(f"parts must be a contiguous (ntiles * {P}, tb, 2 | 3) float tensor, "
+                         f"got {parts.dtype} {tuple(parts.shape)}")
+    if (nparts.dtype != torch.int32 or nparts.shape != (parts.shape[0] // P,)
+            or not nparts.is_contiguous()):
+        raise TypeError(f"nparts must be a contiguous ({parts.shape[0] // P},) int32 tensor")
+    if _on_cpu(parts, nparts):
+        return parts_sum_torch(parts, nparts, P)
+    from nbody_torch._build import load_library
+
+    ntiles, (tb, dim) = nparts.shape[0], parts.shape[1:]
+    out = torch.empty((ntiles * tb, dim), dtype=parts.dtype, device=parts.device)
+    if out.numel() == 0:
+        return out
+    err = load_library().nbody_parts_sum(parts.device.index, _DTYPE_CODES[parts.dtype], dim,
+                                         parts.data_ptr(), nparts.data_ptr(), P, ntiles, tb,
+                                         out.data_ptr(),
+                                         torch.cuda.current_stream(parts.device).cuda_stream)
+    _raise_on_error("parts_sum_kernel", err)
+    launch_counts["parts_sum_kernel"] += 1
+    return out
+
+
+def _launch_split(kernel: str, xi: torch.Tensor, ntiles: int, P: int, launch) -> torch.Tensor:
+    """Run a split kernel (the list kernel or the node-mask window) on rows
+    xi in P parts a tile into a scratch of partial rows, then
+    parts_sum_kernel over it. launch(lib, nparts, scratch, stream) makes
+    the C call with the scratch's pointers and returns its error."""
+    from nbody_torch._build import load_library
+
+    if P <= 0:
+        raise ValueError(f"parts must be positive, got {P}")
+    if xi.shape[0] == 0:
+        return torch.empty_like(xi)
+    tb, dim = xi.shape[0] // ntiles, xi.shape[1]
+    scratch = torch.empty((ntiles * P, tb, dim), dtype=xi.dtype, device=xi.device)
+    nparts = torch.empty(ntiles, dtype=torch.int32, device=xi.device)
+    err = launch(load_library(), nparts.data_ptr(), scratch.data_ptr(),
+                 torch.cuda.current_stream(xi.device).cuda_stream)
+    _raise_on_error(kernel, err)
+    launch_counts[kernel] += 1
+    return parts_sum_cuda(scratch, nparts, P)
+
+
 def _launch_entries(kernel: str, xi: torch.Tensor, ntiles: int, mj: torch.Tensor,
                     xj: torch.Tensor, xm: torch.Tensor | None, ranges, n_live, S: int,
                     softening: str, eps: float, parts: int | None) -> torch.Tensor:
@@ -827,13 +984,16 @@ def group_shared_masked_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.
 
 
 def group_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, eps: float,
-                    softening: str, split: int, n0: torch.Tensor,
-                    n1: torch.Tensor) -> torch.Tensor:
+                    softening: str, split: int, n0: torch.Tensor, n1: torch.Tensor,
+                    parts: int | None = None) -> torch.Tensor:
     """List path: row tile t of xi (T*tb, dim) against its own list mj (T,
     L), xj (T, L, dim), float32 or float64, over the live heads [0, n0[t])
     and [split, split + n1[t]) (int32 (T,)) of the list's node and leaf
     segments -- the counterpart of group_eval_pallas, with xj untransposed
-    and L unpadded (entries past the heads are not read)."""
+    and L unpadded (entries past the heads are not read). A tile whose
+    heads are both empty gets zeros and costs nothing. Each tile's heads are
+    split in the kernel into at most `parts` parts (split_parts' P by
+    default), added in order by parts_sum_kernel."""
     if mj.ndim != 2 or xj.shape != (*mj.shape, xi.shape[-1]):
         raise ValueError(f"list {tuple(mj.shape)}, {tuple(xj.shape)} does not match rows "
                          f"{tuple(xi.shape)}")
@@ -851,16 +1011,12 @@ def group_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, eps: f
     sqrt3 = _sqrt3(softening)
     if _on_cpu(xi, mj, xj, n0, n1):
         return group_eval_torch(xi, mj, xj, eps, softening, split, n0, n1)
-    from nbody_torch._build import load_library
+    ntiles, tb = mj.shape[0], xi.shape[0] // mj.shape[0]
+    P = split_parts(ntiles, mj.shape[1], sm_count_of(xi.device.index)) if parts is None else parts
 
-    out = torch.empty_like(xi)
-    if xi.shape[0] == 0:
-        return out
-    err = load_library().nbody_group_eval(
-        xi.device.index, _DTYPE_CODES[xi.dtype], xi.shape[1], xi.data_ptr(), mj.shape[0],
-        xi.shape[0] // mj.shape[0], mj.data_ptr(), xj.data_ptr(), mj.shape[1], int(split),
-        n0.data_ptr(), n1.data_ptr(), sqrt3, float(eps), out.data_ptr(),
-        torch.cuda.current_stream(xi.device).cuda_stream)
-    _raise_on_error("group_eval_kernel", err)
-    launch_counts[group_eval_name(xi.dtype, softening)] += 1
-    return out
+    def launch(lib, nparts, scratch, stream):
+        return lib.nbody_group_eval(
+            xi.device.index, _DTYPE_CODES[xi.dtype], xi.shape[1], xi.data_ptr(), ntiles, tb,
+            mj.data_ptr(), xj.data_ptr(), mj.shape[1], int(split), n0.data_ptr(), n1.data_ptr(),
+            sqrt3, float(eps), P, nparts, scratch, stream)
+    return _launch_split(group_eval_name(xi.dtype, softening), xi, ntiles, P, launch)

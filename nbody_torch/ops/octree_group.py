@@ -621,6 +621,17 @@ def exact_fallback(acc: torch.Tensor, xt: torch.Tensor, tile_over: torch.Tensor,
     acc.view(ntiles, tile, dim)[over] = fb.view(-1, tile, dim)
 
 
+def live_heads(ncnt: torch.Tensor, lcnt: torch.Tensor, tile_over: torch.Tensor):
+    """The list evaluation's live heads (int32 (T,) each): the node and
+    leaf counts, zero for the tiles that the exact fallback overwrites
+    (tile_over), whose lists are then not evaluated. nbody_tpu evaluates
+    every tile before its fallback; the fallback writes every row of those
+    tiles, so their list sums are never read and no returned value
+    changes."""
+    return (torch.where(tile_over, 0, ncnt).to(torch.int32),
+            torch.where(tile_over, 0, lcnt).to(torch.int32))
+
+
 def tile_boxes(x: torch.Tensor, tile: int):
     """The zero-padded bodies as (T, tile, dim) row tiles, and each tile's
     box over its real bodies (a padding row takes the tile's first body)."""
@@ -642,7 +653,8 @@ def compute_force_grouped(levels: OctreeLevels, ms: torch.Tensor, xs: torch.Tens
     level-synchronous traversal with the group MAC
     side_l^2 < theta^2 * dmin(tile box, COM)^2 (side_l = root_side / 2^l),
     then one evaluation of every tile against its own list with the sqrt3
-    softening, and the exact sum for the tiles that overflow a cap.
+    softening, and the exact sum for the tiles that overflow a cap, whose
+    lists are not evaluated (live_heads).
 
     The traversal: levels of capacity <= 2F (F = max(caps)) propagate a
     dense open mask through `parent`; deeper levels expand a compacted
@@ -659,7 +671,8 @@ def compute_force_grouped(levels: OctreeLevels, ms: torch.Tensor, xs: torch.Tens
     which gives the same lists).
 
     The evaluation takes group_eval_cuda over the live heads of the two
-    list segments, or its plain twin where not use_cuda (--kernel torch);
+    list segments (empty for the fallback's tiles), or its plain twin where
+    not use_cuda (--kernel torch);
     the fallback takes allpairs_block_cuda(..., "sqrt3") or its twin. One
     host read per call: the fallback count. Returns (G * accel in sorted
     order, info) with device counters max_nodes, max_leaves,
@@ -697,7 +710,7 @@ def compute_force_grouped(levels: OctreeLevels, ms: torch.Tensor, xs: torch.Tens
     del nidx, cnt1, bfirst, mj_n, xj_n, bc
     evaluate = group_eval_cuda if use_cuda else group_eval_torch
     acc = evaluate(xt.reshape(-1, dim), mj_list, xj_list, eps, "sqrt3", cap_nodes,
-                   ncnt.to(torch.int32), lcnt.to(torch.int32))
+                   *live_heads(ncnt, lcnt, tile_over))
     del mj_list, xj_list
 
     n_over = tile_over.sum()

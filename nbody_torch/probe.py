@@ -62,6 +62,15 @@
         appended to OUT. A one-off design sweep; on the CPU the wrapper
         runs its twin, which takes no plan.
 
+    python -m nbody_torch.probe split-parts OUT [--n N] [--dims 3,2] [--device cuda|cpu]
+        The list kernel and the node-mask window on other part counts
+        (probes/split_parts.py): the window call of one f32 BVH force
+        evaluation and the list call of one f64 octree and BVH list-path
+        evaluation on an N-body galaxy (default 2^20), timed at P = 1, 2,
+        4, 8 and the default; the list on the CLI's work (the fallback's
+        tiles skipped) and on every tile's heads; one JSON line per
+        (kernel, tree, dim), appended to OUT. A one-off design sweep.
+
     python -m nbody_torch.probe sass OUT.txt
         Compiles each nbody_torch/csrc/*.cu to a cubin with the build's
         nvcc flags and -Xptxas -v, writes `cuobjdump -sass` of them to
@@ -86,7 +95,13 @@ import time
 import warnings
 
 
-def trace(n: int, dim: int, steps: int, algorithm: str, precision: str = "float") -> None:
+def trace(n: int, dim: int, steps: int, algorithm: str, precision: str = "float",
+          table: bool = True) -> dict:
+    """Profile `steps` steps (see the module docstring); prints the kernel
+    table (unless table=False) and the summary line, and returns the
+    summary: wall and device kernel seconds, the idle share, the kernels
+    launched, the peak GiB, the host syncs of one step, and each kernel's
+    device seconds by name (device_s_by_kernel)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -107,9 +122,13 @@ def trace(n: int, dim: int, steps: int, algorithm: str, precision: str = "float"
             s, _ = step(s)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
+    if table:
+        print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time for e in events) / 1e6
+    by_kernel = {}
+    for e in events:
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time / 1e6
     peak = torch.cuda.max_memory_allocated() / 2**30
     # one more step with CUDA's sync debug mode on: every operation that
     # makes the host wait for the device warns once per call
@@ -123,6 +142,10 @@ def trace(n: int, dim: int, steps: int, algorithm: str, precision: str = "float"
           f"wall {wall:.4f} s, device "
           f"kernel time {busy:.4f} s, idle share {1 - busy / wall:.4f}, {len(events)} kernels, "
           f"peak memory {peak:.2f} GiB; host synchronisations in one step: {len(syncs)} {syncs}")
+    return {"algorithm": algorithm, "n": n, "dim": dim, "precision": precision, "steps": steps,
+            "wall_s": wall, "device_s": busy, "idle_share": 1 - busy / wall,
+            "kernels": len(events), "peak_gib": peak, "host_syncs": len(syncs),
+            "device_s_by_kernel": by_kernel}
 
 
 # the info keys the knob scripts log (probe_oct_knobs.py:104-115,
@@ -419,7 +442,11 @@ def main(argv: list[str] | None = None) -> int:
     ep.add_argument("out")
     ep.add_argument("--n", type=int, default=1 << 20)
     ep.add_argument("--dims", default="3,2")
-    for p in (en, eo, dp, ep):
+    sp = sub.add_parser("split-parts", help="the list and window kernels on other part counts")
+    sp.add_argument("out")
+    sp.add_argument("--n", type=int, default=1 << 20)
+    sp.add_argument("--dims", default="3,2")
+    for p in (en, eo, dp, ep, sp):
         p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     s = sub.add_parser("sass", help="write the kernels' SASS to a file")
     s.add_argument("out")
@@ -436,6 +463,12 @@ def main(argv: list[str] | None = None) -> int:
 
         entries_plan.run(args.out, args.n, tuple(int(d) for d in args.dims.split(",")),
                          resolve_device(args.device))
+    elif args.cmd == "split-parts":
+        from nbody_torch.cli import resolve_device
+        from nbody_torch.probes import split_parts
+
+        split_parts.run(args.out, args.n, tuple(int(d) for d in args.dims.split(",")),
+                        resolve_device(args.device))
     else:
         sass(args.out)
     return 0

@@ -28,6 +28,35 @@ def test_repo_sources_and_header():
     assert _build.library_path().parent == _build.BUILD_DIR
 
 
+def _c_signatures() -> dict:
+    """name -> its parameters' ctypes kinds ("i" int, "d" double, "p" any
+    pointer), read from the extern "C" definitions of csrc/*.cu."""
+    import re
+
+    kinds = {"int": "i", "double": "d"}
+    out = {}
+    for src in _build.sources():
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" int (nbody_\w+)\(([^)]*)\)', text):
+            params = [" ".join(a.split()) for a in m.group(2).split(",") if a.strip()]
+            out[m.group(1)] = [("p" if "*" in a else kinds[a.rsplit(" ", 1)[0]]) for a in params]
+    return out
+
+
+def test_ctypes_signatures_match_the_sources():
+    """Every C function the library declares takes, in order, the ints,
+    doubles and pointers its definition in csrc/ names: ctypes cannot check
+    this, and a wrong count shifts every later argument."""
+    import ctypes
+
+    kind = {ctypes.c_int: "i", ctypes.c_double: "d", ctypes.c_void_p: "p"}
+    defined = _c_signatures()
+    for name, args in _build.SIGNATURES:
+        assert name in defined, name
+        assert [kind[a] for a in args] == defined[name], name
+    assert {"nbody_group_eval", "nbody_parts_sum", "nbody_window_eval_nodemask"} <= defined.keys()
+
+
 SASS = """
         code for sm_90a
                 Function : _Zkernel

@@ -5,7 +5,8 @@ node-mask and dense-mask windows, and entries, each far and entries test
 under both softenings, the ablation path's dense-mask far field,
 supertile-shared monopoles and packed-source entries (which must equal
 the unpacked kernel bit for bit), the list paths' kernel in float32 and float64
-under both, the table-driven entries and the entry-cost probes' ladder and
+under both (split into parts in the kernel, as is the node-mask window:
+every part count and both launches of a call bit-equal), the table-driven entries and the entry-cost probes' ladder and
 copy-ring kernels (csrc/entry_probes.cu), and the all-pairs variants (the Newton and fast
 instantiations, and the hybrid kernel of csrc/allpairs_mxu.cu, whose
 counts of tile pairs by branch must equal their twins'). Every test
@@ -516,6 +517,25 @@ def test_nodemask_window_kernel_vs_twin(dev, dim, tb, wt, S, softening):
     assert not got[2 * tb:3 * tb].any()
 
 
+@pytest.mark.parametrize("parts", [1, 3, 8, None])
+@pytest.mark.parametrize("softening", ["poly", "sqrt3"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_nodemask_window_parts_vs_twin(dev, dim, softening, parts):
+    """The window split into at most `parts` parts a tile (None: the
+    default P), on the 2^20 shape's slots of 512 and on slots of 100 in
+    300-row tiles: within 1e-5 of sum |term| of the twin, two launches bit
+    for bit equal, the closed tile zero."""
+    for tb, wt, S in ((512, 4, 512), (300, 3, 100)):
+        xi, mj, xj, w0, in_win, sel = _window_case(dev, dim, tb, wt, S, seed=95 + dim)
+        args = (xi, mj, xj, w0, in_win, EPS32, wt, S, softening)
+        got = cg.window_eval_nodemask_cuda(*args, parts=parts)
+        again = cg.window_eval_nodemask_cuda(*args, parts=parts)
+        _assert_group_within(got, cg.window_eval_nodemask_torch(*args),
+                             _group_scale(xi, mj, xj, sel, tb, softening))
+        assert torch.equal(got, again)
+        assert not got[2 * tb:3 * tb].any()
+
+
 @pytest.mark.parametrize("softening", ["poly", "sqrt3"])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_dense_window_kernel_vs_twin(dev, dim, softening):
@@ -615,6 +635,7 @@ def test_group_launch_counters(dev):
                                 "entries_lohi_kernel": 1, "masked_eval_kernel": 0,
                                 "group_shared_masked_kernel": 0, "entries_lohi_kernel<packed>": 0,
                                 "entries_tables_kernel": 0, "entries_sum_kernel": 1,
+                                "parts_sum_kernel": 3,
                                 "group_eval_kernel<float32, poly>": 0,
                                 "group_eval_kernel<float32, sqrt3>": 1,
                                 "group_eval_kernel<float64, poly>": 1,
@@ -651,9 +672,11 @@ def _list_inputs(dev, dim, dtype, seed, ntiles=6, tb=512, split=700, length=1500
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_group_eval_kernel_vs_twin(dev, dtype, dim, softening):
     """The list kernel over the live heads against its twin and against
-    float64 numpy, within TOL of each row's sum of |term|; both whole
-    padded segments give the same bits (padding adds exact zeros in the
-    same groups); empty and all-padding tiles get zeros."""
+    float64 numpy, within TOL of each row's sum of |term|; two launches
+    give the same bits; on one part a tile both whole padded segments give
+    the same bits as the live heads (padding adds exact zeros in the same
+    groups), and on the default parts they are within TOL (the parts cut
+    the heads elsewhere); empty and all-padding tiles get zeros."""
     xi, mj, xj, split, n0, n1, live = _list_inputs(dev, dim, dtype, seed=110 + dim)
     eps = float(torch.finfo(dtype).eps)
     got = cg.group_eval_cuda(xi, mj, xj, eps, softening, split, n0, n1)
@@ -662,8 +685,12 @@ def test_group_eval_kernel_vs_twin(dev, dtype, dim, softening):
     _assert_within(got, ref, scale, dtype)
     full = torch.full_like(n0, split), torch.full_like(n1, mj.shape[1] - split)
     whole = cg.group_eval_cuda(xi, mj, xj, eps, softening, split, *full)
+    _assert_within(whole, ref, scale, dtype)
+    one = cg.group_eval_cuda(xi, mj, xj, eps, softening, split, n0, n1, parts=1)
+    whole_one = cg.group_eval_cuda(xi, mj, xj, eps, softening, split, *full, parts=1)
+    again = cg.group_eval_cuda(xi, mj, xj, eps, softening, split, n0, n1)
     torch.cuda.synchronize()
-    assert torch.equal(got, whole)
+    assert torch.equal(one, whole_one) and torch.equal(got, again)
     assert not got[512:1024].any() and not got[3 * 512:4 * 512].any()
     tb = 512
     x64, m64, j64 = (a.double().cpu().numpy() for a in (xi, mj, xj))
@@ -674,6 +701,77 @@ def test_group_eval_kernel_vs_twin(dev, dtype, dim, softening):
                                        eps, softening)
         err = np.abs(got[t * tb:(t + 1) * tb].double().cpu().numpy() - force)
         assert np.all(err <= TOL[dtype] * tscale), float(np.max(err / np.maximum(tscale, 1e-300)))
+
+
+@pytest.mark.parametrize("softening", ["poly", "sqrt3"])
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_group_eval_kernel_parts_and_zero_heads(dev, dtype, dim, softening):
+    """Ragged heads over 40 tiles, a third of them zeroed as the list paths
+    zero the fallback's tiles, on 1, 2, 3 and 8 parts a tile and the
+    default: within TOL of the twin's sum |term|, zero-head tiles zero, two
+    launches bit-equal."""
+    xi, mj, xj, split, n0, n1, live = _list_inputs(dev, dim, dtype, seed=130 + dim, ntiles=40,
+                                                   tb=300, split=900, length=2300)
+    skip = torch.arange(40, device=dev) % 3 == 1
+    n0, n1 = torch.where(skip, 0, n0), torch.where(skip, 0, n1)
+    eps = float(torch.finfo(dtype).eps)
+    args = (xi, mj, xj, eps, softening, split, n0, n1)
+    ref = cg.group_eval_torch(*args)
+    scale = cg.group_eval_torch(*args, absolute=True)
+    zeroed = skip.repeat_interleave(300)
+    for parts in (1, 2, 3, 8, None):
+        got = cg.group_eval_cuda(*args, parts=parts)
+        again = cg.group_eval_cuda(*args, parts=parts)
+        _assert_within(got, ref, scale, dtype)
+        assert torch.equal(got, again) and not got[zeroed].any()
+
+
+def test_float64_list_chain_within_ulps_of_ieee(dev):
+    """One live source a tile, so each row's value is one term: the
+    float64 chain's term within 8 ulps of the twin's IEEE one on rows at
+    distances 1, 1e-3, 1e-9 and 1e-13 from the source and on coincident
+    rows (a finite weight, a zero term), both softenings."""
+    dtype, tb, ntiles = torch.float64, 256, 4
+    eps = float(torch.finfo(dtype).eps)
+    rng = np.random.default_rng(140)
+    src = rng.uniform(-1, 1, (ntiles, 1, 3))
+    dist = np.array([1.0, 1e-3, 1e-9, 1e-13, 0.0])
+    dirs = rng.normal(size=(ntiles, tb, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    which = np.arange(tb) % dist.size  # each row's distance, the same in every tile
+    xi = src + dirs * dist[which][None, :, None]
+    xi = torch.tensor(xi.reshape(-1, 3), dtype=dtype, device=dev)
+    xj = torch.tensor(np.concatenate([src, np.zeros((ntiles, 3, 3))], 1), dtype=dtype, device=dev)
+    mj = torch.tensor(np.concatenate([rng.uniform(0.1, 1, (ntiles, 1)), np.zeros((ntiles, 3))], 1),
+                      dtype=dtype, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    heads = (2, torch.ones(ntiles, **i32), torch.zeros(ntiles, **i32))
+    coincident = torch.tensor(np.tile(dist[which] == 0, ntiles), device=dev)
+    for soft in ("poly", "sqrt3"):
+        got = cg.group_eval_cuda(xi, mj, xj, eps, soft, *heads)
+        ref = cg.group_eval_torch(xi, mj, xj, eps, soft, *heads)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and not got[coincident].any()
+        assert ((got - ref).abs() <= 8 * eps * ref.abs()).all(), \
+            ((got - ref).abs() / ref.abs().clamp_min(1e-300)).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_parts_sum_kernel_equals_twin(dev, dtype):
+    """The split kernels' second pass: each tile's first nparts[t] of P
+    slices added in order, zero without parts, bit-equal to its plain
+    version."""
+    P, tb = 4, 300
+    nparts = torch.tensor([0, 1, 4, 2, 3, 0], dtype=torch.int32, device=dev)
+    parts = torch.rand((6 * P, tb, 3), dtype=dtype, device=dev)
+    got = cg.parts_sum_cuda(parts, nparts, P)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cg.parts_sum_torch(parts, nparts, P))
+    assert not got[:tb].any() and torch.equal(got[tb:2 * tb], parts[P].view(tb, 3))
+    assert torch.equal(got[2 * tb:3 * tb],
+                       (((parts[2 * P] + parts[2 * P + 1]) + parts[2 * P + 2])
+                        + parts[2 * P + 3]).view(tb, 3))
 
 
 @pytest.mark.parametrize("tree", ["octree", "bvh"])
