@@ -47,9 +47,15 @@ Phases, each printed on its own lines:
         on partial rows of the plan's shape beside its plain version
         (bit-equal) and index_add_, and the call timed again on a plan of
         one part a tile (the grid of one block a tile), beside the MUFU
-        floor;
+        floor; the interval window's two launches bit-equal, its call on
+        one part a tile (P = 1) timed beside the default P and its MUFU
+        floor, its second pass parts_sum_kernel timed on partial rows of
+        the call's shape and part counts beside its plain version
+        (bit-equal) and torch.sum; in 3-D its poly instantiation (which
+        no path of the port runs yet) held against its twin on the same
+        inputs and timed;
      b. the CLI at full size, -n 1048576 -s 12 --algorithm octree in 3-D
-        and in 2-D;
+        and in 2-D (the window's parts_sum_kernel launched in both);
      c. the 3-D force of (a) against the sqrt3 all-pairs kernel on the
         same sorted bodies (sanity bounds on the relative error);
      d. a 17,000-body 3-D evaluation on the card and through the CPU
@@ -58,11 +64,8 @@ Phases, each printed on its own lines:
      a. one BVH force evaluation of a 2^20-body galaxy, in 3-D and in 2-D,
         whose far, node-mask window and entries kernel calls are recorded
         and re-run as in 5a, each timed beside its twin, the entries call
-        checked and its plan printed as in 5a; the node-mask window's two
-        launches bit-equal, its call on one part a tile (P = 1) timed
-        beside the default P and its MUFU floor, its second pass
-        parts_sum_kernel timed on partial rows of the call's shape beside
-        its plain version (bit-equal) and torch.sum; the dense-mask
+        checked and its plan printed as in 5a, the node-mask window as the
+        interval window is in 5a; the dense-mask
         window, which the BVH reaches only at n <= 16, is timed on a
         synthetic 2^20 window built from the node-mask window's slots and
         on the inputs of an n = 16 evaluation;
@@ -195,10 +198,17 @@ written once); library_ms is index_add_ of the parts into their tiles'
 rows, the one PyTorch call that computes its function (in another order
 of addition). Beside the entries kernel's float32 times 5a and 6a print
 its MUFU floor, as phase 2 does.
-parts_sum_kernel, the second pass of the node-mask window and the list
+parts_sum_kernel, the second pass of the two windows and the list
 kernel, is bound by its bytes (the written parts read once, the rows
 written once); library_ms is torch.sum over the parts, which computes
-its sums once the unwritten slices are zero, as there. Beside the list
+its sums once the unwritten slices are zero, as there. The two sum
+passes and their library calls are timed on the device alone, queued
+behind a sleep kernel so that the host has enqueued every call before
+the first runs (nbody_torch/probes/compare_trees.device_ms: "ms",
+"library_ms"), and as calls back to back
+("call_ms", "library_call_ms"), which a pass of a few microseconds
+leaves bound by the host's cost of each call; 5a, 6a and 7a print
+parts_sum_kernel's time over torch.sum's. Beside the list
 kernel's float64 times 7a prints its DP floor: the float64 chain's DP
 instructions a pair (23 sqrt3, 21 poly in 3-D; 20 / 18 in 2-D) at 64 a
 clock on each SM at the boost clock, worked out, not measured.
@@ -238,7 +248,8 @@ configurations in 8d; the octree
 kernels' (and the entries calls' second pass entries_sum_kernel) from the
 3-D run of phase 5b, the BVH's far, node-mask and
 entries kernels' (and the window's second pass parts_sum_kernel) from the
-3-D run of phase 6b, the dense-mask
+3-D run of phase 6b (parts_sum_kernel's entry also carries the octree
+interval window's second pass, its launches from 5b), the dense-mask
 window's from the small run of phase 6e, the three ablation kernels' from
 the 3-D octree SPEC of their token in 9c (densemask, farcompact, packedj;
 each SPEC's run counts from 0 inside the probe), the list kernel's float64
@@ -416,7 +427,7 @@ def main() -> int:
           f"relative drift {drift:.3e} (limit 1e-3); launches {phase4_launches}")
     check(drift <= 1e-3, "energy drift too large")
 
-    octree_kernels, octree_fallback = octree_phases(dev, big)
+    octree_kernels, octree_fallback, interval_sum = octree_phases(dev, big)
     bvh_kernels, bvh_fallback = bvh_phases(dev, big)
     list_kernels, list_fallback, list_launches = list_phases(dev, big)
     variant_kernels = variant_phases(dev, big)
@@ -438,6 +449,8 @@ def main() -> int:
     entries[0]["octree_fallback_launches"] = octree_fallback  # float32 sqrt3, by dimension
     entries[0]["bvh_fallback_launches"] = bvh_fallback        # float32 poly
     entries[1]["fallback_launches_3d"] = list_fallback        # by tree
+    parts_sum = next(e for e in bvh_kernels if e["name"] == PARTS_SUM)
+    parts_sum["octree_interval_window"] = interval_sum  # its second pass in the octree
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": entries + octree_kernels + bvh_kernels + list_kernels
                       + variant_kernels + ablation_kernels + probe_kernels}))
@@ -835,6 +848,7 @@ def entries_extras(tag: str, args, pairs: int) -> dict:
 
     from nbody_torch.ops import cuda_allpairs as ca
     from nbody_torch.ops import cuda_group_eval as cg
+    from nbody_torch.probes.compare_trees import device_ms
 
     xi, ntiles = args[0], args[7]
     dev, dim, tb = xi.device, xi.shape[1], xi.shape[0] // ntiles
@@ -852,12 +866,16 @@ def entries_extras(tag: str, args, pairs: int) -> dict:
     kms = event_ms(kern, reps=5)
     scratch = torch.rand((plan.blocks, tb, dim), device=dev)
     got = cg.entries_sum_cuda(scratch, plan.part_start)
-    sum_ms = event_ms(lambda: cg.entries_sum_cuda(scratch, plan.part_start), reps=20)
+    sum_call_ms = event_ms(lambda: cg.entries_sum_cuda(scratch, plan.part_start), reps=20)
+    sum_ms = device_ms(lambda: cg.entries_sum_cuda(scratch, plan.part_start))
     plain_ms, ref = event_ms(lambda: cg.entries_sum_torch(scratch, plan.part_start), reps=1,
                              keep=True)
     owner, flat = plan.tile[:n_parts].long(), scratch[:n_parts].view(n_parts, -1)
-    lib_ms, lib = event_ms(lambda: torch.zeros(ntiles, tb * dim, device=dev).index_add_(
-        0, owner, flat), reps=20, keep=True)
+
+    def library():
+        return torch.zeros(ntiles, tb * dim, device=dev).index_add_(0, owner, flat)
+    lib_call_ms, lib = event_ms(library, reps=20, keep=True)
+    lib_ms = device_ms(library)
     torch.cuda.synchronize()
     sum_equal = torch.equal(got, ref)
     sum_err = (got - ref).abs().max().item()
@@ -872,16 +890,19 @@ def entries_extras(tag: str, args, pairs: int) -> dict:
           f"part a tile (max |diff| / max |a| {one_diff:.3e}); MUFU floor {floor:.3f} ms "
           f"({floor / kms:.3f} of it)")
     print(f"[{tag}] entries_sum_kernel on ({plan.blocks}, {tb}, {dim}) partial rows, {n_parts} "
-          f"parts: kernel {sum_ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms; "
-          f"kernel == plain bit for bit: {sum_equal}; max |index_add_ - kernel| {lib_err:.3e}; "
-          f"bound {sum_bound:.4f} ms ({sum_by})")
+          f"parts: device {sum_ms:.4f} ms (calls back to back {sum_call_ms:.4f}), plain "
+          f"{plain_ms:.4f} ms, index_add_ device {lib_ms:.4f} ms (back to back "
+          f"{lib_call_ms:.4f}); kernel == plain bit for bit: {sum_equal}; max |index_add_ - "
+          f"kernel| {lib_err:.3e}; bound {sum_bound:.4f} ms ({sum_by}, {sum_bound / sum_ms:.3f} "
+          f"of it)")
     check(same, f"{tag}: two entries launches on the same inputs differ")
     check(sum_equal, f"{tag}: entries_sum_kernel differs from its plain version")
     check(one_diff <= 1e-4, f"{tag}: the one-part-a-tile plan differs by {one_diff:.3e}")
     return {"bit_equal_launches": same, "one_part_a_tile_ms": one_ms,
             "plan": {"target": target, "blocks": plan.blocks, "parts": n_parts,
                      "part_len": part_len, "tiles": ntiles, "plan_ms": plan_ms},
-            "sum_pass": {"ms": sum_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "sum_pass": {"ms": sum_ms, "call_ms": sum_call_ms, "plain_ms": plain_ms,
+                         "library_ms": lib_ms, "library_call_ms": lib_call_ms,
                          "library_call": "torch.zeros(ntiles, tb * dim).index_add_(0, tile, parts)",
                          "max_abs_err": sum_err, "bit_equal_to_plain": sum_equal,
                          "bound_ms": sum_bound, "bound_by": sum_by,
@@ -908,20 +929,26 @@ def parts_sum_extras(tag: str, nparts, P: int, tb: int, dim: int, dtype) -> dict
     a call's shape ((ntiles * P, tb, dim), the call's part counts nparts):
     timed beside its plain version (bit-equal) and beside torch.sum over
     the parts, which computes the same sums (in another order) once the
-    unwritten slices are zero, as here."""
+    unwritten slices are zero, as here. Both the kernel and torch.sum are
+    timed on the device alone (device_ms: "ms", "library_ms") and as calls
+    back to back (event_ms: "call_ms", "library_call_ms"), whose host cost
+    a pass this short may not hide."""
     import torch
 
     from nbody_torch.ops import cuda_group_eval as cg
+    from nbody_torch.probes.compare_trees import device_ms
 
     ntiles, dev = nparts.shape[0], nparts.device
     scratch = torch.rand((ntiles, P, tb, dim), dtype=dtype, device=dev)
     scratch *= (torch.arange(P, device=dev)[None, :] < nparts[:, None])[:, :, None, None]
     scratch = scratch.view(ntiles * P, tb, dim)
     got = cg.parts_sum_cuda(scratch, nparts, P)
-    ms = event_ms(lambda: cg.parts_sum_cuda(scratch, nparts, P), reps=20)
+    call_ms = event_ms(lambda: cg.parts_sum_cuda(scratch, nparts, P), reps=20)
+    ms = device_ms(lambda: cg.parts_sum_cuda(scratch, nparts, P))
     plain_ms, ref = event_ms(lambda: cg.parts_sum_torch(scratch, nparts, P), reps=1, keep=True)
     view = scratch.view(ntiles, P, tb * dim)
-    lib_ms, lib = event_ms(lambda: torch.sum(view, 1), reps=20, keep=True)
+    lib_call_ms, lib = event_ms(lambda: torch.sum(view, 1), reps=20, keep=True)
+    lib_ms = device_ms(lambda: torch.sum(view, 1))
     torch.cuda.synchronize()
     equal = torch.equal(got, ref)
     lib_err = (lib.view_as(got) - got).abs().max().item()
@@ -930,11 +957,15 @@ def parts_sum_extras(tag: str, nparts, P: int, tb: int, dim: int, dtype) -> dict
     bound_ms, bound_by = bound(max(written - ntiles, 0) * tb * dim, 1, nbytes)
     name = str(dtype).split(".")[-1]
     print(f"[{tag}] parts_sum_kernel<{name}> on ({ntiles * P}, {tb}, {dim}) partial rows, "
-          f"{written} parts written: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sum "
-          f"{lib_ms:.4f} ms; kernel == plain bit for bit: {equal}; max |torch.sum - kernel| "
-          f"{lib_err:.3e}; bound {bound_ms:.4f} ms ({bound_by})")
+          f"{written} parts written: device {ms:.4f} ms (calls back to back {call_ms:.4f}), "
+          f"plain {plain_ms:.4f} ms, torch.sum device {lib_ms:.4f} ms (back to back "
+          f"{lib_call_ms:.4f}); parts_sum_kernel / torch.sum {ms / lib_ms:.3f} (device), "
+          f"{call_ms / lib_call_ms:.3f} (back to back); kernel == plain bit for bit: {equal}; "
+          f"max |torch.sum - kernel| {lib_err:.3e}; bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{bound_ms / ms:.3f} of it)")
     check(equal, f"{tag}: parts_sum_kernel differs from its plain version")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_call_ms": lib_call_ms,
             "library_call": "torch.sum(parts.view(ntiles, P, tb * dim), 1) (unwritten slices 0)",
             "max_abs_err": (got - ref).abs().max().item(), "bit_equal_to_plain": equal,
             "bound_ms": bound_ms, "bound_by": bound_by, "shape": [ntiles * P, tb, dim],
@@ -942,48 +973,47 @@ def parts_sum_extras(tag: str, nparts, P: int, tb: int, dim: int, dtype) -> dict
 
 
 def launched_parts(call):
-    """Run call(), one launch of a split kernel (the list kernel or the
-    node-mask window), and return what it returned and the part counts
-    (ntiles,) int32 that the kernel wrote and its wrapper passed to
-    parts_sum_cuda."""
+    """Run call(), one launch of a split kernel (the list kernel or a
+    window), and return what it returned, the part counts (ntiles,) int32
+    that the kernel wrote and its wrapper passed to parts_sum_cuda, and the
+    parts a tile P it launched with."""
     from nbody_torch.ops import cuda_group_eval as cg
 
     with recording(cg, ["parts_sum_cuda"]) as recorded:
         out = call()
-    return out, recorded["parts_sum_cuda"][1]
+    _, nparts, P = recorded["parts_sum_cuda"]
+    return out, nparts, P
 
 
-def window_extras(tag: str, args, pairs: int) -> dict:
-    """6a, the node-mask window beyond measure(): two launches bit-equal;
-    the call on one part a tile (parts=1: the grid of one block a tile)
-    timed and held to 1e-4 of the default's max |a|; the MUFU floor and
-    the default P printed; its second pass timed (parts_sum_extras) on the
-    part counts the first launch wrote. Returns the extras of the kernel's
-    entry, the second pass's measurements under "sum_pass"."""
+def window_extras(tag: str, name: str, call, args, softening: str, pairs: int) -> dict:
+    """5a / 6a, a window (the interval or the node-mask window, call its
+    wrapper) beyond measure(): two launches bit-equal; the call on one part
+    a tile (parts=1: the grid of one block a tile) timed and held to 1e-4
+    of the default's max |a|; the MUFU floor and the default P printed; its
+    second pass timed (parts_sum_extras) on the part counts the first
+    launch wrote. Returns the extras of the kernel's entry, the second
+    pass's measurements under "sum_pass"."""
     import torch
 
     from nbody_torch.ops import cuda_allpairs as ca
-    from nbody_torch.ops import cuda_group_eval as cg
 
-    xi, _, _, w0, _, _, wt, _, softening = args
-    ntiles, tb, dim, dev = w0.shape[0], xi.shape[0] // w0.shape[0], xi.shape[1], xi.device
-    sms = ca.sm_count_of(dev.index)
-    P = cg.split_parts(ntiles, wt * tb, sms)
-    first, nparts = launched_parts(lambda: cg.window_eval_nodemask_cuda(*args))
-    again = cg.window_eval_nodemask_cuda(*args)
-    one_ms, one = event_ms(lambda: cg.window_eval_nodemask_cuda(*args, parts=1), reps=3, keep=True)
-    kms = event_ms(lambda: cg.window_eval_nodemask_cuda(*args), reps=5)
+    xi = args[0]
+    dim, dev = xi.shape[1], xi.device
+    first, nparts, P = launched_parts(lambda: call(*args))
+    ntiles, tb = nparts.shape[0], xi.shape[0] // nparts.shape[0]
+    again = call(*args)
+    one_ms, one = event_ms(lambda: call(*args, parts=1), reps=3, keep=True)
+    kms = event_ms(lambda: call(*args), reps=5)
     torch.cuda.synchronize()
     same = torch.equal(first, again)
     one_diff = ((one - first).abs().max() / first.abs().max()).item()
-    floor = mufu_floor_ms(pairs, sms)
-    print(f"[{tag}] window_eval_nodemask_kernel<{softening}>: P = {P} parts a tile "
-          f"({int(nparts.sum())} parts over {ntiles} tiles), two launches "
-          f"{'bit-equal' if same else 'DIFFER'}; call {kms:.3f} ms against {one_ms:.3f} ms on one "
-          f"part a tile (max |diff| / max |a| {one_diff:.3e}); MUFU floor {floor:.3f} ms "
-          f"({floor / kms:.3f} of it)")
-    check(same, f"{tag}: two node-mask window launches on the same inputs differ")
-    check(one_diff <= 1e-4, f"{tag}: the one-part-a-tile window differs by {one_diff:.3e}")
+    floor = mufu_floor_ms(pairs, ca.sm_count_of(dev.index))
+    print(f"[{tag}] {name}<{softening}>: P = {P} parts a tile ({int(nparts.sum())} parts over "
+          f"{ntiles} tiles), two launches {'bit-equal' if same else 'DIFFER'}; call {kms:.3f} ms "
+          f"against {one_ms:.3f} ms on one part a tile (max |diff| / max |a| {one_diff:.3e}); "
+          f"MUFU floor {floor:.3f} ms ({floor / kms:.3f} of it)")
+    check(same, f"{tag}: two {name} launches on the same inputs differ")
+    check(one_diff <= 1e-4, f"{tag}: {name} on one part a tile differs by {one_diff:.3e}")
     return {"bit_equal_launches": same, "one_part_a_tile_ms": one_ms, "parts_a_tile": P,
             "parts": int(nparts.sum()),
             "sum_pass": parts_sum_extras(tag, nparts, P, tb, dim, xi.dtype)}
@@ -1088,8 +1118,10 @@ OCTREE_KERNELS = {  # name -> (wrapper in ops.cuda_group_eval, twin, Pallas func
 
 def octree_phases(dev, big: int):
     """Phase 5: the octree fast path at 2^20. Returns the JSON entries of
-    its three kernels and the all-pairs kernel's fallback launches in the
-    CLI runs, by dimension."""
+    its three kernels and the entries' second pass, the all-pairs kernel's
+    fallback launches in the CLI runs, by dimension, and the interval
+    window's second pass (parts_sum_kernel, whose entry the BVH's phase
+    makes): its measurements and launches in the 5b runs, by dimension."""
     import torch
 
     from nbody_torch.models import build_model
@@ -1101,6 +1133,7 @@ def octree_phases(dev, big: int):
     eps = eps_of(torch.float32)
     measured = {name: {} for name in OCTREE_KERNELS}
     sum_pass = {}  # the entries call's second pass, by dimension
+    window_sum = {}  # the interval window's second pass, by dimension
     wrappers = [attr for attr, _, _ in OCTREE_KERNELS.values()]
 
     # -- (a) one real evaluation per dimension, its kernel inputs recorded
@@ -1130,7 +1163,22 @@ def octree_phases(dev, big: int):
         ent = measured["entries_lohi_kernel"][dim]
         ent.update(entries_extras(f"5a {dim}-D", recorded["entries_lohi_eval_cuda"], ent["pairs"]))
         sum_pass[dim] = ent.pop("sum_pass")
-        del recorded
+        win_args = recorded["window_eval_interval_cuda"]
+        win = measured["window_eval_interval_kernel"][dim]
+        win.update(window_extras(f"5a {dim}-D", "window_eval_interval_kernel",
+                                 cg.window_eval_interval_cuda, win_args, "sqrt3", win["pairs"]))
+        window_sum[dim] = win.pop("sum_pass")
+        if dim == 3:
+            # the poly instantiation, which no path of the port runs yet (the
+            # partitioned BVH will), held against its twin on the same inputs
+            poly = measure("5a 3-D poly", "window_eval_interval_kernel",
+                           cg.window_eval_interval_cuda, cg.window_eval_interval_torch,
+                           (*win_args[:8], "poly"), dim, "poly")
+            floor = mufu_floor_ms(poly["pairs"], ca.sm_count_of(dev.index))
+            print(f"[5a 3-D poly] MUFU floor {floor:.3f} ms ({floor / poly['ms']:.3f} of it)")
+            win["poly"] = {k: poly[k] for k in ("ms", "plain_ms", "max_abs_err", "max_scaled_err",
+                                                "max_scaled_err_vs_float64", "bound_ms")}
+        del recorded, win_args
         if dim == 3:
             # -- (c) the 3-D force against the exact sqrt3 sum on the same bodies
             ref = cfg.G * ca.allpairs_block_cuda(xs, ms, xs, eps, "sqrt3")
@@ -1142,7 +1190,7 @@ def octree_phases(dev, big: int):
     # -- (b) the CLI at full size; counts from 0 just before each run ------
     launches = {dim: cli_full_size("octree", dim, big, "5b") for dim in (3, 2)}
     for dim in (3, 2):
-        for name in (*OCTREE_KERNELS, ENTRIES_SUM):
+        for name in (*OCTREE_KERNELS, ENTRIES_SUM, PARTS_SUM):
             check(launches[dim][name] > 0, f"{name} was not launched in the {dim}-D octree run")
 
     # -- (d) 17,000 bodies, 3-D: the card against the CPU twins -------------
@@ -1171,7 +1219,12 @@ def octree_phases(dev, big: int):
                     "launches_in": f"phase 5b: {big}-body 3-D octree --csv-total",
                     **sum_pass[3], "timed_on": "random partial rows of the 5a 3-D call's plan",
                     "launches_2d": launches[2][ENTRIES_SUM], "2d": sum_pass[2]})
-    return entries, {dim: launches[dim][ca.NEWTON] for dim in (3, 2)}
+    interval_sum = {**window_sum[3], "launches": launches[3][PARTS_SUM],
+                    "launches_in": f"phase 5b: {big}-body 3-D octree --csv-total",
+                    "timed_on": "random partial rows of the 5a 3-D interval window call's shape "
+                                "and part counts",
+                    "launches_2d": launches[2][PARTS_SUM], "2d": window_sum[2]}
+    return entries, {dim: launches[dim][ca.NEWTON] for dim in (3, 2)}, interval_sum
 
 
 BVH_KERNELS = {  # name -> (wrapper, twin, Pallas function replaced)
@@ -1239,8 +1292,9 @@ def bvh_phases(dev, big: int):
         ent.update(entries_extras(f"6a {dim}-D", ent_args, ent["pairs"]))
         ent["sum_pass_ms"] = ent.pop("sum_pass")["ms"]  # the kernels line's entry is 5a's
         win = measured["window_eval_nodemask_kernel"][dim]
-        win.update(window_extras(f"6a {dim}-D", recorded["window_eval_nodemask_cuda"],
-                                 win["pairs"]))
+        win.update(window_extras(f"6a {dim}-D", "window_eval_nodemask_kernel",
+                                 cg.window_eval_nodemask_cuda,
+                                 recorded["window_eval_nodemask_cuda"], "poly", win["pairs"]))
         window_sum[dim] = win.pop("sum_pass")
         if "allpairs_block_cuda" in recorded:
             xi, mj, xj = recorded["allpairs_block_cuda"][:3]
@@ -1565,9 +1619,8 @@ def list_phases(dev, big: int):
             measured[(tree, dim)]["all_heads_live"] = measure_list(
                 f"7a {tree} {dim}-D every head live", every, big)
             if (tree, dim) == ("octree", 3):
-                _, nparts = launched_parts(lambda: cg.group_eval_cuda(*args))
-                list_sum = parts_sum_extras("7a octree 3-D", nparts,
-                                            measured[(tree, dim)]["parts_a_tile"],
+                _, nparts, P = launched_parts(lambda: cg.group_eval_cuda(*args))
+                list_sum = parts_sum_extras("7a octree 3-D", nparts, P,
                                             args[0].shape[0] // nparts.shape[0], 3, args[0].dtype)
             del args, every
             checked[(tree, dim)] = list_accuracy(tree, big, dim, a, G, m, x, tile_over)

@@ -115,7 +115,9 @@ SIGNATURES = (
     ("nbody_allpairs_mxu", [i, i, i, p, p, i, i, i, i, f64, f64, f64, f64, p, p, p]),
     # (device, dim, xi, ntiles, tb, ...) as in ops/cuda_group_eval._launch
     ("nbody_masked_eval_bits", [i, i, p, i, i, p, p, i, p, i, i, f64, p, p]),
-    ("nbody_window_eval_interval", [i, i, p, i, i, p, p, i, p, p, p, i, f64, p, p]),
+    # the interval window: (..., w0, lo, hi, window_tiles, sqrt3, eps, P, nparts, parts,
+    #  stream)
+    ("nbody_window_eval_interval", [i, i, p, i, i, p, p, i, p, p, p, i, i, f64, i, p, p, p]),
     # the node-mask window: (..., w0, in_win, wnodes, S, sqrt3, eps, P, nparts, parts,
     #  stream)
     ("nbody_window_eval_nodemask", [i, i, p, i, i, p, p, i, p, p, i, i, i, f64, i, p, p, p]),

@@ -28,7 +28,7 @@
 // that reads a body's mass and each coordinate apart issues four shared
 // loads a pair. This design:
 //   - the two-MUFU chain (pair.cuh ChainWeight, which the entries, list and
-//     node-mask window kernels of group_eval.cu share): d2 summed from the least normal
+//     window kernels of group_eval.cu share): d2 summed from the least normal
 //     number (so a coincident pair has a finite weight and dx = 0, not
 //     0 * inf), s = d2 * rsqrt.approx(d2), t = d2 * s + eps (poly) or
 //     (s + eps)^3 (sqrt3), w = m * newton_recip(t): the approximate

@@ -5,9 +5,8 @@
 // accelerations
 //     out_i = sum_j m_j * (x_j - x_i) / t,
 // with pair.cuh's softening: t = (sqrt(d2) + eps)^3 (sqrt3, the octree's)
-// or t = d2 * sqrt(d2) + eps (poly, the BVH's). The far and entries
-// and list kernels are templated on it (SQRT3); the octree's interval
-// window is sqrt3 only and the BVH's two windows take both.
+// or t = d2 * sqrt(d2) + eps (poly, the BVH's). Every evaluation kernel
+// is templated on it (SQRT3).
 //
 // masked_eval_bits_kernel<DIM, SQRT3> replaces masked_eval_bits_pallas
 // (nbody_tpu/ops/pallas_group_eval.py:310, body _masked_bits_kernel): the
@@ -20,11 +19,18 @@
 // exact, since its Pallas weight is 0 * m / t with t >= eps > 0 (t >=
 // eps^3 under sqrt3).
 //
-// window_eval_interval_kernel<DIM> replaces window_eval_interval_pallas
-// (:502, body _window_interval_kernel): the octree's near window. Tile t
-// sees the sorted bodies [max(lo, w0*tb), min(hi, (w0 + window_tiles)*tb)),
-// the cell-snapped interval inside its window. Only those columns are
-// visited, which is nbody_tpu's skip_outside carried to the column.
+// window_eval_interval_kernel<DIM, SQRT3> replaces
+// window_eval_interval_pallas (:502, body _window_interval_kernel :455):
+// the octree's near window (sqrt3; poly for the partitioned BVH that
+// nbody_tpu also runs through it). Tile t sees the sorted bodies
+// [max(lo, w0*tb), min(hi, (w0 + window_tiles)*tb, nj)), the cell-snapped
+// interval inside its window. Only those columns are visited, which is
+// nbody_tpu's skip_outside carried to the column. Each of P blocks of the
+// tile computes the interval from w0, lo and hi alone and takes the p-th
+// of at most P equal shares of it (tile_parts); an empty interval has no
+// part. Each part writes its partial rows to its own slice;
+// parts_sum_kernel adds them in order. (ops/cuda_group_eval.interval_parts
+// mirrors the split in Python.)
 //
 // window_eval_nodemask_kernel<DIM, SQRT3> replaces
 // window_eval_nodemask_pallas (:614, body _window_nodemask_kernel): the
@@ -129,30 +135,32 @@
 // What bounds them on an H100: FP32 and SFU issue per pair (float64 issue
 // in the float64 list kernel), not bytes: the sources are staged once per
 // block through shared memory and read as broadcasts. The far field, the
-// interval and dense windows and the ablation kernels still take pair.cuh's
-// IEEE pair_weight (~38 instructions a 3-D float32 pair) through
-// add_range; each thread holds two rows (256 threads, 512 rows per block,
-// one default tile), and every staged source is used for both. A tile of
-// more than 512 rows gets several blocks. The entries kernel, the list
-// kernel and the node-mask window, which carry the trees' near fields, are
-// bound by the pair chain and by the tail of their heaviest tiles, and
-// share one design:
+// dense window and the ablation kernels (masked_eval_kernel,
+// group_shared_masked_kernel) still take pair.cuh's IEEE pair_weight (~38
+// instructions a 3-D float32 pair) through add_range; each thread holds
+// two rows (256 threads, 512 rows per block, one default tile), and every
+// staged source is used for both. A tile of more than 512 rows gets
+// several blocks. The entries kernel, the list kernel and the two windows
+// of the fast paths (node-mask and interval), which carry the trees' near
+// fields, are bound by the pair chain and by the tail of their heaviest
+// tiles, and share one design:
 //   - the two-MUFU chain of pair.cuh (ChainWeight), d2 summed from the
 //     least normal number (the sources include the rows themselves, and a
 //     self-pair's dx = 0 then gets a finite weight and a zero term): in
 //     float32 the approximate reciprocal and one Newton step that
 //     _entries_lohi_kernel (pallas_group_eval.py:877-878), _group_eval_kernel
-//     (:73-74) and _window_nodemask_kernel (:595, _pair_weight :143-144)
-//     take; in float64 the MUFU seeds refined twice, within a few ulps of
-//     the IEEE division that nbody_tpu's float64 jnp evaluation takes;
+//     (:73-74) and the windows (_pair_weight :143-144) take; in float64
+//     the MUFU seeds refined twice, within a few ulps of the IEEE division
+//     that nbody_tpu's float64 jnp evaluation takes;
 //   - parts of about equal work: one block a tile ends a call on a tail of
 //     its heaviest tiles (the entries' work varies 2.5-10x a tile) or in a
 //     part-empty last wave (2,048 blocks of 512 rows at 2^20); the entries'
-//     parts come from a plan (entries_plan), the list's and the window's
+//     parts come from a plan (entries_plan), the list's and the windows'
 //     are computed in the kernel from what each tile holds, P a tile from
 //     shapes alone; each part writes its own slice of partial rows and
 //     parts_sum_kernel adds them in order, so two launches give the same
-//     bits;
+//     bits (the sum pass is bound by its bytes: 16-byte loads, several
+//     parts in flight a thread);
 //   - one staged loop (add_staged_run): each body staged once as
 //     (x, y, z | 0, m), 16 bytes in float32 and 32 in float64, and read as
 //     broadcasts.
@@ -313,7 +321,7 @@ __device__ __forceinline__ void add_staged(const T (&p)[R][DIM], const Staged<T>
   }
 }
 
-// The staged loop of the chain's kernels (entries, list, node-mask window):
+// The staged loop of the chain's kernels (entries, list, both windows):
 // the bodies u in [u0, u1) of a block-uniform order, fetch(u) giving body u
 // staged, added to rows.acc by the chain. Each thread fetches one body of a
 // stage of kChunk; every thread then reads each staged body as a broadcast
@@ -343,7 +351,7 @@ __device__ __forceinline__ void add_staged_run(Rows<T, DIM, R>& rows, long long 
 }
 
 // The parts of a tile whose work (bodies, in its order) is `work`, split by
-// the list and node-mask window kernels: one part per kChunk bodies, at most
+// the list kernel and the two windows: one part per kChunk bodies, at most
 // P; part p of np takes the bodies [work * p / np, work * (p + 1) / np).
 // No part for a tile without work.
 __device__ __forceinline__ int tile_parts(long long work, int P) {
@@ -413,23 +421,47 @@ masked_eval_bits_kernel(const float* __restrict__ xi, int tb, const float* __res
   rows.store(out);
 }
 
-template <int DIM>
-__global__ void __launch_bounds__(kThreads)
+// Tile t's interval, [a, b) = [max(lo[t], w0[t]*tb), min(hi[t], (w0[t] +
+// window_tiles)*tb, nj)) (empty where b <= a), and its work b - a, >= 0.
+struct Interval {
+  long long a, work;
+};
+__device__ __forceinline__ Interval tile_interval(int t, int tb, int nj, const int* __restrict__ w0,
+                                                  const int* __restrict__ lo,
+                                                  const int* __restrict__ hi, int window_tiles) {
+  const long long col0 = static_cast<long long>(w0[t]) * tb;
+  const long long a = max(static_cast<long long>(lo[t]), col0);
+  const long long b = min(min(static_cast<long long>(hi[t]), col0 + static_cast<long long>(window_tiles) * tb),
+                          static_cast<long long>(nj));
+  return Interval{a, max(b - a, 0LL)};
+}
+
+// Block (t*P + p, sub): part p of tile t's interval, the p-th of tile_parts
+// equal shares of its bodies, into rows sub*512.. of the tile, written to
+// slice t*P + p of parts (ntiles * P, tb, DIM); block (t*P, 0) writes the
+// tile's part count to nparts[t]. An empty interval has no part. At most
+// 48 registers, 5 blocks an SM, as the node-mask window takes: left to
+// itself nvcc gave this kernel 64 (4 blocks), 2% slower at 2^20 (PERF.md).
+template <int DIM, bool SQRT3>
+__global__ void __launch_bounds__(kThreads, 5)
 window_eval_interval_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
                             const float* __restrict__ xj, int nj, const int* __restrict__ w0,
                             const int* __restrict__ lo, const int* __restrict__ hi,
-                            int window_tiles, float eps, float* __restrict__ out) {
-  __shared__ float s_m[kChunk];
-  __shared__ float s_x[DIM][kChunk];
+                            int window_tiles, int P, float eps, int* __restrict__ nparts,
+                            float* __restrict__ parts) {
+  __shared__ float4 s_body[kChunk];
 
-  Rows<float, DIM> rows(xi, tb);
-  const int t = blockIdx.x;
-  const int col0 = w0[t] * tb;
-  const int a = max(lo[t], col0);
-  const int b = min(min(hi[t], col0 + window_tiles * tb), nj);
-  add_range<float, DIM, true>(rows, split_source<float, DIM>(mj, xj), a, b, eps, s_m, s_x,
-                              rows.acc);
-  rows.store(out);
+  const int t = blockIdx.x / P, p = blockIdx.x % P;
+  const Interval iv = tile_interval(t, tb, nj, w0, lo, hi, window_tiles);
+  const int np = tile_parts(iv.work, P);
+  if (p == 0 && blockIdx.y == 0 && threadIdx.x == 0) nparts[t] = np;
+  if (p >= np) return;  // an empty interval, or a part past the tile's count
+  Rows<float, DIM> rows(xi, tb, t, blockIdx.y);
+  const SplitSource<float, DIM> src{mj, xj};
+  add_staged_run(rows, iv.a + iv.work * p / np, iv.a + iv.work * (p + 1) / np,
+                 nbody::ChainWeight<float, SQRT3>{eps}, s_body,
+                 [&](long long j) { return staged(src, static_cast<int>(j)); });
+  rows.store(parts + static_cast<size_t>(blockIdx.x - t) * tb * DIM);
 }
 
 // The bodies of window slot v that lie below nj: min(S, nj - (col0 + v*S)), >= 0.
@@ -564,7 +596,7 @@ struct PartStart {
   }
 };
 // ... or P slices a tile, of which the first nparts[t] were written (the
-// list and node-mask window kernels).
+// list kernel and the two windows).
 struct PartCount {
   const int* __restrict__ nparts;
   int P;
@@ -573,27 +605,92 @@ struct PartCount {
   }
 };
 
+// 16 consecutive bytes of a slice, moved as one load and one store: four
+// float32 (float4) or two float64 (double2); consecutive threads take
+// consecutive 16 bytes, so a warp's loads of one part are contiguous.
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  float4 v;
+  __device__ __forceinline__ void load(const float* p) { v = __ldg(reinterpret_cast<const float4*>(p)); }
+  __device__ __forceinline__ void store(float* p) const { *reinterpret_cast<float4*>(p) = v; }
+  __device__ __forceinline__ void add(const Vec16& o) {
+    v.x += o.v.x;
+    v.y += o.v.y;
+    v.z += o.v.z;
+    v.w += o.v.w;
+  }
+  __device__ __forceinline__ void zero() { v = make_float4(0.f, 0.f, 0.f, 0.f); }
+};
+template <>
+struct Vec16<double> {
+  double2 v;
+  __device__ __forceinline__ void load(const double* p) { v = __ldg(reinterpret_cast<const double2*>(p)); }
+  __device__ __forceinline__ void store(double* p) const { *reinterpret_cast<double2*>(p) = v; }
+  __device__ __forceinline__ void add(const Vec16& o) {
+    v.x += o.v.x;
+    v.y += o.v.y;
+  }
+  __device__ __forceinline__ void zero() { v = make_double2(0.0, 0.0); }
+};
+// ... or one element, for slices whose length is not a multiple of
+// Vec16's elements (or whose arrays are not 16-byte aligned).
+template <typename T>
+struct Single {
+  T v;
+  __device__ __forceinline__ void load(const T* p) { v = __ldg(p); }
+  __device__ __forceinline__ void store(T* p) const { *p = v; }
+  __device__ __forceinline__ void add(const Single& o) { v += o.v; }
+  __device__ __forceinline__ void zero() { v = T(0); }
+};
+
+constexpr int kSumLoads = 8;        // parts a thread loads before adding (PARTS_PER_TILE)
+constexpr int kSumBlocksPerSm = 8;  // the sum pass's grid: at most this many blocks an SM
+
 // out (ntiles * tb, dim): each row the sum of its tile's parts of parts
 // (slices, tb, dim), added in part order; zero for a tile without parts.
-// On an entries plan (PartStart, float) it is "entries_sum_kernel".
-template <typename T, typename Parts>
-__global__ void parts_sum_kernel(const T* __restrict__ parts, const Parts ranges, int tb, int dim,
-                                 long long count, T* __restrict__ out) {
-  const long long k = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (k >= count) return;
-  const long long i = k / dim;
-  const int t = static_cast<int>(i / tb);
-  const size_t within = static_cast<size_t>(k - static_cast<long long>(t) * tb * dim);
-  const size_t slice = static_cast<size_t>(tb) * dim;
-  const int2 range = ranges(t);
-  int p = range.x;
-  if (p >= range.y) {
-    out[k] = T(0);
-    return;
+// On an entries plan (PartStart, float) it is "entries_sum_kernel". Pure
+// bandwidth: the written slices read once, the rows written once. Item k
+// is tile t's elements [q*W, (q+1)*W) of its slice of `slice` (= tb*dim)
+// elements (W = 16 bytes' worth with Vec16, 1 with Single; consecutive
+// threads on consecutive items), walked by a grid-stride loop over a grid
+// of a few blocks an SM. A thread issues the loads of up to Loads parts
+// before it adds any, then adds them in part order from the first (not
+// from 0, which would turn a -0 into +0): the plain version's chain, bit
+// for bit. Loads is kSumLoads, or 4 where no tile has more parts (fewer
+// registers, more threads an SM).
+template <typename T, typename Parts, typename Item, int Loads>
+__global__ void __launch_bounds__(kThreads)
+parts_sum_kernel(const T* __restrict__ parts, const Parts ranges, int slice, int items,
+                 T* __restrict__ out) {
+  constexpr int W = sizeof(Item) / sizeof(T);
+  const int per_tile = slice / W;
+  for (long long k = blockIdx.x * kThreads + threadIdx.x; k < items; k += gridDim.x * kThreads) {
+    const int t = static_cast<int>(k) / per_tile;
+    const size_t within = static_cast<size_t>(static_cast<int>(k) - t * per_tile) * W;
+    const int2 range = ranges(t);
+    Item acc;
+    acc.zero();
+    for (int p0 = range.x; p0 < range.y; p0 += Loads) {
+      const int n = min(Loads, range.y - p0);
+      Item v[Loads];
+#pragma unroll
+      for (int i = 0; i < Loads; ++i) {
+        if (i < n) v[i].load(parts + static_cast<size_t>(p0 + i) * slice + within);
+      }
+#pragma unroll
+      for (int i = 0; i < Loads; ++i) {
+        if (i >= n) continue;
+        if (i == 0 && p0 == range.x) {
+          acc = v[i];
+        } else {
+          acc.add(v[i]);
+        }
+      }
+    }
+    acc.store(out + static_cast<size_t>(t) * slice + within);
   }
-  T v = parts[p * slice + within];
-  for (++p; p < range.y; ++p) v += parts[p * slice + within];
-  out[k] = v;
 }
 
 template <int DIM, bool SQRT3>
@@ -708,14 +805,35 @@ cudaError_t launch_group_eval(int dim, int sqrt3, const void* xi, int ntiles, in
   return cudaGetLastError();
 }
 
+// The sum pass on `device`: Vec16 items where every slice starts 16 bytes
+// aligned (slice a multiple of Vec16's elements, both arrays aligned), else
+// Single; at most max_parts parts a tile.
+template <typename T, typename Parts, typename Item>
+auto parts_sum_for(int max_parts) {
+  return max_parts <= 4 ? parts_sum_kernel<T, Parts, Item, 4> : parts_sum_kernel<T, Parts, Item, kSumLoads>;
+}
+
 template <typename T, typename Parts>
-cudaError_t launch_parts_sum(int dim, const void* parts, const Parts& ranges, int ntiles, int tb,
-                             void* out, void* stream) {
+cudaError_t launch_parts_sum(int device, int dim, const void* parts, const Parts& ranges, int ntiles,
+                             int tb, int max_parts, void* out, void* stream) {
   if (dim != 2 && dim != 3) return cudaErrorInvalidValue;
   const long long count = static_cast<long long>(ntiles) * tb * dim;
-  parts_sum_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0,
-                     static_cast<cudaStream_t>(stream)>>>(static_cast<const T*>(parts), ranges, tb,
-                                                          dim, count, static_cast<T*>(out));
+  if (count > 0x7fffffffLL) return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int slice = tb * dim;
+  constexpr int kVec = sizeof(Vec16<T>) / sizeof(T);
+  const bool vec = slice % kVec == 0 && reinterpret_cast<uintptr_t>(parts) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int items = static_cast<int>(vec ? count / kVec : count);
+  const unsigned blocks = static_cast<unsigned>(
+      max(1LL, min((static_cast<long long>(items) + kThreads - 1) / kThreads,
+                   static_cast<long long>(sms) * kSumBlocksPerSm)));
+  const auto kernel = vec ? parts_sum_for<T, Parts, Vec16<T>>(max_parts)
+                          : parts_sum_for<T, Parts, Single<T>>(max_parts);
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(parts), ranges, slice, items, static_cast<T*>(out));
   return cudaGetLastError();
 }
 
@@ -760,15 +878,15 @@ extern "C" int nbody_group_eval(int device, int dtype, int dim, const void* xi, 
 // out (ntiles * tb, dim) of `dtype` (0 float32, 1 float64): each row the
 // sum of its tile's first nparts[t] slices [t * P, t * P + nparts[t]) of
 // parts (ntiles * P, tb, dim), added in part order; zero where nparts[t] is
-// 0. The second pass of the list and node-mask window kernels.
+// 0. The second pass of the list kernel and the two windows.
 extern "C" int nbody_parts_sum(int device, int dtype, int dim, const void* parts, const void* nparts,
                                int P, int ntiles, int tb, void* out, void* stream) {
   cudaError_t err = prepare(device, ntiles, tb);
   if (err != cudaSuccess) return err;
   if (P <= 0) return cudaErrorInvalidValue;
   const PartCount ranges{static_cast<const int*>(nparts), P};
-  if (dtype == 0) return launch_parts_sum<float>(dim, parts, ranges, ntiles, tb, out, stream);
-  if (dtype == 1) return launch_parts_sum<double>(dim, parts, ranges, ntiles, tb, out, stream);
+  if (dtype == 0) return launch_parts_sum<float>(device, dim, parts, ranges, ntiles, tb, P, out, stream);
+  if (dtype == 1) return launch_parts_sum<double>(device, dim, parts, ranges, ntiles, tb, P, out, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -792,18 +910,25 @@ extern "C" int nbody_masked_eval_bits(int device, int dim, const void* xi, int n
   return cudaGetLastError();
 }
 
+// The octree's interval window in at most P parts a tile: each part's
+// partial rows to parts (ntiles * P, tb, dim), each tile's part count to
+// nparts (ntiles,) int32, for nbody_parts_sum; w0, lo, hi (ntiles,) int32.
 extern "C" int nbody_window_eval_interval(int device, int dim, const void* xi, int ntiles,
                                           int tb, const void* mj, const void* xj, int nj,
                                           const void* w0, const void* lo, const void* hi,
-                                          int window_tiles, double eps, void* out, void* stream) {
+                                          int window_tiles, int sqrt3, double eps, int P,
+                                          void* nparts, void* parts, void* stream) {
   cudaError_t err = prepare(device, ntiles, tb);
   if (err != cudaSuccess) return err;
-  const auto kernel = pick(dim, window_eval_interval_kernel<2>, window_eval_interval_kernel<3>);
-  if (kernel == nullptr) return cudaErrorInvalidValue;
-  kernel<<<grid_for(ntiles, tb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = pick(dim, sqrt3, window_eval_interval_kernel<2, false>,
+                           window_eval_interval_kernel<2, true>, window_eval_interval_kernel<3, false>,
+                           window_eval_interval_kernel<3, true>);
+  const dim3 grid = split_grid(ntiles, P, tb, kRowsPerBlock);
+  if (kernel == nullptr || grid.x == 0 || window_tiles < 0) return cudaErrorInvalidValue;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xi), tb, static_cast<const float*>(mj), static_cast<const float*>(xj), nj,
-      static_cast<const int*>(w0), static_cast<const int*>(lo), static_cast<const int*>(hi), window_tiles,
-      static_cast<float>(eps), static_cast<float*>(out));
+      static_cast<const int*>(w0), static_cast<const int*>(lo), static_cast<const int*>(hi), window_tiles, P,
+      static_cast<float>(eps), static_cast<int*>(nparts), static_cast<float*>(parts));
   return cudaGetLastError();
 }
 
@@ -892,8 +1017,8 @@ extern "C" int nbody_entries_sum(int device, int dim, const void* parts, const v
                                  int ntiles, int tb, void* out, void* stream) {
   cudaError_t err = prepare(device, ntiles, tb);
   if (err != cudaSuccess) return err;
-  return launch_parts_sum<float>(dim, parts, PartStart{static_cast<const int*>(part_start)}, ntiles,
-                                 tb, out, stream);
+  return launch_parts_sum<float>(device, dim, parts, PartStart{static_cast<const int*>(part_start)},
+                                 ntiles, tb, kSumLoads, out, stream);
 }
 
 // The dense-mask far field: mask (ntiles, W) float32 weights on the W

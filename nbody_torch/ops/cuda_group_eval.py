@@ -10,7 +10,10 @@ BVH fast and list paths. The kernels live in nbody_torch/csrc/group_eval.cu
                                _masked_bits_kernel :270): the far field
   window_eval_interval_kernel  replaces window_eval_interval_pallas (:502;
                                body _window_interval_kernel :455): the
-                               octree's near window
+                               octree's near window, each tile's interval
+                               split in the kernel into at most P parts
+                               (interval_parts mirrors the split), by the
+                               Newton chain
   window_eval_nodemask_kernel  replaces window_eval_nodemask_pallas (:614;
                                body _window_nodemask_kernel :563): the
                                BVH's near window, each tile's open bodies
@@ -28,8 +31,8 @@ BVH fast and list paths. The kernels live in nbody_torch/csrc/group_eval.cu
                                any of the three entries kernels (the TPU
                                grid's sequential walk of a tile's run)
   parts_sum_kernel             the same second pass after the list kernel
-                               and the node-mask window: P slices a tile,
-                               the first nparts[t] of them written
+                               and the two windows: P slices a tile, the
+                               first nparts[t] of them written
   masked_eval_kernel           replaces masked_eval_pallas (:216; body
                                _masked_eval_kernel :184): the far field
                                with a dense float32 accept mask (ablate
@@ -65,8 +68,7 @@ All of them take the rows xi of T tiles of tb rows each, as an (T*tb, dim)
 array, and return their raw (G-less) accelerations in the same layout.
 `softening`, which every caller names, is "poly" (t = d2 * sqrt(d2) + eps,
 which the BVH passes, as in nbody_tpu) or "sqrt3" (t = (sqrt(d2) + eps)^3,
-octree.h:156-160, which the octree passes); the interval window is sqrt3
-only.
+octree.h:156-160, which the octree passes).
 Each wrapper checks its inputs, allocates the output (and the entries
 kernels' scratch of partial rows) with torch.empty, launches on the
 current stream, raises on a CUDA error and adds one to `launch_counts`
@@ -77,14 +79,16 @@ kernels do; group_eval_kernel takes float32 and float64 (the list paths
 are what float64 runs take; float32 reaches them through the list_path
 branch of the step functions); the twins take either precision.
 
-The entries kernels, the list kernel and the node-mask window take the
-two-MUFU chain of csrc/pair.cuh: in float32 nbody_tpu's own reciprocal,
-the approximate one and a Newton step (pallas_group_eval.py:73-74,
-:143-144, :877-878), within 1 ulp of the division; in float64 (the list
-kernel) MUFU seeds refined twice, within a few ulps of it. The other
-kernels and every twin divide in IEEE (the hardware's approximate
-reciprocal cannot be reproduced on the CPU), and the kernels' tolerance
-against the twins covers the ulps.
+The entries kernels, the list kernel and the node-mask and interval
+windows take the two-MUFU chain of csrc/pair.cuh: in float32 nbody_tpu's
+own reciprocal, the approximate one and a Newton step
+(pallas_group_eval.py:73-74, :143-144, :877-878), within 1 ulp of the
+division; in float64 (the list kernel) MUFU seeds refined twice, within a
+few ulps of it. The far field, the dense-mask window, the ablation
+kernels (masked_eval_kernel, group_shared_masked_kernel) and every twin
+divide in IEEE (the hardware's approximate reciprocal cannot be
+reproduced on the CPU), and the kernels' tolerance against the twins
+covers the ulps.
 
 The accept mask is packed node l -> word l // 32, bit l % 32
 (pack_mask_bits / unpack_mask_bits). nbody_tpu's strided order
@@ -252,17 +256,26 @@ def pack_sources(mj: torch.Tensor, xj: torch.Tensor) -> torch.Tensor:
     return torch.cat([xj, pad, mj[:, None]], dim=1).contiguous()
 
 
+def tile_intervals(w0: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, tb: int,
+                   window_tiles: int, nj: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(a, b), int64 (T,): tile t's interval [a, b), the bodies of its window
+    [w0[t]*tb, (w0[t] + window_tiles)*tb) that lie in [lo[t], hi[t]) and
+    below nj, as csrc/group_eval.cu tile_interval cuts it; empty where b <= a."""
+    col0 = w0.long() * tb
+    return (torch.maximum(lo.long(), col0),
+            torch.minimum(hi.long(), col0 + window_tiles * tb).clamp_max(nj))
+
+
 def window_eval_interval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                                w0: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, eps: float,
-                               window_tiles: int, absolute: bool = False) -> torch.Tensor:
+                               window_tiles: int, softening: str,
+                               absolute: bool = False) -> torch.Tensor:
     """Near window: row tile t against the bodies j of the window
     [w0[t]*tb, (w0[t] + window_tiles)*tb) that lie in [lo[t], hi[t]) -- the
     plain twin of window_eval_interval_kernel."""
     ntiles, nj = w0.shape[0], mj.shape[0]
     tb = xi.shape[0] // ntiles
-    col0 = w0.long() * tb
-    a = torch.maximum(lo.long(), col0)
-    b = torch.minimum(hi.long(), col0 + window_tiles * tb).clamp_max(nj)
+    a, b = tile_intervals(w0, lo, hi, tb, window_tiles, nj)
     span = (b - a).clamp_min(0)
     xt = xi.view(ntiles, tb, -1)
     out = torch.zeros_like(xt)
@@ -273,7 +286,7 @@ def window_eval_interval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Ten
         cols = a[ts, None] + torch.arange(c, device=xi.device)
         keep = cols < b[ts, None]
         cols = cols.clamp_max(nj - 1)
-        out[ts, rs] = _masked_block(xt[ts, rs], mj[cols], xj[cols], keep, eps, "sqrt3",
+        out[ts, rs] = _masked_block(xt[ts, rs], mj[cols], xj[cols], keep, eps, softening,
                                     absolute)
     return out.view_as(xi)
 
@@ -312,13 +325,29 @@ def window_eval_nodemask_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Ten
 
 
 def tile_parts(work, P: int):
-    """The parts the list kernel and the node-mask window split a tile of
+    """The parts the list kernel and the two windows split a tile of
     `work` bodies (an int, or a tensor of them) into (csrc/group_eval.cu
     tile_parts): one per ENTRY_CHUNK bodies, at most P; none without work.
     Part p of np takes the bodies [work * p // np, work * (p + 1) // np) of
     the tile's order."""
     n = -(-work // ENTRY_CHUNK)
     return n.clamp(max=P) if isinstance(n, torch.Tensor) else min(P, n)
+
+
+def interval_parts(w0: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, tb: int,
+                   window_tiles: int, nj: int, P: int) -> list[list[tuple[int, int]]]:
+    """The interval window kernel's split, in Python: for each tile t, its
+    parts in order, each the range [a, b) of sources it adds. Tile t's
+    interval is tile_intervals' [a_t, b_t); tile_parts(b_t - a_t, P) parts
+    take equal shares of it in order, none for an empty interval. The
+    tests use it; the card's path computes the same split in the kernel."""
+    a, b = tile_intervals(w0, lo, hi, tb, window_tiles, nj)
+    out = []
+    for at, bt in zip(a.tolist(), b.tolist()):
+        work = max(bt - at, 0)
+        n = tile_parts(work, P)
+        out.append([(at + work * p // n, at + work * (p + 1) // n) for p in range(n)])
+    return out
 
 
 def window_parts(in_win: torch.Tensor, S: int, nj: int, w0: torch.Tensor, tb: int,
@@ -569,17 +598,35 @@ def masked_eval_bits_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
 
 def window_eval_interval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                               w0: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, eps: float,
-                              window_tiles: int) -> torch.Tensor:
+                              window_tiles: int, softening: str,
+                              parts: int | None = None) -> torch.Tensor:
     """Near window of each row tile t: the bodies of [w0[t]*tb,
     (w0[t] + window_tiles)*tb) inside [lo[t], hi[t]) -- the counterpart of
-    window_eval_interval_pallas (with skip_outside: only the interval's
-    columns are visited)."""
+    window_eval_interval_pallas with skip_outside (only the interval's
+    columns are visited). Each tile's interval is split in the kernel into
+    at most `parts` parts (split_parts' P by default; interval_parts
+    mirrors the split), added in order by parts_sum_kernel."""
     _check(xi, w0.shape[0], mj, xj, w0, lo, hi)
+    if lo.shape != w0.shape or hi.shape != w0.shape:
+        raise ValueError(f"w0 {tuple(w0.shape)}, lo {tuple(lo.shape)} and hi {tuple(hi.shape)} "
+                         "must be (T,)")
+    if window_tiles < 0:
+        raise ValueError(f"window_tiles must be >= 0, got {window_tiles}")
+    sqrt3 = _sqrt3(softening)
     if _on_cpu(xi, mj, xj, w0, lo, hi):
-        return window_eval_interval_torch(xi, mj, xj, w0, lo, hi, eps, window_tiles)
-    return _launch("window_eval_interval_kernel", "nbody_window_eval_interval", xi, w0.shape[0],
-                   mj.data_ptr(), xj.data_ptr(), mj.shape[0], w0.data_ptr(), lo.data_ptr(),
-                   hi.data_ptr(), int(window_tiles), float(eps))
+        return window_eval_interval_torch(xi, mj, xj, w0, lo, hi, eps, window_tiles, softening)
+    if xi.dtype != torch.float32:
+        raise TypeError(f"window_eval_interval_kernel takes float32, got {xi.dtype}")
+    ntiles, tb = w0.shape[0], xi.shape[0] // w0.shape[0]
+    P = split_parts(ntiles, window_tiles * tb, sm_count_of(xi.device.index)) if parts is None \
+        else parts
+
+    def launch(lib, nparts, scratch, stream):
+        return lib.nbody_window_eval_interval(
+            xi.device.index, xi.shape[1], xi.data_ptr(), ntiles, tb, mj.data_ptr(), xj.data_ptr(),
+            mj.shape[0], w0.data_ptr(), lo.data_ptr(), hi.data_ptr(), int(window_tiles), sqrt3,
+            float(eps), P, nparts, scratch, stream)
+    return _launch_split("window_eval_interval_kernel", xi, ntiles, P, launch)
 
 
 def _check_window(xi: torch.Tensor, w0: torch.Tensor, wb: int, window_tiles: int) -> None:
@@ -768,14 +815,14 @@ def entries_sum_cuda(parts: torch.Tensor, part_start: torch.Tensor) -> torch.Ten
 
 
 # --------------------------------------------------------------------------
-# the list kernel's and the node-mask window's parts
+# the list kernel's and the windows' parts
 
 MAX_WINDOW_SLOTS = 32768  # node-mask window slots a tile (csrc/group_eval.cu kMaxWindowSlots)
 
 
 def split_parts(ntiles: int, work_max: int, sm_count: int) -> int:
-    """P, the parts a tile that the list kernel and the node-mask window
-    split each tile's work into, from shapes alone: about PARTS_PER_SM
+    """P, the parts a tile that the list kernel and the two windows split
+    each tile's work into, from shapes alone: about PARTS_PER_SM
     parts an SM, at most PARTS_PER_TILE a tile, and no more than one per
     ENTRY_CHUNK of the longest work a tile can hold."""
     return max(1, min(PARTS_PER_SM * sm_count // ntiles, PARTS_PER_TILE,
@@ -796,9 +843,9 @@ def parts_sum_torch(parts: torch.Tensor, nparts: torch.Tensor, P: int) -> torch.
 
 
 def parts_sum_cuda(parts: torch.Tensor, nparts: torch.Tensor, P: int) -> torch.Tensor:
-    """The rows of the list kernel's or the node-mask window's partial rows
-    parts (ntiles * P, tb, dim), each tile's first nparts[t] slices added
-    in part order (parts_sum_kernel)."""
+    """The rows of the list kernel's or a window's partial rows parts
+    (ntiles * P, tb, dim), each tile's first nparts[t] slices added in part
+    order (parts_sum_kernel)."""
     if (parts.ndim != 3 or parts.dtype not in _DTYPE_CODES or parts.shape[2] not in (2, 3)
             or not parts.is_contiguous() or P <= 0 or parts.shape[0] % P):
         raise ValueError(f"parts must be a contiguous (ntiles * {P}, tb, 2 | 3) float tensor, "
@@ -824,7 +871,7 @@ def parts_sum_cuda(parts: torch.Tensor, nparts: torch.Tensor, P: int) -> torch.T
 
 
 def _launch_split(kernel: str, xi: torch.Tensor, ntiles: int, P: int, launch) -> torch.Tensor:
-    """Run a split kernel (the list kernel or the node-mask window) on rows
+    """Run a split kernel (the list kernel or a window) on rows
     xi in P parts a tile into a scratch of partial rows, then
     parts_sum_kernel over it. launch(lib, nparts, scratch, stream) makes
     the C call with the scratch's pointers and returns its error."""

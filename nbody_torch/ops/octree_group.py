@@ -358,7 +358,7 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
         del cols, bmask
     else:
         win = window_eval_interval_cuda(xp, mp, xp, w0.to(torch.int32), lo_t.to(torch.int32),
-                                        hi_t.to(torch.int32), eps, wt)
+                                        hi_t.to(torch.int32), eps, wt, "sqrt3")
     near_args = (xp, mp, xp, entries, lohis, n_merged, S, ntiles, eps, "sqrt3")
     if "packedj" in tokens:
         near = entries_lohi_eval_cuda(*near_args, packed=True)

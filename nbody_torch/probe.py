@@ -63,24 +63,27 @@
         runs its twin, which takes no plan.
 
     python -m nbody_torch.probe split-parts OUT [--n N] [--dims 3,2] [--device cuda|cpu]
-        The list kernel and the node-mask window on other part counts
-        (probes/split_parts.py): the window call of one f32 BVH force
-        evaluation and the list call of one f64 octree and BVH list-path
-        evaluation on an N-body galaxy (default 2^20), timed at P = 1, 2,
-        4, 8 and the default; the list on the CLI's work (the fallback's
-        tiles skipped) and on every tile's heads; one JSON line per
-        (kernel, tree, dim), appended to OUT. A one-off design sweep.
+        The list kernel and the two windows on other part counts
+        (probes/split_parts.py): the interval window call of one f32
+        octree force evaluation, the node-mask window call of one f32 BVH
+        force evaluation and the list call of one f64 octree and BVH
+        list-path evaluation on an N-body galaxy (default 2^20), timed at
+        P = 1, 2, 4, 8 and the default; the list on the CLI's work (the
+        fallback's tiles skipped) and on every tile's heads; one JSON line
+        per (kernel, tree, dim), appended to OUT. A one-off design sweep.
 
     python -m nbody_torch.probe sass OUT.txt
         Compiles each nbody_torch/csrc/*.cu to a cubin with the build's
         nvcc flags and -Xptxas -v, writes `cuobjdump -sass` of them to
         OUT.txt, and prints one JSON line per kernel (also written to
-        OUT.txt.json): its registers and spill bytes, and its hot loop, the
+        OUT.txt.json): its registers and spill bytes, its hot loop, the
         innermost loop with the most MUFU operations: instructions, MUFU,
         FP32, FP64 and shared-load instructions in it, and the
         instructions a pair, counting two MUFU operations a pair (a root
         and a reciprocal, as every chain of csrc/ but the fast variant's
-        far branch takes).
+        far branch takes); and its global loads by width over the whole
+        function (LDG.E.128 a 16-byte load), what the sum passes are
+        judged by.
 """
 
 from __future__ import annotations
@@ -351,6 +354,23 @@ def sass_loops(text: str) -> dict[str, dict]:
     return out
 
 
+def sass_global_loads(text: str) -> dict[str, dict]:
+    """function -> its global loads in `cuobjdump -sass` text, counted by
+    opcode with its modifiers (LDG.E.128 is one 16-byte load), over the
+    whole function: what a kernel without a MUFU loop (the sum passes) is
+    judged by."""
+    out = {}
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        name, body = chunk.split("\n", 1)
+        loads = {}
+        for line in body.splitlines():
+            ins = SASS_LINE.search(line)
+            if ins and ins.group(3).startswith("LDG"):
+                loads[ins.group(3)] = loads.get(ins.group(3), 0) + 1
+        out[name.strip()] = loads
+    return out
+
+
 def ptxas_usage(text: str) -> dict[str, dict]:
     """function -> {registers, spill_stores, spill_loads} from nvcc
     -Xptxas -v output."""
@@ -393,11 +413,12 @@ def sass(out: str) -> None:
                                   capture_output=True, text=True).stdout
             f.write(log.stdout + log.stderr + text)
             usage = ptxas_usage(log.stdout + log.stderr)
+            loads = sass_global_loads(text)
             for name, loop in sass_loops(text).items():
                 demangled = (subprocess.run([filt, name], capture_output=True, text=True).stdout
                              .strip() if os.access(filt, os.X_OK) else name)
                 rows.append({"source": src.name, "kernel": demangled or name,
-                             **usage.get(name, {}), **loop})
+                             **usage.get(name, {}), **loop, "global_loads": loads.get(name, {})})
     with open(out + ".json", "w") as f:
         for row in rows:
             print(json.dumps(row))

@@ -1,17 +1,18 @@
-"""The list kernel and the node-mask window on other part counts (python -m
+"""The list kernel and the two windows on other part counts (python -m
 nbody_torch.probe split-parts): a one-off design sweep, not a port of a TPU
 script.
 
-Both kernels split each tile's work in the kernel into at most P parts a
-tile, P from shapes alone (cuda_group_eval.split_parts). One force
-evaluation of the f32 BVH fast path records its node-mask window call, and
-one f64 list-path evaluation of each tree records its list kernel call and
-the heads before the fallback's tiles were zeroed (live_heads). Each call
-is then timed at P = 1, 2, 4, 8 and the default: the window as recorded;
-the list on the CLI's work (the recorded heads) and on every tile's heads
-(nbody_tpu's work). One JSON line per (kernel, tree, dim): probe, kernel, tree,
-dim, n, the default P, ms by P (the list's by work), the live tiles, the
-device and the launches.
+The three kernels split each tile's work in the kernel into at most P parts
+a tile, P from shapes alone (cuda_group_eval.split_parts). One force
+evaluation of the f32 octree fast path records its interval window call,
+one of the f32 BVH fast path its node-mask window call, and one f64
+list-path evaluation of each tree records its list kernel call and the
+heads before the fallback's tiles were zeroed (live_heads). Each call is
+then timed at P = 1, 2, 4, 8 and the default: the windows as recorded; the
+list on the CLI's work (the recorded heads) and on every tile's heads
+(nbody_tpu's work). One JSON line per (kernel, tree, dim): probe, kernel,
+tree, dim, n, the default P, ms by P (the list's by work), the live tiles,
+the device and the launches.
 """
 
 from __future__ import annotations
@@ -52,6 +53,16 @@ def _recorded(module, names, run) -> dict:
     return seen
 
 
+def interval_call(n: int, dim: int, dev: torch.device) -> tuple:
+    """The window_eval_interval_cuda args of one f32 octree force evaluation."""
+    cfg, state = build_model("galaxy", n, dim, np.float32, device=dev)
+    depth = octree.max_depth(n, dim)
+    lo, hi = octree.robust_quant_box(state.x)
+    ms, xs, ks, _ = octree.morton_sort(state.m, state.x, lo, hi, depth)
+    return _recorded(og, ["window_eval_interval_cuda"], lambda: og.compute_force_grouped_fast(
+        ms, xs, ks, depth, cfg.theta, cfg.G, cfg.eps))["window_eval_interval_cuda"]
+
+
 def window_call(n: int, dim: int, dev: torch.device) -> tuple:
     """The window_eval_nodemask_cuda args of one f32 BVH force evaluation."""
     cfg, state = build_model("galaxy", n, dim, np.float32, device=dev)
@@ -79,20 +90,25 @@ def list_call(tree: str, n: int, dim: int, dev: torch.device) -> tuple[tuple, tu
 
 
 def run(out: str, n: int, dims: tuple[int, ...], dev: torch.device) -> None:
-    """Sweep the window (BVH) and the list (both trees) in each dimension."""
+    """Sweep the windows (octree interval, BVH node-mask) and the list
+    (both trees) in each dimension."""
     sms = ca.sm_count_of(dev.index) if dev.type == "cuda" else 132
     for dim in dims:
-        args = window_call(n, dim, dev)
-        w0, wt, tb = args[3], args[6], args[0].shape[0] // args[3].shape[0]
-        default = cg.split_parts(w0.shape[0], wt * tb, sms)
-        cg.reset_launch_counts()
-        ms = {p: timed_ms(lambda p=p: cg.window_eval_nodemask_cuda(*args, parts=p), dev)
-              for p in sorted({*PARTS, default})}
-        log(out, {"probe": "split_parts", "kernel": "window_eval_nodemask_kernel<poly>",
-                  "tree": "bvh", "dim": dim, "n": n, "default_parts": default, "ms_by_parts": ms,
-                  "device": device_name(dev),
-                  "launches": {k: v for k, v in cg.launch_counts.items() if v}})
-        del args
+        for tree, kernel, call, wt_arg in (
+                ("octree", "window_eval_interval_kernel<sqrt3>", cg.window_eval_interval_cuda, 7),
+                ("bvh", "window_eval_nodemask_kernel<poly>", cg.window_eval_nodemask_cuda, 6)):
+            args = (interval_call if tree == "octree" else window_call)(n, dim, dev)
+            w0, tb = args[3], args[0].shape[0] // args[3].shape[0]
+            default = cg.split_parts(w0.shape[0], args[wt_arg] * tb, sms)
+            cg.reset_launch_counts()
+            ms = {p: timed_ms(lambda p=p: call(*args, parts=p), dev)
+                  for p in sorted({*PARTS, default})}
+            log(out, {"probe": "split_parts", "kernel": kernel, "tree": tree, "dim": dim, "n": n,
+                      "default_parts": default, "ms_by_parts": ms, "device": device_name(dev),
+                      "launches": {k: v for k, v in cg.launch_counts.items() if v}})
+            del args
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
         for tree in ("octree", "bvh"):
             args, every = list_call(tree, n, dim, dev)
             xi, mj = args[0], args[1]

@@ -54,7 +54,8 @@ def test_ctypes_signatures_match_the_sources():
     for name, args in _build.SIGNATURES:
         assert name in defined, name
         assert [kind[a] for a in args] == defined[name], name
-    assert {"nbody_group_eval", "nbody_parts_sum", "nbody_window_eval_nodemask"} <= defined.keys()
+    assert {"nbody_group_eval", "nbody_parts_sum", "nbody_window_eval_nodemask",
+            "nbody_window_eval_interval"} <= defined.keys()
 
 
 SASS = """
@@ -97,3 +98,26 @@ def test_probe_sass_counts_the_innermost_mufu_loop():
                                  "lds": 0, "instructions_per_pair": 6.0}
     assert ptxas_usage(PTXAS) == {"_Zkernel": {"spill_stores": 8, "spill_loads": 4,
                                                "registers": 40}}
+
+
+SUM_SASS = """
+        code for sm_90a
+                Function : _Zsum
+        /*0000*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0010*/               @P0 LDG.E.128.CONSTANT R8, desc[UR4][R6.64] ;
+        /*0020*/                   LDG.E R12, desc[UR4][R10.64] ;
+        /*0030*/                   FADD R4, R4, R8 ;
+        /*0040*/                   STG.E.128 desc[UR4][R2.64], R4 ;
+        /*0050*/                   EXIT ;
+                Function : _Zplain
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_probe_sass_counts_global_loads_by_width():
+    """probe sass: a function's global loads by opcode and width, predicated
+    ones included; a function with none has none."""
+    from nbody_torch.probe import sass_global_loads
+
+    assert sass_global_loads(SUM_SASS) == {"_Zsum": {"LDG.E.128.CONSTANT": 2, "LDG.E": 1},
+                                           "_Zplain": {}}

@@ -1,12 +1,14 @@
 """The hand-written CUDA kernels against their plain torch twins, on the
 card: the all-pairs kernels (csrc/allpairs.cu) and the tree kernels
 (csrc/group_eval.cu): far, the octree's interval window, the BVH's
-node-mask and dense-mask windows, and entries, each far and entries test
-under both softenings, the ablation path's dense-mask far field,
+node-mask and dense-mask windows, and entries, each far, interval window
+and entries test under both softenings, the ablation path's dense-mask far field,
 supertile-shared monopoles and packed-source entries (which must equal
 the unpacked kernel bit for bit), the list paths' kernel in float32 and float64
-under both (split into parts in the kernel, as is the node-mask window:
-every part count and both launches of a call bit-equal), the table-driven entries and the entry-cost probes' ladder and
+under both (split into parts in the kernel, as are the two windows:
+every part count and both launches of a call bit-equal; the second pass
+bit-equal to its plain version on slices that take 16-byte loads and on
+those that do not), the table-driven entries and the entry-cost probes' ladder and
 copy-ring kernels (csrc/entry_probes.cu), and the all-pairs variants (the Newton and fast
 instantiations, and the hybrid kernel of csrc/allpairs_mxu.cu, whose
 counts of tile pairs by branch must equal their twins'). Every test
@@ -409,11 +411,16 @@ def test_far_kernel_vs_twin(dev, dim, tb, softening):
     assert not got[tb:2 * tb].any()
 
 
+@pytest.mark.parametrize("softening", ["poly", "sqrt3"])
+@pytest.mark.parametrize("tb", [512, 700])
 @pytest.mark.parametrize("dim", [2, 3])
-def test_window_kernel_vs_twin(dev, dim):
-    """Random windows and intervals over a ragged body count, an empty
-    interval, and an interval that runs past the last body."""
-    ntiles, tb, wt = 9, 512, 4
+def test_window_kernel_vs_twin(dev, dim, tb, softening):
+    """The interval window: random windows and intervals over a ragged body
+    count, an empty interval, an interval that runs past the last body and
+    one that starts before its window; at the default part count and at
+    P = 1, 2, 4, 8 (interval_parts' split), each within the tolerance, two
+    launches bit-equal; tiles of 700 rows take two row blocks a part."""
+    ntiles, wt = 9, 4
     nj = ntiles * tb - 77
     mj, xj = _bodies(nj, dim, torch.float32, dev, seed=50 + dim)
     _, xi = _bodies(ntiles * tb, dim, torch.float32, dev, seed=51 + dim)
@@ -422,13 +429,21 @@ def test_window_kernel_vs_twin(dev, dim):
     lo = (w0 * tb + rng.integers(-300, 900, ntiles)).clip(0)
     hi = lo + rng.integers(0, wt * tb + 600, ntiles)
     hi[2], hi[-1] = lo[2], ntiles * tb + 100
+    lo[4] = max(0, w0[4] * tb - 200)
     args = [torch.tensor(a, dtype=torch.int32, device=dev) for a in (w0, lo, hi)]
-    got = cg.window_eval_interval_cuda(xi, mj, xj, *args, EPS32, wt)
-    ref = cg.window_eval_interval_torch(xi, mj, xj, *args, EPS32, wt)
+    ref = cg.window_eval_interval_torch(xi, mj, xj, *args, EPS32, wt, softening)
     cols = np.arange(nj)[None, :]
     sel = (cols >= np.maximum(lo, w0 * tb)[:, None]) & (cols < np.minimum(hi, (w0 + wt) * tb)[:, None])
-    _assert_group_within(got, ref, _group_scale(xi, mj, xj, sel, tb))
+    scale = _group_scale(xi, mj, xj, sel, tb, softening)
+    got = cg.window_eval_interval_cuda(xi, mj, xj, *args, EPS32, wt, softening)
+    _assert_group_within(got, ref, scale)
     assert not got[2 * tb:3 * tb].any()
+    assert torch.equal(got, cg.window_eval_interval_cuda(xi, mj, xj, *args, EPS32, wt, softening))
+    for parts in (1, 2, 4, 8):
+        other = cg.window_eval_interval_cuda(xi, mj, xj, *args, EPS32, wt, softening, parts=parts)
+        _assert_group_within(other, ref, scale)
+        assert torch.equal(other, cg.window_eval_interval_cuda(xi, mj, xj, *args, EPS32, wt,
+                                                               softening, parts=parts))
 
 
 @pytest.mark.parametrize("softening", ["poly", "sqrt3"])
@@ -471,15 +486,40 @@ def test_entries_kernel_vs_twin(dev, dim, softening):
         _assert_group_within(other, ref, _group_scale(xi, mj, xj, sel, tb, softening))
 
 
-def test_entries_sum_kernel_equals_twin(dev):
-    """Tiles of 1, 3 and 2 parts, added in part order, bit for bit."""
+def _same_bits(a, b):
+    """a and b equal bit for bit (torch.equal takes -0 for +0)."""
+    torch.cuda.synchronize()
+    view = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return a.shape == b.shape and torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+
+
+def _signed_zeros(parts, rng):
+    """parts with about a tenth of its values set to -0.0, which the sum
+    pass must keep where a tile has one part."""
+    return torch.where(torch.tensor(rng.random(parts.shape) < 0.1, device=parts.device),
+                       torch.full((), -0.0, dtype=parts.dtype, device=parts.device), parts)
+
+
+@pytest.mark.parametrize("tb, dim", [(300, 3), (129, 3), (512, 2)])
+def test_entries_sum_kernel_equals_twin(dev, tb, dim):
+    """Tiles of 1, 3, 2 and 11 parts (more than the 8 a thread loads
+    before adding) added in part order, bit for bit, on slices of tb * dim
+    elements a multiple of 4 (16-byte loads) or not (129 * 3: one element
+    a thread), and on parts that lie 4 bytes off a 16-byte boundary."""
     rng = np.random.default_rng(63)
-    parts = torch.tensor(rng.standard_normal((7, 300, 3)), dtype=torch.float32, device=dev)
-    start = torch.tensor([0, 1, 4, 6], dtype=torch.int32, device=dev)
-    got = cg.entries_sum_cuda(parts, start)
-    assert got.shape == (900, 3)
-    assert torch.equal(got, cg.entries_sum_torch(parts, start))
-    assert torch.equal(got[300:600], (parts[1] + parts[2] + parts[3]).view(300, 3))
+    start = torch.tensor([0, 1, 4, 6, 17], dtype=torch.int32, device=dev)
+    flat = torch.tensor(rng.standard_normal(17 * tb * dim + 1), dtype=torch.float32, device=dev)
+    for parts in (flat[:-1].view(17, tb, dim), flat[1:].view(17, tb, dim)):
+        parts = _signed_zeros(parts, rng) if parts.data_ptr() % 16 == 0 else parts
+        got = cg.entries_sum_cuda(parts, start)
+        assert got.shape == (4 * tb, dim)
+        assert _same_bits(got, cg.entries_sum_torch(parts, start))
+        assert _same_bits(got[:tb], parts[0])
+        assert _same_bits(got[tb:2 * tb], (parts[1] + parts[2] + parts[3]).view(tb, dim))
+        many = parts[6]
+        for k in range(7, 17):
+            many = many + parts[k]
+        assert _same_bits(got[3 * tb:], many)
 
 
 def _window_case(dev, dim, tb, wt, S, seed):
@@ -619,7 +659,8 @@ def test_group_launch_counters(dev):
     cg.masked_eval_bits_cuda(xj, mj, xj, words, EPS32, "poly")
     i32 = dict(dtype=torch.int32, device=dev)
     zero = torch.zeros(1, **i32)
-    cg.window_eval_interval_cuda(xj, mj, xj, zero, zero, torch.full((1,), 64, **i32), EPS32, 1)
+    cg.window_eval_interval_cuda(xj, mj, xj, zero, zero, torch.full((1,), 64, **i32), EPS32, 1,
+                                 "sqrt3")
     cg.entries_lohi_eval_cuda(xj, mj, xj, zero, zero, torch.tensor(1, device=dev), 64, 1, EPS32,
                               "poly")
     cg.window_eval_nodemask_cuda(xj, mj, xj, zero, torch.ones(1, 4, dtype=torch.bool, device=dev),
@@ -635,7 +676,7 @@ def test_group_launch_counters(dev):
                                 "entries_lohi_kernel": 1, "masked_eval_kernel": 0,
                                 "group_shared_masked_kernel": 0, "entries_lohi_kernel<packed>": 0,
                                 "entries_tables_kernel": 0, "entries_sum_kernel": 1,
-                                "parts_sum_kernel": 3,
+                                "parts_sum_kernel": 4,
                                 "group_eval_kernel<float32, poly>": 0,
                                 "group_eval_kernel<float32, sqrt3>": 1,
                                 "group_eval_kernel<float64, poly>": 1,
@@ -757,21 +798,27 @@ def test_float64_list_chain_within_ulps_of_ieee(dev):
             ((got - ref).abs() / ref.abs().clamp_min(1e-300)).max().item()
 
 
+@pytest.mark.parametrize("P", [4, 8])
+@pytest.mark.parametrize("tb, dim", [(300, 3), (129, 3), (512, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_parts_sum_kernel_equals_twin(dev, dtype):
+def test_parts_sum_kernel_equals_twin(dev, dtype, tb, dim, P):
     """The split kernels' second pass: each tile's first nparts[t] of P
-    slices added in order, zero without parts, bit-equal to its plain
-    version."""
-    P, tb = 4, 300
-    nparts = torch.tensor([0, 1, 4, 2, 3, 0], dtype=torch.int32, device=dev)
-    parts = torch.rand((6 * P, tb, 3), dtype=dtype, device=dev)
-    got = cg.parts_sum_cuda(parts, nparts, P)
-    torch.cuda.synchronize()
-    assert torch.equal(got, cg.parts_sum_torch(parts, nparts, P))
-    assert not got[:tb].any() and torch.equal(got[tb:2 * tb], parts[P].view(tb, 3))
-    assert torch.equal(got[2 * tb:3 * tb],
-                       (((parts[2 * P] + parts[2 * P + 1]) + parts[2 * P + 2])
-                        + parts[2 * P + 3]).view(tb, 3))
+    slices added in order, zero without parts, -0 kept where a tile has
+    one part, bit-equal to its plain version; on slices of tb * dim
+    elements a multiple of 4 (16-byte loads) or not (129 * 3), and on
+    parts 8 bytes off a 16-byte boundary (one element a thread)."""
+    rng = np.random.default_rng(64)
+    nparts = torch.tensor([0, 1, P, 2, P - 1, 0, 3], dtype=torch.int32, device=dev)
+    n = 7 * P * tb * dim
+    flat = torch.tensor(rng.random(n + 1), dtype=dtype, device=dev)
+    for parts in (_signed_zeros(flat[:-1], rng).view(7 * P, tb, dim), flat[1:].view(7 * P, tb, dim)):
+        got = cg.parts_sum_cuda(parts, nparts, P)
+        assert _same_bits(got, cg.parts_sum_torch(parts, nparts, P))
+        assert not got[:tb].any() and _same_bits(got[tb:2 * tb], parts[P])
+        whole = parts[2 * P]
+        for k in range(1, P):
+            whole = whole + parts[2 * P + k]
+        assert _same_bits(got[2 * tb:3 * tb], whole)
 
 
 @pytest.mark.parametrize("tree", ["octree", "bvh"])

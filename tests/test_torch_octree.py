@@ -255,7 +255,7 @@ def test_window_twin_vs_window_eval_interval_pallas(dim):
                                           jnp.asarray(w0), jnp.asarray(lo), jnp.asarray(hi), EPS,
                                           window_tiles=wt, interpret=True, softening="sqrt3",
                                           skip_outside=True)
-    args = (_t(xj), _t(mj), _t(xj), _t(w0), _t(lo), _t(hi), EPS, wt)
+    args = (_t(xj), _t(mj), _t(xj), _t(w0), _t(lo), _t(hi), EPS, wt, "sqrt3")
     got = tge.window_eval_interval_cuda(*args)
     cols = np.arange(ntiles * tb)[None, :]
     sel = ((cols >= np.maximum(lo, w0 * tb)[:, None])
