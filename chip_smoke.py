@@ -53,7 +53,10 @@ Phases, each printed on its own lines:
         the call's shape and part counts beside its plain version
         (bit-equal) and torch.sum; in 3-D its poly instantiation (which
         no path of the port runs yet) held against its twin on the same
-        inputs and timed;
+        inputs and timed; the far field's two launches bit-equal, its call
+        timed on the device alone beside its MUFU floor, with the accepted
+        nodes a tile and the kernel's SASS a pair (probe sass_of of
+        csrc/group_eval.cu, run in a thread from phase 1);
      b. the CLI at full size, -n 1048576 -s 12 --algorithm octree in 3-D
         and in 2-D (the window's parts_sum_kernel launched in both);
      c. the 3-D force of (a) against the sqrt3 all-pairs kernel on the
@@ -65,10 +68,13 @@ Phases, each printed on its own lines:
         whose far, node-mask window and entries kernel calls are recorded
         and re-run as in 5a, each timed beside its twin, the entries call
         checked and its plan printed as in 5a, the node-mask window as the
-        interval window is in 5a; the dense-mask
+        interval window is in 5a, the far field as in 5a; the dense-mask
         window, which the BVH reaches only at n <= 16, is timed on a
         synthetic 2^20 window built from the node-mask window's slots and
-        on the inputs of an n = 16 evaluation;
+        on the inputs of an n = 16 evaluation, each beside its twin, its
+        two launches bit-equal, on the device alone (the call and its
+        second pass), at P = 1, 2, 4 and 8 (each within 1e-4 of the
+        default's max |a|), beside its MUFU floor and its SASS a pair;
      b. the CLI at full size, -n 1048576 -s 12 --algorithm bvh in 3-D and
         in 2-D, then python -m nbody_torch.probe trace --algorithm bvh of 3
         steps in each (the idle share);
@@ -80,7 +86,9 @@ Phases, each printed on its own lines:
         of sum |a|;
      e. the small path, -n 10 -s 5 --algorithm bvh --theta 0, on the card
         (through the dense-mask window) and on the CPU: the same final
-        state, in the same body order;
+        state, in the same body order; then the s/step of -n 10 -s 210
+        --algorithm bvh --theta 0 and -n 16 -s 210 --algorithm bvh
+        --csv-total on the card (200 timed steps each);
   7. the trees' list paths (float64 runs, --precision double), through
      the list kernel group_eval_kernel and the all-pairs fallback:
      a. one float64 list-path force evaluation of a 2^20-body galaxy per
@@ -196,9 +204,10 @@ that computes its function (in another order of addition).
 entries_sum_kernel is bound by its bytes (the parts read once, the rows
 written once); library_ms is index_add_ of the parts into their tiles'
 rows, the one PyTorch call that computes its function (in another order
-of addition). Beside the entries kernel's float32 times 5a and 6a print
-its MUFU floor, as phase 2 does.
-parts_sum_kernel, the second pass of the two windows and the list
+of addition). Beside the entries kernel's, the far field's and the
+dense-mask window's float32 times 5a and 6a print their MUFU floors, as
+phase 2 does.
+parts_sum_kernel, the second pass of the three windows and the list
 kernel, is bound by its bytes (the written parts read once, the rows
 written once); library_ms is torch.sum over the parts, which computes
 its sums once the unwritten slices are zero, as there. The two sum
@@ -343,6 +352,7 @@ def main() -> int:
     print(f"[1] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"({'already built' if cached else 'nvcc ' + ' '.join(_build.NVCC_FLAGS)}) "
           f"-> {_build.library_path().name}")
+    sass_job = start_sass()
 
     # -- phase 2: kernels vs plain twins -----------------------------------
     big = 1 << 20
@@ -427,8 +437,8 @@ def main() -> int:
           f"relative drift {drift:.3e} (limit 1e-3); launches {phase4_launches}")
     check(drift <= 1e-3, "energy drift too large")
 
-    octree_kernels, octree_fallback, interval_sum = octree_phases(dev, big)
-    bvh_kernels, bvh_fallback = bvh_phases(dev, big)
+    octree_kernels, octree_fallback, interval_sum = octree_phases(dev, big, sass_job)
+    bvh_kernels, bvh_fallback = bvh_phases(dev, big, sass_job)
     list_kernels, list_fallback, list_launches = list_phases(dev, big)
     variant_kernels = variant_phases(dev, big)
     ablation_kernels = ablation_phases(dev, big)
@@ -1019,6 +1029,102 @@ def window_extras(tag: str, name: str, call, args, softening: str, pairs: int) -
             "sum_pass": parts_sum_extras(tag, nparts, P, tb, dim, xi.dtype)}
 
 
+def start_sass():
+    """Start nvcc -cubin and cuobjdump of csrc/group_eval.cu (probe
+    sass_of) in a thread and return its future: the far field's and the
+    dense window's SASS a pair, read in 5a and 6a, cost no wall time of
+    their own."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nbody_torch import _build, probe
+
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(probe.sass_of, _build.CSRC / "group_eval.cu")
+    pool.shutdown(wait=False)  # the job runs on; the pool takes no more
+    return future
+
+
+def kernel_sass(sass_job, name: str, dim: int, softening: str) -> dict:
+    """probe sass's count of a group_eval.cu kernel's hot loop (sass_job:
+    start_sass's future): its instructions a pair, registers and spills."""
+    rows = sass_job.result(timeout=600)[1]
+    key = f"::{name}<(int){dim}, (bool){int(softening == 'sqrt3')}>("
+    row = next(r for r in rows if key in r["kernel"])
+    return {k: row.get(k) for k in ("instructions_per_pair", "registers", "spill_stores",
+                                    "spill_loads", "loop_instructions", "mufu")}
+
+
+def far_extras(tag: str, args, softening: str, pairs: int, sass_job) -> dict:
+    """5a / 6a, the far-field call beyond measure(): two launches
+    bit-equal, the call on the device alone (device_ms: 20 calls queued
+    behind a sleep kernel), its MUFU floor, the accepted nodes a tile and
+    the kernel's SASS a pair."""
+    import torch
+
+    from nbody_torch.ops import cuda_allpairs as ca
+    from nbody_torch.ops import cuda_group_eval as cg
+    from nbody_torch.probes.compare_trees import device_ms
+
+    xi, mj, words = args[0], args[1], args[3]
+    dim = xi.shape[1]
+    first = cg.masked_eval_bits_cuda(*args)
+    same = torch.equal(first, cg.masked_eval_bits_cuda(*args))
+    dev_ms = device_ms(lambda: cg.masked_eval_bits_cuda(*args))
+    floor = mufu_floor_ms(pairs, ca.sm_count_of(xi.device.index))
+    accepted = cg.unpack_mask_bits(words, mj.shape[0]).sum(1).double()
+    sass = kernel_sass(sass_job, "masked_eval_bits_kernel", dim, softening)
+    print(f"[{tag}] masked_eval_bits_kernel<{softening}>: {words.shape[0]} tiles, {mj.shape[0]} "
+          f"nodes, accepted a tile mean {accepted.mean().item():.1f}, max "
+          f"{int(accepted.max())}; two launches {'bit-equal' if same else 'DIFFER'}; device "
+          f"{dev_ms:.4f} ms; MUFU floor {floor:.4f} ms ({floor / dev_ms:.3f} of it); SASS "
+          f"{sass['instructions_per_pair']} a pair, {sass['registers']} registers, spills "
+          f"{sass['spill_stores']} / {sass['spill_loads']} bytes")
+    check(same, f"{tag}: two masked_eval_bits_kernel launches on the same inputs differ")
+    return {"bit_equal_launches": same, "device_ms": dev_ms, "mufu_floor_ms": floor,
+            "accepted_mean": accepted.mean().item(), "accepted_max": int(accepted.max()),
+            "sass": sass}
+
+
+DENSE_PARTS = (1, 2, 4, 8)  # 6a: the dense window's P sweep
+
+
+def dense_extras(tag: str, args, pairs: int, reps: int, sass_job) -> dict:
+    """6a, a dense-mask window call beyond measure(): two launches
+    bit-equal, the default P, the call on the device alone (device_ms),
+    at P = 1, 2, 4, 8 (CUDA events over `reps` calls) each held to 1e-4 of
+    the default's max |a|, its MUFU floor and the kernel's SASS a pair."""
+    import torch
+
+    from nbody_torch.ops import cuda_allpairs as ca
+    from nbody_torch.ops import cuda_group_eval as cg
+    from nbody_torch.probes.compare_trees import device_ms
+
+    xi, softening = args[0], args[7]
+    call = cg.window_eval_dense_cuda
+    first, nparts, P = launched_parts(lambda: call(*args))
+    same = torch.equal(first, call(*args))
+    dev_ms = device_ms(lambda: call(*args), reps=reps)
+    sweep, diff = {}, 0.0
+    for parts in DENSE_PARTS:
+        sweep[parts], out = event_ms(lambda: call(*args, parts=parts), reps=reps, keep=True)
+        diff = max(diff, ((out - first).abs().max() / first.abs().max().clamp_min(1e-30)).item())
+    floor = mufu_floor_ms(pairs, ca.sm_count_of(xi.device.index))
+    sass = kernel_sass(sass_job, "window_eval_dense_kernel", xi.shape[1], softening)
+    print(f"[{tag}] window_eval_dense_kernel<{softening}>: P = {P} parts a tile "
+          f"({int(nparts.sum())} parts over {nparts.shape[0]} tiles), two launches "
+          f"{'bit-equal' if same else 'DIFFER'}; device {dev_ms:.4f} ms (the call and its "
+          f"second pass); P sweep (calls back to back) "
+          f"{', '.join(f'{k}: {v:.4f}' for k, v in sweep.items())} ms (max |diff| / max |a| "
+          f"{diff:.3e}); MUFU floor {floor:.4f} ms ({floor / dev_ms:.3f} of it); SASS "
+          f"{sass['instructions_per_pair']} a pair, {sass['registers']} registers, spills "
+          f"{sass['spill_stores']} / {sass['spill_loads']} bytes")
+    check(same, f"{tag}: two window_eval_dense_kernel launches on the same inputs differ")
+    check(diff <= 1e-4,
+          f"{tag}: window_eval_dense_kernel at other part counts differs by {diff:.3e}")
+    return {"bit_equal_launches": same, "parts_a_tile": P, "parts": int(nparts.sum()),
+            "device_ms": dev_ms, "ms_by_parts": sweep, "mufu_floor_ms": floor, "sass": sass}
+
+
 class Recorded(dict):
     """attr -> the last call's positional args; .kwargs: attr -> its
     keyword args; .results: attr -> what it returned."""
@@ -1116,12 +1222,13 @@ OCTREE_KERNELS = {  # name -> (wrapper in ops.cuda_group_eval, twin, Pallas func
 }
 
 
-def octree_phases(dev, big: int):
+def octree_phases(dev, big: int, sass_job):
     """Phase 5: the octree fast path at 2^20. Returns the JSON entries of
     its three kernels and the entries' second pass, the all-pairs kernel's
     fallback launches in the CLI runs, by dimension, and the interval
     window's second pass (parts_sum_kernel, whose entry the BVH's phase
-    makes): its measurements and launches in the 5b runs, by dimension."""
+    makes): its measurements and launches in the 5b runs, by dimension.
+    sass_job: start_sass's future, read in (a)."""
     import torch
 
     from nbody_torch.models import build_model
@@ -1163,6 +1270,9 @@ def octree_phases(dev, big: int):
         ent = measured["entries_lohi_kernel"][dim]
         ent.update(entries_extras(f"5a {dim}-D", recorded["entries_lohi_eval_cuda"], ent["pairs"]))
         sum_pass[dim] = ent.pop("sum_pass")
+        far = measured["masked_eval_bits_kernel"][dim]
+        far.update(far_extras(f"5a {dim}-D", recorded["masked_eval_bits_cuda"], "sqrt3",
+                              far["pairs"], sass_job))
         win_args = recorded["window_eval_interval_cuda"]
         win = measured["window_eval_interval_kernel"][dim]
         win.update(window_extras(f"5a {dim}-D", "window_eval_interval_kernel",
@@ -1239,10 +1349,32 @@ DENSE = ("window_eval_dense_kernel", "window_eval_dense_cuda", "window_eval_dens
          f"{PALLAS_GROUP_EVAL}:383")
 
 
-def bvh_phases(dev, big: int):
+# 6e: the small BVH runs that take the dense-mask window, timed through the CLI
+SMALL_RUNS = (("-n", "10", "-s", "210", "--algorithm", "bvh", "--theta", "0"),
+              ("-n", "16", "-s", "210", "--algorithm", "bvh"))
+
+
+def small_run_step(argv, tag: str) -> float:
+    """s/step of a small CLI run on the card (compare_trees.small_run_step:
+    the --csv-total total over its steps after the 10 warmup steps), its
+    dense-mask window launched."""
+    from nbody_torch import cli
+    from nbody_torch.ops import cuda_group_eval as cg
+    from nbody_torch.probes.compare_trees import small_run_step as per_step
+
+    cg.reset_launch_counts()
+    step = per_step(cli, argv)
+    launches = cg.launch_counts[DENSE[0]]
+    print(f"[{tag}] python -m nbody_torch.cli {' '.join(argv)} --device cuda --csv-total: "
+          f"{step:.6f} s/step; window_eval_dense_kernel launches {launches}")
+    check(launches > 0, f"{' '.join(argv)} launched no dense-mask window")
+    return step
+
+
+def bvh_phases(dev, big: int, sass_job):
     """Phase 6: the BVH fast path at 2^20. Returns the JSON entries of its
     four kernels and the all-pairs kernel's fallback launches in the CLI
-    runs, by dimension."""
+    runs, by dimension. sass_job: start_sass's future, read in (a)."""
     import torch
 
     from nbody_torch import cli
@@ -1291,6 +1423,9 @@ def bvh_phases(dev, big: int):
         ent = measured["entries_lohi_kernel"][dim]
         ent.update(entries_extras(f"6a {dim}-D", ent_args, ent["pairs"]))
         ent["sum_pass_ms"] = ent.pop("sum_pass")["ms"]  # the kernels line's entry is 5a's
+        far = measured["masked_eval_bits_kernel"][dim]
+        far.update(far_extras(f"6a {dim}-D", recorded["masked_eval_bits_cuda"], "poly",
+                              far["pairs"], sass_job))
         win = measured["window_eval_nodemask_kernel"][dim]
         win.update(window_extras(f"6a {dim}-D", "window_eval_nodemask_kernel",
                                  cg.window_eval_nodemask_cuda,
@@ -1303,9 +1438,13 @@ def bvh_phases(dev, big: int):
         # node-mask call's inputs, its slots broadcast over their S bodies
         xi, mj, xj, w0, in_win, _, wt, S, _ = recorded["window_eval_nodemask_cuda"]
         mask = in_win.to(torch.float32).repeat_interleave(S, dim=1).contiguous()
-        measured[DENSE[0]][dim] = measure(f"6a {dim}-D synthetic", DENSE[0], dense_kern,
-                                          dense_twin, (xi, mj, xj, w0, mask, eps, wt, "poly"),
-                                          dim, "poly")
+        dense_args = (xi, mj, xj, w0, mask, eps, wt, "poly")
+        dense = measure(f"6a {dim}-D synthetic", DENSE[0], dense_kern, dense_twin, dense_args,
+                        dim, "poly")
+        dense.update(dense_extras(f"6a {dim}-D synthetic", dense_args, dense["pairs"], 3,
+                                  sass_job))
+        measured[DENSE[0]][dim] = dense
+        del dense_args
         del recorded, mask, xi, mj, xj, w0, in_win, ent_args
         if dim == 3:
             # -- (c) the 3-D force against the exact poly sum on the same bodies
@@ -1323,8 +1462,11 @@ def bvh_phases(dev, big: int):
         with recording(bg, [DENSE[1]]) as recorded:
             bg.compute_force_grouped_windowed(tree, state.m, state.x, 0.0, cfg.G, cfg.eps)
         check(DENSE[1] in recorded, f"the {dim}-D n = 16 evaluation took no dense-mask window")
-        measured[DENSE[0]][f"n16_{dim}d"] = measure(f"6a {dim}-D n=16", DENSE[0], dense_kern,
-                                                    dense_twin, recorded[DENSE[1]], dim, "poly")
+        small = measure(f"6a {dim}-D n=16", DENSE[0], dense_kern, dense_twin, recorded[DENSE[1]],
+                        dim, "poly")
+        small.update(dense_extras(f"6a {dim}-D n=16", recorded[DENSE[1]], small["pairs"], 20,
+                                  sass_job))
+        measured[DENSE[0]][f"n16_{dim}d"] = small
 
     # -- (b) the CLI at full size; counts from 0 just before each run; then
     #    probe trace's idle share of 3 steps
@@ -1368,6 +1510,7 @@ def bvh_phases(dev, big: int):
           f"max |value| = {diff:.3e} (limit 1e-4); launches on the card {small_launches}")
     check(diff <= 1e-4, "card and CPU final states differ (or their body orders do)")
     check(small_launches[DENSE[0]] > 0, "the small run did not launch the dense-mask window")
+    small_steps = {" ".join(argv): small_run_step(argv, "6e") for argv in SMALL_RUNS}
 
     run3 = f"phase 6b: {big}-body 3-D bvh --csv-total"
     entries = []
@@ -1393,7 +1536,8 @@ def bvh_phases(dev, big: int):
                     "launches_in": "phase 6e: -n 10 -s 5 --algorithm bvh --theta 0 on the card",
                     **dense[3], "n": big, "dim": 3, "dtype": "float32",
                     "timed_on": "a synthetic 2^20 window from the node-mask call's slots",
-                    "2d": dense[2], "n16_3d": dense["n16_3d"], "n16_2d": dense["n16_2d"]})
+                    "2d": dense[2], "n16_3d": dense["n16_3d"], "n16_2d": dense["n16_2d"],
+                    "small_runs_s_per_step": small_steps})
     return entries, {dim: launches[dim][ca.NEWTON] for dim in (3, 2)}
 
 

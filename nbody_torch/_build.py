@@ -121,7 +121,8 @@ SIGNATURES = (
     # the node-mask window: (..., w0, in_win, wnodes, S, sqrt3, eps, P, nparts, parts,
     #  stream)
     ("nbody_window_eval_nodemask", [i, i, p, i, i, p, p, i, p, p, i, i, i, f64, i, p, p, p]),
-    ("nbody_window_eval_dense", [i, i, p, i, i, p, p, i, p, p, i, i, f64, p, p]),
+    # the dense-mask window: (..., w0, mask, wb, sqrt3, eps, P, nparts, parts, stream)
+    ("nbody_window_eval_dense", [i, i, p, i, i, p, p, i, p, p, i, i, f64, i, p, p, p]),
     # the entries kernels: (device, dim, xi, ntiles, tb, mj, xj, xm, sqrt3, eps, cum,
     #  start, tile, e0, e1, u0, u1, blocks, parts, stream)
     ("nbody_entries_eval", [i, i, p, i, i, p, p, p, i, f64, p, p, p, p, p, p, p, i, p, p]),

@@ -9,15 +9,19 @@
 // is templated on it (SQRT3).
 //
 // masked_eval_bits_kernel<DIM, SQRT3> replaces masked_eval_bits_pallas
-// (nbody_tpu/ops/pallas_group_eval.py:310, body _masked_bits_kernel): the
-// far field. Every tile sees the same W heap nodes (mass, COM); a packed
-// accept bit per (tile, node) gates each node (word l / 32, bit l % 32).
-// The mask belongs to the tile, so it is the same for every thread of the
-// block: the block stages kNodeChunk nodes and their mask words in shared
-// memory, skips a chunk whose words are all zero, and walks the set bits
-// with a block-uniform loop. An unset node is skipped outright; that is
-// exact, since its Pallas weight is 0 * m / t with t >= eps > 0 (t >=
-// eps^3 under sqrt3).
+// (nbody_tpu/ops/pallas_group_eval.py:310, body _masked_bits_kernel :270):
+// the far field. Every tile sees the same W heap nodes (mass, COM); a packed
+// accept bit per (tile, node) gates each node (word l / 32, bit l % 32). A
+// tile accepts few of them (81 of the octree's kept nodes a 2^20 3-D tile on
+// average, 179 of the BVH's 4,095), so the block compacts its tile's
+// accepted nodes before it stages any: each thread reads one word of the
+// tile (kThreads words a batch, coalesced), a block scan of the words' bit
+// counts gives each word its offset, and the threads write the accepted
+// ids, in node order, into a shared list of at most kThreads * 32. The
+// staged loop (add_staged_run) then runs over that list, each node gathered
+// as one 16-byte body (x, y, z | 0, m). No unaccepted node is staged or
+// evaluated; that is exact, since its Pallas weight is 0 * m / t with a
+// finite t. A tile with no bit set writes zeros.
 //
 // window_eval_interval_kernel<DIM, SQRT3> replaces
 // window_eval_interval_pallas (:502, body _window_interval_kernel :455):
@@ -49,9 +53,19 @@
 // (ops/cuda_group_eval.window_parts mirrors the split in Python.)
 //
 // window_eval_dense_kernel<DIM, SQRT3> replaces window_eval_pallas (:383,
-// body _masked_eval_kernel): the same window with a dense float32 weight
-// per (tile, column), mask[t, c], that multiplies m_j. The BVH takes it
-// where a window block would hold more than 64 slots (only tiny systems).
+// body _masked_eval_kernel :184): the same window with a dense float32 weight
+// per (tile, column), mask[t, c], that multiplies m_j as (mask * m) * r, in
+// nbody_tpu's order. The BVH takes it where a window block would hold more
+// than 64 slots (systems of at most 16 bodies, padded to a few tiles of
+// mass-0 bodies), the octree's densemask token on its interval. Tile t's
+// columns are [w0*tb, min(w0*tb + wb, nj)); each of P blocks of the tile
+// takes the p-th of tile_parts equal shares of them (as the interval window
+// does; ops/cuda_group_eval.dense_parts mirrors it) and stages each body
+// with its weight folded into the mass. A stage whose folded masses are all
+// zero (a closed or padded run of columns) is skipped block-uniformly, which
+// changes no bit: its terms are 0 * dx / t with a finite t, and a row sum
+// that starts at +0 never becomes -0. Each part writes its partial rows to
+// its own slice; parts_sum_kernel adds them in order.
 //
 // entries_kernel<DIM, SQRT3, Src> ("entries_lohi_kernel") replaces
 // entries_lohi_eval_pallas (:963, body _entries_lohi_kernel): the
@@ -134,16 +148,15 @@
 //
 // What bounds them on an H100: FP32 and SFU issue per pair (float64 issue
 // in the float64 list kernel), not bytes: the sources are staged once per
-// block through shared memory and read as broadcasts. The far field, the
-// dense window and the ablation kernels (masked_eval_kernel,
-// group_shared_masked_kernel) still take pair.cuh's IEEE pair_weight (~38
-// instructions a 3-D float32 pair) through add_range; each thread holds
-// two rows (256 threads, 512 rows per block, one default tile), and every
-// staged source is used for both. A tile of more than 512 rows gets
-// several blocks. The entries kernel, the list kernel and the two windows
-// of the fast paths (node-mask and interval), which carry the trees' near
-// fields, are bound by the pair chain and by the tail of their heaviest
-// tiles, and share one design:
+// block through shared memory and read as broadcasts. The ablation kernels
+// (masked_eval_kernel, group_shared_masked_kernel) still take pair.cuh's
+// IEEE pair_weight (~38 instructions a 3-D float32 pair) through add_range;
+// each thread holds two rows (256 threads, 512 rows per block, one default
+// tile), and every staged source is used for both. A tile of more than 512
+// rows gets several blocks. The entries kernel, the list kernel, the far
+// field and the three windows (node-mask, interval and dense), which carry
+// the trees' fields, are bound by the pair chain (and, but for the far
+// field, by the tail of their heaviest tiles), and share one design:
 //   - the two-MUFU chain of pair.cuh (ChainWeight), d2 summed from the
 //     least normal number (the sources include the rows themselves, and a
 //     self-pair's dx = 0 then gets a finite weight and a zero term): in
@@ -152,10 +165,11 @@
 //     (:73-74) and the windows (_pair_weight :143-144) take; in float64
 //     the MUFU seeds refined twice, within a few ulps of the IEEE division
 //     that nbody_tpu's float64 jnp evaluation takes;
-//   - parts of about equal work: one block a tile ends a call on a tail of
-//     its heaviest tiles (the entries' work varies 2.5-10x a tile) or in a
-//     part-empty last wave (2,048 blocks of 512 rows at 2^20); the entries'
-//     parts come from a plan (entries_plan), the list's and the windows'
+//   - parts of about equal work (but in the far field, whose 81-179 nodes a
+//     2^20 tile leave no tail to cut): one block a tile ends a call on a
+//     tail of its heaviest tiles (the entries' work varies 2.5-10x a tile)
+//     or in a part-empty last wave (2,048 blocks of 512 rows at 2^20); the
+//     entries' parts come from a plan (entries_plan), the list's and the windows'
 //     are computed in the kernel from what each tile holds, P a tile from
 //     shapes alone; each part writes its own slice of partial rows and
 //     parts_sum_kernel adds them in order, so two launches give the same
@@ -166,13 +180,13 @@
 //     broadcasts.
 //
 // Summation: a thread sums groups of kGroup = 32 terms, adds each group to
-// its shared stage's sum (kChunk bodies, or one kNodeChunk node stage),
-// and each stage to the row total (in the entries kernel, the part's; a
-// stage there may span entries). A single running sum over a 256-body
-// stage lost up to ~150 ulps of the row's sum of |term| where the terms
-// share a sign (measured on an H100: 8.7e-6 against float64 at the 2^20
-// window, ~13x the twin's error). The longest running sums left are a
-// row's over its stages, or over a tile's parts (parts_sum_kernel).
+// its shared stage's sum (kChunk bodies), and each stage to the row total
+// (in the entries kernel, the part's; a stage there may span entries). A
+// single running sum over a 256-body stage lost up to ~150 ulps of the
+// row's sum of |term| where the terms share a sign (measured on an H100:
+// 8.7e-6 against float64 at the 2^20 window, ~13x the twin's error). The
+// longest running sums left are a row's over its stages, or over a tile's
+// parts (parts_sum_kernel).
 
 #include <cuda_runtime.h>
 
@@ -193,7 +207,7 @@ using nbody::Rows;
 using nbody::zero;
 
 constexpr int kChunk = kThreads;                           // bodies per shared stage
-constexpr int kNodeChunk = 1024;                           // far-field nodes per stage
+constexpr int kFarWords = kThreads;                         // far-field words a batch, one a thread
 constexpr int kMaxWindowSlots = 32768;                     // node-mask window slots a tile
 
 // Where a kernel reads source body j: masses and positions in two arrays
@@ -247,15 +261,16 @@ __device__ __forceinline__ float4 staged(const PackedSource<DIM>& src, int j) {
   return src.xm[j];
 }
 
-// The contiguous sources [a, b) of `src`, staged kChunk at a time, added to
-// `sum` stage by stage. Called by every thread with block-uniform a, b.
-// With `weight`, body j's mass is scaled by weight[j - a]. SKIP_ZERO skips
-// a stage whose staged masses are all zero, and a zero mass inside a
-// stage; both are block-uniform and exact (the term is 0 * dx / t).
-template <typename T, int DIM, bool SQRT3, bool SKIP_ZERO = false, typename Src>
+// The contiguous sources [a, b) of `src`, body j's mass scaled by
+// weight[j - a], staged kChunk at a time and added to `sum` stage by stage
+// (the ablation kernels). A stage whose staged masses are all zero is
+// skipped, and so is a zero mass inside a stage; both are block-uniform and
+// exact (the term is 0 * dx / t). Called by every thread with
+// block-uniform a, b.
+template <typename T, int DIM, bool SQRT3, typename Src>
 __device__ __forceinline__ void add_range(const Rows<T, DIM>& rows, const Src& src, int a, int b,
                                           T eps, T* s_m, T (*s_x)[kChunk], T (&sum)[kRows][DIM],
-                                          const T* __restrict__ weight = nullptr) {
+                                          const T* __restrict__ weight) {
   for (int j0 = a; j0 < b; j0 += kChunk) {
     const int len = min(kChunk, b - j0);
     bool live = false;
@@ -264,17 +279,13 @@ __device__ __forceinline__ void add_range(const Rows<T, DIM>& rows, const Src& s
       T m;
       T x[DIM];
       src.load(j, m, x);
-      if (weight != nullptr) m = m * weight[j - a];
+      m = m * weight[j - a];
       s_m[threadIdx.x] = m;
 #pragma unroll
       for (int d = 0; d < DIM; ++d) s_x[d][threadIdx.x] = x[d];
       live = m != T(0);
     }
-    if constexpr (SKIP_ZERO) {
-      if (!__syncthreads_or(live)) continue;  // every staged weight is zero
-    } else {
-      __syncthreads();
-    }
+    if (!__syncthreads_or(live)) continue;  // every staged weight is zero
     T part[kRows][DIM];
     zero(part);
     for (int k0 = 0; k0 < len; k0 += kGroup) {
@@ -283,9 +294,7 @@ __device__ __forceinline__ void add_range(const Rows<T, DIM>& rows, const Src& s
       const int k1 = min(len, k0 + kGroup);
 #pragma unroll 4
       for (int k = k0; k < k1; ++k) {
-        if constexpr (SKIP_ZERO) {
-          if (s_m[k] == T(0)) continue;  // the same s_m[k] for every thread
-        }
+        if (s_m[k] == T(0)) continue;  // the same s_m[k] for every thread
         T x[DIM];
 #pragma unroll
         for (int d = 0; d < DIM; ++d) x[d] = s_x[d][k];
@@ -321,20 +330,32 @@ __device__ __forceinline__ void add_staged(const T (&p)[R][DIM], const Staged<T>
   }
 }
 
-// The staged loop of the chain's kernels (entries, list, both windows):
-// the bodies u in [u0, u1) of a block-uniform order, fetch(u) giving body u
-// staged, added to rows.acc by the chain. Each thread fetches one body of a
-// stage of kChunk; every thread then reads each staged body as a broadcast
-// and sums groups of kGroup terms into the stage's sum, added to the rows'.
+// The staged loop of the chain's kernels (entries, list, far field and the
+// windows): the bodies u in [u0, u1) of a block-uniform order, fetch(u)
+// giving body u staged, added to rows.acc by the chain. Each thread fetches
+// one body of a stage of kChunk; every thread then reads each staged body as
+// a broadcast and sums groups of kGroup terms into the stage's sum, added to
+// the rows'. SKIP_ZERO skips a stage whose staged masses are all zero
+// (block-uniform, __syncthreads_or); that changes no bit, since each of its
+// terms is 0 * dx / t with a finite t and a row's sum never becomes -0.
 // Called by every thread of the block with the same u0, u1.
-template <typename T, int DIM, bool SQRT3, int R, typename Fetch>
+template <bool SKIP_ZERO = false, typename T, int DIM, bool SQRT3, int R, typename Fetch>
 __device__ __forceinline__ void add_staged_run(Rows<T, DIM, R>& rows, long long u0, long long u1,
                                                const nbody::ChainWeight<T, SQRT3>& weight,
                                                Staged<T>* s_body, const Fetch& fetch) {
   for (long long j0 = u0; j0 < u1; j0 += kChunk) {
     const int len = static_cast<int>(min(static_cast<long long>(kChunk), u1 - j0));
-    if (threadIdx.x < len) s_body[threadIdx.x] = fetch(j0 + threadIdx.x);
-    __syncthreads();
+    [[maybe_unused]] bool live = false;
+    if (threadIdx.x < len) {
+      const Staged<T> v = fetch(j0 + threadIdx.x);
+      s_body[threadIdx.x] = v;
+      live = v.w != T(0);
+    }
+    if constexpr (SKIP_ZERO) {
+      if (!__syncthreads_or(live)) continue;  // every staged mass is zero
+    } else {
+      __syncthreads();
+    }
     T part[R][DIM];
     zero(part);
     for (int k0 = 0; k0 < len; k0 += kGroup) {
@@ -351,7 +372,7 @@ __device__ __forceinline__ void add_staged_run(Rows<T, DIM, R>& rows, long long 
 }
 
 // The parts of a tile whose work (bodies, in its order) is `work`, split by
-// the list kernel and the two windows: one part per kChunk bodies, at most
+// the list kernel and the three windows: one part per kChunk bodies, at most
 // P; part p of np takes the bodies [work * p / np, work * (p + 1) / np).
 // No part for a tile without work.
 __device__ __forceinline__ int tile_parts(long long work, int P) {
@@ -371,52 +392,63 @@ __device__ __forceinline__ int block_sum(int v, int* s_red) {
   return total;
 }
 
+// The exclusive prefix sum of v over the block (kThreads threads), and the
+// block's total in `total`; s_red holds kThreads / 32 ints, which the
+// caller may write again only after its next barrier.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* s_red, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inclusive = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, inclusive, o);
+    if (lane >= o) inclusive += u;
+  }
+  if (lane == 31) s_red[warp] = inclusive;
+  __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    const int n = s_red[w];
+    if (w < warp) before += n;
+    total += n;
+  }
+  return before + inclusive - v;
+}
+
+// Block (t, sub): tile t's far field into rows sub*512.. of the tile. The
+// tile's words are taken kFarWords at a time, one a thread; each batch's
+// accepted nodes (at most kFarWords * 32, so an id relative to the batch
+// fits 16 bits) are compacted into s_ids in node order and run through the
+// staged loop. Bits past node W - 1 in the last word are not read. At most
+// 48 registers, 5 blocks an SM, as the windows take.
 template <int DIM, bool SQRT3>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 5)
 masked_eval_bits_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
                         const float* __restrict__ xj, int W, const unsigned* __restrict__ words,
                         int nw, float eps, float* __restrict__ out) {
-  __shared__ float s_m[kNodeChunk];
-  __shared__ float s_x[DIM][kNodeChunk];
-  __shared__ unsigned s_w[kNodeChunk / 32];
+  __shared__ unsigned short s_ids[kFarWords * 32];
+  __shared__ float4 s_body[kChunk];
+  __shared__ int s_red[kThreads / 32];
 
   Rows<float, DIM> rows(xi, tb);
   const unsigned* tile_words = words + static_cast<size_t>(blockIdx.x) * nw;
-  for (int c0 = 0; c0 < W; c0 += kNodeChunk) {
-    const int len = min(kNodeChunk, W - c0);
-    const int nwc = (len + 31) / 32;
-    unsigned any = 0;
-    for (int k = threadIdx.x; k < nwc; k += kThreads) {
-      const unsigned v = tile_words[c0 / 32 + k];
-      s_w[k] = v;
-      any |= v;
+  const unsigned tail = W % 32 == 0 ? ~0u : (1u << (W % 32)) - 1u;  // the last word's nodes
+  const nbody::ChainWeight<float, SQRT3> weight{eps};
+  const SplitSource<float, DIM> src{mj, xj};
+  for (int b0 = 0; b0 < nw; b0 += kFarWords) {
+    const int k = b0 + static_cast<int>(threadIdx.x);
+    unsigned bits = k < nw ? tile_words[k] : 0u;
+    if (k == nw - 1) bits &= tail;
+    int accepted;
+    int at = block_exclusive_scan(__popc(bits), s_red, accepted);
+    for (; bits; bits &= bits - 1) {
+      s_ids[at++] = static_cast<unsigned short>(threadIdx.x * 32 + __ffs(bits) - 1);
     }
-    if (!__syncthreads_or(any != 0)) continue;  // no node of this stage is accepted
-    for (int k = threadIdx.x; k < len; k += kThreads) {
-      s_m[k] = mj[c0 + k];
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) s_x[d][k] = xj[static_cast<size_t>(c0 + k) * DIM + d];
-    }
-    __syncthreads();
-    float part[kRows][DIM];
-    zero(part);
-    for (int wi = 0; wi < nwc; ++wi) {
-      unsigned bits = s_w[wi];  // the same word for every thread: a uniform loop
-      if (!bits) continue;
-      float group[kRows][DIM];  // one word's nodes: a group of at most kGroup
-      zero(group);
-      while (bits) {
-        const int k = wi * 32 + __ffs(bits) - 1;
-        bits &= bits - 1;
-        float x[DIM];
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) x[d] = s_x[d][k];
-        add_source<float, DIM, SQRT3>(rows.p, s_m[k], x, eps, group);
-      }
-      add_to(part, group);
-    }
-    add_to(rows.acc, part);
-    __syncthreads();
+    __syncthreads();  // s_ids written (and s_red read)
+    const int node0 = b0 * 32;
+    add_staged_run(rows, 0, accepted, weight, s_body,
+                   [&](long long u) { return staged(src, node0 + s_ids[u]); });
   }
   rows.store(out);
 }
@@ -523,22 +555,36 @@ window_eval_nodemask_kernel(const float* __restrict__ xi, int tb, const float* _
   rows.store(parts + static_cast<size_t>(blockIdx.x - t) * tb * DIM);
 }
 
+// Block (t*P + p, sub): part p of tile t's window columns [a, min(a + wb,
+// nj)), a = w0[t]*tb, the p-th of tile_parts equal shares, each body staged
+// with mask[t, c] * m_j as its mass, into rows sub*512.. of the tile,
+// written to slice t*P + p of parts (ntiles * P, tb, DIM); block (t*P, 0)
+// writes the tile's part count to nparts[t]. A stage of zero weights is
+// skipped. At most 48 registers, 5 blocks an SM, as the interval window.
 template <int DIM, bool SQRT3>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 5)
 window_eval_dense_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
                          const float* __restrict__ xj, int nj, const int* __restrict__ w0,
-                         const float* __restrict__ mask, int wb, float eps,
-                         float* __restrict__ out) {
-  __shared__ float s_m[kChunk];
-  __shared__ float s_x[DIM][kChunk];
+                         const float* __restrict__ mask, int wb, int P, float eps,
+                         int* __restrict__ nparts, float* __restrict__ parts) {
+  __shared__ float4 s_body[kChunk];
 
-  Rows<float, DIM> rows(xi, tb);
-  const int t = blockIdx.x;
-  const int a = w0[t] * tb;
-  const int b = min(a + wb, nj);
-  add_range<float, DIM, SQRT3>(rows, split_source<float, DIM>(mj, xj), a, b, eps, s_m, s_x, rows.acc,
-                               mask + static_cast<size_t>(t) * wb);
-  rows.store(out);
+  const int t = blockIdx.x / P, p = blockIdx.x % P;
+  const long long a = static_cast<long long>(w0[t]) * tb;
+  const long long work = max(min(a + wb, static_cast<long long>(nj)) - a, 0LL);
+  const int np = tile_parts(work, P);
+  if (p == 0 && blockIdx.y == 0 && threadIdx.x == 0) nparts[t] = np;
+  if (p >= np) return;  // no column below nj, or a part past the tile's count
+  Rows<float, DIM> rows(xi, tb, t, blockIdx.y);
+  const float* tile_mask = mask + static_cast<size_t>(t) * wb;
+  const SplitSource<float, DIM> src{mj, xj};
+  add_staged_run<true>(rows, a + work * p / np, a + work * (p + 1) / np,
+                       nbody::ChainWeight<float, SQRT3>{eps}, s_body, [&](long long j) {
+                         float4 v = staged(src, static_cast<int>(j));
+                         v.w = tile_mask[j - a] * v.w;  // (mask * m), nbody_tpu's order
+                         return v;
+                       });
+  rows.store(parts + static_cast<size_t>(blockIdx.x - t) * tb * DIM);
 }
 
 // An entries launch's plan (cuda_group_eval.entries_plan): block b takes
@@ -596,7 +642,7 @@ struct PartStart {
   }
 };
 // ... or P slices a tile, of which the first nparts[t] were written (the
-// list kernel and the two windows).
+// list kernel and the three windows).
 struct PartCount {
   const int* __restrict__ nparts;
   int P;
@@ -702,8 +748,8 @@ masked_eval_kernel(const float* __restrict__ xi, int tb, const float* __restrict
   __shared__ float s_x[DIM][kChunk];
 
   Rows<float, DIM> rows(xi, tb);
-  add_range<float, DIM, SQRT3, true>(rows, split_source<float, DIM>(mj, xj), 0, W, eps, s_m, s_x,
-                                     rows.acc, mask + static_cast<size_t>(blockIdx.x) * W);
+  add_range<float, DIM, SQRT3>(rows, split_source<float, DIM>(mj, xj), 0, W, eps, s_m, s_x,
+                               rows.acc, mask + static_cast<size_t>(blockIdx.x) * W);
   rows.store(out);
 }
 
@@ -718,9 +764,8 @@ group_shared_masked_kernel(const float* __restrict__ xi, int tb, const float* __
   Rows<float, DIM> rows(xi, tb);
   const int t = blockIdx.x;
   const size_t list = static_cast<size_t>(t / G) * M;  // the supertile's monopoles
-  add_range<float, DIM, SQRT3, true>(rows, split_source<float, DIM>(mj + list, xj + list * DIM), 0,
-                                     M, eps, s_m, s_x, rows.acc,
-                                     mask + static_cast<size_t>(t) * M);
+  add_range<float, DIM, SQRT3>(rows, split_source<float, DIM>(mj + list, xj + list * DIM), 0, M,
+                               eps, s_m, s_x, rows.acc, mask + static_cast<size_t>(t) * M);
   rows.store(out);
 }
 
@@ -878,7 +923,7 @@ extern "C" int nbody_group_eval(int device, int dtype, int dim, const void* xi, 
 // out (ntiles * tb, dim) of `dtype` (0 float32, 1 float64): each row the
 // sum of its tile's first nparts[t] slices [t * P, t * P + nparts[t]) of
 // parts (ntiles * P, tb, dim), added in part order; zero where nparts[t] is
-// 0. The second pass of the list kernel and the two windows.
+// 0. The second pass of the list kernel and the three windows.
 extern "C" int nbody_parts_sum(int device, int dtype, int dim, const void* parts, const void* nparts,
                                int P, int ntiles, int tb, void* out, void* stream) {
   cudaError_t err = prepare(device, ntiles, tb);
@@ -957,19 +1002,24 @@ extern "C" int nbody_window_eval_nodemask(int device, int dim, const void* xi, i
   return cudaGetLastError();
 }
 
+// The dense-mask window in at most P parts a tile: mask (ntiles, wb)
+// float32 weights on the masses of the window columns w0[t]*tb + [0, wb)
+// below nj; each part's partial rows to parts (ntiles * P, tb, dim), each
+// tile's part count to nparts (ntiles,) int32, for nbody_parts_sum.
 extern "C" int nbody_window_eval_dense(int device, int dim, const void* xi, int ntiles, int tb,
                                        const void* mj, const void* xj, int nj, const void* w0,
-                                       const void* mask, int wb, int sqrt3, double eps, void* out,
-                                       void* stream) {
+                                       const void* mask, int wb, int sqrt3, double eps, int P,
+                                       void* nparts, void* parts, void* stream) {
   cudaError_t err = prepare(device, ntiles, tb);
   if (err != cudaSuccess) return err;
   const auto kernel = pick(dim, sqrt3, window_eval_dense_kernel<2, false>, window_eval_dense_kernel<2, true>,
                            window_eval_dense_kernel<3, false>, window_eval_dense_kernel<3, true>);
-  if (kernel == nullptr || wb <= 0) return cudaErrorInvalidValue;
-  kernel<<<grid_for(ntiles, tb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid = split_grid(ntiles, P, tb, kRowsPerBlock);
+  if (kernel == nullptr || grid.x == 0 || wb <= 0) return cudaErrorInvalidValue;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xi), tb, static_cast<const float*>(mj), static_cast<const float*>(xj), nj,
-      static_cast<const int*>(w0), static_cast<const float*>(mask), wb, static_cast<float>(eps),
-      static_cast<float*>(out));
+      static_cast<const int*>(w0), static_cast<const float*>(mask), wb, P, static_cast<float>(eps),
+      static_cast<int*>(nparts), static_cast<float*>(parts));
   return cudaGetLastError();
 }
 

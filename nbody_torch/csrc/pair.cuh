@@ -8,19 +8,18 @@
 //     sqrt3: t = (sqrt(d2) + eps)^3          (the octree quirk, octree.h:156-160)
 // where d2 = |x_j - x_i|^2. pair_weight divides and takes the root in IEEE
 // (nvcc's defaults -prec-div=true -prec-sqrt=true; the build never passes
-// --use_fast_math); of group_eval.cu's kernels the far field
-// (masked_eval_bits_kernel), the dense-mask window and the ablation
-// kernels (masked_eval_kernel, group_shared_masked_kernel) use it, and so
-// does the all-pairs kernel's exact=True instantiation. The Pallas kernels
-// take the approximate reciprocal plus one Newton step
-// (pallas_allpairs.py:79-84, their default exact=False;
-// pallas_group_eval.py:143-144 and :877-878 in the group kernels), within
-// 1 ulp of the division: newton_recip below. A bare rcp.approx, without
-// the Newton step, would lose bits of the close-pair terms, whose t is eps
-// plus a tiny d2*sqrt(d2); the step restores them. The all-pairs kernels
-// (allpairs.cu) by default, and the entries kernel, the list kernel and
-// the node-mask and interval windows (group_eval.cu), run the Newton form
-// in ChainWeight below, as nbody_tpu's CLI does.
+// --use_fast_math); of group_eval.cu's kernels the ablation kernels
+// (masked_eval_kernel, group_shared_masked_kernel) use it, and so does the
+// all-pairs kernel's exact=True instantiation. The Pallas kernels take the
+// approximate reciprocal plus one Newton step (pallas_allpairs.py:79-84,
+// their default exact=False; pallas_group_eval.py:143-144 and :877-878 in
+// the group kernels), within 1 ulp of the division: newton_recip below. A
+// bare rcp.approx, without the Newton step, would lose bits of the
+// close-pair terms, whose t is eps plus a tiny d2*sqrt(d2); the step
+// restores them. The all-pairs kernels (allpairs.cu) by default, and the
+// entries kernel, the list kernel, the far field and the node-mask,
+// interval and dense-mask windows (group_eval.cu), run the Newton form in
+// ChainWeight below, as nbody_tpu's CLI does.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -95,7 +94,7 @@ struct FarWeight {
 };
 
 // The two-MUFU chain, which the all-pairs kernels (allpairs.cu) and the
-// entries, list and window kernels (group_eval.cu) share: a root and a reciprocal
+// entries, list, far-field and window kernels (group_eval.cu) share: a root and a reciprocal
 // a pair, each one MUFU seed (refined in float64), against the IEEE
 // pair_weight's sqrt and division with their slow-path checks (38.25 SASS
 // instructions a 3-D float32 pair against 17.75 on an H100, PERF.md).

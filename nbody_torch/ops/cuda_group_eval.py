@@ -7,7 +7,10 @@ BVH fast and list paths. The kernels live in nbody_torch/csrc/group_eval.cu
 
   masked_eval_bits_kernel      replaces masked_eval_bits_pallas
                                (pallas_group_eval.py:310; body
-                               _masked_bits_kernel :270): the far field
+                               _masked_bits_kernel :270): the far field,
+                               each tile's accepted nodes compacted in the
+                               block (far_ids mirrors it), by the Newton
+                               chain
   window_eval_interval_kernel  replaces window_eval_interval_pallas (:502;
                                body _window_interval_kernel :455): the
                                octree's near window, each tile's interval
@@ -22,7 +25,11 @@ BVH fast and list paths. The kernels live in nbody_torch/csrc/group_eval.cu
                                Newton chain
   window_eval_dense_kernel     replaces window_eval_pallas (:383; body
                                _masked_eval_kernel :184): the BVH's near
-                               window with a dense body mask
+                               window with a dense body mask (n <= 16, and
+                               the densemask token), each tile's columns
+                               split in the kernel into at most P parts
+                               (dense_parts mirrors the split), stages of
+                               zero weight skipped, by the Newton chain
   entries_lohi_kernel          replaces entries_lohi_eval_pallas (:963; body
                                _entries_lohi_kernel :823): the near-field
                                exact entries, in equal-work parts
@@ -31,7 +38,7 @@ BVH fast and list paths. The kernels live in nbody_torch/csrc/group_eval.cu
                                any of the three entries kernels (the TPU
                                grid's sequential walk of a tile's run)
   parts_sum_kernel             the same second pass after the list kernel
-                               and the two windows: P slices a tile, the
+                               and the three windows: P slices a tile, the
                                first nparts[t] of them written
   masked_eval_kernel           replaces masked_eval_pallas (:216; body
                                _masked_eval_kernel :184): the far field
@@ -79,16 +86,14 @@ kernels do; group_eval_kernel takes float32 and float64 (the list paths
 are what float64 runs take; float32 reaches them through the list_path
 branch of the step functions); the twins take either precision.
 
-The entries kernels, the list kernel and the node-mask and interval
-windows take the two-MUFU chain of csrc/pair.cuh: in float32 nbody_tpu's
-own reciprocal, the approximate one and a Newton step
-(pallas_group_eval.py:73-74, :143-144, :877-878), within 1 ulp of the
-division; in float64 (the list kernel) MUFU seeds refined twice, within a
-few ulps of it. The far field, the dense-mask window, the ablation
+The entries kernels, the list kernel, the far field and the three windows
+take the two-MUFU chain of csrc/pair.cuh: in float32 nbody_tpu's own
+reciprocal, the approximate one and a Newton step (pallas_group_eval.py:73-74,
+:143-144, :206-207, :877-878), within 1 ulp of the division; in float64 (the
+list kernel) MUFU seeds refined twice, within a few ulps of it. The ablation
 kernels (masked_eval_kernel, group_shared_masked_kernel) and every twin
-divide in IEEE (the hardware's approximate reciprocal cannot be
-reproduced on the CPU), and the kernels' tolerance against the twins
-covers the ulps.
+divide in IEEE (the hardware's approximate reciprocal cannot be reproduced
+on the CPU), and the kernels' tolerance against the twins covers the ulps.
 
 The accept mask is packed node l -> word l // 32, bit l % 32
 (pack_mask_bits / unpack_mask_bits). nbody_tpu's strided order
@@ -99,6 +104,7 @@ carried over.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from itertools import accumulate
 
 import torch
 
@@ -146,6 +152,41 @@ def unpack_mask_bits(words: torch.Tensor, w: int) -> torch.Tensor:
     shifts = torch.arange(32, dtype=torch.int32, device=words.device)
     bits = (words[:, :, None] >> shifts) & 1
     return bits.view(words.shape[0], -1)[:, :w].bool()
+
+
+FAR_WORDS = 256  # mask words a far-field batch (csrc/group_eval.cu kFarWords, one a thread)
+
+
+def far_ids(words: torch.Tensor, w: int) -> list[list[torch.Tensor]]:
+    """The far-field kernel's compaction, in Python: for each tile, its
+    batches in order, each the int64 ids of the accepted nodes of FAR_WORDS
+    words (at most FAR_WORDS * 32 ids), in node order. A word's ids start
+    at the exclusive sum of its batch's earlier words' bit counts, as the
+    kernel's block scan gives it; bits past node w - 1 are not read, and
+    bit 31 is a node like any other (the words are int32). The tests use
+    it; the card's path compacts in the kernel."""
+    nw = words.shape[1]
+    if nw != -(-w // 32):
+        raise ValueError(f"{nw} words do not pack {w} nodes")
+    out = []
+    for row in words.tolist():
+        row = [v & 0xFFFFFFFF for v in row]  # int32 -> its unsigned bits
+        if w % 32:
+            row[-1] &= (1 << w % 32) - 1
+        batches = []
+        for b0 in range(0, nw, FAR_WORDS):
+            batch = row[b0:b0 + FAR_WORDS]
+            counts = [v.bit_count() for v in batch]
+            ids = [0] * sum(counts)
+            for k, (v, at) in enumerate(zip(batch, accumulate(counts, initial=0))):
+                while v:
+                    low = v & -v
+                    ids[at] = (b0 + k) * 32 + low.bit_length() - 1
+                    at += 1
+                    v ^= low
+            batches.append(torch.tensor(ids, dtype=torch.int64, device=words.device))
+        out.append(batches)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -325,7 +366,7 @@ def window_eval_nodemask_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Ten
 
 
 def tile_parts(work, P: int):
-    """The parts the list kernel and the two windows split a tile of
+    """The parts the list kernel and the three windows split a tile of
     `work` bodies (an int, or a tensor of them) into (csrc/group_eval.cu
     tile_parts): one per ENTRY_CHUNK bodies, at most P; none without work.
     Part p of np takes the bodies [work * p // np, work * (p + 1) // np) of
@@ -348,6 +389,15 @@ def interval_parts(w0: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, tb: int
         n = tile_parts(work, P)
         out.append([(at + work * p // n, at + work * (p + 1) // n) for p in range(n)])
     return out
+
+
+def dense_parts(w0: torch.Tensor, tb: int, wb: int, nj: int, P: int) -> list[list[tuple[int, int]]]:
+    """The dense-mask window kernel's split, in Python: interval_parts of
+    each tile's whole window, the columns [w0[t]*tb, min(w0[t]*tb + wb,
+    nj)) (wb a multiple of tb). The kernel then skips each ENTRY_CHUNK-body
+    stage of a part whose weights mask[t, c] * m_j are all zero. The tests
+    use it; the card's path computes the same split in the kernel."""
+    return interval_parts(w0, torch.zeros_like(w0), torch.full_like(w0, nj), tb, wb // tb, nj, P)
 
 
 def window_parts(in_win: torch.Tensor, S: int, nj: int, w0: torch.Tensor, tb: int,
@@ -672,10 +722,13 @@ def window_eval_nodemask_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tens
 
 def window_eval_dense_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                            w0: torch.Tensor, mask: torch.Tensor, eps: float, window_tiles: int,
-                           softening: str) -> torch.Tensor:
+                           softening: str, parts: int | None = None) -> torch.Tensor:
     """BVH near window with a dense float weight mask (T, window_tiles*tb)
     on the masses of the window bodies w0[t]*tb + [0, window_tiles*tb) --
-    the counterpart of window_eval_pallas."""
+    the counterpart of window_eval_pallas. Each tile's columns are split
+    in the kernel into at most `parts` parts (split_parts' P by default;
+    dense_parts mirrors the split), a stage of zero weights skipped, the
+    parts added in order by parts_sum_kernel."""
     _check(xi, w0.shape[0], mj, xj, w0)
     if mask.dtype != xi.dtype or mask.shape[0] != w0.shape[0] or not mask.is_contiguous():
         raise ValueError(f"mask must be a contiguous (T, window) {xi.dtype} tensor, got "
@@ -684,9 +737,17 @@ def window_eval_dense_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
     sqrt3 = _sqrt3(softening)
     if _on_cpu(xi, mj, xj, w0, mask):
         return window_eval_dense_torch(xi, mj, xj, w0, mask, eps, window_tiles, softening)
-    return _launch("window_eval_dense_kernel", "nbody_window_eval_dense", xi, w0.shape[0],
-                   mj.data_ptr(), xj.data_ptr(), mj.shape[0], w0.data_ptr(), mask.data_ptr(),
-                   mask.shape[1], sqrt3, float(eps))
+    if xi.dtype != torch.float32:
+        raise TypeError(f"window_eval_dense_kernel takes float32, got {xi.dtype}")
+    ntiles, tb, wb = w0.shape[0], xi.shape[0] // w0.shape[0], mask.shape[1]
+    P = split_parts(ntiles, wb, sm_count_of(xi.device.index)) if parts is None else parts
+
+    def launch(lib, nparts, scratch, stream):
+        return lib.nbody_window_eval_dense(
+            xi.device.index, xi.shape[1], xi.data_ptr(), ntiles, tb, mj.data_ptr(), xj.data_ptr(),
+            mj.shape[0], w0.data_ptr(), mask.data_ptr(), wb, sqrt3, float(eps), P, nparts,
+            scratch, stream)
+    return _launch_split("window_eval_dense_kernel", xi, ntiles, P, launch)
 
 
 def tile_segments(entries: torch.Tensor, n_real: torch.Tensor, ntiles: int):
@@ -821,7 +882,7 @@ MAX_WINDOW_SLOTS = 32768  # node-mask window slots a tile (csrc/group_eval.cu kM
 
 
 def split_parts(ntiles: int, work_max: int, sm_count: int) -> int:
-    """P, the parts a tile that the list kernel and the two windows split
+    """P, the parts a tile that the list kernel and the three windows split
     each tile's work into, from shapes alone: about PARTS_PER_SM
     parts an SM, at most PARTS_PER_TILE a tile, and no more than one per
     ENTRY_CHUNK of the longest work a tile can hold."""

@@ -395,7 +395,11 @@ def ptxas_usage(text: str) -> dict[str, dict]:
     return usage
 
 
-def sass(out: str) -> None:
+def sass_of(src) -> tuple[str, list[dict]]:
+    """nvcc -cubin of one source with the build's flags and -Xptxas -v,
+    then cuobjdump -sass: (the compiler's log and the SASS text, one row a
+    kernel: its demangled name, registers, spills, hot loop (sass_loops)
+    and global loads)."""
     from nbody_torch import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -403,22 +407,31 @@ def sass(out: str) -> None:
     nvcc = _build.find_nvcc()
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     filt = shutil.which("cu++filt") or os.path.join(os.path.dirname(nvcc), "cu++filt")
+    cubin = _build.BUILD_DIR / f"probe.{src.stem}.cubin"
+    log = subprocess.run([nvcc, *flags, "-Xptxas", "-v", "-cubin", "-o", str(cubin), str(src)],
+                         check=True, capture_output=True, text=True)
+    text = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True, capture_output=True,
+                          text=True).stdout
+    usage = ptxas_usage(log.stdout + log.stderr)
+    loads = sass_global_loads(text)
+    rows = []
+    for name, loop in sass_loops(text).items():
+        demangled = (subprocess.run([filt, name], capture_output=True, text=True).stdout
+                     .strip() if os.access(filt, os.X_OK) else name)
+        rows.append({"source": src.name, "kernel": demangled or name, **usage.get(name, {}),
+                     **loop, "global_loads": loads.get(name, {})})
+    return log.stdout + log.stderr + text, rows
+
+
+def sass(out: str) -> None:
+    from nbody_torch import _build
+
     rows = []
     with open(out, "w") as f:
         for src in _build.sources():
-            cubin = _build.BUILD_DIR / f"probe.{src.stem}.cubin"
-            log = subprocess.run([nvcc, *flags, "-Xptxas", "-v", "-cubin", "-o", str(cubin),
-                                  str(src)], check=True, capture_output=True, text=True)
-            text = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True,
-                                  capture_output=True, text=True).stdout
-            f.write(log.stdout + log.stderr + text)
-            usage = ptxas_usage(log.stdout + log.stderr)
-            loads = sass_global_loads(text)
-            for name, loop in sass_loops(text).items():
-                demangled = (subprocess.run([filt, name], capture_output=True, text=True).stdout
-                             .strip() if os.access(filt, os.X_OK) else name)
-                rows.append({"source": src.name, "kernel": demangled or name,
-                             **usage.get(name, {}), **loop, "global_loads": loads.get(name, {})})
+            text, src_rows = sass_of(src)
+            f.write(text)
+            rows += src_rows
     with open(out + ".json", "w") as f:
         for row in rows:
             print(json.dumps(row))

@@ -1,5 +1,5 @@
-"""Time the octree's interval window and the sum passes of the nbody_torch
-found under ROOT, for comparing two checkouts on one card:
+"""Time the tree kernels, the sum passes and the small BVH runs of the
+nbody_torch found under ROOT, for comparing two checkouts on one card:
 
     python nbody_torch/probes/compare_trees.py ROOT [OUT]
 
@@ -11,11 +11,26 @@ wrappers. Prints one JSON line (appended to OUT too, if given):
   interval_{3,2}d_ms   window_eval_interval_cuda on the call that one f32
                        octree force evaluation of a 2^20-body galaxy makes
                        (recorded from it), CUDA events over 10 calls;
+  far_sqrt3_{3,2}d_ms  masked_eval_bits_cuda on the same evaluation's call,
+                       on the device alone (the calls queued behind a
+                       sleep kernel);
+  far_poly_{3,2}d_ms   the same on the call of one f32 BVH force evaluation
+                       of a 2^20-body galaxy;
+  dense_{3,2}d_ms      window_eval_dense_cuda on a synthetic 2^20 window:
+                       that BVH evaluation's node-mask window call, its
+                       slots broadcast over their S bodies as a float mask,
+                       CUDA events over 3 calls;
+  dense_n16_{3,2}d_ms  window_eval_dense_cuda on the call of a 16-body BVH
+                       evaluation (theta 0) on the device alone (the call
+                       and any second pass), *_call_ms back to back,
+                       *_host_ms the host's time to enqueue one call;
+  small_{n10,n16}_s_per_step  -n 10 -s 1010 --algorithm bvh --theta 0 and
+                       -n 16 -s 1010 --algorithm bvh through the CLI with
+                       --csv-total: the total over 1,000 timed steps;
   parts_sum_*_ms       parts_sum_cuda on random partial rows of 2,048 tiles
                        of 512 rows, 4 parts a tile: float32 in 3-D and 2-D
                        with every part written, float64 in 3-D with none (the
-                       f64 octree list path's 3-D case); on the device alone,
-                       the calls queued behind a sleep kernel;
+                       f64 octree list path's 3-D case); on the device alone;
   *_call_ms            the same calls back to back (their host cost shows);
   *_torch_sum_ms       torch.sum over the same parts, on the device alone;
   entries_sum_{3,2}d_ms entries_sum_cuda on the float32 parts, 4 a tile.
@@ -46,6 +61,19 @@ def events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn, reps: int = REPS) -> float:
+    """Mean host ms to enqueue one of `reps` calls, after one warm-up and
+    a sync (few enough calls that the launch queue never fills)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
 def device_ms(fn, reps: int = REPS) -> float:
     """Mean device ms of `reps` calls queued behind a sleep kernel that
     outlasts their enqueueing (checked), after one warm-up."""
@@ -66,24 +94,64 @@ def device_ms(fn, reps: int = REPS) -> float:
     return ev[1].elapsed_time(ev[2]) / reps
 
 
-def interval_call(dim: int, dev: torch.device, build_model, octree, og) -> tuple:
-    """The args of the interval window call of one f32 octree evaluation."""
+def recorded(module, names, run) -> dict:
+    """name -> the positional args of module.<name>'s last call while run()
+    ran."""
+    seen, saved = {}, {name: getattr(module, name) for name in names}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            seen[name] = args
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(module, name, wrap(name, fn))
+    try:
+        run()
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+    return seen
+
+
+def octree_calls(dim: int, dev: torch.device, build_model, octree, og) -> dict:
+    """The interval window's and the far field's call args of one f32
+    octree evaluation of a 2^20-body galaxy."""
     cfg, state = build_model("galaxy", N, dim, np.float32, device=dev)
     depth = octree.max_depth(N, dim)
     lo, hi = octree.robust_quant_box(state.x)
     ms, xs, ks, _ = octree.morton_sort(state.m, state.x, lo, hi, depth)
-    seen, wrapper = {}, og.window_eval_interval_cuda
+    return recorded(og, ["window_eval_interval_cuda", "masked_eval_bits_cuda"],
+                    lambda: og.compute_force_grouped_fast(ms, xs, ks, depth, cfg.theta, cfg.G,
+                                                          cfg.eps))
 
-    def record(*args, **kwargs):
-        seen["args"] = args
-        return wrapper(*args, **kwargs)
 
-    og.window_eval_interval_cuda = record
-    try:
-        og.compute_force_grouped_fast(ms, xs, ks, depth, cfg.theta, cfg.G, cfg.eps)
-    finally:
-        og.window_eval_interval_cuda = wrapper
-    return seen["args"]
+def bvh_calls(n: int, dim: int, theta, dev: torch.device, build_model, bvh, bg) -> dict:
+    """The far field's and the window's call args of one f32 BVH evaluation
+    of an n-body galaxy (theta None: the model's)."""
+    cfg, state = build_model("galaxy", n, dim, np.float32, device=dev)
+    state = bvh.hilbert_sort(state, cfg.eps)
+    tree = bvh.build_tree(state.m, state.x, cfg.eps)
+    names = ["masked_eval_bits_cuda", "window_eval_nodemask_cuda", "window_eval_dense_cuda"]
+    return recorded(bg, names, lambda: bg.compute_force_grouped_windowed(
+        tree, state.m, state.x, cfg.theta if theta is None else theta, cfg.G, cfg.eps))
+
+
+SMALL_RUNS = {"n10": ["-n", "10", "-s", "1010", "--algorithm", "bvh", "--theta", "0"],
+              "n16": ["-n", "16", "-s", "1010", "--algorithm", "bvh"]}
+
+
+def small_run_step(cli, argv) -> float:
+    """s/step of a small CLI run on the card: the --csv-total total over
+    its timed steps."""
+    import io
+
+    out = io.StringIO()
+    if cli.main([*argv, "--device", "cuda", "--csv-total"], out=out) != 0:
+        raise RuntimeError(f"{' '.join(argv)} failed: {out.getvalue()}")
+    fields = out.getvalue().strip().splitlines()[1].split(",")
+    return float(fields[5]) / int(fields[3])
 
 
 def main(argv: list[str]) -> None:
@@ -96,11 +164,30 @@ def main(argv: list[str]) -> None:
                       for name in ("cuda_group_eval", "octree", "octree_group"))
     dev = torch.device("cuda", 0)
     row = {"root": root, "module": cg.__file__, "device": torch.cuda.get_device_name(0)}
+    bvh, bg, cli = (importlib.import_module(f"nbody_torch.{name}")
+                    for name in ("ops.bvh", "ops.bvh_group", "cli"))
     for dim in (3, 2):
-        args = interval_call(dim, dev, build_model, octree, og)
+        calls = octree_calls(dim, dev, build_model, octree, og)
+        args = calls["window_eval_interval_cuda"]
         row[f"interval_{dim}d_ms"] = events_ms(lambda: cg.window_eval_interval_cuda(*args), 10)
-        del args
+        args = calls["masked_eval_bits_cuda"]
+        row[f"far_sqrt3_{dim}d_ms"] = device_ms(lambda: cg.masked_eval_bits_cuda(*args))
+        calls = bvh_calls(N, dim, None, dev, build_model, bvh, bg)
+        args = calls["masked_eval_bits_cuda"]
+        row[f"far_poly_{dim}d_ms"] = device_ms(lambda: cg.masked_eval_bits_cuda(*args))
+        xi, mj, xj, w0, in_win, eps, wt, S, softening = calls["window_eval_nodemask_cuda"]
+        mask = in_win.to(torch.float32).repeat_interleave(S, dim=1).contiguous()
+        args = (xi, mj, xj, w0, mask, eps, wt, softening)
+        row[f"dense_{dim}d_ms"] = events_ms(lambda: cg.window_eval_dense_cuda(*args), 3)
+        del calls, args, mask, xi, mj, xj, w0, in_win
         torch.cuda.empty_cache()
+        args = bvh_calls(16, dim, 0.0, dev, build_model, bvh, bg)["window_eval_dense_cuda"]
+        row[f"dense_n16_{dim}d_ms"] = device_ms(lambda: cg.window_eval_dense_cuda(*args))
+        row[f"dense_n16_{dim}d_call_ms"] = events_ms(lambda: cg.window_eval_dense_cuda(*args),
+                                                     REPS)
+        row[f"dense_n16_{dim}d_host_ms"] = host_ms(lambda: cg.window_eval_dense_cuda(*args), 200)
+    for key, run in SMALL_RUNS.items():
+        row[f"small_{key}_s_per_step"] = small_run_step(cli, run)
     for dim, dtype, written in ((3, torch.float32, P), (2, torch.float32, P),
                                 (3, torch.float64, 0)):
         parts = torch.rand((NTILES * P, TB, dim), dtype=dtype, device=dev)

@@ -5,7 +5,7 @@ node-mask and dense-mask windows, and entries, each far, interval window
 and entries test under both softenings, the ablation path's dense-mask far field,
 supertile-shared monopoles and packed-source entries (which must equal
 the unpacked kernel bit for bit), the list paths' kernel in float32 and float64
-under both (split into parts in the kernel, as are the two windows:
+under both (split into parts in the kernel, as are the three windows:
 every part count and both launches of a call bit-equal; the second pass
 bit-equal to its plain version on slices that take 16-byte loads and on
 those that do not), the table-driven entries and the entry-cost probes' ladder and
@@ -412,6 +412,40 @@ def test_far_kernel_vs_twin(dev, dim, tb, softening):
 
 
 @pytest.mark.parametrize("softening", ["poly", "sqrt3"])
+@pytest.mark.parametrize("case", ["all-set", "none-set", "w-1", "w-above-a-batch"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_far_kernel_compaction_edges(dev, dim, case, softening):
+    """The compaction's edges on tiles of 700 rows (two row blocks a
+    tile): every bit set, no bit set (zeros), one node, and 9,001 nodes
+    (not a multiple of 32; two batches of ids, accepts across the batch
+    boundary, and bits set past node 9,000 in the last word, which are not
+    read); within 1e-5 of sum |term| of the twin, two launches bit-equal."""
+    ntiles, tb = 3, 700
+    w = {"all-set": 1500, "none-set": 1500, "w-1": 1, "w-above-a-batch": 9001}[case]
+    mj, xj = _bodies(w, dim, torch.float32, dev, seed=44 + dim)
+    _, xi = _bodies(ntiles * tb, dim, torch.float32, dev, seed=45 + dim)
+    xi[5] = xj[w - 1]  # a row on a node: d2 = 0, a zero term
+    mask = np.random.default_rng(46).random((ntiles, w)) < 0.3
+    if case == "all-set":
+        mask[:] = True
+    elif case == "none-set":
+        mask[:] = False
+    elif case == "w-1":
+        mask[:, 0] = [True, False, True]
+    else:
+        mask[:, 8190:8194] = True
+    words = cg.pack_mask_bits(torch.tensor(mask, device=dev))
+    if case == "w-above-a-batch":
+        words[:, -1] |= -(1 << (w % 32))  # bits 9..31 of the last word: no node
+    got = cg.masked_eval_bits_cuda(xi, mj, xj, words, EPS32, softening)
+    ref = cg.masked_eval_bits_torch(xi, mj, xj, words, EPS32, softening)
+    _assert_group_within(got, ref, _group_scale(xi, mj, xj, mask, tb, softening))
+    assert _same_bits(got, cg.masked_eval_bits_cuda(xi, mj, xj, words, EPS32, softening))
+    if case == "none-set":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("softening", ["poly", "sqrt3"])
 @pytest.mark.parametrize("tb", [512, 700])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_window_kernel_vs_twin(dev, dim, tb, softening):
@@ -593,6 +627,36 @@ def test_dense_window_kernel_vs_twin(dev, dim, softening):
     _assert_group_within(got, ref, _group_scale(xi, mj, xj, sel, tb, softening))
 
 
+@pytest.mark.parametrize("softening", ["poly", "sqrt3"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_dense_window_parts_padding_and_zero_tiles(dev, dim, softening):
+    """The n = 16 evaluation's shape (8 tiles of 512, a window of 8 tiles
+    from tile 0, 16 real bodies, then mass-0 padding: all but one stage of
+    zero weight) and a ragged window with weights and an all-zero tile, at
+    the default P and at parts=1 and 8: within 1e-5 of sum |term| of the
+    twin, two launches bit-equal, the all-zero tile zero."""
+    mj, xj = _bodies(8 * 512, dim, torch.float32, dev, seed=97 + dim)
+    mj[16:] = 0
+    padded = (xj, mj, xj, torch.zeros(8, dtype=torch.int32, device=dev),
+              torch.ones(8, 8 * 512, device=dev), 512, 8)
+    xi, mj2, xj2, w0, in_win, _ = _window_case(dev, dim, 512, 4, 16, seed=98 + dim)
+    weights = torch.rand((9, 4 * 512), generator=torch.Generator().manual_seed(5)).to(dev)
+    ragged = (xi, mj2, xj2, w0, (weights * in_win.repeat_interleave(16, dim=1)).contiguous(),
+              512, 4)
+    for xi, mj, xj, w0, mask, tb, wt in (padded, ragged):
+        ref = cg.window_eval_dense_torch(xi, mj, xj, w0, mask, EPS32, wt, softening)
+        scale = cg.window_eval_dense_torch(xi, mj, xj, w0, mask, EPS32, wt, softening,
+                                           absolute=True).cpu()
+        for parts in (None, 1, 8):
+            got = cg.window_eval_dense_cuda(xi, mj, xj, w0, mask, EPS32, wt, softening,
+                                            parts=parts)
+            _assert_group_within(got, ref, scale)
+            assert _same_bits(got, cg.window_eval_dense_cuda(xi, mj, xj, w0, mask, EPS32, wt,
+                                                             softening, parts=parts))
+            if mask is ragged[4]:
+                assert not got[2 * tb:3 * tb].any()
+
+
 @pytest.mark.parametrize("dim", [2, 3])
 def test_bvh_fast_path_on_card_matches_cpu(dev, dim):
     """compute_force_grouped_windowed on the card (the far, node-mask,
@@ -676,7 +740,7 @@ def test_group_launch_counters(dev):
                                 "entries_lohi_kernel": 1, "masked_eval_kernel": 0,
                                 "group_shared_masked_kernel": 0, "entries_lohi_kernel<packed>": 0,
                                 "entries_tables_kernel": 0, "entries_sum_kernel": 1,
-                                "parts_sum_kernel": 4,
+                                "parts_sum_kernel": 5,
                                 "group_eval_kernel<float32, poly>": 0,
                                 "group_eval_kernel<float32, sqrt3>": 1,
                                 "group_eval_kernel<float64, poly>": 1,
