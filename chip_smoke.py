@@ -124,22 +124,37 @@ Phases, each printed on its own lines:
   8. the all-pairs variants that python -m nbody_torch.kernel_bench runs
      (allpairs_block_kernel<ieee>, the exact=True instantiation;
      allpairs_block_kernel<float32, fast>, allpairs_mxu_kernel and its fast
-     instantiation):
+     instantiation) and the decision kernels that the last three launch
+     first (csrc/tile_decide.cu: tile_stats_kernel, tile_decide_kernel<fast
+     | mxu | mxu-fast>, the branch of every tile pair):
      a. each against its twin at n = 65,536 in 2-D and 3-D, on uniform
         bodies unsorted and Hilbert-sorted and on sorted clusters, and at a
         ragged n: the same branch on every tile pair (the per-i-tile counts
         equal), forces within 1e-5 of sum |term| (1e-4 for the MXU kernel's
         fast instantiation, whose bf16 roundings of a weight at a tie may
-        go either way), the branch shares printed;
+        go either way), the branch shares printed; on the same bodies each
+        decision's table bit-equal to its plain version (decide_torch) on
+        every i-tile, its statistics too, the tile pairs that took the exact
+        pass exactly those that the box tests' mirror leaves open, the
+        exact pass's share printed; then two-tile layouts a few ulps either
+        side of each threshold (cuda_variant_decide.straddle_layouts, at
+        tiles of 64): the tables bit-equal to their plain version, both
+        branches among them, each variant's branch counts equal to its
+        twin's and its forces within the tolerances above;
      b. each at 2^20 in 3-D and 2-D float32 on kernel_bench's inputs
         (default_rng(0) uniform), unsorted as the main path runs them
         (every tile pair near) and Hilbert-sorted (bench.py's all-pairs
         bodies, where the far branches run), against its twin on the first
         8,192 rows: the same branch on every tile pair of those rows'
-        i-tiles, forces within the tolerances of (a). On the 3-D sorted
-        bodies each is timed with CUDA events beside the exact kernel, and
+        i-tiles, forces within the tolerances of (a); each decision as in
+        (a), its table against the plain version on 16 i-tiles spread over
+        the range. On the 3-D sorted bodies each variant is timed with CUDA
+        events (its decision included) beside the Newton kernel, and
         plain_ms is the twin's measured time on those 8,192 rows (the whole
-        twin would take over a minute); branch shares and the bound (below);
+        twin would take over a minute); branch shares, the bound and the
+        MUFU floor (below); each decision table timed alone and the
+        statistics alone, beside their plain versions (the table's on its
+        16 i-tiles);
      c. the outputs of (b) against the float64 kernel on 4,096 sampled rows,
         with nbody_tpu's tests' bounds: exact and fast within 1e-5 of max
         |a|, mxu within max(4 err32, 6e-5) and mxu-fast within 5e-3 of
@@ -236,8 +251,13 @@ sum (torch.cdist gives distances, not forces), so library_ms is null.
 Phase 8's bounds: exact and fast count 5*dim + 3 operations a pair on
 either chain; the MXU kernel the larger of its FP32 chain (by branch, see
 variant_bound) over 67 TFLOP/s and its MMAs as issued over 989 TFLOP/s
-bf16. Their launches come from the kernel_bench run of 8d, which resets
-the counts before each configuration and prints them after it. Phase
+bf16; beside them, kept out of the kernels line, the MUFU floor (one
+operation a far pair of fast and a far-fast pair of the MXU kernel, two
+every other pair; worked out, not measured). The decision table is bound
+by its box tests and this run's exact-pass pairs (decision_bound) against
+its bytes, the statistics by their bytes. Their launches come from the
+kernel_bench run of 8d, which resets the counts before each configuration
+and prints them after it. Phase
 10's bounds: pairs times 19 FLOPs (sqrt3, 3-D), the entries those of
 its live entries' [lo, min(hi, S)), the ladder's rungs those of the
 entries' lanes (all S for ideal and sepmj), so the masked rungs' full-S
@@ -1934,31 +1954,161 @@ def shares(names, counts) -> str:
     return ", ".join(f"{k} {c} ({c / total:.4f})" for k, c in zip(names, counts))
 
 
-def variant_bound(name: str, counts, tile: int, n: int, dim: int):
-    """(bound ms, what bounds it, the FP32 and tensor-core times) of one
-    evaluation of n bodies. Pairs by branch: each tile pair's tile * tile
-    (no padding at n = 2^20). Newton and the fast variant's two chains
-    count 5 dim + 3 operations a pair (flops_per_pair). The MXU kernel's
-    FP32 chain: near pairs the quadratic form that decides (2 dim + 1) and
-    the exact chain with the Newton step (5 dim + 3, plus 3); far pairs the
-    quadratic form, the square root, d2 sqrt + eps, the reciprocal and its
-    Newton step and the split (2 dim + 10); far-fast pairs the form, the
-    rsqrt, its cube and the rounding (2 dim + 5). Its tensor cores: the
-    m16n8k16 MMAs as issued, 2 * 16 * 8 * 16 FLOPs per 16 x 16 pair slots,
-    three in the far branch and one in far-fast, over 989 TFLOP/s bf16.
-    Bytes: positions and masses read once, the accelerations written."""
+def variant_bound(name: str, counts, tile: int, n: int, dim: int, sms: int):
+    """(bound ms, what bounds it, the FP32 and tensor-core times, the MUFU
+    floor) of one evaluation of n bodies. Pairs by branch: each tile pair's
+    tile * tile (no padding at n = 2^20). Newton and the fast variant's two
+    chains count 5 dim + 3 operations a pair (flops_per_pair). The MXU
+    kernel's FP32 chain: near pairs the exact chain with the Newton step
+    (5 dim + 3, plus 3); far pairs the quadratic form, the square root, d2
+    sqrt + eps, the reciprocal and its Newton step and the split (2 dim +
+    10); far-fast pairs the form, the rsqrt, its cube and the rounding (2
+    dim + 5). Its tensor cores: the m16n8k16 MMAs as issued, 2 * 16 * 8 *
+    16 FLOPs per 16 x 16 pair slots, three in the far branch and one in
+    far-fast, over 989 TFLOP/s bf16. Bytes: positions and masses read once,
+    the accelerations written. The MUFU floor (worked out, kept out of
+    bound_ms): one multi-function-unit operation a far pair of the fast
+    variant and a far-fast pair of the MXU kernel (an rsqrt), two every
+    other pair (a root and a reciprocal), at MUFU_PER_SM_CLOCK a clock on
+    each SM at the boost clock."""
     nbytes = n * 4 * (dim + 1) + n * 4 * dim
+    rate = sms * MUFU_PER_SM_CLOCK * MAX_SM_CLOCK_HZ / 1e3  # MUFU operations a ms
     if counts is None or name.startswith("allpairs_block_kernel"):
         bound_ms, by = bound(n * (n - 1), flops_per_pair(dim, "poly"), nbytes)
-        return bound_ms, by, bound_ms, 0.0
+        mufu = (2 * n * (n - 1) if counts is None
+                else (2 * counts[0] + counts[1]) * tile)  # fast: [softened, far]
+        return bound_ms, by, bound_ms, 0.0, mufu / rate
     near, far, far_fast = (c * tile for c in counts)  # pairs
-    fp32 = near * (7 * dim + 7) + far * (2 * dim + 10) + far_fast * (2 * dim + 5)
+    fp32 = near * (5 * dim + 6) + far * (2 * dim + 10) + far_fast * (2 * dim + 5)
     mma = (far * 3 + far_fast) * 2 * 16 * 8 * 16 / 256
     t32, tmma = fp32 / F32_FLOPS * 1e3, mma / BF16_FLOPS * 1e3
     tbytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(t32, tmma, tbytes)
     by = "bytes" if bound_ms == tbytes else "operations"
-    return bound_ms, by, t32, tmma
+    return bound_ms, by, t32, tmma, (2 * near + 2 * far + far_fast) / rate
+
+
+TILE_DECIDE = "nbody_torch/csrc/tile_decide.cu"
+DECIDE_REPLACES = {  # the branch that each variant's TPU kernel decides inside its body
+    "fast": f"{PALLAS_ALLPAIRS}:96-105 (the branch, inside _allpairs_kernel; no kernel of "
+            f"its own)",
+    "mxu": f"{PALLAS_MXU}:106-133 (the branch, inside _mxu_kernel; no kernel of its own)",
+    "mxu-fast": f"{PALLAS_MXU}:106-133, 186-199 (the branches, inside _mxu_kernel; no kernel "
+                f"of its own)",
+}
+
+
+def decision_modes(eps: float, n: int, dim: int, tiles=None) -> dict:
+    """mode -> (npad, tile_i, tile_j, near_coef, thresh) of each variant's
+    decision as its wrapper makes it (kernel_bench's mxu-fast far_thresh),
+    on the variants' default tiles or on `tiles` (tile_i, tile_j)."""
+    from nbody_torch.ops import cuda_allpairs as ca
+    from nbody_torch.ops import cuda_allpairs_mxu as cm
+
+    near_coef = float(np.float32(1e5 * eps))
+    ti, tj = tiles or (512, 2048)
+    npad_f, tj_f = ca.fast_tiling(n, dim, ti, tj)
+    ti_m, tj_m = tiles or (512, 1024)
+    npad_m = cm.mxu_padding(n, ti_m, tj_m)
+    return {"fast": (npad_f, ti, tj_f, near_coef, ca.far_threshold(eps)),
+            "mxu": (npad_m, ti_m, tj_m, near_coef, 0.0),
+            "mxu-fast": (npad_m, ti_m, tj_m, near_coef, 1e-2)}
+
+
+def decision_check(tag: str, x, what: str, modes: dict, itiles=None) -> dict:
+    """The decision kernels against their plain versions on x, per mode:
+    tile_stats_kernel's statistics equal tile_stats_torch's; the table
+    bit-equal to decide_torch's on every i-tile (or on `itiles`); the
+    exact pass taken by as many tile pairs as the box tests' mirror
+    (box_table_torch) leaves open, and the mirror's settled branches equal
+    to the table's. Prints the exact pass's share of the tile pairs and its
+    pairs. Returns mode -> {opened, tile_pairs, exact_pairs, plain_ms,
+    plain_itiles, max_abs_err}."""
+    import torch
+
+    from nbody_torch.ops import cuda_variant_decide as vd
+
+    out = {}
+    for mode, (npad, ti, tj, nc, th) in modes.items():
+        table, stats, work = vd.decide_cuda(x, mode, npad, ti, tj, nc, th, work=True)
+        rows = list(range(npad // ti)) if itiles is None else list(itiles)
+        plain_ms, plain = event_ms(
+            lambda: vd.decide_torch(x, mode, npad, ti, tj, nc, th, itiles=rows), 1, keep=True)
+        plain_stats = vd.tile_stats_torch(x, npad, ti, tj, means=mode != "fast")
+        boxes = vd.box_table_torch(plain_stats, npad // ti, npad // tj, mode, nc, th)
+        settled = boxes >= 0
+        opened, pairs = (int(v) for v in work.sum(0).tolist())
+        err = (table[rows].float() - plain.float()).abs().max().item()
+        same = err == 0 and torch.equal(stats, plain_stats)
+        mirrored = opened == int((~settled).sum()) and torch.equal(boxes[settled], table[settled])
+        print(f"[{tag}] decision {mode}, {what}: table {'bit-equal to' if same else 'DIFFERS from'}"
+              f" its plain version on {len(rows)} of {npad // ti} i-tiles (statistics too); "
+              f"exact pass on {opened} of {table.numel()} tile pairs ({opened / table.numel():.4f}"
+              f", the box mirror's {'count' if mirrored else 'count DIFFERS'}), {pairs} pairs; "
+              f"branches {vd.branch_counts(table, 3).sum(0).tolist()}")
+        check(same, f"{tag} decision {mode} {what}: the table differs from its plain version")
+        check(mirrored, f"{tag} decision {mode} {what}: the exact pass is not the boxes' open set")
+        out[mode] = {"opened": opened, "tile_pairs": table.numel(), "exact_pairs": pairs,
+                     "plain_ms": plain_ms, "plain_itiles": len(rows), "max_abs_err": err}
+    return out
+
+
+def decision_bound(mode: str, n: int, dim: int, ni: int, nj: int, exact_pairs: int):
+    """(bound ms, what bounds it) of one table: the positions read once and
+    the table written once over HBM, against the box tests (6 dim + 1
+    operations a tile pair; MXU 18 dim + 6 with the frame, the z bounds and
+    the margin) and this run's exact-pass pairs (3 dim a pair; MXU 2 dim + 3)
+    over 67 TFLOP/s."""
+    nbytes = n * dim * 4 + ni * nj
+    per_tile = 6 * dim + 1 if mode == "fast" else 18 * dim + 6
+    per_pair = 3 * dim if mode == "fast" else 2 * dim + 3
+    return bound(1, ni * nj * per_tile + exact_pairs * per_pair, nbytes)
+
+
+def straddle_check(dev, eps: float) -> None:
+    """8a on cuda_variant_decide.straddle_layouts: two tiles of 64 bodies a
+    few ulps either side of each threshold (far_thresh of fast and of
+    mxu-fast, the near limit; the fast variant's also with a box looser than
+    its bodies): the tables bit-equal to their plain version, both branches
+    among them, and each variant at tiles (64, 64) against its twin with
+    the same branch counts."""
+    import torch
+
+    from nbody_torch.ops import cuda_allpairs as ca
+    from nbody_torch.ops import cuda_allpairs_mxu as cm
+    from nbody_torch.ops import cuda_variant_decide as vd
+
+    for kind in vd.STRADDLES:
+        mode = "fast" if kind.startswith("fast") else kind
+        for dim in (2, 3):
+            modes = {mode: decision_modes(eps, 128, dim, (64, 64))[mode]}
+            _, _, _, nc, th = modes[mode]
+            branches, worst = set(), 0.0
+            for v, x in vd.straddle_layouts(kind, dim, nc, th):
+                x = x.to(dev)
+                m = torch.ones(128, device=dev)
+                with contextlib.redirect_stdout(io.StringIO()):
+                    decision_check("8a", x, f"{kind} v={v!r}", modes)
+                if mode == "fast":
+                    got, kc = ca.allpairs_accel_cuda(m, x, 1.0, eps, fast=True, tile_i=64,
+                                                     tile_j=64, return_counts=True)
+                    ref, tc = ca.allpairs_fast_torch(m, x, 1.0, eps, tile_i=64, tile_j=64)
+                else:
+                    kw = {"fast": True, "far_thresh": th} if mode == "mxu-fast" else {}
+                    got, kc = cm.allpairs_accel_mxu_cuda(m, x, 1.0, eps, 64, 64,
+                                                         return_counts=True, **kw)
+                    ref, tc = cm.allpairs_accel_mxu_torch(m, x, 1.0, eps, 64, 64, **kw)
+                check(kc.cpu().tolist() == tc.tolist(),
+                      f"8a straddle {kind} {dim}-D v={v!r}: branch counts differ from the twin")
+                err, _ = scaled(got, ref, ca.allpairs_block_abs_torch(x, m, x, eps))
+                worst = max(worst, err)
+                check(err <= (MXU_FAST_TOL if mode == "mxu-fast" else TOL["float32"]),
+                      f"8a straddle {kind} {dim}-D v={v!r}: scaled error {err:.3e}")
+                branches.add(tuple(kc[0].tolist()))  # i-tile A's counts: (A, B) flips
+            print(f"[8a] straddling {kind} ({vd.STRADDLES[kind][1]}), {dim}-D: 9 layouts, "
+                  f"tables bit-equal to their plain version, branch counts equal to the twin's, "
+                  f"max scaled error {worst:.3e}, both branches {'seen' if len(branches) == 2 else 'NOT seen'}")
+            check(len(branches) == 2, f"8a straddle {kind} {dim}-D: one branch only")
 
 
 def variant_phases(dev, big: int):
@@ -1967,9 +2117,11 @@ def variant_phases(dev, big: int):
 
     from nbody_torch import kernel_bench as kb
     from nbody_torch.ops import cuda_allpairs as ca
+    from nbody_torch.ops import cuda_variant_decide as vd
 
     eps = eps_of(torch.float32)
     calls = variant_calls(eps)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def against_twin(tag, m, x, what, rows=None):
         """Each kernel against its twin on the first `rows` rows (whole
@@ -2015,9 +2167,13 @@ def variant_phases(dev, big: int):
     for dim in (2, 3):
         for what, m, x in layouts(n, dim):
             against_twin("8a", m, x, f"{n} {dim}-D {what}")
+            decision_check("8a", x, f"{n} {dim}-D {what}", decision_modes(eps, n, dim))
     mc, xc = clusters(n + 37, 3)
-    against_twin("8a", *sorted_bodies(torch.tensor(mc, device=dev), torch.tensor(xc, device=dev),
-                                      eps), f"{n + 37} 3-D clusters Hilbert-sorted (ragged)")
+    m, x = sorted_bodies(torch.tensor(mc, device=dev), torch.tensor(xc, device=dev), eps)
+    against_twin("8a", m, x, f"{n + 37} 3-D clusters Hilbert-sorted (ragged)")
+    decision_check("8a", x, f"{n + 37} 3-D clusters Hilbert-sorted (ragged)",
+                   decision_modes(eps, n + 37, 3))
+    straddle_check(dev, eps)
     torch.cuda.empty_cache()
 
     # -- (b) 2^20 bodies, 2-D and 3-D, on kernel_bench's inputs unsorted (as the
@@ -2029,6 +2185,7 @@ def variant_phases(dev, big: int):
     idx = torch.tensor(np.sort(np.random.default_rng(SEED).choice(big, 4096, replace=False)),
                        device=dev)
     measured, checked = {}, {name: [] for name in calls}
+    decided = {}
     for dim in (3, 2):
         m_np, x_np = kb.inputs(big, dim)
         m0, x0 = torch.tensor(m_np, device=dev), torch.tensor(x_np, device=dev)
@@ -2036,6 +2193,11 @@ def variant_phases(dev, big: int):
             m, x = sorted_bodies(m0, x0, eps) if order == "Hilbert-sorted" else (m0, x0)
             what = f"{big}-body {dim}-D float32, kernel_bench's inputs {order}"
             res = against_twin("8b", m, x, what, rows)
+            modes = decision_modes(eps, big, dim)
+            sample = {mode: sorted({int(i) for i in np.linspace(0, npad // ti - 1, 16)})
+                      for mode, (npad, ti, *_) in modes.items()}
+            dec = {mode: decision_check("8b", x, what, {mode: modes[mode]}, sample[mode])[mode]
+                   for mode in modes}
             a64 = ca.allpairs_block_cuda(x[idx].double(), m.double(), x.double(), eps)
             oracle = a64.norm(dim=1) + a64.abs().max() * 1e-3
 
@@ -2068,18 +2230,60 @@ def variant_phases(dev, big: int):
                     accel = kb.accel_fn(label, eps)  # kernel_bench's call, without counts
                     ms = event_ms(lambda: accel(m, x), reps=3)
                     _, totals, err, abs_err, twin_ms = res[name]
-                    bound_ms, by, t32, tmma = variant_bound(name, totals, 512 * 1024, big, 3)
-                    print(f"[8b] {name} ({label}), {what}: kernel {ms:.1f} ms (the CLI's "
-                          f"Newton kernel {newton_ms:.1f} ms); plain version {twin_ms:.1f} ms on "
-                          f"its first {rows} rows (not extrapolated); bound {bound_ms:.3f} ms "
-                          f"({by}; FP32 chain {t32:.3f} ms, tensor cores {tmma:.3f} ms)")
+                    bound_ms, by, t32, tmma, mufu = variant_bound(name, totals, 512 * 1024, big,
+                                                                  3, sms)
+                    print(f"[8b] {name} ({label}), {what}: call {ms:.1f} ms, its decision "
+                          f"included where it has one (the CLI's Newton kernel {newton_ms:.1f} "
+                          f"ms); plain version {twin_ms:.1f} ms on its first {rows} rows (not "
+                          f"extrapolated); bound {bound_ms:.3f} ms ({by}; FP32 chain "
+                          f"{t32:.3f} ms, tensor cores {tmma:.3f} ms); MUFU floor {mufu:.3f} ms "
+                          f"({ms and mufu / ms:.3f} of the call)")
                     measured[name] = {"ms": ms, "plain_ms": twin_ms, "plain_rows": rows,
                                       "max_abs_err": abs_err, "max_scaled_err": err,
                                       "scaled_err_limit": tol, "bound_ms": bound_ms,
                                       "bound_by": by, "library_ms": None,
                                       "bound_fp32_ms": t32, "bound_tensor_core_ms": tmma,
-                                      "newton_kernel_ms": newton_ms, "replaces": replaces,
+                                      "newton_kernel_ms": newton_ms,
+                                      "replaces": replaces,
                                       "tile_pairs": dict(zip(branches, totals)) if totals else None}
+                stats_modes = {"fast": False, "mxu": True}
+                for mode, (npad, ti, tj, nc, th) in modes.items():
+                    st = vd.tile_stats_cuda(x, npad, ti, tj, means=mode != "fast")
+                    table_ms = event_ms(lambda: vd.table_cuda(x, st, mode, npad, ti, tj, nc, th),
+                                        reps=5)
+                    d = dec[mode]
+                    bound_ms, by = decision_bound(mode, big, 3, npad // ti, npad // tj,
+                                                  d["exact_pairs"])
+                    print(f"[8b] {vd.DECIDE[mode]}, {what}: {table_ms:.3f} ms (its statistics "
+                          f"apart); exact pass on {d['opened']} of {d['tile_pairs']} tile pairs "
+                          f"({d['opened'] / d['tile_pairs']:.4f}), {d['exact_pairs']} pairs; bound "
+                          f"{bound_ms:.3f} ms ({by}); plain version {d['plain_ms']:.1f} ms on "
+                          f"{d['plain_itiles']} i-tiles")
+                    decided[vd.DECIDE[mode]] = {
+                        "ms": table_ms, "plain_ms": d["plain_ms"],
+                        "plain_itiles": d["plain_itiles"], "max_abs_err": d["max_abs_err"],
+                        "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+                        "replaces": DECIDE_REPLACES[mode], "exact_pass_tile_pairs": d["opened"],
+                        "tile_pairs": d["tile_pairs"], "exact_pass_pairs": d["exact_pairs"]}
+                for mode, means in stats_modes.items():
+                    npad, ti, tj = modes[mode][:3]
+                    stats_ms = event_ms(lambda: vd.tile_stats_cuda(x, npad, ti, tj, means), reps=10)
+                    plain_ms, plain = event_ms(
+                        lambda: vd.tile_stats_torch(x, npad, ti, tj, means), 1, keep=True)
+                    err = (vd.tile_stats_cuda(x, npad, ti, tj, means) - plain).abs().max().item()
+                    bound_ms, by = bound(1, 0, big * 3 * 4 + plain.numel() * 4)
+                    which = "boxes and means, the MXU tiles" if means else "boxes, the fast tiles"
+                    print(f"[8b] {vd.STATS} ({which}), {what}: {stats_ms:.4f} ms, plain version "
+                          f"{plain_ms:.3f} ms, max |kernel - plain| {err:g}; bound {bound_ms:.4f} "
+                          f"ms ({by})")
+                    check(err == 0, f"8b {vd.STATS}: differs from its plain version")
+                    if means:
+                        decided[vd.STATS] = {
+                            "ms": stats_ms, "plain_ms": plain_ms, "max_abs_err": err,
+                            "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+                            "replaces": f"{PALLAS_MXU}:103-108 (the tiles' means, inside "
+                                        f"_mxu_kernel); {PALLAS_ALLPAIRS}:96 (the minimum's "
+                                        f"operands): no kernel of its own"}
             del res, a64, oracle, a_exact, m, x
             torch.cuda.empty_cache()
         del m0, x0
@@ -2115,6 +2319,16 @@ def variant_phases(dev, big: int):
                         "inputs": "kernel_bench's inputs Hilbert-sorted (bench.py's all-pairs "
                                   "bodies)",
                         "checked_at_2p20": checked[name]})
+    for name, fields in decided.items():
+        check(launches.get(name, 0) > 0, f"{name} was not launched by kernel_bench")
+        entries.append({"name": name, "route": "cuda", "source": TILE_DECIDE,
+                        "launches": launches[name],
+                        "launches_in": "phase 8d: python -m nbody_torch.kernel_bench --n 262144 "
+                                       "--dims 2,3 --repeats 1 (one a fast, mxu or mxu-fast "
+                                       "evaluation)",
+                        **fields, "n": big, "dim": 3, "dtype": "float32",
+                        "inputs": "kernel_bench's inputs Hilbert-sorted (bench.py's all-pairs "
+                                  "bodies)"})
     return entries
 
 

@@ -97,8 +97,8 @@ def build() -> Path:
 
 
 i, p, f64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
-# The C interface of csrc/allpairs.cu, csrc/allpairs_mxu.cu, csrc/group_eval.cu
-# and csrc/entry_probes.cu: each function's argument types (a pointer must
+# The C interface of csrc/allpairs.cu, csrc/allpairs_mxu.cu, csrc/group_eval.cu,
+# csrc/entry_probes.cu and csrc/tile_decide.cu: each function's argument types (a pointer must
 # be c_void_p: ctypes passes an undeclared one as a 32-bit int); each
 # returns an int, its cudaError_t.
 SIGNATURES = (
@@ -107,12 +107,17 @@ SIGNATURES = (
     ("nbody_allpairs_rows", [i, i, i, i, i, i, p, i, p, p, i, i, i, i, f64, f64, p, p, p]),
     # (device, dtype, parts, splits, count, width, scale, mi, out, stream)
     ("nbody_split_sum", [i, i, p, i, i, i, f64, p, p, p]),
-    # (device, dim, x, m, n, npad, tile_i, tile_j, eps, far_thresh, scale, out, counts,
+    # (device, dim, x, m, n, blocks, splits, split_len, table, tile_i, tile_j, ntj, eps,
+    #  scale, out, stream)
+    ("nbody_allpairs_fast", [i, i, p, p, i, i, i, i, p, i, i, i, f64, f64, p, p]),
+    # (device, dim, fast, x, m, n, npad, tile_i, tile_j, table, stats, eps, scale, out,
     #  stream)
-    ("nbody_allpairs_fast", [i, i, p, p, i, i, i, i, f64, f64, f64, p, p, p]),
-    # (device, dim, fast, x, m, n, npad, tile_i, tile_j, eps, near_coef,
-    #  far_thresh, scale, out, counts, stream)
-    ("nbody_allpairs_mxu", [i, i, i, p, p, i, i, i, i, f64, f64, f64, f64, p, p, p]),
+    ("nbody_allpairs_mxu", [i, i, i, p, p, i, i, i, i, p, p, f64, f64, p, p]),
+    # (device, dim, x, n, npad, tile_i, tile_j, inv_i, inv_j, means, stats, stream)
+    ("nbody_tile_stats", [i, i, p, i, i, i, i, f64, f64, i, p, p]),
+    # (device, dim, mode, x, n, npad, tile_i, tile_j, stats, near_coef, thresh, table,
+    #  work, stream)
+    ("nbody_tile_decide", [i, i, i, p, i, i, i, i, p, f64, f64, p, p, p]),
     # (device, dim, xi, ntiles, tb, ...) as in ops/cuda_group_eval._launch
     ("nbody_masked_eval_bits", [i, i, p, i, i, p, p, i, p, i, i, f64, p, p]),
     # the interval window: (..., w0, lo, hi, window_tiles, sqrt3, eps, P, nparts, parts,

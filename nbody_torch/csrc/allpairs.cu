@@ -10,7 +10,10 @@
 //       t the poly (d2 sqrt(d2) + eps) or sqrt3 ((sqrt(d2) + eps)^3) softening;
 //   potential_rowsums_kernel<T, DIM, R>  potential_rowsums_pallas (:255,
 //       body _pe_kernel :224-250): pe_i = m_i * sum_{j != i} m_j / (sqrt(d2) + eps);
-//   allpairs_fast_kernel<DIM>  allpairs_accel_pallas(fast=True) (:93-105);
+//   allpairs_block_kernel<float, DIM, 2, TableWeight>  ("<float32, fast>")
+//       allpairs_accel_pallas(fast=True) (:93-105): each (i-tile, j-tile)
+//       pair of JAX's tiling takes m rsqrt(d2)^3 where its least d2 exceeds
+//       far_thresh, else the softened weight;
 //   split_sum_kernel<T>  the Pallas grid's sequential j axis, which adds each
 //       j-tile into the same output block (out_ref +=, :107-108, :250).
 //
@@ -65,92 +68,36 @@
 // that the potential runs at the force's MUFU floor; its error stays within
 // the kernels' tolerance of the IEEE twin (1e-5 of |pe| in float32).
 // Each row sums a staged tile of kPartBodies bodies into a partial and adds
-// the partial to its total, as pair.cuh add_row_part argues. The ragged
+// the partial to its total, as pair.cuh kPartBodies argues. The ragged
 // edges are masked, not padded: rows past ni compute but do not store, and
 // the last tile of a split loops over the bodies that exist.
+//
+// The fast variant is a weight policy of the same body (TableWeight). A
+// block-for-block port of the Pallas body takes each tile pair's least d2
+// in a pass over all its pairs before the sum (~7 operations a pair over
+// every pair; 1.23 s at 2^20 on an H100 with IEEE division on the softened
+// tiles). Here tile_decide.cu decides every tile pair before the launch
+// (an (ni, nj) int8 table: 0 softened, 1 far; the boxes settle most of
+// them, an exact pass the rest), and each 256-body stage looks its rows'
+// branches up: a stage lies inside one j-tile (a
+// stage ends where a j-tile does) and a warp's 32 rows inside one i-tile
+// (tile_i a multiple of 32), so the policy is uniform over a warp, and over
+// the block at tile_i a multiple of 256 (JAX's 512: a block of 2 rows a
+// thread is one i-tile). Softened stages take ChainWeight, the two-MUFU
+// Newton chain that exact=False JAX runs (:79-84); far stages take FarWeight,
+// (m r) (r r) with r = rsqrt.approx(d2) in JAX's product order (:101): one
+// MUFU a pair, and no clamp (a far tile's every d2 exceeds far_thresh > 0).
+// Splits, partials and packed staging are the Newton kernel's; its own
+// instantiations do not change.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "pair.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// the FAST variant (row 1f), one block per JAX i-tile
-
-constexpr int kFastMaxRows = 512;  // the largest i-tile: 256 threads of 2 rows
-
-// The FAST body: this block's i-tile of 2 * blockDim.x rows of x against
-// every j-tile of the padded bodies [0, npad). counts: null, or two ints
-// per i-tile, [softened, far] j-tiles, written by this block alone.
-template <int DIM>
-__device__ void fast_tiles(const float* __restrict__ x, const float* __restrict__ m, int n,
-                           int npad, int tile_j, float eps, float far_thresh, float scale,
-                           float* __restrict__ out, int* __restrict__ counts) {
-  extern __shared__ float s_tile[];  // s_m[tile_j], then s_x[DIM][tile_j]
-  __shared__ float s_red[32];
-  float* s_m = s_tile;
-  float* s_x = s_tile + tile_j;
-  const int nt = blockDim.x;
-  const int rows[2] = {static_cast<int>(blockIdx.x) * 2 * nt + static_cast<int>(threadIdx.x),
-                       static_cast<int>(blockIdx.x) * 2 * nt + nt + static_cast<int>(threadIdx.x)};
-  float p[2][DIM], acc[2][DIM];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) {
-      p[r][d] = rows[r] < n ? x[static_cast<size_t>(rows[r]) * DIM + d] : 0.0f;
-      acc[r][d] = 0.0f;
-    }
-  }
-  for (int j0 = 0; j0 < npad; j0 += tile_j) {
-    for (int k = threadIdx.x; k < tile_j; k += nt) {
-      const int j = j0 + k;
-      const bool real = j < n;
-      s_m[k] = real ? m[j] : 0.0f;
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) s_x[d * tile_j + k] = real ? x[static_cast<size_t>(j) * DIM + d] : 0.0f;
-    }
-    __syncthreads();
-    float dmin = INFINITY;
-    for (int k = 0; k < tile_j; ++k) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float dx[DIM];
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) dx[d] = s_x[d * tile_j + k] - p[r][d];
-        dmin = fminf(dmin, nbody::sep2<float, DIM>(dx));
-      }
-    }
-    const bool far = nbody::block_reduce(dmin, s_red, nbody::Min()) > far_thresh;
-    if (counts != nullptr && threadIdx.x == 0) counts[2 * blockIdx.x + (far ? 1 : 0)] += 1;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (far) {
-        nbody::add_row_tile<float, DIM>(p[r], s_m, s_x, tile_j, nbody::FarWeight(), acc[r]);
-      } else {
-        nbody::add_row_tile<float, DIM>(p[r], s_m, s_x, tile_j, nbody::NewtonWeight{eps}, acc[r]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] < n) {
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) out[static_cast<size_t>(rows[r]) * DIM + d] = scale * acc[r][d];
-    }
-  }
-}
-
-template <int DIM>
-__global__ void __launch_bounds__(kFastMaxRows / 2)
-allpairs_fast_kernel(const float* __restrict__ x, const float* __restrict__ m, int n, int npad,
-                     int tile_j, float eps, float far_thresh, float scale,
-                     float* __restrict__ out, int* __restrict__ counts) {
-  fast_tiles<DIM>(x, m, n, npad, tile_j, eps, far_thresh, scale, out, counts);
-}
 
 // ---------------------------------------------------------------------------
 // the force and the potential: one body over an interaction policy
@@ -197,6 +144,7 @@ template <typename T, int DIM, class Weight>
 struct ForcePair {
   static constexpr int kWidth = DIM;
   static constexpr bool kSkipsSelf = false;
+  static constexpr bool kTable = false;
   Weight weight;
   __device__ __forceinline__ void add(const T* p, const Body<T>& b, bool, T* part) const {
     T dx[DIM];
@@ -212,6 +160,7 @@ template <typename T, int DIM>
 struct PotentialPair {
   static constexpr int kWidth = 1;
   static constexpr bool kSkipsSelf = true;
+  static constexpr bool kTable = false;
   T eps;
   __device__ __forceinline__ void add(const T* p, const Body<T>& b, bool self, T* part) const {
     T dx[DIM];
@@ -234,6 +183,11 @@ struct RowArgs {
   T scale;        // out = scale * sum, or, with mi, mi[i] * sum
   const T* mi;
   T* out;         // (gridDim.y, ni, kWidth): split y writes slice y
+  // the fast variant (TableWeight) only: the (ni / tile_i, ntj) branches
+  const signed char* table;
+  int tile_i;
+  int tile_j;
+  int ntj;
 };
 
 // One staged tile of len bodies (global index j0 + k) into the R rows'
@@ -262,6 +216,69 @@ __device__ __forceinline__ void add_tile(const T (&p)[R][DIM], const Body<T>* s_
   }
 }
 
+// The fast variant's far weight, m rsqrt(d2)^3 in JAX's order (m r) (r r)
+// (pallas_allpairs.py:98-101), r by one MUFU operation; d2 > far_thresh > 0.
+struct FarWeight {
+  float eps;  // unused: the far branch drops the softening
+  __device__ __forceinline__ float operator()(float m, float d2) const {
+    float r;
+    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d2));
+    return (m * r) * (r * r);
+  }
+};
+__device__ __forceinline__ float d2_start(const FarWeight&) { return 0.0f; }
+
+// The fast variant (allpairs_accel_pallas(fast=True)): each stage's weight
+// from the decision table (tile_decide.cu), per row; row_block calls
+// table_stage in place of add_tile.
+struct TableWeight {};
+template <int DIM>
+struct TablePair {
+  static constexpr int kWidth = DIM;
+  static constexpr bool kSkipsSelf = false;
+  static constexpr bool kTable = true;
+};
+
+// One stage (inside one j-tile) by the branch of each row's tile pair: the
+// R rows together where their branches agree (always where tile_i is a
+// multiple of R * 256, JAX's 512 among them), else row by row. Every
+// branch is uniform over a warp.
+template <int DIM, int R>
+__device__ __forceinline__ void table_stage(const RowArgs<float>& a, const float (&p)[R][DIM],
+                                            const Body<float>* s_body, int len, int j0,
+                                            const int (&row)[R], float (&acc)[R][DIM]) {
+  const ForcePair<float, DIM, ChainWeight<float, false>> soft{{a.eps}};
+  const ForcePair<float, DIM, FarWeight> far{{a.eps}};
+  const signed char* col = a.table + j0 / a.tile_j;
+  bool is_far[R];
+  bool same = true;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    // rows past ni compute and are not stored: any tile pair's branch will do
+    is_far[r] = col[static_cast<size_t>(min(row[r], a.ni - 1) / a.tile_i) * a.ntj] != 0;
+    same = same && is_far[r] == is_far[0];
+  }
+  if (same) {
+    if (is_far[0]) {
+      add_tile<float, DIM, R, false>(p, s_body, len, j0, row, far, acc);
+    } else {
+      add_tile<float, DIM, R, false>(p, s_body, len, j0, row, soft, acc);
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float(&pr)[1][DIM] = reinterpret_cast<const float(&)[1][DIM]>(p[r]);
+    float(&ar)[1][DIM] = reinterpret_cast<float(&)[1][DIM]>(acc[r]);
+    const int(&rr)[1] = reinterpret_cast<const int(&)[1]>(row[r]);
+    if (is_far[r]) {
+      add_tile<float, DIM, 1, false>(pr, s_body, len, j0, rr, far, ar);
+    } else {
+      add_tile<float, DIM, 1, false>(pr, s_body, len, j0, rr, soft, ar);
+    }
+  }
+}
+
 // This block's R * kRowThreads rows against its split's bodies.
 template <typename T, int DIM, int R, class Pair>
 __device__ __forceinline__ void row_block(const RowArgs<T>& a, const Pair& pair) {
@@ -283,13 +300,16 @@ __device__ __forceinline__ void row_block(const RowArgs<T>& a, const Pair& pair)
   }
   const int j_begin = static_cast<int>(blockIdx.y) * a.split_len;
   const int j_end = min(a.nj, j_begin + a.split_len);
-  for (int j0 = j_begin; j0 < j_end; j0 += kTile) {
-    const int len = min(kTile, j_end - j0);
+  for (int j0 = j_begin; j0 < j_end;) {
+    int len = min(kTile, j_end - j0);
+    if constexpr (Pair::kTable) len = min(len, a.tile_j - j0 % a.tile_j);  // one j-tile a stage
     for (int k = threadIdx.x; k < len; k += kRowThreads) {
       s_body[k] = load_body<T, DIM>(a.mj, a.xj, j0 + k);
     }
     __syncthreads();
-    if constexpr (Pair::kSkipsSelf) {
+    if constexpr (Pair::kTable) {
+      table_stage<DIM, R>(a, p, s_body, len, j0, row, acc);
+    } else if constexpr (Pair::kSkipsSelf) {
       if (j0 < first + R * kRowThreads && first < j0 + len) {  // uniform over the block
         add_tile<T, DIM, R, true>(p, s_body, len, j0, row, pair, acc);
       } else {
@@ -299,6 +319,7 @@ __device__ __forceinline__ void row_block(const RowArgs<T>& a, const Pair& pair)
       add_tile<T, DIM, R, false>(p, s_body, len, j0, row, pair, acc);
     }
     __syncthreads();
+    j0 += Pair::kTable ? len : kTile;
   }
   T* out = a.out + static_cast<size_t>(blockIdx.y) * a.ni * W;
 #pragma unroll
@@ -313,7 +334,11 @@ __device__ __forceinline__ void row_block(const RowArgs<T>& a, const Pair& pair)
 
 template <typename T, int DIM, int R, class Weight>
 __global__ void __launch_bounds__(kRowThreads) allpairs_block_kernel(RowArgs<T> a) {
-  row_block<T, DIM, R>(a, ForcePair<T, DIM, Weight>{Weight{a.eps}});
+  if constexpr (std::is_same_v<Weight, TableWeight>) {
+    row_block<T, DIM, R>(a, TablePair<DIM>{});
+  } else {
+    row_block<T, DIM, R>(a, ForcePair<T, DIM, Weight>{Weight{a.eps}});
+  }
 }
 
 template <typename T, int DIM, int R>
@@ -367,26 +392,19 @@ cudaError_t rows_call(int dim, int kind, int sqrt3, int exact, const void* xi, i
   }
   const RowArgs<T> a{static_cast<const T*>(xi), ni, static_cast<const T*>(mj),
                      static_cast<const T*>(xj), nj, split_len, static_cast<T>(eps),
-                     static_cast<T>(scale), static_cast<const T*>(mi), static_cast<T*>(out)};
+                     static_cast<T>(scale), static_cast<const T*>(mi), static_cast<T*>(out),
+                     nullptr, 0, 0, 0};
   if (dim == 2) return launch_rows<T, 2>(kind, sqrt3, exact, blocks, splits, a, stream);
   if (dim == 3) return launch_rows<T, 3>(kind, sqrt3, exact, blocks, splits, a, stream);
   return cudaErrorInvalidValue;
 }
 
-// float32 poly, square (x against itself), fast=True over JAX's tiles
-// (npad / tile_i blocks of tile_i / 2 threads, a j-tile in shared memory).
+// float32, the fast variant: ni rows of x against the nj = ni bodies by the
+// table's branches (RowArgs::table).
 template <int DIM>
-cudaError_t launch_fast(const float* x, const float* m, int n, int npad, int tile_i, int tile_j,
-                        float eps, float far_thresh, float scale, float* out, int* counts,
-                        cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(tile_j) * (DIM + 1) * sizeof(float);
-  if (tile_i < 64 || tile_i > kFastMaxRows || tile_i % 64 != 0 || tile_j <= 0 ||
-      smem > 48 * 1024 || npad < n || npad % tile_i != 0 || npad % tile_j != 0) {
-    return cudaErrorInvalidValue;
-  }
-  allpairs_fast_kernel<DIM>
-      <<<static_cast<unsigned>(npad / tile_i), static_cast<unsigned>(tile_i / 2), smem, stream>>>(
-          x, m, n, npad, tile_j, eps, far_thresh, scale, out, counts);
+cudaError_t launch_fast(int blocks, int splits, const RowArgs<float>& a, cudaStream_t stream) {
+  allpairs_block_kernel<float, DIM, kRows<float>, TableWeight>
+      <<<dim3(blocks, splits), kRowThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -451,26 +469,33 @@ extern "C" int nbody_split_sum(int device, int dtype, const void* parts, int spl
   return cudaGetLastError();
 }
 
-// fast=True of the float32 square evaluation, x: n rows of dim values, m:
-// n masses. npad is JAX's padded count (a multiple of tile_i and tile_j);
-// counts: null, or npad / tile_i pairs of zeroed ints, which get each
-// i-tile's [softened, far] j-tiles. Returns the launch's cudaError_t.
+// fast=True of the float32 square evaluation (x: n rows of dim values, m:
+// n masses) over the plan of nbody_allpairs_rows (blocks of 512 rows by
+// splits; out as there, scale G). table: the (npad / tile_i, ntj) int8
+// branches of JAX's tiles (nbody_tile_decide, fast mode: 0 softened, 1
+// far); tile_i a multiple of 32. Returns the launch's cudaError_t.
 extern "C" int nbody_allpairs_fast(int device, int dim, const void* x, const void* m, int n,
-                                   int npad, int tile_i, int tile_j, double eps,
-                                   double far_thresh, double scale, void* out, void* counts,
-                                   void* stream) {
-  if (n <= 0) return cudaErrorInvalidValue;
+                                   int blocks, int splits, int split_len, const void* table,
+                                   int tile_i, int tile_j, int ntj, double eps, double scale,
+                                   void* out, void* stream) {
+  if (n <= 0 || splits < 1 || splits > 65535 || split_len < kTile || split_len % kTile != 0 ||
+      static_cast<long long>(splits) * split_len < n ||
+      (splits > 1 && static_cast<long long>(splits - 1) * split_len >= n) ||
+      blocks != (n + kRows<float> * kRowThreads - 1) / (kRows<float> * kRowThreads) ||
+      tile_i <= 0 || tile_i % 32 != 0 || tile_j <= 0 ||
+      static_cast<long long>(ntj) * tile_j < n) {
+    return cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  int* c = static_cast<int*>(counts);
   const float* xf = static_cast<const float*>(x);
-  const float* mf = static_cast<const float*>(m);
-  float* o = static_cast<float*>(out);
+  const RowArgs<float> a{xf, n, static_cast<const float*>(m), xf, n, split_len,
+                         static_cast<float>(eps), static_cast<float>(scale), nullptr,
+                         static_cast<float*>(out), static_cast<const signed char*>(table),
+                         tile_i, tile_j, ntj};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float e = static_cast<float>(eps), ft = static_cast<float>(far_thresh);
-  const float sc = static_cast<float>(scale);
-  if (dim == 2) return launch_fast<2>(xf, mf, n, npad, tile_i, tile_j, e, ft, sc, o, c, s);
-  if (dim == 3) return launch_fast<3>(xf, mf, n, npad, tile_i, tile_j, e, ft, sc, o, c, s);
+  if (dim == 2) return launch_fast<2>(blocks, splits, a, s);
+  if (dim == 3) return launch_fast<3>(blocks, splits, a, s);
   return cudaErrorInvalidValue;
 }
 

@@ -6,22 +6,19 @@
 // (nbody_tpu/ops/pallas_allpairs_mxu.py:207, body _mxu_kernel :86-201) and
 // computes its function, float32 only. Per (i-tile, j-tile) pair, over
 // arrays padded as JAX pads them (npad bodies; those past n sit at the
-// origin with m = 0, virtually: an index past the array reads as 0):
+// origin with m = 0):
 //   * the frame c = (mean(xi tile) + mean(xj tile)) / 2, the means over the
 //     padded tiles (:103-108); y = x - c, z = |y|^2;
 //   * d2 = zi + zj - 2 yi.yj, the augmented quadratic form (:116-128), in
 //     FP32 FMA on the CUDA cores: JAX asks for Precision.HIGHEST there, and
-//     TF32 or bf16 would lose the digits that the near test and the close
-//     pairs depend on;
+//     TF32 or bf16 would lose the digits that the close pairs depend on;
 //   * near when min d2 <= near_factor * eps * (max zi + max zj) (:129-133):
-//     the exact per-dimension chain on the RAW coordinates with the Newton
-//     reciprocal (:135-159), in allpairs.cu's partial sums (pair.cuh
-//     add_row_tile); JAX's d2 > 0 guard is implicit there, as a pair at
-//     d2 = 0 has dx = 0;
-//   * far otherwise: w = 1 / (d2^1.5 + eps) from the quadratic-form d2
-//     (d2 clamped at 0, w = 0 where d2 = 0), the contraction
-//     S = W @ [m yj, m] and the per-tile finalize a += S[:, :dim] - yi S[:, dim]
-//     (:160-177);
+//     the two-MUFU chain on the RAW coordinates (:135-159; pair.cuh
+//     ChainWeight, as the Newton all-pairs kernel); JAX's d2 > 0 guard is
+//     implicit there, as d2 starts at the least normal number;
+//   * far otherwise: w = 1 / (d2^1.5 + eps) from the quadratic-form d2, the
+//     contraction S = W @ [m yj, m] and the per-tile finalize a += S[:, :dim]
+//     - yi S[:, dim] (:160-177);
 //   * under FAST, far tiles with min d2 > far_thresh drop eps:
 //     w = rsqrt(d2)^3, with W and [m yj, m] rounded to bf16 (:183-201).
 //
@@ -36,26 +33,39 @@
 // ~2^-16 relative). Under FAST one MMA of bf16(W) and bf16(B) is JAX's
 // function exactly.
 //
-// Design (right and simple; wgmma, TMA and a pipeline are for a later
-// change). One block per i-tile, tile_i / 2 threads: thread t owns rows t
-// and t + tile_i / 2 (their positions and sums in registers), and warp w
-// owns the four 16-row MMA groups of rows [64 w, 64 w + 64). A j-tile of
-// positions and masses is staged in shared memory; the frame, z and the
-// maxima come from block reductions, O(tile_i + tile_j) per tile pair. A
-// first pass over the pairs takes the least d2; the near branch runs the
-// exact chain per row owner; the far branch runs
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, each lane computing
-// w for its A fragment's (row, body) slots in registers, the B operand
-// [m yj, m] (dim + 1 columns, padded to 8 with zeros) built from shared
-// memory, S accumulated in the MMA's float32 registers, then written to
-// shared memory and finalized by the row owners.
-//
-// What bounds it on an H100: the scalar chain. Every pair costs the
-// quadratic form twice (the minimum, then w), a square root, the
-// reciprocal and its Newton step and the split: ~25 FP32 operations,
-// against 48 bf16 tensor-core FLOPs as issued (three m16n8k16 products per
-// 16 x 16 slots, n padded to 8): the FP32 rate (67 TFLOP/s) binds long
-// before the tensor cores (989 TFLOP/s).
+// What bounds it on an H100: the scalar chain, not the tensor cores. A far
+// pair needs the form (an add and dim FMAs), the root and the reciprocal
+// (2 MUFU) with the Newton step, and the split: ~12 FP32-pipe instructions
+// and 2 MUFU, so the MUFU floor, 1.1e12 pairs * 2 / (132 * 16 * 1.98e9 /s)
+// = 0.53 s at 2^20, binds; a far-fast pair ~7 and one MUFU (floor 0.26 s);
+// the MMAs, three m16n8k16 per 16 x 16 pairs (one under far-fast), stay
+// well below the tensor cores' rate. What a block-for-block port of the
+// Pallas body pays on top (measured 2.18 s at 2^20 on an H100): the
+// quadratic form twice a pair (the minimum, then w), an IEEE sqrt, a clamp
+// and a select a pair, dim + 3 block reductions and an S round trip
+// through shared memory on every j-tile, two float-to-bf16 conversions an
+// element, and 105-128 registers with spills. This design:
+//   - the branch of each tile pair comes from tile_decide.cu's table, and
+//     the frame's means from its per-tile statistics, computed once: no pass
+//     over the pairs and no block reduction here;
+//   - one block of 32 rows a warp (two 16-row MMA groups a warp), as many
+//     rows as gcd(tile_i, 256), so a block lies inside one i-tile and its
+//     branch and frame are uniform; a j-tile is staged 256 bodies at a time,
+//     as (y, z) in the frame and the B operand already split into bf16
+//     columns (far), or as raw (x, m) (near);
+//   - the lane's rows in registers as -2 y (the -2 is a power of two:
+//     exact) and z, so d2 = zi + zj + sum_d (-2 yi_d) yj_d is an add and dim
+//     FMAs; far w by the chain (s = d2 rsqrt.approx(d2), t = d2 s + eps,
+//     w = newton_recip(t)) with no clamp and no select (a far tile's every
+//     d2 exceeds the near limit, > 0); far-fast w = r r r, r =
+//     rsqrt.approx(d2), JAX's (r r) r;
+//   - W split two values an instruction (cvt.rn.bf16x2.f32), the low halves
+//     from the high halves read back as float32 (a shift or a mask);
+//   - the finalize from the MMA's C fragments in registers: the S0 column
+//     comes to the lane that holds the S1 columns by one quad shuffle, and
+//     each row's sums live in shared memory (the near chain adds to the same
+//     row there; sums are written once at the end).
+// mma.sync m16n8k16 stays: the tensor cores are not the limit.
 //
 // fragment layouts (PTX ISA, mma.m16n8k16 with .bf16), lane = 4 g + t:
 //   A (16 x 16, row): a0,a1 (row g, k 2t, 2t+1), a2,a3 (row g+8, k 2t, 2t+1),
@@ -64,7 +74,6 @@
 //   C (16 x 8):       c0,c1 (row g, n 2t, 2t+1), c2,c3 (row g+8, n 2t, 2t+1)
 // each pair of bf16 in one 32-bit register, the lower index in the low half.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -73,51 +82,50 @@
 
 namespace {
 
-constexpr int kMaxThreads = 512;  // tile_i <= 1024
-constexpr int kGroupsPerWarp = 4;  // 16-row MMA groups per warp: 64 rows, tile_i / 2 threads
+constexpr int kMaxRows = 256;              // rows a block at most: gcd(tile_i, 256)
+constexpr int kStage = nbody::kPartBodies;  // bodies staged at once
+constexpr int kCols = 8;                   // the MMA's n: [m yj, m] and zero columns
+constexpr int kNear = 0, kFar = 1, kFarFast = 2;
 
-using nbody::block_reduce;
-using nbody::Max;
-using nbody::Min;
-using nbody::Sum;
+struct MxuArgs {
+  const float* x;
+  const float* m;
+  int n;
+  int tile_i;
+  int tile_j;
+  int ni;                    // i-tiles: stats' first ni rows
+  int ntj;                   // j-tiles of the table
+  const signed char* table;  // (ni, ntj) branches (tile_decide.cu)
+  const float* stats;        // (ni + ntj) x [lo, hi, mean] x DIM (tile_decide.cu)
+  float eps;
+  float scale;
+  float* out;
+};
 
-// d2 by the quadratic form in the tile pair's frame; one function for the
-// minimum and for w, so both round alike.
-template <int DIM>
-__device__ __forceinline__ float quad_d2(const float* yi, float zi, const float* s_y, float zj,
-                                         int k, int tile_j) {
-  float d2 = zi + zj;
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) d2 = fmaf(yi[d], -2.0f * s_y[d * tile_j + k], d2);
-  return d2;
+// One staged body: (x, m) raw, or (y, z) in the frame; (x, y, z, m) in 3-D,
+// (x, y, m, 0) in 2-D.
+struct alignas(16) Vec4 {
+  float c[4];
+};
+
+// two floats as bf16, rounded to nearest even, in one word: lo in the low half
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+__device__ __forceinline__ float low_half(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float high_half(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+// (a, b) = hi + lo: hi their bf16 roundings, lo the roundings of the
+// (exact) remainders; each pair in one word, a in the low half.
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  hi = bf16x2(a, b);
+  lo = bf16x2(a - low_half(hi), b - high_half(hi));
 }
 
-// w of a far pair: 1 / (d2^1.5 + eps) with d2 clamped at 0 and w = 0 at
-// d2 = 0 (compute_w, :135-141); under FAR_FAST rsqrt(d2)^3 (:189-190).
-template <bool FAR_FAST>
-__device__ __forceinline__ float far_w(float d2, float eps) {
-  if constexpr (FAR_FAST) {
-    const float r = rsqrtf(d2);
-    return r * r * r;
-  } else {
-    const float d2c = fmaxf(d2, 0.0f);
-    const float r = nbody::newton_recip(d2c * sqrtf(d2c) + eps);
-    return d2c > 0.0f ? r : 0.0f;
-  }
-}
-
-__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// v = hi + lo, each rounded to bf16 (hi as _split_f32's astype, RNE)
-__device__ __forceinline__ void split(float v, __nv_bfloat16& hi, __nv_bfloat16& lo) {
-  hi = __float2bfloat16_rn(v);
-  lo = __float2bfloat16_rn(v - __bfloat162float(hi));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
@@ -125,225 +133,253 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// The far branch of one tile pair: this warp's four row groups against the
-// staged j-tile, S written to s_S[row][8].
+__device__ __forceinline__ float rsqrt_approx(float v) {
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// w of a far pair: 1 / (d2^1.5 + eps) by the chain (compute_w, :135-141; no
+// clamp, d2 > 0 here); under FAR_FAST rsqrt(d2)^3 (:189-190).
+template <bool FAR_FAST>
+__device__ __forceinline__ float far_w(float d2, float eps) {
+  const float r = rsqrt_approx(d2);
+  if constexpr (FAR_FAST) {
+    return r * r * r;
+  } else {
+    return nbody::newton_recip(d2 * (d2 * r) + eps);
+  }
+}
+
+// The lane's four rows (groups q = 0, 1; g + 8h) in the tile pair's frame.
+template <int DIM>
+struct FarRows {
+  float m2y[2][2][DIM];  // -2 y
+  float z[2][2];
+};
+
+// One far stage of len bodies into this warp's C fragments.
 template <int DIM, bool FAR_FAST>
-__device__ void far_contract(const float* s_m, const float* s_y, const float* s_z,
-                             const float* s_yi, const float* s_zi, float* s_S, int tile_i,
-                             int tile_j, float eps) {
+__device__ __forceinline__ void far_stage(const Vec4* s_body, const uint16_t (*s_bh)[kStage],
+                                          const uint16_t (*s_bl)[kStage], int len,
+                                          const FarRows<DIM>& rows, float eps,
+                                          float (&cf)[2][4]) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int base = (threadIdx.x >> 5) * kGroupsPerWarp * 16;
-  float yr[kGroupsPerWarp][2][DIM], zr[kGroupsPerWarp][2];
-  float c[kGroupsPerWarp][4];
-#pragma unroll
-  for (int q = 0; q < kGroupsPerWarp; ++q) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = base + q * 16 + g + 8 * h;
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) yr[q][h][d] = s_yi[d * tile_i + row];
-      zr[q][h] = s_zi[row];
+  for (int kk = 0; kk < len; kk += 16) {
+    const int k0 = kk + 2 * t;
+    const uint32_t bh[2] = {*reinterpret_cast<const uint32_t*>(&s_bh[g][k0]),
+                            *reinterpret_cast<const uint32_t*>(&s_bh[g][k0 + 8])};
+    uint32_t bl[2];
+    if constexpr (!FAR_FAST) {
+      bl[0] = *reinterpret_cast<const uint32_t*>(&s_bl[g][k0]);
+      bl[1] = *reinterpret_cast<const uint32_t*>(&s_bl[g][k0 + 8]);
     }
+    // bodies k0, k0 + 1, k0 + 8, k0 + 9: the fragment's columns e = 0..3
+    const Vec4 b[4] = {s_body[k0], s_body[k0 + 1], s_body[k0 + 8], s_body[k0 + 9]};
 #pragma unroll
-    for (int e = 0; e < 4; ++e) c[q][e] = 0.0f;
-  }
-  for (int kk = 0; kk < tile_j; kk += 16) {
-    const int ks[4] = {kk + 2 * t, kk + 2 * t + 1, kk + 2 * t + 8, kk + 2 * t + 9};
-    // B: column g of [m yj, m, 0...] at this lane's four bodies
-    __nv_bfloat16 bh[4], bl[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int k = ks[e];
-      float bv = 0.0f;
-      if (g < DIM) {
-        bv = s_y[g * tile_j + k] * s_m[k];
-      } else if (g == DIM) {
-        bv = s_m[k];
-      }
-      split(bv, bh[e], bl[e]);
-    }
-    const uint32_t Bh[2] = {pack(bh[0], bh[1]), pack(bh[2], bh[3])};
-    const uint32_t Bl[2] = {pack(bl[0], bl[1]), pack(bl[2], bl[3])};
-#pragma unroll
-    for (int q = 0; q < kGroupsPerWarp; ++q) {
-      // w at (row g + 8h, body ks[e]); fragment register r holds
-      // (h = r & 1, bodies ks[2 (r >> 1)], ks[2 (r >> 1) + 1])
-      __nv_bfloat16 wh[2][4], wl[2][4];
+    for (int q = 0; q < 2; ++q) {
+      float w[2][4];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float w = far_w<FAR_FAST>(
-              quad_d2<DIM>(yr[q][h], zr[q][h], s_y, s_z[ks[e]], ks[e], tile_j), eps);
-          if constexpr (FAR_FAST) {
-            wh[h][e] = __float2bfloat16_rn(w);
-          } else {
-            split(w, wh[h][e], wl[h][e]);
+          float d2 = rows.z[q][h] + b[e].c[DIM];
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) d2 = fmaf(rows.m2y[q][h][d], b[e].c[d], d2);
+          w[h][e] = far_w<FAR_FAST>(d2, eps);
+        }
+      }
+      // a0: (row g, bodies e 0, 1), a1: (row g + 8, e 0, 1), a2, a3: e 2, 3
+      if constexpr (FAR_FAST) {
+        const uint32_t ah[4] = {bf16x2(w[0][0], w[0][1]), bf16x2(w[1][0], w[1][1]),
+                                bf16x2(w[0][2], w[0][3]), bf16x2(w[1][2], w[1][3])};
+        mma_bf16(cf[q], ah, bh);
+      } else {
+        uint32_t ah[4], al[4];
+        split2(w[0][0], w[0][1], ah[0], al[0]);
+        split2(w[1][0], w[1][1], ah[1], al[1]);
+        split2(w[0][2], w[0][3], ah[2], al[2]);
+        split2(w[1][2], w[1][3], ah[3], al[3]);
+        mma_bf16(cf[q], ah, bh);
+        mma_bf16(cf[q], ah, bl);
+        mma_bf16(cf[q], al, bh);
+      }
+    }
+  }
+}
+
+// One near stage: the chain on raw coordinates, the thread's own row p
+// against len staged (x, m), a partial then the row's sum.
+template <int DIM>
+__device__ __forceinline__ void near_stage(const Vec4& p, const Vec4* s_body, int len, float eps,
+                                           float* acc) {
+  const nbody::ChainWeight<float, false> weight{eps};
+  float part[DIM];
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) part[d] = 0.0f;
+#pragma unroll 2
+  for (int k = 0; k < len; ++k) {
+    const Vec4 b = s_body[k];
+    float dx[DIM];
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) dx[d] = b.c[d] - p.c[d];
+    const float w = weight(b.c[DIM], nbody::sep2_from<float, DIM>(nbody::least_normal(0.0f), dx));
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) part[d] += w * dx[d];
+  }
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) acc[d] += part[d];
+}
+
+// The finalize of a far tile pair, a += S1 - yi S0, from the C fragments:
+// lane t holds columns 2t, 2t + 1 of rows g and g + 8 of each group; S0
+// (column DIM) comes from lane t = 1 by a quad shuffle. Lane 0 adds
+// components 0 and 1, lane 1 component 2 (3-D).
+template <int DIM>
+__device__ __forceinline__ void finalize(const float (&cf)[2][4], const FarRows<DIM>& rows,
+                                         float (*s_acc)[DIM]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int base = (threadIdx.x >> 5) * 32;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // S0 sits in lane t = 1: its first column in 2-D, its second in 3-D
+      const float mine = DIM == 3 ? cf[q][2 * h + 1] : cf[q][2 * h];
+      const float other = __shfl_xor_sync(0xffffffffu, mine, 1);
+      const float s0 = t == 0 ? other : mine;
+      float* acc = s_acc[base + 16 * q + g + 8 * h];
+      // yi = -m2y / 2, exactly
+      if (t == 0) {
+        acc[0] += fmaf(0.5f * rows.m2y[q][h][0], s0, cf[q][2 * h]);
+        acc[1] += fmaf(0.5f * rows.m2y[q][h][1], s0, cf[q][2 * h + 1]);
+      } else if (DIM == 3 && t == 1) {
+        acc[2] += fmaf(0.5f * rows.m2y[q][h][DIM - 1], s0, cf[q][2 * h]);
+      }
+    }
+  }
+}
+
+template <int DIM, bool FAST>
+__global__ void __launch_bounds__(kMaxRows) allpairs_mxu_kernel(MxuArgs a) {
+  __shared__ Vec4 s_rows[kMaxRows];         // the block's rows (x, 0)
+  __shared__ float s_acc[kMaxRows][DIM];    // their sums
+  __shared__ Vec4 s_body[kStage];           // the stage: (x, m) near, (y, z) far
+  __shared__ __align__(16) uint16_t s_bh[kCols][kStage];  // B, bf16 high halves
+  __shared__ __align__(16) uint16_t s_bl[kCols][kStage];  // and low halves
+  const int nt = blockDim.x;
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * nt;
+  const int I = row0 / a.tile_i;
+  {
+    const int i = row0 + tid;
+    Vec4 v{{0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) v.c[d] = i < a.n ? a.x[static_cast<size_t>(i) * DIM + d] : 0.0f;
+    s_rows[tid] = v;
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) s_acc[tid][d] = 0.0f;
+    for (int k = tid; k < kStage; k += nt) {
+      for (int col = DIM + 1; col < kCols; ++col) s_bh[col][k] = s_bl[col][k] = 0;
+    }
+  }
+  __syncthreads();
+  const float* mean_i = a.stats + static_cast<size_t>(I) * 3 * DIM + 2 * DIM;
+  const signed char* branches = a.table + static_cast<size_t>(I) * a.ntj;
+  const int lane = tid & 31, g = lane >> 2;
+  const int base = (tid >> 5) * 32;
+  const int ntj_live = (a.n + a.tile_j - 1) / a.tile_j;  // later j-tiles hold padding only
+  for (int J = 0; J < ntj_live; ++J) {
+    const int branch = branches[J];
+    const float* mean_j = a.stats + static_cast<size_t>(a.ni + J) * 3 * DIM + 2 * DIM;
+    float c[DIM];
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) c[d] = 0.5f * (mean_i[d] + mean_j[d]);
+    FarRows<DIM> rows;
+    float cf[2][4];
+    if (branch != kNear) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const Vec4 p = s_rows[base + 16 * q + g + 8 * h];
+          float z = 0.0f;
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) {
+            const float y = p.c[d] - c[d];
+            rows.m2y[q][h][d] = -2.0f * y;
+            z = fmaf(y, y, z);
+          }
+          rows.z[q][h] = z;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cf[q][e] = 0.0f;
+      }
+    }
+    for (int s0 = 0; s0 < a.tile_j; s0 += kStage) {
+      const int j0 = J * a.tile_j + s0;
+      if (j0 >= a.n) break;  // padding only: no force (uniform over the block)
+      const int len = min(kStage, a.tile_j - s0);
+      __syncthreads();  // the previous stage has been read
+      for (int k = tid; k < len; k += nt) {
+        const int j = j0 + k;
+        Vec4 v{{0.0f, 0.0f, 0.0f, 0.0f}};
+        if (j < a.n) {
+#pragma unroll
+          for (int d = 0; d < DIM; ++d) v.c[d] = a.x[static_cast<size_t>(j) * DIM + d];
+          v.c[DIM] = a.m[j];
+        }
+        if (branch == kNear) {
+          s_body[k] = v;
+          continue;
+        }
+        const float mj = v.c[DIM];
+        float bv[DIM + 1];
+        float z = 0.0f;
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) {
+          const float y = v.c[d] - c[d];
+          v.c[d] = y;
+          z = fmaf(y, y, z);
+          bv[d] = mj * y;
+        }
+        v.c[DIM] = z;
+        bv[DIM] = mj;
+        s_body[k] = v;
+#pragma unroll
+        for (int col = 0; col <= DIM; ++col) {
+          const uint32_t hi = bf16x2(bv[col], 0.0f);
+          s_bh[col][k] = static_cast<uint16_t>(hi);
+          if (branch == kFar) {
+            s_bl[col][k] = static_cast<uint16_t>(bf16x2(bv[col] - low_half(hi), 0.0f));
           }
         }
       }
-      const uint32_t Ah[4] = {pack(wh[0][0], wh[0][1]), pack(wh[1][0], wh[1][1]),
-                              pack(wh[0][2], wh[0][3]), pack(wh[1][2], wh[1][3])};
-      mma_bf16(c[q], Ah, Bh);
-      if constexpr (!FAR_FAST) {
-        const uint32_t Al[4] = {pack(wl[0][0], wl[0][1]), pack(wl[1][0], wl[1][1]),
-                                pack(wl[0][2], wl[0][3]), pack(wl[1][2], wl[1][3])};
-        mma_bf16(c[q], Ah, Bl);
-        mma_bf16(c[q], Al, Bh);
-      }
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < kGroupsPerWarp; ++q) {
-    const int row = base + q * 16 + g;
-    s_S[row * 8 + 2 * t] = c[q][0];
-    s_S[row * 8 + 2 * t + 1] = c[q][1];
-    s_S[(row + 8) * 8 + 2 * t] = c[q][2];
-    s_S[(row + 8) * 8 + 2 * t + 1] = c[q][3];
-  }
-}
-
-size_t smem_bytes(int dim, int tile_i, int tile_j) {
-  return sizeof(float) * (static_cast<size_t>(2 * dim + 2) * tile_j +
-                          static_cast<size_t>(dim + 1 + 8) * tile_i);
-}
-
-template <int DIM, bool FAST>
-__global__ void __launch_bounds__(kMaxThreads)
-allpairs_mxu_kernel(const float* __restrict__ x, const float* __restrict__ m, int n, int npad,
-                    int tile_i, int tile_j, float eps, float near_coef, float far_thresh,
-                    float scale, float* __restrict__ out, int* __restrict__ counts) {
-  extern __shared__ float smem[];
-  __shared__ float s_red[32];
-  float* s_x = smem;                 // [DIM][tile_j] raw positions
-  float* s_m = s_x + DIM * tile_j;   // [tile_j]
-  float* s_y = s_m + tile_j;         // [DIM][tile_j] in the frame
-  float* s_z = s_y + DIM * tile_j;   // [tile_j]
-  float* s_yi = s_z + tile_j;        // [DIM][tile_i]
-  float* s_zi = s_yi + DIM * tile_i; // [tile_i]
-  float* s_S = s_zi + tile_i;        // [tile_i][8]
-
-  const int nt = blockDim.x;
-  const int tid = threadIdx.x;
-  const int lrow[2] = {tid, tid + nt};
-  const int row0 = blockIdx.x * tile_i;
-  float p[2][DIM], acc[2][DIM];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = row0 + lrow[r];
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) {
-      p[r][d] = i < n ? x[static_cast<size_t>(i) * DIM + d] : 0.0f;
-      acc[r][d] = 0.0f;
-    }
-  }
-  float ci[DIM];
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) ci[d] = block_reduce(p[0][d] + p[1][d], s_red, Sum()) / tile_i;
-
-  for (int j0 = 0; j0 < npad; j0 += tile_j) {
-    float sx[DIM];
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) sx[d] = 0.0f;
-    for (int k = tid; k < tile_j; k += nt) {
-      const int j = j0 + k;
-      const bool real = j < n;
-      s_m[k] = real ? m[j] : 0.0f;
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) {
-        const float v = real ? x[static_cast<size_t>(j) * DIM + d] : 0.0f;
-        s_x[d * tile_j + k] = v;
-        sx[d] += v;
-      }
-    }
-    float cen[DIM];
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) {
-      cen[d] = 0.5f * (ci[d] + block_reduce(sx[d], s_red, Sum()) / tile_j);
-    }
-    // the frame: yj, zj (s_x is visible: block_reduce synchronised)
-    float zj_max = 0.0f;
-    for (int k = tid; k < tile_j; k += nt) {
-      float z = 0.0f;
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) {
-        const float y = s_x[d * tile_j + k] - cen[d];
-        s_y[d * tile_j + k] = y;
-        z += y * y;
-      }
-      s_z[k] = z;
-      zj_max = fmaxf(zj_max, z);
-    }
-    float yi[2][DIM], zi[2];
-    float zi_max = 0.0f;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      zi[r] = 0.0f;
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) {
-        yi[r][d] = p[r][d] - cen[d];
-        s_yi[d * tile_i + lrow[r]] = yi[r][d];
-        zi[r] += yi[r][d] * yi[r][d];
-      }
-      s_zi[lrow[r]] = zi[r];
-      zi_max = fmaxf(zi_max, zi[r]);
-    }
-    const float near_lim =
-        near_coef * (block_reduce(zi_max, s_red, Max()) + block_reduce(zj_max, s_red, Max()));
-    // pass 1: the least d2 of the tile pair
-    float dmin = INFINITY;
-    for (int k = 0; k < tile_j; ++k) {
-      const float zj = s_z[k];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) dmin = fminf(dmin, quad_d2<DIM>(yi[r], zi[r], s_y, zj, k, tile_j));
-    }
-    dmin = block_reduce(dmin, s_red, Min());
-    const int branch = dmin <= near_lim ? 0 : (FAST && dmin > far_thresh ? 2 : 1);
-    if (counts != nullptr && tid == 0) counts[3 * blockIdx.x + branch] += 1;
-    if (branch == 0) {  // the exact chain on raw coordinates (pair.cuh add_row_tile)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        nbody::add_row_tile<float, DIM>(p[r], s_m, s_x, tile_j, nbody::NewtonWeight{eps}, acc[r]);
-      }
-    } else {
-      if (branch == 2) {
-        far_contract<DIM, true>(s_m, s_y, s_z, s_yi, s_zi, s_S, tile_i, tile_j, eps);
-      } else {
-        far_contract<DIM, false>(s_m, s_y, s_z, s_yi, s_zi, s_S, tile_i, tile_j, eps);
-      }
       __syncthreads();
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float* S = s_S + lrow[r] * 8;
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) acc[r][d] += S[d] - yi[r][d] * S[DIM];
+      if (branch == kNear) {
+        near_stage<DIM>(s_rows[tid], s_body, len, a.eps, s_acc[tid]);
+      } else if (FAST && branch == kFarFast) {
+        far_stage<DIM, true>(s_body, s_bh, s_bl, len, rows, a.eps, cf);
+      } else {
+        far_stage<DIM, false>(s_body, s_bh, s_bl, len, rows, a.eps, cf);
       }
     }
-    __syncthreads();  // the next tile overwrites the shared arrays
+    if (branch != kNear) finalize<DIM>(cf, rows, s_acc);
   }
+  __syncthreads();
+  const int i = row0 + tid;
+  if (i < a.n) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = row0 + lrow[r];
-    if (i < n) {
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) out[static_cast<size_t>(i) * DIM + d] = scale * acc[r][d];
-    }
+    for (int d = 0; d < DIM; ++d) a.out[static_cast<size_t>(i) * DIM + d] = a.scale * s_acc[tid][d];
   }
 }
 
 template <int DIM, bool FAST>
-cudaError_t launch(const float* x, const float* m, int n, int npad, int tile_i, int tile_j,
-                   float eps, float near_coef, float far_thresh, float scale, float* out,
-                   int* counts, cudaStream_t stream) {
-  const size_t smem = smem_bytes(DIM, tile_i, tile_j);
-  cudaError_t err = cudaFuncSetAttribute(allpairs_mxu_kernel<DIM, FAST>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  allpairs_mxu_kernel<DIM, FAST>
-      <<<static_cast<unsigned>(npad / tile_i), static_cast<unsigned>(tile_i / 2), smem, stream>>>(
-          x, m, n, npad, tile_i, tile_j, eps, near_coef, far_thresh, scale, out, counts);
+cudaError_t launch(const MxuArgs& a, int rows, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((a.n + rows - 1) / rows);
+  allpairs_mxu_kernel<DIM, FAST><<<blocks, rows, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -351,31 +387,31 @@ cudaError_t launch(const float* x, const float* m, int n, int npad, int tile_i, 
 
 // x: n rows of dim float32 values, m: n masses, out: n rows; device
 // pointers. npad is JAX's padded count, a multiple of tile_i and tile_j;
-// tile_i a multiple of 64 up to 1024, tile_j a multiple of 16. near_coef
-// is near_factor * eps, rounded to float32 as JAX does. counts: null, or
-// npad / tile_i triples of zeroed ints, which get each i-tile's near, far
-// and far-fast j-tiles. Returns the launch's cudaError_t; nothing here synchronises.
+// tile_i a multiple of 64 up to 1024, tile_j a multiple of 16. table: the
+// (npad / tile_i, npad / tile_j) int8 branches, 0 near, 1 far, 2 far-fast,
+// and stats the per-tile [lo, hi, mean] rows, both from nbody_tile_decide
+// / nbody_tile_stats (MXU modes, with means). Returns the launch's
+// cudaError_t; nothing here synchronises.
 extern "C" int nbody_allpairs_mxu(int device, int dim, int fast, const void* x, const void* m,
-                                  int n, int npad, int tile_i, int tile_j, double eps,
-                                  double near_coef, double far_thresh, double scale, void* out,
-                                  void* counts, void* stream) {
-  if (n <= 0 || tile_i < 64 || tile_i > 2 * kMaxThreads || tile_i % 64 != 0 || tile_j < 16 ||
-      tile_j % 16 != 0 || npad < n || npad % tile_i != 0 || npad % tile_j != 0 ||
-      smem_bytes(dim, tile_i, tile_j) > 227 * 1024) {
+                                  int n, int npad, int tile_i, int tile_j, const void* table,
+                                  const void* stats, double eps, double scale, void* out,
+                                  void* stream) {
+  if (n <= 0 || tile_i < 64 || tile_i > 1024 || tile_i % 64 != 0 || tile_j < 16 ||
+      tile_j % 16 != 0 || npad < n || npad % tile_i != 0 || npad % tile_j != 0) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const float* xf = static_cast<const float*>(x);
-  const float* mf = static_cast<const float*>(m);
-  float* o = static_cast<float*>(out);
-  int* c = static_cast<int*>(counts);
+  int rows = kMaxRows;
+  while (tile_i % rows != 0) rows >>= 1;  // gcd(tile_i, 256): 64, 128 or 256
+  const MxuArgs a{static_cast<const float*>(x), static_cast<const float*>(m), n, tile_i, tile_j,
+                  npad / tile_i, npad / tile_j, static_cast<const signed char*>(table),
+                  static_cast<const float*>(stats), static_cast<float>(eps),
+                  static_cast<float>(scale), static_cast<float*>(out)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float e = static_cast<float>(eps), nc = static_cast<float>(near_coef);
-  const float ft = static_cast<float>(far_thresh), sc = static_cast<float>(scale);
-  if (dim == 2 && !fast) return launch<2, false>(xf, mf, n, npad, tile_i, tile_j, e, nc, ft, sc, o, c, s);
-  if (dim == 2 && fast) return launch<2, true>(xf, mf, n, npad, tile_i, tile_j, e, nc, ft, sc, o, c, s);
-  if (dim == 3 && !fast) return launch<3, false>(xf, mf, n, npad, tile_i, tile_j, e, nc, ft, sc, o, c, s);
-  if (dim == 3 && fast) return launch<3, true>(xf, mf, n, npad, tile_i, tile_j, e, nc, ft, sc, o, c, s);
+  if (dim == 2 && !fast) return launch<2, false>(a, rows, s);
+  if (dim == 2 && fast) return launch<2, true>(a, rows, s);
+  if (dim == 3 && !fast) return launch<3, false>(a, rows, s);
+  if (dim == 3 && fast) return launch<3, true>(a, rows, s);
   return cudaErrorInvalidValue;
 }

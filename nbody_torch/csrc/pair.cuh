@@ -53,44 +53,11 @@ __device__ __forceinline__ float newton_recip(float t) {
   return r * (2.0f - t * r);
 }
 
-// The poly weight m / (d2 * sqrt(d2) + eps) with the Newton reciprocal in
-// place of the division (pallas_allpairs.py:77-84, exact=False).
-__device__ __forceinline__ float pair_weight_newton(float m, float d2, float eps) {
-  return m * newton_recip(d2 * sqrtf(d2) + eps);
-}
-
-// The far-tile weight of the fast variant, m * rsqrt(d2)^3, the softening
-// dropped (pallas_allpairs.py:98-101): on a tile whose every d2 exceeds
-// (eps / tol)^(2/3) it changes each weight by less than tol relative.
-__device__ __forceinline__ float far_weight(float m, float d2) {
-  const float r = rsqrtf(d2);
-  return (m * r) * (r * r);
-}
-
-// d2 = |dx|^2 summed in dimension order: every pass that recomputes a
-// pair's d2 (a tile's minimum, then its weights) rounds alike.
-template <typename T, int DIM>
-__device__ __forceinline__ T sep2(const T* dx) {
-  T d2 = T(0);
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) d2 += dx[d] * dx[d];
-  return d2;
-}
-
-// The weights of add_row_part, w(m, d2).
+// The IEEE force weight w(m, d2) (exact=True).
 template <typename T, bool SQRT3>
 struct SoftenedWeight {
   T eps;
   __device__ __forceinline__ T operator()(T m, T d2) const { return pair_weight<T, SQRT3>(m, d2, eps); }
-};
-struct NewtonWeight {
-  float eps;
-  __device__ __forceinline__ float operator()(float m, float d2) const {
-    return pair_weight_newton(m, d2, eps);
-  }
-};
-struct FarWeight {
-  __device__ __forceinline__ float operator()(float m, float d2) const { return far_weight(m, d2); }
 };
 
 // The two-MUFU chain, which the all-pairs kernels (allpairs.cu) and the
@@ -108,7 +75,7 @@ struct FarWeight {
 __device__ __forceinline__ float least_normal(float) { return FLT_MIN; }
 __device__ __forceinline__ double least_normal(double) { return DBL_MIN; }
 
-// d2 = start + sum_d dx[d]^2 in dimension order; from 0 it is nbody::sep2.
+// d2 = start + sum_d dx[d]^2 in dimension order.
 template <typename T, int DIM>
 __device__ __forceinline__ T sep2_from(T start, const T* dx) {
   T d2 = start;
@@ -162,44 +129,13 @@ struct ChainWeight {
   }
 };
 
-// One row's sum over the bodies [k0, k1) of a tile staged in shared memory
-// (masses s_m, positions s_x[d * stride + k]), kept in a partial sum that
-// is added to the row total acc at the end -- the analog of the Pallas
-// kernels' per-j-tile jnp.sum followed by out_ref +=. A single running sum
-// over 2^20 same-signed terms would lose ~sqrt(n) ulps; partials of at most
-// kPartBodies keep the error near sqrt(kPartBodies) + sqrt(n / kPartBodies)
-// ulps of the sum of |term|. No d2 > 0 guard is needed: a pair at d2 = 0
-// has dx = 0, which zeroes its term.
+// The all-pairs kernels sum each row's terms over a staged tile of at most
+// kPartBodies bodies into a partial and add the partial to the row's total
+// -- the analog of the Pallas kernels' per-j-tile jnp.sum followed by
+// out_ref +=. A single running sum over 2^20 same-signed terms would lose
+// ~sqrt(n) ulps; partials of at most kPartBodies keep the error near
+// sqrt(kPartBodies) + sqrt(n / kPartBodies) ulps of the sum of |term|.
 constexpr int kPartBodies = 256;
-
-template <typename T, int DIM, typename Weight>
-__device__ __forceinline__ void add_row_part(const T* p, const T* s_m, const T* s_x, int stride,
-                                             int k0, int k1, Weight weight, T* acc) {
-  T part[DIM];
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) part[d] = T(0);
-#pragma unroll 4
-  for (int k = k0; k < k1; ++k) {
-    T dx[DIM];
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) dx[d] = s_x[d * stride + k] - p[d];
-    const T w = weight(s_m[k], sep2<T, DIM>(dx));
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) part[d] += w * dx[d];
-  }
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) acc[d] += part[d];
-}
-
-// One row's sum over a whole staged tile of len bodies (stride len), in
-// partials of kPartBodies.
-template <typename T, int DIM, typename Weight>
-__device__ __forceinline__ void add_row_tile(const T* p, const T* s_m, const T* s_x, int len,
-                                             Weight weight, T* acc) {
-  for (int k0 = 0; k0 < len; k0 += kPartBodies) {
-    add_row_part<T, DIM>(p, s_m, s_x, len, k0, min(len, k0 + kPartBodies), weight, acc);
-  }
-}
 
 struct Sum {
   __device__ static float identity() { return 0.0f; }

@@ -63,18 +63,21 @@ def accel_fn(kernel: str, eps: float):
     return calls[kernel]
 
 
-def reset_launch_counts() -> None:
-    from nbody_torch.ops import cuda_allpairs, cuda_allpairs_mxu
+def _modules():
+    from nbody_torch.ops import cuda_allpairs, cuda_allpairs_mxu, cuda_variant_decide
 
-    cuda_allpairs.reset_launch_counts()
-    cuda_allpairs_mxu.reset_launch_counts()
+    return cuda_allpairs, cuda_allpairs_mxu, cuda_variant_decide
+
+
+def reset_launch_counts() -> None:
+    for module in _modules():
+        module.reset_launch_counts()
 
 
 def launches() -> dict[str, int]:
-    """The nonzero launch counts of the all-pairs kernels."""
-    from nbody_torch.ops import cuda_allpairs, cuda_allpairs_mxu
-
-    counts = {**cuda_allpairs.launch_counts, **cuda_allpairs_mxu.launch_counts}
+    """The nonzero launch counts of the all-pairs kernels and of the
+    variants' decision kernels."""
+    counts = {name: c for module in _modules() for name, c in module.launch_counts.items()}
     return {name: c for name, c in counts.items() if c}
 
 

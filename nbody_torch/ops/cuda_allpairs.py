@@ -5,7 +5,10 @@ nbody_torch/csrc/allpairs.cu (see its header for the design):
 
   allpairs_block_kernel     replaces allpairs_accel_pallas and
                             allpairs_block_pallas (pallas_allpairs.py:113,
-                            :181; body _allpairs_kernel)
+                            :181; body _allpairs_kernel), fast=True too: a
+                            weight policy that reads each tile pair's branch
+                            from tile_decide_kernel's table
+                            (ops.cuda_variant_decide)
   potential_rowsums_kernel  replaces potential_rowsums_pallas (:255; body
                             _pe_kernel)
   split_sum_kernel          adds the body splits of a launch plan in order
@@ -35,7 +38,9 @@ its own name):
   fast=True, exact=False     FAST, float32: per (i-tile, j-tile) pair,
                              rsqrt^3 without the softening where the tile's
                              least d2 exceeds (eps / fast_tol)^(2/3), else
-                             the Newton chain.
+                             the Newton chain; the branches are decided
+                             first (cuda_variant_decide.decide_cuda), then
+                             the block kernel runs on block_plan's plan.
 The Newton form lies within 1 ulp of the division (JAX measured 1.7e-7
 relative, pallas_allpairs.py:81-82), so the twins divide exactly in IEEE:
 the hardware's approximate reciprocal cannot be reproduced on the CPU.
@@ -389,9 +394,9 @@ def allpairs_accel_cuda(m: torch.Tensor, x: torch.Tensor, G: float, eps: float,
     allpairs_accel_pallas, whose default exact=False it shares. The kernel
     applies G after the sum, as the Pallas wrapper does
     (pallas_allpairs.py:173). The tiles and fast_tol matter to fast=True
-    only, `plan` to fast=False only. With return_counts (fast=True only)
-    returns (a, counts), counts the int (i-tiles, 2) tensor of each
-    i-tile's [softened, far] j-tiles, as allpairs_fast_torch returns them."""
+    only. With return_counts (fast=True only) returns (a, counts), counts
+    the int (i-tiles, 2) tensor of each i-tile's [softened, far] j-tiles,
+    as allpairs_fast_torch returns them."""
     _check_bodies(x, m, x)
     _check_variant(x.dtype, exact, fast, return_counts)
     if _on_cpu(m, x):
@@ -403,23 +408,32 @@ def allpairs_accel_cuda(m: torch.Tensor, x: torch.Tensor, G: float, eps: float,
         return _launch_rows(block_name(x.dtype, exact), x, m, x, eps, "poly", exact, G, None,
                             plan)
     from nbody_torch._build import load_library
+    from nbody_torch.ops import cuda_variant_decide as vd
 
     n, dim = x.shape
     npad, tile_j = fast_tiling(n, dim, tile_i, tile_j)
-    if tile_i % 64 or not 64 <= tile_i <= 512 or tile_j * (dim + 1) > 12288:
-        raise ValueError(f"fast takes tile_i a multiple of 64 in [64, 512] and a j-tile of at "
-                         f"most 48 KB, got tile_i={tile_i}, tile_j={tile_j}")
-    out = torch.empty_like(x)
-    counts = tile_counts(npad, tile_i, 2, x) if return_counts else None
+    if tile_i % 32 or not 32 <= tile_i <= vd.MAX_TILE or tile_j % vd.SUB or tile_j > vd.MAX_TILE:
+        raise ValueError(f"fast takes tile_i a multiple of 32 and tile_j a multiple of {vd.SUB}, "
+                         f"both up to {vd.MAX_TILE}, got tile_i={tile_i}, tile_j={tile_j}")
     if n == 0:
-        return (out, counts) if return_counts else out
+        out = torch.empty_like(x)
+        return (out, tile_counts(npad, tile_i, 2, x)) if return_counts else out
+    table, _ = vd.decide_cuda(x, "fast", npad, tile_i, tile_j,
+                              thresh=far_threshold(eps, fast_tol))
+    if plan is None:
+        plan = block_plan(n, n, x.dtype, sm_count_of(x.device.index))
+    if plan.rows_per_block != ROWS[x.dtype] * THREADS:
+        raise ValueError(f"{plan} is not a plan of float32 rows")
+    split = plan.splits > 1
+    out = torch.empty((plan.splits, n, dim), dtype=x.dtype, device=x.device)
     err = load_library().nbody_allpairs_fast(
-        x.device.index, dim, x.data_ptr(), m.data_ptr(), n, npad, tile_i, tile_j, float(eps),
-        far_threshold(eps, fast_tol), float(G), out.data_ptr(),
-        None if counts is None else counts.data_ptr(), _stream(x))
+        x.device.index, dim, x.data_ptr(), m.data_ptr(), n, plan.blocks, plan.splits,
+        plan.split_len, table.data_ptr(), tile_i, tile_j, table.shape[1], float(eps),
+        1.0 if split else float(G), out.data_ptr(), _stream(x))
     _raise_on_error(FAST, err)
     launch_counts[FAST] += 1
-    return (out, counts) if return_counts else out
+    a = split_sum_cuda(out, G) if split else out[0]
+    return (a, vd.branch_counts(table, 2)) if return_counts else a
 
 
 def potential_rowsums_cuda(m: torch.Tensor, x: torch.Tensor, eps: float,

@@ -19,6 +19,11 @@ Body order does not change the result beyond rounding, but on unsorted
 bodies every tile pair is near: sort them (ops.hilbert.hilbert_sort_perm)
 so that far tile pairs exist.
 
+On the card the branches are decided first, for every tile pair at once
+(ops.cuda_variant_decide: tile_stats_kernel, then tile_decide_kernel in
+mode mxu or mxu-fast), and the kernel reads each tile pair's branch from
+that table and its frame from the tiles' means there.
+
 The wrapper checks device, dtype, shape and contiguity, allocates its
 output with torch.empty, launches on the current stream, raises on a
 launch error and counts its launches per instantiation in
@@ -147,35 +152,37 @@ def allpairs_accel_mxu_cuda(m: torch.Tensor, x: torch.Tensor, G: float, eps: flo
                             return_counts: bool = False):
     """All-pairs accelerations by the hybrid kernel -- the counterpart of
     allpairs_accel_mxu, with its defaults (:207-219). float32 only.
-    tile_i is a multiple of 64 up to 1024, tile_j a multiple of 16. With
+    tile_i is a multiple of 64 up to 1024, tile_j a multiple of 16 up to
+    4096 (cuda_variant_decide.MAX_TILE). With
     return_counts returns (a, counts), counts the int (i-tiles, 3) tensor
     of each i-tile's j-tiles by branch, as allpairs_accel_mxu_torch
     returns them."""
     _check_bodies(x, m, x)
     if x.dtype != torch.float32:
         raise ValueError("the MXU kernel is float32 only; use allpairs_accel_cuda for float64")
-    if tile_i % 64 or not 64 <= tile_i <= 1024 or tile_j % 16 or tile_j <= 0:
+    if tile_i % 64 or not 64 <= tile_i <= 1024 or tile_j % 16 or not 0 < tile_j <= 4096:
         raise ValueError(f"tile_i must be a multiple of 64 in [64, 1024] and tile_j a multiple "
-                         f"of 16, got {tile_i}, {tile_j}")
+                         f"of 16 up to 4096, got {tile_i}, {tile_j}")
     if _on_cpu(m, x):
         a, counts = allpairs_accel_mxu_torch(m, x, G, eps, tile_i, tile_j, near_factor, fast,
                                              far_thresh)
         return (a, counts) if return_counts else a
     from nbody_torch._build import load_library
+    from nbody_torch.ops import cuda_variant_decide as vd
 
     n, dim = x.shape
     npad = mxu_padding(n, tile_i, tile_j)
     out = torch.empty_like(x)
-    counts = tile_counts(npad, tile_i, 3, x) if return_counts else None
     if n == 0:
-        return (out, counts) if return_counts else out
+        return (out, tile_counts(npad, tile_i, 3, x)) if return_counts else out
     near_coef = float(torch.tensor(near_factor * eps, dtype=torch.float32))
+    table, stats = vd.decide_cuda(x, "mxu-fast" if fast else "mxu", npad, tile_i, tile_j,
+                                  near_coef, far_thresh)
     err = load_library().nbody_allpairs_mxu(
         x.device.index, dim, int(fast), x.data_ptr(), m.data_ptr(), n, npad, tile_i, tile_j,
-        float(eps), near_coef, float(far_thresh), float(G), out.data_ptr(),
-        None if counts is None else counts.data_ptr(),
+        table.data_ptr(), stats.data_ptr(), float(eps), float(G), out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     name = FAST if fast else PLAIN
     _raise_on_error(name, err)
     launch_counts[name] += 1
-    return (out, counts) if return_counts else out
+    return (out, vd.branch_counts(table, 3)) if return_counts else out

@@ -80,10 +80,12 @@
         innermost loop with the most MUFU operations: instructions, MUFU,
         FP32, FP64 and shared-load instructions in it, and the
         instructions a pair, counting two MUFU operations a pair (a root
-        and a reciprocal, as every chain of csrc/ but the fast variant's
-        far branch takes); and its global loads by width over the whole
-        function (LDG.E.128 a 16-byte load), what the sum passes are
-        judged by.
+        and a reciprocal, as every chain of csrc/ but the fast variants'
+        far branches takes); where the kernel has one, its far loop (far_*:
+        the innermost loop whose MUFU operations are all rsqrt, the fast
+        variants' far branches, counted at one MUFU a pair); and its
+        global loads by width over the whole function (LDG.E.128 a 16-byte
+        load), what the sum passes are judged by.
 """
 
 from __future__ import annotations
@@ -347,10 +349,19 @@ def sass_loops(text: str) -> dict[str, dict]:
             continue
         lo, hi = max(inner, key=lambda r: (mufu(*r), -(r[1] - r[0])))
         n, mu = hi - lo + 1, mufu(lo, hi)
-        out[name.strip()] = {"loop_instructions": n, "mufu": mu,
-                             "fp32": count(lo, hi, FP32_OPS), "fp64": count(lo, hi, FP64_OPS),
-                             "lds": count(lo, hi, ("LDS",)),
-                             "instructions_per_pair": n * 2 / mu}
+        row = {"loop_instructions": n, "mufu": mu,
+               "fp32": count(lo, hi, FP32_OPS), "fp64": count(lo, hi, FP64_OPS),
+               "lds": count(lo, hi, ("LDS",)),
+               "instructions_per_pair": n * 2 / mu}
+        # a far loop: rsqrt only (the fast variants' far branches, one MUFU a pair)
+        far = [(lo, hi) for lo, hi in inner
+               if mufu(lo, hi) == sum(1 for _, op, _ in insts[lo:hi + 1] if op == "MUFU.RSQ")]
+        if far:
+            lo, hi = max(far, key=lambda r: (mufu(*r), -(r[1] - r[0])))
+            n, mu = hi - lo + 1, mufu(lo, hi)
+            row.update(far_loop_instructions=n, far_mufu=mu, far_fp32=count(lo, hi, FP32_OPS),
+                       far_instructions_per_pair=n / mu)
+        out[name.strip()] = row
     return out
 
 

@@ -1,7 +1,8 @@
-"""Time the tree kernels, the sum passes and the small BVH runs of the
-nbody_torch found under ROOT, for comparing two checkouts on one card:
+"""Time the tree kernels, the sum passes, the small BVH runs and the all-pairs
+variants of the nbody_torch found under ROOT, for comparing two checkouts on
+one card:
 
-    python nbody_torch/probes/compare_trees.py ROOT [OUT]
+    python nbody_torch/probes/compare_trees.py ROOT [OUT] [--allpairs-only]
 
 Run it as a file (not with -m), once per checkout, in turns (parent,
 change, change, parent) on one card: it imports nbody_torch
@@ -33,7 +34,15 @@ wrappers. Prints one JSON line (appended to OUT too, if given):
                        f64 octree list path's 3-D case); on the device alone;
   *_call_ms            the same calls back to back (their host cost shows);
   *_torch_sum_ms       torch.sum over the same parts, on the device alone;
-  entries_sum_{3,2}d_ms entries_sum_cuda on the float32 parts, 4 a tile.
+  entries_sum_{3,2}d_ms entries_sum_cuda on the float32 parts, 4 a tile;
+  allpairs_{newton,fast,mxu,mxu_fast}_ms  one 2^20 3-D float32 evaluation
+                       by kernel_bench's call of each kernel (newton, fast,
+                       mxu, mxu-fast) on its inputs Hilbert-sorted (bench.py's
+                       all-pairs bodies), CUDA events over 3 calls;
+  decide_{fast,mxu,mxu_fast}_ms  where ROOT has ops/cuda_variant_decide, its
+                       decision (tile statistics and table) for the same
+                       bodies and each variant's tiles, over 10 calls.
+--allpairs-only runs the all-pairs keys alone.
 """
 
 import importlib
@@ -154,9 +163,37 @@ def small_run_step(cli, argv) -> float:
     return float(fields[5]) / int(fields[3])
 
 
+def allpairs_row(dev: torch.device) -> dict:
+    """The all-pairs keys: kernel_bench's calls at 2^20 3-D on its inputs,
+    Hilbert-sorted, and the decision alone where the checkout has one."""
+    kb = importlib.import_module("nbody_torch.kernel_bench")
+    aabb_of_points = importlib.import_module("nbody_torch.ops.geometry").aabb_of_points
+    hilbert_sort_perm = importlib.import_module("nbody_torch.ops.hilbert").hilbert_sort_perm
+    eps = float(np.finfo(np.float32).eps)
+    m, x = (torch.tensor(a, device=dev) for a in kb.inputs(N, 3))
+    perm = hilbert_sort_perm(x, *aabb_of_points(x, eps))
+    m, x = m[perm].contiguous(), x[perm].contiguous()
+    row = {}
+    for kernel in ("newton", "fast", "mxu", "mxu-fast"):
+        accel = kb.accel_fn(kernel, eps)
+        row[f"allpairs_{kernel.replace('-', '_')}_ms"] = events_ms(lambda: accel(m, x), 3)
+    try:
+        vd = importlib.import_module("nbody_torch.ops.cuda_variant_decide")
+    except ImportError:
+        return row
+    near_coef = float(np.float32(1e5 * eps))
+    fast_thresh = float((eps / 1e-6) ** (2.0 / 3.0))  # cuda_allpairs.far_threshold
+    for mode, thresh in (("fast", fast_thresh), ("mxu", 0.0), ("mxu-fast", 1e-2)):
+        row[f"decide_{mode.replace('-', '_')}_ms"] = events_ms(
+            lambda: vd.decide_cuda(x, mode, N, 512, 1024, near_coef, thresh), 10)
+    return row
+
+
 def main(argv: list[str]) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("compare_trees needs a CUDA GPU")
+    allpairs_only = "--allpairs-only" in argv
+    argv = [a for a in argv if a != "--allpairs-only"]
     root = argv[0] if argv else "."
     sys.path.insert(0, root)  # the checkout's nbody_torch, not this file's
     build_model = importlib.import_module("nbody_torch.models").build_model
@@ -164,9 +201,10 @@ def main(argv: list[str]) -> None:
                       for name in ("cuda_group_eval", "octree", "octree_group"))
     dev = torch.device("cuda", 0)
     row = {"root": root, "module": cg.__file__, "device": torch.cuda.get_device_name(0)}
+    row.update(allpairs_row(dev))
     bvh, bg, cli = (importlib.import_module(f"nbody_torch.{name}")
                     for name in ("ops.bvh", "ops.bvh_group", "cli"))
-    for dim in (3, 2):
+    for dim in (3, 2) if not allpairs_only else ():
         calls = octree_calls(dim, dev, build_model, octree, og)
         args = calls["window_eval_interval_cuda"]
         row[f"interval_{dim}d_ms"] = events_ms(lambda: cg.window_eval_interval_cuda(*args), 10)
@@ -186,10 +224,10 @@ def main(argv: list[str]) -> None:
         row[f"dense_n16_{dim}d_call_ms"] = events_ms(lambda: cg.window_eval_dense_cuda(*args),
                                                      REPS)
         row[f"dense_n16_{dim}d_host_ms"] = host_ms(lambda: cg.window_eval_dense_cuda(*args), 200)
-    for key, run in SMALL_RUNS.items():
+    for key, run in SMALL_RUNS.items() if not allpairs_only else ():
         row[f"small_{key}_s_per_step"] = small_run_step(cli, run)
     for dim, dtype, written in ((3, torch.float32, P), (2, torch.float32, P),
-                                (3, torch.float64, 0)):
+                                (3, torch.float64, 0)) if not allpairs_only else ():
         parts = torch.rand((NTILES * P, TB, dim), dtype=dtype, device=dev)
         nparts = torch.full((NTILES,), written, dtype=torch.int32, device=dev)
         key = f"parts_sum_{str(dtype).removeprefix('torch.')}_{dim}d_{written}parts"

@@ -22,9 +22,10 @@ def test_library_path_hashes_sources_and_headers(tmp_path, monkeypatch):
 def test_repo_sources_and_header():
     names = {p.name for p in _build.CSRC.iterdir()}
     assert {"allpairs.cu", "allpairs_mxu.cu", "entry_probes.cu", "group_eval.cu", "pair.cuh",
-            "tiles.cuh"} <= names
+            "tile_decide.cu", "tiles.cuh"} <= names
     assert [p.name for p in _build.sources()] == ["allpairs.cu", "allpairs_mxu.cu",
-                                                  "entry_probes.cu", "group_eval.cu"]
+                                                  "entry_probes.cu", "group_eval.cu",
+                                                  "tile_decide.cu"]
     assert _build.library_path().parent == _build.BUILD_DIR
 
 
@@ -98,6 +99,40 @@ def test_probe_sass_counts_the_innermost_mufu_loop():
                                  "lds": 0, "instructions_per_pair": 6.0}
     assert ptxas_usage(PTXAS) == {"_Zkernel": {"spill_stores": 8, "spill_loads": 4,
                                                "registers": 40}}
+
+
+FAR_SASS = """
+        code for sm_90a
+                Function : _Zfast
+.L_x_1:
+        /*0000*/                   LDS.128 R4, [R2] ;
+        /*0010*/                   MUFU.RSQ R6, R5 ;
+        /*0020*/                   FMUL R7, R6, R6 ;
+        /*0030*/                   MUFU.RSQ R8, R9 ;
+        /*0040*/                   FMUL R10, R8, R8 ;
+        /*0050*/                   FFMA R11, R10, R8, R11 ;
+        /*0060*/               @P0 BRA `(.L_x_1) ;
+.L_x_2:
+        /*0070*/                   MUFU.RSQ R6, R5 ;
+        /*0080*/                   MUFU.RCP R7, R6 ;
+        /*0090*/                   MUFU.RSQ R8, R9 ;
+        /*00a0*/                   MUFU.RCP R9, R8 ;
+        /*00b0*/                   FFMA R11, R9, R8, R11 ;
+        /*00c0*/               @P1 BRA `(.L_x_2) ;
+        /*00d0*/                   EXIT ;
+"""
+
+
+def test_probe_sass_counts_the_far_loop_at_one_mufu_a_pair():
+    """probe sass: beside the hot loop (the most MUFU, two a pair), a
+    kernel's far loop, whose MUFU are all rsqrt, at one MUFU a pair."""
+    from nbody_torch.probe import sass_loops
+
+    row = sass_loops(FAR_SASS)["_Zfast"]
+    assert (row["loop_instructions"], row["mufu"], row["instructions_per_pair"]) == (6, 4, 3.0)
+    assert {k: row[k] for k in row if k.startswith("far")} == {
+        "far_loop_instructions": 7, "far_mufu": 2, "far_fp32": 3,
+        "far_instructions_per_pair": 3.5}
 
 
 SUM_SASS = """

@@ -11,7 +11,9 @@ bit-equal to its plain version on slices that take 16-byte loads and on
 those that do not), the table-driven entries and the entry-cost probes' ladder and
 copy-ring kernels (csrc/entry_probes.cu), and the all-pairs variants (the Newton and fast
 instantiations, and the hybrid kernel of csrc/allpairs_mxu.cu, whose
-counts of tile pairs by branch must equal their twins'). Every test
+counts of tile pairs by branch must equal their twins', and the decision
+kernels of csrc/tile_decide.cu that they launch first, bit-equal to their
+plain versions, on layouts a few ulps either side of each threshold too). Every test
 here needs an NVIDIA GPU with nvcc (the kernels are built from
 nbody_torch/csrc at first use) and skips without one; on the GPU machine
 run them with
@@ -1060,19 +1062,88 @@ def test_mxu_tiles_of_jax_tests(dev):
 
 
 def test_variant_launch_counters(dev):
+    """Each variant call launches its decision (the statistics, then the
+    table) before its kernel; the fast variant runs on block_plan's plan,
+    which splits 300 bodies, so split_sum_kernel follows it too."""
     from nbody_torch.ops import cuda_allpairs_mxu as cm
+    from nbody_torch.ops import cuda_variant_decide as vd
 
     m, x = _bodies(300, 2, torch.float32, dev, seed=7)
     ca.reset_launch_counts()
     cm.reset_launch_counts()
+    vd.reset_launch_counts()
     ca.allpairs_accel_cuda(m, x, 1.0, 1e-7, exact=False)
     ca.allpairs_accel_cuda(m, x, 1.0, 1e-7, exact=False, fast=True)
     ca.allpairs_accel_cuda(m, x, 1.0, 1e-7, exact=False, fast=True, return_counts=True)
     cm.allpairs_accel_mxu_cuda(m, x, 1.0, 1e-7)
     cm.allpairs_accel_mxu_cuda(m, x, 1.0, 1e-7, fast=True)
     assert ca.launch_counts == {ca.EXACT: 0, ca.NEWTON: 1, ca.NEWTON64: 0, ca.FAST: 2,
-                                ca.POTENTIAL: 0, ca.SPLIT_SUM: 1}
+                                ca.POTENTIAL: 0, ca.SPLIT_SUM: 3}
     assert cm.launch_counts == {cm.PLAIN: 1, cm.FAST: 1}
+    assert vd.launch_counts == {vd.STATS: 4, vd.DECIDE["fast"]: 2, vd.DECIDE["mxu"]: 1,
+                                vd.DECIDE["mxu-fast"]: 1}
+
+
+EPS32 = float(np.finfo(np.float32).eps)
+NEAR_COEF = float(np.float32(1e5 * EPS32))
+DECIDE_MODES = {"fast": ca.far_threshold(EPS32), "mxu": 0.0, "mxu-fast": 1e-2}
+
+
+@pytest.mark.parametrize("layout", ["unsorted", "sorted", "clusters"])
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("mode", list(DECIDE_MODES))
+def test_decision_kernels_vs_plain(dev, mode, dim, layout):
+    """tile_stats_kernel and tile_decide_kernel bit-equal to their plain
+    versions; the exact pass taken by the tile pairs the box mirror leaves
+    open, and no others; its pairs within what those tile pairs hold."""
+    from nbody_torch.ops import cuda_allpairs_mxu as cm
+    from nbody_torch.ops import cuda_variant_decide as vd
+
+    _, x = _layout(layout, 6000, dim, dev)
+    ti, tj = (256, 512) if layout == "clusters" else (512, 1024)
+    npad = cm.mxu_padding(6000, ti, tj)
+    thresh = DECIDE_MODES[mode]
+    table, stats, work = vd.decide_cuda(x, mode, npad, ti, tj, NEAR_COEF, thresh, work=True)
+    plain_stats = vd.tile_stats_torch(x, npad, ti, tj, means=mode != "fast")
+    assert torch.equal(stats, plain_stats)
+    assert torch.equal(table, vd.decide_torch(x, mode, npad, ti, tj, NEAR_COEF, thresh))
+    boxes = vd.box_table_torch(plain_stats, npad // ti, npad // tj, mode, NEAR_COEF,
+                               thresh)
+    assert work[:, 0].tolist() == (boxes < 0).sum(1).tolist()
+    assert (work[:, 1] <= work[:, 0] * ti * tj).all()
+    assert torch.equal(boxes[boxes >= 0], table[boxes >= 0])
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("kind", ["fast", "fast-notch", "mxu", "mxu-fast"])
+def test_decision_kernel_on_straddling_layouts(dev, kind, dim):
+    """A few ulps either side of each threshold: the kernel's table is its
+    plain version's, both branches occur, and the variants at tiles (64,
+    64) take the twins' branches."""
+    from nbody_torch.ops import cuda_allpairs_mxu as cm
+    from nbody_torch.ops import cuda_variant_decide as vd
+
+    mode = "fast" if kind.startswith("fast") else kind
+    thresh = DECIDE_MODES[mode]
+    seen = set()
+    for _, x in vd.straddle_layouts(kind, dim, NEAR_COEF, thresh):
+        x = x.to(dev)
+        table, _ = vd.decide_cuda(x, mode, 128, 64, 64, NEAR_COEF, thresh)
+        assert torch.equal(table.cpu(), vd.decide_torch(x.cpu(), mode, 128, 64, 64, NEAR_COEF,
+                                                        thresh))
+        seen.add(int(table[0, 1]))
+        m = torch.ones(128, device=dev)
+        if mode == "fast":
+            _, counts = ca.allpairs_accel_cuda(m, x, 1.0, EPS32, fast=True, tile_i=64,
+                                               tile_j=64, return_counts=True)
+            _, twin = ca.allpairs_fast_torch(m, x, 1.0, EPS32, tile_i=64, tile_j=64)
+        else:
+            kw = {"fast": True, "far_thresh": thresh} if mode == "mxu-fast" else {}
+            _, counts = cm.allpairs_accel_mxu_cuda(m, x, 1.0, EPS32, 64, 64, return_counts=True,
+                                                   **kw)
+            _, twin = cm.allpairs_accel_mxu_torch(m, x, 1.0, EPS32, 64, 64, **kw)
+        assert counts.cpu().tolist() == twin.tolist()
+    assert len(seen) == 2
 
 
 # ------------------------------------------------ the ablation path's kernels
