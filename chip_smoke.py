@@ -201,12 +201,28 @@ Phases, each printed on its own lines:
      b. probe entry-overhead all S 128 at S = 1,024 and 512: ideal ==
         sepmj and sel == when exactly (the probe's rel_err is 0), switch
         within 1e-5 of sum |term| of the production entries kernel on the
-        same entries (the probe's switch==prod); each rung's S = 1,024 call
-        re-run, timed and held against its plain version on all its rows;
+        same entries (the probe's switch==prod); every mode's time, pairs/s,
+        MUFU floor, share of it and P printed, prod's pairs/s beside the
+        ideal rung's, and the ladder's steps (each rung minus the one it
+        adds a feature to, prod minus switch) in us an entry; each rung's
+        S = 1,024 call re-run, timed and held against its plain version on
+        all its rows, with its P, MUFU floor, SASS (probe sass_of of
+        entry_probes.cu, run in a thread from phase 1: no slow-path CALL
+        or FCHK, i.e. no IEEE division or root) and its registers and
+        resident blocks an SM as the CUDA runtime reports them (5, no spill);
+        the ideal rung's call at P = 1, 2, 4, 8, each within 1e-5 of sum
+        |term| of the default's;
      c. probe dma-pipeline all with --math 1 and --math 0: each mode's
         rel_err against blockspec at most 1e-6 (the kernels sum alike,
         so 0 is expected); each call re-run, timed and held against its
-        plain version.
+        plain version, with its P, its MUFU floor (--math 1) or, --math 0,
+        its time on the device alone (compare_trees.device_ms) and its
+        copies' bytes a second, its registers and resident blocks an SM
+        as the CUDA runtime reports them, and its SASS. blockspec is the ideal
+        rung built at the ring's launch bounds (4 blocks an SM, at most
+        64 registers), so the three modes are compared at one register
+        budget, and each math's ms are printed side by side; the ideal
+        rung's time at 5 blocks an SM (b) is printed beside blockspec's.
 Phase 2's bounds (bound_ms in the kernels line): pairs times 5*dim + 3
 FLOPs (+1 under sqrt3; 3*dim + 3 for the potential) over 67 TFLOP/s in
 float32 or 34 in float64. Beside the float32 times it prints, and keeps
@@ -263,7 +279,9 @@ its live entries' [lo, min(hi, S)), the ladder's rungs those of the
 entries' lanes (all S for ideal and sepmj), so the masked rungs' full-S
 pass counts only the lanes it needs; the --math 0 control E * S reads of
 3 adds each, bound by its bytes (each input once; the copies themselves
-move E * S * 16 bytes, printed as copied_bytes).
+move E * S * 16 bytes, printed as copied_bytes). Beside them, kept out of
+bound_ms, the MUFU floor of the pairs a rung or ring computes (every lane
+of each entry it runs: 4.295e9 at E = 8,192, S = 1,024), as phase 2's.
 The kernels' launch counts are set to 0 just before each CLI run that
 drives a main path and read just after it: the all-pairs force kernel's
 float32 Newton instantiation (the one the CLI launches: exact=False, as
@@ -290,8 +308,8 @@ list kernel counts each instantiation (dtype, softening) on its own.
 Phase 10's kernels count from the probe runs: each probe sets the counts
 to 0 just before a mode's calls and reports them just after, in the
 mode's JSON line (entries_tables_kernel from mode (1024, real), each
-rung from its entry-overhead mode at S = 1,024, the ring and the --math 0
-ideal rung from dma-pipeline).
+rung from its entry-overhead mode at S = 1,024, the rings and the ideal
+rung at the ring's launch bounds, both maths, from dma-pipeline).
 Launches made to compare a kernel with its twin, and those of the other
 small runs, do not count.
 
@@ -315,6 +333,10 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+# the H100's boost clock, its MUFU results a clock on an SM, and the MUFU
+# floor of a chain kernel (two a pair: a root and a reciprocal)
+from nbody_torch.probes import MAX_SM_CLOCK_HZ, MUFU_PER_SM_CLOCK, mufu_floor_ms
 
 SEED = 20261016
 NUM = re.compile(r"[-+]?\d+\.\d+e[-+]\d+")  # a number of --print-state
@@ -373,6 +395,7 @@ def main() -> int:
           f"({'already built' if cached else 'nvcc ' + ' '.join(_build.NVCC_FLAGS)}) "
           f"-> {_build.library_path().name}")
     sass_job = start_sass()
+    probe_sass = start_sass("entry_probes.cu")
 
     # -- phase 2: kernels vs plain twins -----------------------------------
     big = 1 << 20
@@ -462,7 +485,7 @@ def main() -> int:
     list_kernels, list_fallback, list_launches = list_phases(dev, big)
     variant_kernels = variant_phases(dev, big)
     ablation_kernels = ablation_phases(dev, big)
-    probe_kernels = probe_phases(dev, big)
+    probe_kernels = probe_phases(dev, big, probe_sass)
 
     runs = {ca.NEWTON: (phase3_launches, f"phase 3: {big}-body 3-D all-pairs --csv-total"),
             ca.NEWTON64: (list_launches, f"phase 7b: {big}-body 3-D octree --precision double "
@@ -495,18 +518,8 @@ def main() -> int:
 F32_FLOPS = 67e12
 F64_FLOPS = 34e12
 HBM_BYTES_PER_S = 3.35e12
-# H100 SXM boost clock (NVIDIA's data sheet) and the multi-function unit's
-# results a clock on an SM (Hopper: 16, against 128 FP32 lanes)
-MAX_SM_CLOCK_HZ = 1.98e9
-MUFU_PER_SM_CLOCK = 16
 FEW_ROWS = 9216  # 18 tiles of 512: the BVH 2-D float64 exact fallback's rows at 2^20
 PLAIN_ROWS = 8192  # 2f: the float64 2^20 calls held against the twin on their first rows
-
-
-def mufu_floor_ms(pairs: int, sms: int) -> float:
-    """Two MUFU operations a pair (a root and a reciprocal: every chain of
-    csrc/allpairs.cu takes both) at MUFU_PER_SM_CLOCK a clock on each SM."""
-    return pairs * 2 / (sms * MUFU_PER_SM_CLOCK * MAX_SM_CLOCK_HZ) * 1e3
 
 
 def timed_with_clock(fn, reps: int):
@@ -1049,17 +1062,17 @@ def window_extras(tag: str, name: str, call, args, softening: str, pairs: int) -
             "sum_pass": parts_sum_extras(tag, nparts, P, tb, dim, xi.dtype)}
 
 
-def start_sass():
-    """Start nvcc -cubin and cuobjdump of csrc/group_eval.cu (probe
-    sass_of) in a thread and return its future: the far field's and the
-    dense window's SASS a pair, read in 5a and 6a, cost no wall time of
-    their own."""
+def start_sass(source: str = "group_eval.cu"):
+    """Start nvcc -cubin and cuobjdump of a source of csrc/ (probe sass_of)
+    in a thread and return its future: group_eval.cu's far field's and
+    dense window's SASS a pair, read in 5a and 6a, and entry_probes.cu's
+    rungs and rings, read in 10b and 10c, cost no wall time of their own."""
     from concurrent.futures import ThreadPoolExecutor
 
     from nbody_torch import _build, probe
 
     pool = ThreadPoolExecutor(1)
-    future = pool.submit(probe.sass_of, _build.CSRC / "group_eval.cu")
+    future = pool.submit(probe.sass_of, _build.CSRC / source)
     pool.shutdown(wait=False)  # the job runs on; the pool takes no more
     return future
 
@@ -2702,14 +2715,16 @@ def tensor_bytes(*tensors) -> int:
     return sum(seen.values())
 
 
-def probe_phases(dev, big: int):
+def probe_phases(dev, big: int, probe_sass):
     """Phase 10: the entry-cost probes (python -m nbody_torch.probe entries,
-    entry-overhead, dma-pipeline) and their kernels. Returns the JSON
-    entries of entries_tables_kernel, the ladder's rungs and the copy ring."""
+    entry-overhead, dma-pipeline) and their kernels (probe_sass:
+    start_sass's future for entry_probes.cu). Returns the JSON entries of
+    entries_tables_kernel, the ladder's rungs and the copy ring."""
     import torch
 
     from nbody_torch.ops import cuda_entry_probes as ce
     from nbody_torch.ops import cuda_group_eval as cg
+    from nbody_torch.probes.compare_trees import device_ms
 
     t10 = time.perf_counter()
     entries = []
@@ -2762,7 +2777,9 @@ def probe_phases(dev, big: int):
 
     # -- (b) probe entry-overhead at S 1,024 and 512, T 128, every mode:
     #    the equivalence lines checked; each rung's recorded S = 1,024 call
-    #    re-run and held against its plain version on all its rows
+    #    re-run and held against its plain version on all its rows, beside
+    #    its MUFU floor, its P and its SASS; the ideal rung over P = 1-8
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ladder_calls, overhead_rows = {}, {}
     for S in (1024, 512):
         rows, recs = run_probe(f"10b S={S}", ["entry-overhead", "all", str(S), "128"],
@@ -2783,9 +2800,22 @@ def probe_phases(dev, big: int):
         print(f"[10b S={S}] switch vs prod (entries_lohi_kernel) on the same entries: max |diff| "
               f"/ sum|term| = {err:.3e} (limit 1e-5); the probe's rel_err {equiv['switch==prod']:.3e}")
         check(err <= 1e-5, f"entry-overhead S={S}: switch and prod differ")
+        lines = overhead_rows[S]
+        for m, r in lines.items():
+            print(f"[10b S={S}] {m}: {r['sec_per_call'] * 1e3:.3f} ms a call, "
+                  f"{r['us_per_entry']:.4f} us an entry, {r['pairs']} computed pairs "
+                  f"({r['pairs_per_s']:.4e} /s), MUFU floor {r['mufu_floor_ms']:.3f} ms "
+                  f"({r['mufu_share']:.3f} of the call), P {r['parts']}")
+        print(f"[10b S={S}] the ladder, us an entry: " + ", ".join(
+            f"{b_} - {a_} {lines[b_]['us_per_entry'] - lines[a_]['us_per_entry']:+.4f}"
+            for b_, a_ in LADDER_STEPS))
+        print(f"[10b S={S}] pairs/s: ideal {lines['ideal']['pairs_per_s']:.4e}, prod "
+              f"{lines['prod']['pairs_per_s']:.4e} (entries_lohi_kernel, its plan and second "
+              f"pass), prod_packed {lines['prod_packed']['pairs_per_s']:.4e}")
         if S == 1024:
             ladder_calls = {k: (v, lad.kwargs[k]) for k, v in lad.items()}
         del recs, lad, prod, sw, pr, scale
+    sass_rows = probe_sass.result(timeout=600)[1]
     for rung in ce.RUNGS:
         args, kw = ladder_calls[rung]
         _, x, src, ents, lohis, S = args[:6]
@@ -2802,15 +2832,52 @@ def probe_phases(dev, big: int):
         line = overhead_rows[1024][RUNG_MODE[rung]]
         launches = line["launches"].get(ce.ladder_name(rung), 0)
         check(launches > 0, f"entry-overhead {RUNG_MODE[rung]} launched no {ce.ladder_name(rung)}")
+        computed = line["pairs"]  # every lane of each entry the rung runs
+        floor = mufu_floor_ms(computed, sms)
+        P = ce.default_parts(int(ents.shape[0]), kw["per_block"], sms)
+        check(line["parts"] == P, f"entry-overhead {rung}: P {line['parts']}, expected {P}")
+        sass = probe_kernel_sass(sass_rows, "entry_ladder_kernel",
+                                 ladder_args(ce.RUNGS[rung], True, ce.LADDER_BLOCKS))
+        budget = line["budget"]  # from the CUDA runtime, in the probe's run
+        check(budget["blocks_an_sm"] >= ce.LADDER_BLOCKS and budget["spill_bytes"] == 0,
+              f"{ce.ladder_name(rung)}: {budget}, expected {ce.LADDER_BLOCKS} blocks an SM "
+              "and no spill")
+        print(f"[10b S=1024] {ce.ladder_name(rung)}: P = {P} parts a block of "
+              f"{kw['per_block']} ({-(-int(ents.shape[0]) // kw['per_block']) * P} parts); "
+              f"MUFU floor {floor:.3f} ms over {computed} computed pairs, {floor / res['ms']:.3f} "
+              f"of the call; budget (CUDA runtime) {budget}; SASS {sass}")
+        check(sass["slow_path_instructions"] == 0,
+              f"{ce.ladder_name(rung)} takes an IEEE slow path: {sass}")
         entries.append({"name": ce.ladder_name(rung), "route": "cuda", "source": ENTRY_PROBES,
                         "replaces": RUNG_REPLACES[rung], **res, "launches": launches,
                         "launches_in": f"phase 10b: python -m nbody_torch.probe entry-overhead "
                                        f"all 1024 128, mode {RUNG_MODE[rung]} (1 untimed + 12 "
                                        "timed calls)",
                         "E": int(ents.shape[0]), "S": S, "T": 128, "dim": 3, "dtype": "float32",
+                        "parts": P, "per_block": kw["per_block"], "computed_pairs": computed,
+                        "mufu_floor_ms": floor, "mufu_share": floor / res["ms"], "sass": sass,
+                        "registers": budget["registers"],
+                        "blocks_an_sm": budget["blocks_an_sm"],
                         "us_per_entry": {s: overhead_rows[s][RUNG_MODE[rung]]["us_per_entry"]
-                                         for s in (1024, 512)}})
-    del ladder_calls
+                                         for s in (1024, 512)},
+                        "mufu_share_by_S": {s: overhead_rows[s][RUNG_MODE[rung]]["mufu_share"]
+                                            for s in (1024, 512)}})
+    # the ideal rung's call over P = 1, 2, 4, 8, each within 1e-5 of sum |term|
+    args, kw = ladder_calls["ideal"]
+    _, x, src, ents, _, S = args[:6]
+    default = ce.entry_ladder_cuda(*args, **kw)
+    scale = ce.entry_ladder_torch("ideal", x, src, ents, None, S, tb=512, absolute=True)
+    sweep = {}
+    for P in (1, 2, 4, 8):
+        run = (lambda P=P: ce.entry_ladder_cuda(*args, **kw, parts=P))
+        got = run()
+        sweep[P] = event_ms(run, reps=5)
+        err = scaled(got, default, scale)[0]
+        check(err <= 1e-5, f"10b: the ideal rung at P = {P} differs from the default by {err:.3e}")
+    print(f"[10b S=1024] {ce.ladder_name('ideal')} ms a call by P: {sweep} (each within 1e-5 of "
+          f"sum |term| of the default P)")
+    next(e for e in entries if e["name"] == ce.ladder_name("ideal"))["ms_by_parts"] = sweep
+    del ladder_calls, default, scale
     prod_us = {s: {m: overhead_rows[s][m]["us_per_entry"] for m in ("prod", "prod_packed")}
                for s in (1024, 512)}
     print(f"[10b] production kernel us per entry (entries_lohi_kernel, <packed>): {prod_us}")
@@ -2818,8 +2885,12 @@ def probe_phases(dev, big: int):
 
     # -- (c) probe dma-pipeline with and without the math: the equivalence
     #    lines checked (limit 1e-6); each recorded call re-run and held
-    #    against its plain version
+    #    against its plain version, beside its MUFU floor (math 1), SASS and
+    #    budget (the CUDA runtime's registers and blocks an SM: blockspec and the
+    #    rings are built at one launch bound, ce.RING_BLOCKS)
+    ideal_ms = next(e["ms"] for e in entries if e["name"] == ce.ladder_name("ideal"))
     for math in (1, 0):
+        ring_ms = {}
         rows, recs = run_probe(f"10c math={math}", ["dma-pipeline", "all", "--math", str(math)],
                                [(ce, ["entry_ladder_cuda", "dma_ring_cuda"],
                                  lambda a, args, kw: a if a == "entry_ladder_cuda" else args[4])])
@@ -2833,12 +2904,17 @@ def probe_phases(dev, big: int):
             args, kw = rec[key], rec.kwargs[key]
             if key == "entry_ladder_cuda":
                 _, x, xm, ents, _, S = args[:6]
-                name = ce.ladder_name("ideal", bool(math))
+                name = ce.ladder_name("ideal", bool(math), ce.RING_BLOCKS)
                 run = (lambda args=args, kw=kw: ce.entry_ladder_cuda(*args, **kw))
+                sass = probe_kernel_sass(sass_rows, "entry_ladder_kernel",
+                                         ladder_args(ce.RUNGS["ideal"], bool(math),
+                                                     ce.RING_BLOCKS))
             else:
                 x, xm, ents, S = args[:4]
                 name = ce.ring_name(key, bool(math))
                 run = (lambda args=args, kw=kw: ce.dma_ring_cuda(*args, **kw))
+                sass = probe_kernel_sass(sass_rows, "dma_ring_kernel",
+                                         f"(int)3, (int){key}, (bool){math}")
             E = int(ents.shape[0])
             nbytes = tensor_bytes(x, xm, ents) + x.numel() * x.element_size()
             pairs, flops = (E * S * 512, flops_per_pair(3, "sqrt3")) if math else (E * S, 3)
@@ -2849,21 +2925,75 @@ def probe_phases(dev, big: int):
                 pairs, flops, nbytes)
             launches = timed[mode]["launches"].get(name, 0)
             check(launches > 0, f"dma-pipeline {mode} math={math} launched no {name}")
-            if mode == "blockspec" and math:
-                continue  # the ideal rung of (b), on the CE grid: timed, listed there
+            P = timed[mode]["parts"]
+            check(P == ce.default_parts(E, ce.CE, sms), f"dma-pipeline {mode}: P {P}")
+            check(sass["slow_path_instructions"] == 0, f"{name} takes an IEEE slow path: {sass}")
             copied = E * S * 16
+            floor = mufu_floor_ms(pairs, sms) if math else None
+            budget = timed[mode]["budget"]  # from the CUDA runtime, in the probe's run
+            check(budget["registers"] <= 65536 // (256 * ce.RING_BLOCKS),
+                  f"{name}: {budget}, built at the ring's launch bounds")
+            dev_ms = None
+            if not math:  # a call of tens of microseconds: its host cost shows back to back
+                dev_ms = device_ms(run)
+            ring_ms[mode] = dev_ms if dev_ms is not None else res["ms"]
+            print(f"[10c math={math}] {mode} ({name}): {res['ms']:.3f} ms, P = {P} parts a "
+                  f"block of {ce.CE}; "
+                  + (f"MUFU floor {floor:.3f} ms ({floor / res['ms']:.3f} of the call); "
+                     if math else
+                     f"on the device alone {dev_ms:.4f} ms; copies {copied} bytes "
+                     f"({copied / (dev_ms * 1e-3):.4e} B/s on the device); ")
+                  + f"budget (CUDA runtime) {budget}; SASS {sass}")
             entries.append({"name": name, "route": "cuda", "source": ENTRY_PROBES,
                             "replaces": f"{DMA_SCRIPT}:{122 if mode == 'blockspec' else 177}",
                             **res, "launches": launches,
                             "launches_in": f"phase 10c: python -m nbody_torch.probe "
                                            f"dma-pipeline all --math {math}, mode {mode} (1 "
                                            "untimed + 12 timed calls)",
-                            "E": E, "S": S, "dim": 3, "dtype": "float32",
-                            "copied_bytes": copied,
+                            "E": E, "S": S, "dim": 3, "dtype": "float32", "parts": P,
+                            "per_block": ce.CE, "copied_bytes": copied,
+                            **({"mufu_floor_ms": floor, "mufu_share": floor / res["ms"]}
+                               if math else {}),
+                            "registers": budget["registers"],
+                            "blocks_an_sm": budget["blocks_an_sm"],
+                            **({"device_ms": dev_ms} if dev_ms is not None else {}), "sass": sass,
                             "us_per_entry": timed[mode]["us_per_entry"]})
+        print(f"[10c math={math}] at one launch bound ({ce.RING_BLOCKS} blocks an SM, at most "
+              f"{65536 // (256 * ce.RING_BLOCKS)} registers), ms "
+              f"{'a call' if math else 'on the device alone'}: "
+              + ", ".join(f"{m} {v:.4f}" for m, v in ring_ms.items())
+              + "; ring / blockspec: " + ", ".join(
+                  f"{m} {ring_ms[m] / ring_ms['blockspec']:.4f}" for m in ("manual2", "manual4")))
+        if math:
+            print(f"[10c math=1] the ideal rung at {ce.LADDER_BLOCKS} blocks an SM (10b, "
+                  f"entry-overhead's inputs) {ideal_ms:.4f} ms, at {ce.RING_BLOCKS} (blockspec, "
+                  f"the same E, S and grid on dma-pipeline's inputs) {ring_ms['blockspec']:.4f}")
         del recs, rec
     print(f"[10] phase 10 wall time {time.perf_counter() - t10:.0f} s")
     return entries
+
+
+# (mode, the mode it adds one feature to): the ladder's steps
+LADDER_STEPS = (("sepmj", "ideal"), ("sel", "ideal"), ("when", "sel"), ("switch", "sel"),
+                ("prod_noskip", "switch"), ("prod", "switch"))
+
+
+def ladder_args(flags, math: bool, min_blocks: int) -> str:
+    """entry_ladder_kernel's template arguments after DIM for a rung's
+    flags (cuda_entry_probes.RUNGS), as cu++filt prints them: PACKED, SEL,
+    WHEN, SWITCH, MATH, MIN_BLOCKS."""
+    return ", ".join(f"(bool){int(v)}" for v in (*flags, math)) + f", (int){min_blocks}"
+
+
+def probe_kernel_sass(rows, kernel: str, args: str, dim: int = 3) -> dict:
+    """probe sass's row of an entry_probes.cu kernel: its instructions a
+    pair in the hot loop, registers, spills and slow-path instructions."""
+    key = f"::{kernel}<(int){dim}, {args}>(" if kernel == "entry_ladder_kernel" else \
+        f"::{kernel}<{args}>("
+    row = next(r for r in rows if key in r["kernel"])
+    return {k: row.get(k) for k in ("instructions_per_pair", "registers", "spill_stores",
+                                    "spill_loads", "loop_instructions", "mufu",
+                                    "slow_path_instructions")}
 
 
 def accuracy(tag: str, what: str, n: int, a, ref, dim: int = 3) -> None:

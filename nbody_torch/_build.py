@@ -13,8 +13,8 @@ never at import.
 Flags: sm_90a code for Hopper, and no --use_fast_math: nvcc's defaults
 keep IEEE division and square root (-prec-div, -prec-sqrt) and denormals
 wherever a source writes / or sqrt, as the IEEE instantiations (exact=True)
-and the tree kernels of group_eval.cu but the entries, list and node-mask
-window kernels do. The all-pairs kernels' default chain and those three
+and group_eval.cu's two ablation kernels do. The all-pairs kernels' default
+chain and every other gravity kernel (group_eval.cu's, entry_probes.cu's)
 take their approximations explicitly (rsqrt.approx, rcp.approx and their
 refinement, csrc/pair.cuh), so a flag changes neither form.
 """
@@ -140,11 +140,13 @@ SIGNATURES = (
     ("nbody_group_eval", [i, i, i, p, i, i, p, p, i, i, p, p, i, f64, i, p, p, p]),
     # (device, dtype, dim, parts, nparts, P, ntiles, tb, out, stream)
     ("nbody_parts_sum", [i, i, i, p, p, i, i, i, p, p]),
-    # (device, dim, rung, math, xi, tb, ntiles, xm, mj, xj, nj, entries, lohis, E,
-    #  per_block, S, eps, out, stream)
-    ("nbody_entry_ladder", [i, i, i, i, p, i, i, p, p, p, i, p, p, i, i, i, f64, p, p]),
-    # (device, dim, nbuf, math, xi, tb, xm, nj, entries, E, ce, S, eps, out, stream)
-    ("nbody_dma_ring", [i, i, i, i, p, i, p, i, p, i, i, i, f64, p, p]),
+    # (device, dim, rung, math, min_blocks, xi, tb, ntiles, xm, mj, xj, nj, entries, lohis,
+    #  E, per_block, P, S, eps, parts, stream)
+    ("nbody_entry_ladder", [i, i, i, i, i, p, i, i, p, p, p, i, p, p, i, i, i, i, f64, p, p]),
+    # (device, dim, nbuf, math, xi, tb, xm, nj, entries, E, ce, P, S, eps, parts, stream)
+    ("nbody_dma_ring", [i, i, i, i, p, i, p, i, p, i, i, i, i, f64, p, p]),
+    # (device, dim, kernel, variant, math, min_blocks, S, out (5,) int32)
+    ("nbody_entry_probe_budget", [i, i, i, i, i, i, i, p]),
 )
 del i, p, f64
 

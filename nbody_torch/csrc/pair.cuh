@@ -10,15 +10,16 @@
 // (nvcc's defaults -prec-div=true -prec-sqrt=true; the build never passes
 // --use_fast_math); of group_eval.cu's kernels the ablation kernels
 // (masked_eval_kernel, group_shared_masked_kernel) use it, and so does the
-// all-pairs kernel's exact=True instantiation. The Pallas kernels take the
+// all-pairs kernel's exact=True instantiation; no other kernel does. The Pallas kernels take the
 // approximate reciprocal plus one Newton step (pallas_allpairs.py:79-84,
 // their default exact=False; pallas_group_eval.py:143-144 and :877-878 in
 // the group kernels), within 1 ulp of the division: newton_recip below. A
 // bare rcp.approx, without the Newton step, would lose bits of the
 // close-pair terms, whose t is eps plus a tiny d2*sqrt(d2); the step
-// restores them. The all-pairs kernels (allpairs.cu) by default, and the
+// restores them. The all-pairs kernels (allpairs.cu) by default, the
 // entries kernel, the list kernel, the far field and the node-mask,
-// interval and dense-mask windows (group_eval.cu), run the Newton form in
+// interval and dense-mask windows (group_eval.cu), and the entry-cost
+// probes' ladder and ring (entry_probes.cu) run the Newton form in
 // ChainWeight below, as nbody_tpu's CLI does.
 #pragma once
 
@@ -60,8 +61,9 @@ struct SoftenedWeight {
   __device__ __forceinline__ T operator()(T m, T d2) const { return pair_weight<T, SQRT3>(m, d2, eps); }
 };
 
-// The two-MUFU chain, which the all-pairs kernels (allpairs.cu) and the
-// entries, list, far-field and window kernels (group_eval.cu) share: a root and a reciprocal
+// The two-MUFU chain, which the all-pairs kernels (allpairs.cu), the
+// entries, list, far-field and window kernels (group_eval.cu) and the
+// entry-cost probes (entry_probes.cu) share: a root and a reciprocal
 // a pair, each one MUFU seed (refined in float64), against the IEEE
 // pair_weight's sqrt and division with their slow-path checks (38.25 SASS
 // instructions a 3-D float32 pair against 17.75 on an H100, PERF.md).

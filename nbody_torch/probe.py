@@ -382,6 +382,19 @@ def sass_global_loads(text: str) -> dict[str, dict]:
     return out
 
 
+def sass_slow_paths(text: str) -> dict[str, int]:
+    """function -> its CALL and FCHK instructions in `cuobjdump -sass`
+    text: the IEEE division's and root's slow paths (nvcc's -prec-div and
+    -prec-sqrt); the chain's approximations take none."""
+    out = {}
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        name, body = chunk.split("\n", 1)
+        out[name.strip()] = sum(1 for line in body.splitlines()
+                                if (ins := SASS_LINE.search(line))
+                                and ins.group(3).split(".")[0] in ("CALL", "FCHK"))
+    return out
+
+
 def ptxas_usage(text: str) -> dict[str, dict]:
     """function -> {registers, spill_stores, spill_loads} from nvcc
     -Xptxas -v output."""
@@ -409,8 +422,8 @@ def ptxas_usage(text: str) -> dict[str, dict]:
 def sass_of(src) -> tuple[str, list[dict]]:
     """nvcc -cubin of one source with the build's flags and -Xptxas -v,
     then cuobjdump -sass: (the compiler's log and the SASS text, one row a
-    kernel: its demangled name, registers, spills, hot loop (sass_loops)
-    and global loads)."""
+    kernel: its demangled name, registers, spills, hot loop (sass_loops),
+    global loads and slow-path instructions)."""
     from nbody_torch import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -425,12 +438,14 @@ def sass_of(src) -> tuple[str, list[dict]]:
                           text=True).stdout
     usage = ptxas_usage(log.stdout + log.stderr)
     loads = sass_global_loads(text)
+    slow = sass_slow_paths(text)
     rows = []
     for name, loop in sass_loops(text).items():
         demangled = (subprocess.run([filt, name], capture_output=True, text=True).stdout
                      .strip() if os.access(filt, os.X_OK) else name)
         rows.append({"source": src.name, "kernel": demangled or name, **usage.get(name, {}),
-                     **loop, "global_loads": loads.get(name, {})})
+                     **loop, "global_loads": loads.get(name, {}),
+                     "slow_path_instructions": slow.get(name, 0)})
     return log.stdout + log.stderr + text, rows
 
 

@@ -16,10 +16,17 @@ time (ops/cuda_entry_probes, csrc/entry_probes.cu):
            split sources (the noskip rung), the packed production kernel,
            and the full-width pass on packed sources (the switch rung)
 
-Every rung runs on T blocks (one wave on the card) of E / T consecutive
-entries, and the production kernel on its plan's equal-work parts
-(cuda_group_eval.entries_plan); the script's grid of E steps ran in order
-on one TPU core.
+Every rung runs on the production kernel's design (the two-MUFU chain,
+16-byte staged sources, kGroup-term sums, 5 blocks an SM): T blocks of E /
+T consecutive entries, each split into P parts in the kernel (8 at E =
+8,192 on an H100: 1,024 parts), then parts_sum_kernel; the production
+kernel runs on its plan's equal-work parts (cuda_group_eval.entries_plan).
+The script's grid of E steps ran in order on one TPU core. Each timing
+line carries the mode's computed pairs (every lane of each entry a rung
+runs; the production kernel's live lanes), pairs/s, their MUFU floor and,
+on the card, the share of it the call reached; a rung's line also its P
+and, on the card, its kernel's budget as the CUDA runtime reports it (registers,
+spill and shared bytes, resident blocks an SM: kernel_budget).
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import torch
 
 from nbody_torch.ops import cuda_entry_probes as ce
 from nbody_torch.ops import cuda_group_eval as cg
-from nbody_torch.probes import chained, device_name, log, rel_err
+from nbody_torch.probes import chained, device_name, log, rate_fields, rel_err
 from nbody_torch.utils.measure import scan_seconds_per_step
 
 TB = 512
@@ -97,6 +104,18 @@ def runners(S: int, e_total: int, dim: int, tiles: int, dev: torch.device) -> di
             "prod_packed_noskip": (rung("switch", packed, ent_tiled, lohi, TB), xi_all)}
 
 
+def computed_pairs(mode: str, lohi: np.ndarray, S: int) -> int:
+    """The pairs `mode` computes on the workload's E entries: a rung every
+    lane of each entry it runs (when skips hi <= lo), the production
+    kernel the live lanes [lo, min(hi, S)); TB rows each."""
+    lo, hi = lohi & 0xFFFF, lohi >> 16
+    if RUNG[mode] is None:
+        return int(np.maximum(np.minimum(hi, S) - lo, 0).sum()) * TB
+    if mode == "when":
+        return int((hi > lo).sum()) * S * TB
+    return lohi.shape[0] * S * TB
+
+
 def kernel_of(mode: str) -> str:
     """The launch_counts key of the kernel that runs `mode`."""
     if RUNG[mode] is not None:
@@ -108,6 +127,10 @@ def run(out: str, modes: list[str], S: int, tiles: int, e_total: int, dim: int,
         dev: torch.device) -> None:
     """The equivalence lines (entov_equiv), then one timing line (entov) per mode."""
     run_of = runners(S, e_total, dim, tiles, dev)
+    lohi = workload(S, e_total, dim, tiles)["lohi"]
+    parts = (ce.default_parts(e_total, e_total // tiles,
+                              torch.cuda.get_device_properties(dev).multi_processor_count)
+             if dev.type == "cuda" else None)
     vals = {m: run_of[m][0](run_of[m][1]) for m in modes}
     for a, b in EQUIV:
         if a in vals and b in vals:
@@ -123,6 +146,9 @@ def run(out: str, modes: list[str], S: int, tiles: int, e_total: int, dim: int,
         launches = {k: v for k, v in {**ce.launch_counts, **cg.launch_counts}.items() if v}
         log(out, {"probe": "entov", "mode": m, "E": e_total, "S": S, "dim": dim, "T": tiles,
                   "sec_per_call": sec, "us_per_entry": sec / e_total * 1e6,
+                  **rate_fields(computed_pairs(m, lohi, S), sec, dev),
                   "device": device_name(dev), "kernel": kernel_of(m),
-                  "blocks": tiles,
+                  "blocks": tiles, "parts": parts if RUNG[m] is not None else None,
+                  "budget": (ce.kernel_budget("ladder", RUNG[m], True, dim, S, dev)
+                             if RUNG[m] is not None else None),
                   "launches": launches})

@@ -156,3 +156,27 @@ def test_probe_sass_counts_global_loads_by_width():
 
     assert sass_global_loads(SUM_SASS) == {"_Zsum": {"LDG.E.128.CONSTANT": 2, "LDG.E": 1},
                                            "_Zplain": {}}
+
+
+IEEE_SASS = """
+        code for sm_90a
+                Function : _Zieee
+        /*0000*/                   MUFU.RCP R4, R2 ;
+        /*0010*/                   FCHK P0, R3, R2 ;
+        /*0020*/               @P0 BRA 0x60 ;
+        /*0030*/                   FFMA R5, R4, R3, RZ ;
+        /*0040*/                   CALL.REL.NOINC 0x80 ;
+        /*0050*/                   EXIT ;
+                Function : _Zchain
+        /*0000*/                   MUFU.RSQ R6, R5 ;
+        /*0010*/                   MUFU.RCP R7, R6 ;
+        /*0020*/                   EXIT ;
+"""
+
+
+def test_probe_sass_counts_the_ieee_slow_paths():
+    """probe sass: a function's CALL and FCHK instructions, the slow paths
+    of IEEE division and root; the chain's approximations have none."""
+    from nbody_torch.probe import sass_slow_paths
+
+    assert sass_slow_paths(IEEE_SASS) == {"_Zieee": 2, "_Zchain": 0}

@@ -249,7 +249,7 @@ def test_dma_modes_twins(dim):
 
 
 @pytest.mark.parametrize("call", ["bad_rung", "math0_rung", "tb", "one_tile", "nbuf", "lohis",
-                                  "sources"])
+                                  "sources", "ring_bounds_rung", "min_blocks"])
 def test_probe_wrappers_reject_bad_inputs(call):
     xi, mj, xj, ents, ent_tiled, lohi, tb, S = _ladder_case(3, seed=530)
     packed = tge.pack_sources(_t(mj), _t(xj))
@@ -265,6 +265,11 @@ def test_probe_wrappers_reject_bad_inputs(call):
         "nbuf": lambda: tce.dma_ring_cuda(x0, packed, _t(ents), S, 3),
         "lohis": lambda: tce.entry_ladder_cuda("when", x0, packed, _t(ents), None, S),
         "sources": lambda: tce.entry_ladder_cuda("sepmj", x0, packed, _t(ents), None, S),
+        # only the ideal rung is built at the ring's launch bounds, and no rung at 3
+        "ring_bounds_rung": lambda: tce.entry_ladder_cuda("sel", x0, packed, _t(ents), _t(lohi),
+                                                          S, min_blocks=tce.RING_BLOCKS),
+        "min_blocks": lambda: tce.entry_ladder_cuda("ideal", x0, packed, _t(ents), None, S,
+                                                    min_blocks=3),
     }
     with pytest.raises(ValueError):
         calls[call]()
@@ -277,12 +282,25 @@ CASES = {
                 {"probe", "S", "mode", "E", "sec", "us_per_entry", "pairs_per_s"}, 6),
     "entry-overhead": (["entry-overhead", "ideal,sel,when,switch,prod,prod_packed_noskip", "256",
                         "2", "--e", "16"],
-                       {"probe", "mode", "E", "S", "dim", "T", "sec_per_call", "us_per_entry"},
+                       {"probe", "mode", "E", "S", "dim", "T", "sec_per_call", "us_per_entry",
+                        "pairs", "pairs_per_s", "mufu_floor_ms", "mufu_share", "parts",
+                        "budget"},
                        8),
     "dma-pipeline": (["dma-pipeline", "all", "--e", "64", "--s", "256", "--math", "0"],
-                     {"probe", "mode", "E", "S", "dim", "math", "sec_per_call", "us_per_entry"},
+                     {"probe", "mode", "E", "S", "dim", "math", "sec_per_call", "us_per_entry",
+                      "copied_bytes", "parts", "budget"},
                      5),
 }
+
+
+def _rate_fields_hold(r, pairs):
+    """The line's pairs are `pairs`, its rate and MUFU floor follow from
+    them (two MUFU a pair at 16 a clock on an H100's 132 SMs at 1.98 GHz,
+    worked out), and the CPU run claims no share of it and no P."""
+    assert r["pairs"] == pairs
+    assert r["pairs_per_s"] == pytest.approx(pairs / r["sec_per_call"], rel=1e-12)
+    assert r["mufu_floor_ms"] == pytest.approx(pairs * 2 / (132 * 16 * 1.98e9) * 1e3, rel=1e-12)
+    assert r["mufu_share"] is None and r["parts"] is None
 
 
 @pytest.mark.parametrize("sub", list(CASES))
@@ -297,9 +315,24 @@ def test_probe_on_the_cpu(sub, tmp_path):
     timed = [r for r in rows if r["probe"] in ("entries", "entov", "dmapipe")]
     for r in timed:
         assert keys <= set(r) and r["device"] == "cpu" and r["launches"] == {} and r["kernel"]
+        assert r.get("budget") is None  # the CUDA runtime's registers and blocks: the card's only
         assert r["sec" if sub == "entries" else "sec_per_call"] > 0
     equiv = [r for r in rows if r["probe"].endswith("_equiv")]
     assert all(r["rel_err"] == 0 for r in equiv) and (sub == "entries") == (not equiv)
+    if sub == "entry-overhead":  # every lane of each entry a rung runs; prod the live ones
+        lohi = entry_overhead.workload(256, 16, 3, 2)["lohi"]
+        lo, hi = lohi & 0xFFFF, lohi >> 16
+        for r in timed:
+            if r["mode"] == "prod":
+                pairs = int(np.maximum(np.minimum(hi, 256) - lo, 0).sum()) * 512
+            else:
+                pairs = (int((hi > lo).sum()) if r["mode"] == "when" else 16) * 256 * 512
+            _rate_fields_hold(r, pairs)
+    if sub == "dma-pipeline":  # math 0: no pairs, the copies' bytes
+        assert all(r["copied_bytes"] == 64 * 256 * 16 and r["parts"] is None
+                   and "pairs" not in r for r in timed)
+        # blockspec is the ideal rung at the ring's launch bounds
+        assert timed[0]["kernel"] == tce.ladder_name("ideal", False, tce.RING_BLOCKS)
     if sub == "entries":
         assert rows[-1] == {"probe": "entries_done"}
         assert [r["pairs_per_s"] == 0 for r in timed] == [m == "pad" for _, m in

@@ -1347,74 +1347,141 @@ def _ladder_case(dev, dim, S=256, ntiles=5, per_tile=(7, 0, 12, 3, 9), seed=310)
 @pytest.mark.parametrize("rung", list(ce.RUNGS))
 @pytest.mark.parametrize("dim", [2, 3])
 def test_entry_ladder_kernel_vs_twin(dev, dim, rung, per_block):
-    """Each rung against its twin. Under switch / noskip, one entry a
-    block writes every tile with atomics; 8 a block holds tile 0's whole
-    run (a plain store) while the others straddle blocks."""
+    """Each rung against its twin, at the default P parts a block. Under
+    switch / noskip, one entry a block makes every tile with more than one
+    entry cross blocks (atomics); 8 a block holds tile 0's whole run (plain
+    stores) while the others straddle blocks."""
     xi, split, packed, ents, lohi = _ladder_case(dev, dim)
     pk, sel, _, switch = ce.RUNGS[rung]
     src = packed if pk else split
     x = xi if switch else xi[:512].contiguous()
     args = (rung, x, src, ents, lohi if sel else None, 256)
     ce.reset_launch_counts()
+    cg.reset_launch_counts()
     got = ce.entry_ladder_cuda(*args, tb=512, per_block=per_block)
     assert ce.launch_counts[ce.ladder_name(rung)] == 1
+    # the second pass: on one tile each block's parts, then the blocks
+    assert cg.launch_counts["parts_sum_kernel"] == (1 if switch else 2)
     _scaled_within(got, ce.entry_ladder_torch(*args, tb=512),
                    ce.entry_ladder_torch(*args, tb=512, absolute=True))
     if switch:
         assert not got.view(5, 512, dim)[1].any()  # the tile without entries
 
 
+@pytest.mark.parametrize("parts", [1, 2, 4, 8])
+@pytest.mark.parametrize("rung", ["ideal", "sel", "switch"])
+def test_entry_ladder_parts(dev, rung, parts):
+    """P = 1, 2, 4, 8 parts a block, within 1e-5 of sum |term| of the twin;
+    blocks of 8 entries, so P = 8 gives parts of one entry."""
+    xi, split, packed, ents, lohi = _ladder_case(dev, 3)
+    _, sel, _, switch = ce.RUNGS[rung]
+    x = xi if switch else xi[:512].contiguous()
+    args = (rung, x, packed, ents, lohi if sel else None, 256)
+    got = ce.entry_ladder_cuda(*args, tb=512, per_block=8, parts=parts)
+    _scaled_within(got, ce.entry_ladder_torch(*args, tb=512),
+                   ce.entry_ladder_torch(*args, tb=512, absolute=True))
+
+
+@pytest.mark.parametrize("rung", ["ideal", "sepmj", "sel", "when"])
+def test_entry_ladder_launches_bit_equal(dev, rung):
+    """Two launches of a fixed-tile rung give equal bits: each part writes
+    its own slice and the second pass adds them in order (no atomics);
+    the touch-only control too."""
+    xi, split, packed, ents, lohi = _ladder_case(dev, 3)
+    pk, sel, _, _ = ce.RUNGS[rung]
+    x0 = xi[:512].contiguous()
+    args = (rung, x0, packed if pk else split, ents, lohi if sel else None, 256)
+    assert torch.equal(ce.entry_ladder_cuda(*args, per_block=4),
+                       ce.entry_ladder_cuda(*args, per_block=4))
+    if rung == "ideal":
+        assert torch.equal(ce.entry_ladder_cuda(*args, per_block=4, math=False),
+                           ce.entry_ladder_cuda(*args, per_block=4, math=False))
+
+
+@pytest.mark.parametrize("parts", [None, 1, 3])
 @pytest.mark.parametrize("dim", [2, 3])
-def test_entry_ladder_equal_rungs(dev, dim):
-    """ideal == sepmj and sel == when bit for bit (the same staged values,
-    summed in the same order); switch within the tolerance of the
-    production entries kernel on the same entries."""
+def test_entry_ladder_equal_rungs(dev, dim, parts):
+    """ideal == sepmj and sel == when bit for bit on the same grid (the
+    same staged values, summed in the same order); switch within the
+    tolerance of the production entries kernel on the same entries."""
     xi, split, packed, ents, lohi = _ladder_case(dev, dim)
     x0 = xi[:512].contiguous()
     call = ce.entry_ladder_cuda
-    assert torch.equal(call("ideal", x0, packed, ents, None, 256),
-                       call("sepmj", x0, split, ents, None, 256))
-    assert torch.equal(call("sel", x0, packed, ents, lohi, 256),
-                       call("when", x0, packed, ents, lohi, 256))
-    # 16 entries a block: at most two blocks add to a tile, (0 + a) + b == (0 + b) + a
-    assert torch.equal(call("switch", xi, packed, ents, lohi, 256, tb=512, per_block=16),
-                       call("noskip", xi, split, ents, lohi, 256, tb=512, per_block=16))
+    kw = {"parts": parts}
+    assert torch.equal(call("ideal", x0, packed, ents, None, 256, **kw),
+                       call("sepmj", x0, split, ents, None, 256, **kw))
+    assert torch.equal(call("sel", x0, packed, ents, lohi, 256, **kw),
+                       call("when", x0, packed, ents, lohi, 256, **kw))
+    # 16 entries a block: at most two blocks add to a tile's slice, (0 + a) + b == (0 + b) + a
+    assert torch.equal(call("switch", xi, packed, ents, lohi, 256, tb=512, per_block=16, **kw),
+                       call("noskip", xi, split, ents, lohi, 256, tb=512, per_block=16, **kw))
     n_real = torch.tensor(ents.shape[0], device=dev)
     prod_lohi = torch.where(lohi >> 16 > 256, (lohi & 0xFFFF) | (256 << 16), lohi)
     prod = cg.entries_lohi_eval_cuda(xi, *split, ents, prod_lohi, n_real, 256, 5, ce.EPS, "sqrt3")
     args = ("switch", xi, packed, ents, lohi, 256)
-    _scaled_within(call(*args, tb=512), prod, ce.entry_ladder_torch(*args, tb=512, absolute=True))
+    _scaled_within(call(*args, tb=512, **kw), prod,
+                   ce.entry_ladder_torch(*args, tb=512, absolute=True))
 
 
+@pytest.mark.parametrize("parts", [None, 1, 5])
 @pytest.mark.parametrize("math", [True, False])
 @pytest.mark.parametrize("nbuf", [2, 4])
 @pytest.mark.parametrize("dim", [2, 3])
-def test_dma_ring_kernel_vs_twin(dev, dim, nbuf, math):
+def test_dma_ring_kernel_vs_twin(dev, dim, nbuf, math, parts):
     """The copy ring at S = 1,024 (64 KB of ring at nbuf 4) on 200 entries,
-    a ragged last block: within the tolerance of its twin, and equal bit
-    for bit to the ideal rung on the same grid of 64 entries a block."""
+    a ragged last block of sources (its in-range prefix copied): within
+    the tolerance of its twin, equal bit for bit to the ideal rung at the
+    ring's launch bounds (dma-pipeline's blockspec) on the same grid of 64
+    entries a block and P parts, and to a second launch; the ideal rung at
+    its own bounds within the tolerance."""
     S = 1024
     mj, xj = _bodies(7 * S - 5, dim, torch.float32, dev, seed=320 + dim)  # a ragged last block
     _, xi = _bodies(512, dim, torch.float32, dev, seed=321)
     xm = cg.pack_sources(mj, xj)
-    ents = torch.tensor(np.random.default_rng(322).integers(0, 7, 200), dtype=torch.int32,
-                        device=dev)
+    ents = torch.tensor(np.random.default_rng(322).integers(0, 8, 200), dtype=torch.int32,
+                        device=dev)  # block 7 lies past the sources: nothing copied
     ce.reset_launch_counts()
-    got = ce.dma_ring_cuda(xi, xm, ents, S, nbuf, math=math)
+    got = ce.dma_ring_cuda(xi, xm, ents, S, nbuf, math=math, parts=parts)
     assert ce.launch_counts[ce.ring_name(nbuf, math)] == 1
     _scaled_within(got, ce.dma_ring_torch(xi, xm, ents, S, math=math),
                    ce.dma_ring_torch(xi, xm, ents, S, math=math, absolute=True))
-    blockspec = ce.entry_ladder_cuda("ideal", xi, xm, ents, None, S, per_block=64, math=math)
+    blockspec = ce.entry_ladder_cuda("ideal", xi, xm, ents, None, S, per_block=64, math=math,
+                                     parts=parts, min_blocks=ce.RING_BLOCKS)
+    assert ce.launch_counts[ce.ladder_name("ideal", math, ce.RING_BLOCKS)] == 1
     assert torch.equal(got, blockspec)
+    assert torch.equal(got, ce.dma_ring_cuda(xi, xm, ents, S, nbuf, math=math, parts=parts))
+    _scaled_within(ce.entry_ladder_cuda("ideal", xi, xm, ents, None, S, per_block=64, math=math,
+                                        parts=parts),
+                   ce.dma_ring_torch(xi, xm, ents, S, math=math),
+                   ce.dma_ring_torch(xi, xm, ents, S, math=math, absolute=True))
 
 
 def test_dma_ring_refuses_more_shared_memory_than_the_card_has(dev):
     """4 slots of S = 4,096 float4 rows (256 KB) exceed the 227 KB a block
-    may have: the wrapper raises and counts no launch."""
+    may have: the wrapper raises before the launch and counts none."""
     mj, xj = _bodies(4096 * 2, 3, torch.float32, dev, seed=330)
     xm = cg.pack_sources(mj, xj)
     ents = torch.zeros(8, dtype=torch.int32, device=dev)
     ce.reset_launch_counts()
-    with pytest.raises(RuntimeError, match="dma_ring_kernel<4> launch failed"):
+    with pytest.raises(ValueError, match="shared memory"):
         ce.dma_ring_cuda(xj[:512].contiguous(), xm, ents, 4096, 4)
     assert ce.launch_counts[ce.ring_name(4)] == 0
+
+
+def test_entry_probe_budgets_from_the_runtime(dev):
+    """The CUDA runtime's budget of each probe kernel: every rung at most 48
+    registers, no spill, 5 blocks an SM or more; the ring and the ideal
+    rung at the ring's bounds at most 64 registers; the ring's slots (64
+    KB at NBUF 4, S = 1,024) leave it at most 3 blocks an SM."""
+    for rung in ce.RUNGS:
+        b = ce.kernel_budget("ladder", rung, True, 3, 1024, dev)
+        assert b["registers"] <= 48 and b["spill_bytes"] == 0 and b["blocks_an_sm"] >= 5
+    for math in (True, False):
+        b = ce.kernel_budget("ladder", "ideal", math, 3, 1024, dev, ce.RING_BLOCKS)
+        assert b["registers"] <= 64 and b["blocks_an_sm"] >= 4
+        for nbuf in ce.NBUFS:
+            b = ce.kernel_budget("ring", nbuf, math, 3, 1024, dev)
+            assert b["registers"] <= 64 and b["dynamic_shared"] == nbuf * 1024 * 16
+            assert 1 <= b["blocks_an_sm"] <= (4 if nbuf == 2 else 3)
+    with pytest.raises(RuntimeError):
+        ce.kernel_budget("ladder", "sel", True, 3, 1024, dev, ce.RING_BLOCKS)
