@@ -54,9 +54,9 @@ Phases, each printed on its own lines:
         (bit-equal) and torch.sum; in 3-D its poly instantiation (which
         no path of the port runs yet) held against its twin on the same
         inputs and timed; the far field's two launches bit-equal, its call
-        timed on the device alone beside its MUFU floor, with the accepted
-        nodes a tile and the kernel's SASS a pair (probe sass_of of
-        csrc/group_eval.cu, run in a thread from phase 1);
+        timed on the device alone beside its MUFU floor and bytes bound,
+        with the accepted nodes a tile and the kernel's SASS a pair (probe
+        sass_of of csrc/group_eval.cu, run in a thread from phase 1);
      b. the CLI at full size, -n 1048576 -s 12 --algorithm octree in 3-D
         and in 2-D (the window's parts_sum_kernel launched in both);
      c. the 3-D force of (a) against the sqrt3 all-pairs kernel on the
@@ -173,8 +173,14 @@ Phases, each printed on its own lines:
         densemask, packedj), the new kernels' calls recorded and re-run,
         timed beside their plain versions (held against them on the first
         256 tiles, timed on all tiles where those extrapolate to under 20
-        s), with pairs, bytes and bound as in 5a;
-     b. on the card: the packed entries kernel equals the unpacked one on
+        s), with pairs, bytes and bound as in 5a; for the dense-mask far
+        field and the shared lists also what 5a prints for the far field:
+        two launches bit-equal, the call on the device alone beside its
+        MUFU floor and bytes bound, the nonzero weights a tile (mean, max)
+        and the kernel's SASS a pair, registers and spills;
+     b. on the card: the farcompact lists through the shared-list kernel
+        under poly, which no path runs, within 1e-5 of sum |term| of its
+        plain version on the first 256 tiles; the packed entries kernel equals the unpacked one on
         the same entries bit for bit, and packedj forces equal the default
         path's bit for bit where two runs of the default path do (the BVH;
         the octree heap's index_add_ atomics sum in no fixed order, so
@@ -484,7 +490,7 @@ def main() -> int:
     bvh_kernels, bvh_fallback = bvh_phases(dev, big, sass_job)
     list_kernels, list_fallback, list_launches = list_phases(dev, big)
     variant_kernels = variant_phases(dev, big)
-    ablation_kernels = ablation_phases(dev, big)
+    ablation_kernels = ablation_phases(dev, big, sass_job)
     probe_kernels = probe_phases(dev, big, probe_sass)
 
     runs = {ca.NEWTON: (phase3_launches, f"phase 3: {big}-body 3-D all-pairs --csv-total"),
@@ -1087,35 +1093,41 @@ def kernel_sass(sass_job, name: str, dim: int, softening: str) -> dict:
                                     "spill_loads", "loop_instructions", "mufu")}
 
 
-def far_extras(tag: str, args, softening: str, pairs: int, sass_job) -> dict:
-    """5a / 6a, the far-field call beyond measure(): two launches
-    bit-equal, the call on the device alone (device_ms: 20 calls queued
-    behind a sleep kernel), its MUFU floor, the accepted nodes a tile and
-    the kernel's SASS a pair."""
+def far_extras(tag: str, name: str, call, args, kept, softening: str, pairs: int,
+               sass_job) -> dict:
+    """5a / 6a / 9a, a far-field call (call(*args): the far field, the
+    dense-mask far field or a shared-list call) beyond its timing: two
+    launches bit-equal, the call on the device alone (device_ms: 20 calls
+    queued behind a sleep kernel) beside its MUFU floor and its bytes bound
+    (each input read once, the rows written once) with the share of each,
+    the sources each tile keeps (kept (T,): mean, max; what the kernel
+    compacts and stages) and the kernel's SASS a pair, registers and
+    spills."""
     import torch
 
     from nbody_torch.ops import cuda_allpairs as ca
-    from nbody_torch.ops import cuda_group_eval as cg
     from nbody_torch.probes.compare_trees import device_ms
 
-    xi, mj, words = args[0], args[1], args[3]
-    dim = xi.shape[1]
-    first = cg.masked_eval_bits_cuda(*args)
-    same = torch.equal(first, cg.masked_eval_bits_cuda(*args))
-    dev_ms = device_ms(lambda: cg.masked_eval_bits_cuda(*args))
+    xi = args[0]
+    first, again = call(*args), call(*args)
+    torch.cuda.synchronize()
+    same = torch.equal(first.view(torch.int32), again.view(torch.int32))
+    dev_ms = device_ms(lambda: call(*args))
     floor = mufu_floor_ms(pairs, ca.sm_count_of(xi.device.index))
-    accepted = cg.unpack_mask_bits(words, mj.shape[0]).sum(1).double()
-    sass = kernel_sass(sass_job, "masked_eval_bits_kernel", dim, softening)
-    print(f"[{tag}] masked_eval_bits_kernel<{softening}>: {words.shape[0]} tiles, {mj.shape[0]} "
-          f"nodes, accepted a tile mean {accepted.mean().item():.1f}, max "
-          f"{int(accepted.max())}; two launches {'bit-equal' if same else 'DIFFER'}; device "
-          f"{dev_ms:.4f} ms; MUFU floor {floor:.4f} ms ({floor / dev_ms:.3f} of it); SASS "
-          f"{sass['instructions_per_pair']} a pair, {sass['registers']} registers, spills "
-          f"{sass['spill_stores']} / {sass['spill_loads']} bytes")
-    check(same, f"{tag}: two masked_eval_bits_kernel launches on the same inputs differ")
+    bytes_ms = bytes_of(args) / HBM_BYTES_PER_S * 1e3
+    kept = kept.double()
+    sass = kernel_sass(sass_job, name, xi.shape[1], softening)
+    print(f"[{tag}] {name}<{softening}>: {kept.shape[0]} tiles, kept a tile mean "
+          f"{kept.mean().item():.1f}, max {int(kept.max())}; two launches "
+          f"{'bit-equal' if same else 'DIFFER'}; device {dev_ms:.4f} ms; MUFU floor "
+          f"{floor:.4f} ms ({floor / dev_ms:.3f} of it), bytes bound {bytes_ms:.4f} ms "
+          f"({bytes_ms / dev_ms:.3f} of it); SASS {sass['instructions_per_pair']} a pair, "
+          f"{sass['registers']} registers, spills {sass['spill_stores']} / "
+          f"{sass['spill_loads']} bytes")
+    check(same, f"{tag}: two {name} launches on the same inputs differ")
     return {"bit_equal_launches": same, "device_ms": dev_ms, "mufu_floor_ms": floor,
-            "accepted_mean": accepted.mean().item(), "accepted_max": int(accepted.max()),
-            "sass": sass}
+            "bytes_bound_ms": bytes_ms, "kept_mean": kept.mean().item(),
+            "kept_max": int(kept.max()), "sass": sass}
 
 
 DENSE_PARTS = (1, 2, 4, 8)  # 6a: the dense window's P sweep
@@ -1304,8 +1316,10 @@ def octree_phases(dev, big: int, sass_job):
         ent.update(entries_extras(f"5a {dim}-D", recorded["entries_lohi_eval_cuda"], ent["pairs"]))
         sum_pass[dim] = ent.pop("sum_pass")
         far = measured["masked_eval_bits_kernel"][dim]
-        far.update(far_extras(f"5a {dim}-D", recorded["masked_eval_bits_cuda"], "sqrt3",
-                              far["pairs"], sass_job))
+        far_args = recorded["masked_eval_bits_cuda"]
+        accepted = cg.unpack_mask_bits(far_args[3], far_args[1].shape[0]).sum(1)
+        far.update(far_extras(f"5a {dim}-D", "masked_eval_bits_kernel", cg.masked_eval_bits_cuda,
+                              far_args, accepted, "sqrt3", far["pairs"], sass_job))
         win_args = recorded["window_eval_interval_cuda"]
         win = measured["window_eval_interval_kernel"][dim]
         win.update(window_extras(f"5a {dim}-D", "window_eval_interval_kernel",
@@ -1457,8 +1471,10 @@ def bvh_phases(dev, big: int, sass_job):
         ent.update(entries_extras(f"6a {dim}-D", ent_args, ent["pairs"]))
         ent["sum_pass_ms"] = ent.pop("sum_pass")["ms"]  # the kernels line's entry is 5a's
         far = measured["masked_eval_bits_kernel"][dim]
-        far.update(far_extras(f"6a {dim}-D", recorded["masked_eval_bits_cuda"], "poly",
-                              far["pairs"], sass_job))
+        far_args = recorded["masked_eval_bits_cuda"]
+        accepted = cg.unpack_mask_bits(far_args[3], far_args[1].shape[0]).sum(1)
+        far.update(far_extras(f"6a {dim}-D", "masked_eval_bits_kernel", cg.masked_eval_bits_cuda,
+                              far_args, accepted, "poly", far["pairs"], sass_job))
         win = measured["window_eval_nodemask_kernel"][dim]
         win.update(window_extras(f"6a {dim}-D", "window_eval_nodemask_kernel",
                                  cg.window_eval_nodemask_cuda,
@@ -2441,9 +2457,9 @@ def ablate_eval(tree: str, dev, bodies, depth: int, token: str, knobs, **kw):
     return a, {k: int(v) for k, v in info.items()}, {k: (v, rec.kwargs[k]) for k, v in rec.items()}
 
 
-def ablation_phases(dev, big: int):
+def ablation_phases(dev, big: int, sass_job):
     """Phase 9: the ablation path. Returns the JSON entries of its three
-    kernels."""
+    kernels (sass_job: start_sass's future of group_eval.cu)."""
     import torch
 
     from nbody_torch.models import build_model
@@ -2497,9 +2513,13 @@ def ablation_phases(dev, big: int):
                 args, kwargs = rec[kernel_wrapper[name]]
                 check(kwargs.get("packed", False) == (name == "entries_lohi_kernel<packed>"),
                       f"{tree} {token}: the recorded entries call is not the packed one")
-                if dim == 3 or token in ("densemask", "packedj", "farcompact"):
-                    measured[name][f"{tree}_{token}_{dim}d"] = measure_ablate(
-                        f"9a {dim}-D {tree} {token}", name, args, dim, softening)
+                tag = f"9a {dim}-D {tree} {token}"
+                entry = measure_ablate(tag, name, args, dim, softening)
+                if name != "entries_lohi_kernel<packed>":  # the two weighted far fields
+                    entry.update(far_extras(tag, name, getattr(cg, kernel_wrapper[name]), args,
+                                            (args[3] != 0).sum(1), softening, entry["pairs"],
+                                            sass_job))
+                measured[name][f"{tree}_{token}_{dim}d"] = entry
                 # (b) correctness on the card
                 rel = ((a - a0).abs().sum() / a0.abs().sum()).item()
                 if token == "packedj":
@@ -2535,10 +2555,22 @@ def ablation_phases(dev, big: int):
                           "bit-packed one")
                     del far, bits, t_args
                 elif token == "farcompact":
+                    # the shared-list kernel under poly too (no path runs it),
+                    # on the recorded lists, against its plain version
+                    poly_args = (*args[:6], "poly")
+                    poly = cg.group_shared_masked_eval_cuda(*poly_args)
+                    t_args, rows = head_args(name, poly_args, HEAD_TILES)
+                    poly_err = scaled(poly[:rows], cg.group_shared_masked_eval_torch(*t_args),
+                                      cg.group_shared_masked_eval_torch(*t_args, absolute=True))[0]
                     print(f"[9b] octree {dim}-D farcompact vs the default path: sum|diff| / "
                           f"sum|a| = {rel:.3e} (limit 1e-5); far_over tiles "
-                          f"{info['far_over_tiles']}")
+                          f"{info['far_over_tiles']}; group_shared_masked_kernel<poly> on its "
+                          f"lists vs plain, first {HEAD_TILES} tiles: max |diff| / sum|term| = "
+                          f"{poly_err:.3e} (limit 1e-5)")
                     check(rel <= 1e-5, f"octree {dim}-D farcompact forces differ")
+                    check(poly_err <= 1e-5, f"{dim}-D group_shared_masked_kernel<poly> differs "
+                          "from its plain version")
+                    del poly, t_args
                 elif dim == 3:  # desc1, desc2: the 3-D force against the exact sum
                     if ref is None:
                         ref = cfg.G * ca.allpairs_block_cuda(bodies[1], bodies[0], bodies[1], eps,

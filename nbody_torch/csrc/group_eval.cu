@@ -21,7 +21,8 @@
 // staged loop (add_staged_run) then runs over that list, each node gathered
 // as one 16-byte body (x, y, z | 0, m). No unaccepted node is staged or
 // evaluated; that is exact, since its Pallas weight is 0 * m / t with a
-// finite t. A tile with no bit set writes zeros.
+// finite t. A tile with no bit set writes zeros. The walk (add_compacted)
+// is shared with the two kernels below that weight their nodes by floats.
 //
 // window_eval_interval_kernel<DIM, SQRT3> replaces
 // window_eval_interval_pallas (:502, body _window_interval_kernel :455):
@@ -119,23 +120,39 @@
 // parts_sum_kernel adds each tile's parts in order.
 //
 // masked_eval_kernel<DIM, SQRT3> replaces masked_eval_pallas (:216, body
-// _masked_eval_kernel :184): the far field with a dense float32 accept mask
-// (T, W), the ablation token densemask of both trees. Every tile sees the
-// same W nodes, each weighted by its mask value: w = mask[t, l] * m_l / t.
-// It computes the Pallas function, not the bit-skipping shortcut of
-// masked_eval_bits_kernel: the block stages the nodes and the tile's mask
-// row together, kChunk at a time; a stage whose weights are all zero is
-// skipped, and so is a node of weight zero inside a stage (block-uniform:
-// every thread reads the same weight). Both skips are exact, since such a
-// term is 0 * dx / t with t >= eps > 0.
+// _masked_eval_kernel :184): the far field with a dense float32 weight per
+// (tile, node), mask (T, W), the ablation token densemask of both trees.
+// Every tile sees the same W nodes, node l adding (mask[t, l] * m_l) * r *
+// dx, in nbody_tpu's order (:206-208). It is the far field's walk with the
+// words formed from the floats: each warp reads 32 consecutive weights at
+// a time (one coalesced 128-byte load, 16 such loads in flight a thread:
+// 8 left the 2^20 octree's rows further from the bytes bound, and at 32 the
+// shared lists spill) and turns them into one word by a ballot of w != 0,
+// node l in word l / 32, bit l % 32; the block then compacts the nonzero
+// weights' ids as masked_eval_bits_kernel does and stages each node as
+// (x, y, z | 0, mask[t, l] * m_l), the product rounded once before the
+// chain, as window_eval_dense_kernel folds it. A dropped term is (0 * m) *
+// r * dx with r finite (t >= eps > 0) and m finite: zero, and a row sum
+// that starts at +0 stays +0 without the -0 terms, so dropping it changes
+// no bit. A NaN weight is kept (NaN != 0) and carries into the rows, as in
+// the Pallas sum; a nonzero weight on a node of mass 0 is kept (the test
+// looks at the weight alone) and adds a zero term. A tile with no nonzero weight
+// writes zeros. A 2^20 octree row is 37,449 floats (heap levels 0..5), of
+// which a tile keeps about 81: the row's bytes, not its pairs, set the
+// kernel's floor. One block a tile, no parts: on the descent's lists, whose
+// heaviest tiles keep 5x the mean, parts cut some of that tail but cost
+// every other call more (the second pass, the rows written P times), and a
+// persistent walk that copied each batch's weights into shared memory
+// ahead of the chain was slower (PERF.md).
 //
 // group_shared_masked_kernel<DIM, SQRT3> replaces
 // group_shared_masked_eval_pallas (:717, body _group_shared_masked_kernel
 // :684): supertiles of G consecutive tiles share one gathered monopole list
-// (mj (nsuper, M), xj (nsuper, M, dim)); tile t reads list t / G and its
-// own mask row (T, M). The octree's farcompact far field and the
-// descent's monopoles (desc1 / desc2) take it. Padded monopoles carry
-// m = 0; zero weights are skipped as above.
+// (mj (nsuper, M), xj (nsuper, M, dim)); tile t reads list t / G with its
+// own weight row (T, M). The octree's farcompact far field and the
+// descent's monopoles (desc1 / desc2) take it. The same walk as
+// masked_eval_kernel over list t / G (the weight folded as at :707-709);
+// padded monopoles carry m = 0.
 //
 // entries_kernel<DIM, SQRT3, PackedSource> ("entries_lohi_kernel<packed>")
 // replaces _entries_lohi_packed_kernel (:896, entries_lohi_eval_pallas(
@@ -148,15 +165,13 @@
 //
 // What bounds them on an H100: FP32 and SFU issue per pair (float64 issue
 // in the float64 list kernel), not bytes: the sources are staged once per
-// block through shared memory and read as broadcasts. The ablation kernels
-// (masked_eval_kernel, group_shared_masked_kernel) still take pair.cuh's
-// IEEE pair_weight (~38 instructions a 3-D float32 pair) through add_range;
-// each thread holds two rows (256 threads, 512 rows per block, one default
-// tile), and every staged source is used for both. A tile of more than 512
-// rows gets several blocks. The entries kernel, the list kernel, the far
-// field and the three windows (node-mask, interval and dense), which carry
-// the trees' fields, are bound by the pair chain (and, but for the far
-// field, by the tail of their heaviest tiles), and share one design:
+// block through shared memory and read as broadcasts (the dense-mask far
+// field also streams its mask rows: 307 MB at 2^20 3-D). Each thread holds
+// two rows (256 threads, 512 rows per block, one default tile), and every
+// staged source is used for both. A tile of more than 512 rows gets
+// several blocks. All of them are bound by the pair chain (and, but for the
+// three far fields, by the tail of their heaviest tiles), and share one
+// design:
 //   - the two-MUFU chain of pair.cuh (ChainWeight), d2 summed from the
 //     least normal number (the sources include the rows themselves, and a
 //     self-pair's dx = 0 then gets a finite weight and a zero term): in
@@ -165,16 +180,17 @@
 //     (:73-74) and the windows (_pair_weight :143-144) take; in float64
 //     the MUFU seeds refined twice, within a few ulps of the IEEE division
 //     that nbody_tpu's float64 jnp evaluation takes;
-//   - parts of about equal work (but in the far field, whose 81-179 nodes a
-//     2^20 tile leave no tail to cut): one block a tile ends a call on a
-//     tail of its heaviest tiles (the entries' work varies 2.5-10x a tile)
-//     or in a part-empty last wave (2,048 blocks of 512 rows at 2^20); the
-//     entries' parts come from a plan (entries_plan), the list's and the windows'
-//     are computed in the kernel from what each tile holds, P a tile from
-//     shapes alone; each part writes its own slice of partial rows and
-//     parts_sum_kernel adds them in order, so two launches give the same
-//     bits (the sum pass is bound by its bytes: 16-byte loads, several
-//     parts in flight a thread);
+//   - parts of about equal work (but in the three far fields, whose tiles
+//     keep 81-337 sources at 2^20 on average, too few to pay for a second
+//     pass; see masked_eval_kernel): one block a tile ends a call on a tail
+//     of its heaviest tiles (the entries' work varies 2.5-10x a tile) or in
+//     a part-empty last wave (2,048 blocks of 512 rows at 2^20); the
+//     entries' parts come from a plan (entries_plan), the list's and the
+//     windows' are computed in the kernel from what each tile holds, P a
+//     tile from shapes alone; each part writes its own slice of partial
+//     rows and parts_sum_kernel adds them in order, so two launches give
+//     the same bits (the sum pass is bound by its bytes: 16-byte loads,
+//     several parts in flight a thread);
 //   - one staged loop (staged.cuh add_staged_run): each body staged once as
 //     (x, y, z | 0, m), 16 bytes in float32 and 32 in float64, and read as
 //     broadcasts.
@@ -198,12 +214,8 @@
 
 namespace {
 
-using nbody::add_source;
 using nbody::add_staged_run;
-using nbody::add_to;
 using nbody::kChunk;
-using nbody::kGroup;
-using nbody::kRows;
 using nbody::kRowsPerBlock;
 using nbody::kThreads;
 using nbody::PackedSource;
@@ -211,61 +223,10 @@ using nbody::Rows;
 using nbody::SplitSource;
 using nbody::Staged;
 using nbody::staged;
-using nbody::zero;
 
 constexpr int kFarWords = kThreads;                         // far-field words a batch, one a thread
+constexpr int kWeightLoads = 16;                            // weight loads in flight a thread
 constexpr int kMaxWindowSlots = 32768;                     // node-mask window slots a tile
-
-// The contiguous sources [a, b) of `src`, body j's mass scaled by
-// weight[j - a], staged kChunk at a time and added to `sum` stage by stage
-// (the ablation kernels). A stage whose staged masses are all zero is
-// skipped, and so is a zero mass inside a stage; both are block-uniform and
-// exact (the term is 0 * dx / t). Called by every thread with
-// block-uniform a, b.
-template <typename T, int DIM, bool SQRT3, typename Src>
-__device__ __forceinline__ void add_range(const Rows<T, DIM>& rows, const Src& src, int a, int b,
-                                          T eps, T* s_m, T (*s_x)[kChunk], T (&sum)[kRows][DIM],
-                                          const T* __restrict__ weight) {
-  for (int j0 = a; j0 < b; j0 += kChunk) {
-    const int len = min(kChunk, b - j0);
-    bool live = false;
-    if (threadIdx.x < len) {
-      const int j = j0 + threadIdx.x;
-      T m;
-      T x[DIM];
-      src.load(j, m, x);
-      m = m * weight[j - a];
-      s_m[threadIdx.x] = m;
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) s_x[d][threadIdx.x] = x[d];
-      live = m != T(0);
-    }
-    if (!__syncthreads_or(live)) continue;  // every staged weight is zero
-    T part[kRows][DIM];
-    zero(part);
-    for (int k0 = 0; k0 < len; k0 += kGroup) {
-      T group[kRows][DIM];
-      zero(group);
-      const int k1 = min(len, k0 + kGroup);
-#pragma unroll 4
-      for (int k = k0; k < k1; ++k) {
-        if (s_m[k] == T(0)) continue;  // the same s_m[k] for every thread
-        T x[DIM];
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) x[d] = s_x[d][k];
-        add_source<T, DIM, SQRT3>(rows.p, s_m[k], x, eps, group);
-      }
-      add_to(part, group);
-    }
-    add_to(sum, part);
-    __syncthreads();
-  }
-}
-
-template <typename T, int DIM>
-__device__ __forceinline__ SplitSource<T, DIM> split_source(const T* m, const T* x) {
-  return SplitSource<T, DIM>{m, x};
-}
 
 // The parts of a tile whose work (bodies, in its order) is `work`, split by
 // the list kernel and the three windows: one part per kChunk bodies, at most
@@ -312,30 +273,83 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* s_red, int& tota
   return before + inclusive - v;
 }
 
-// Block (t, sub): tile t's far field into rows sub*512.. of the tile. The
-// tile's words are taken kFarWords at a time, one a thread; each batch's
-// accepted nodes (at most kFarWords * 32, so an id relative to the batch
-// fits 16 bits) are compacted into s_ids in node order and run through the
-// staged loop. Bits past node W - 1 in the last word are not read. At most
-// 48 registers, 5 blocks an SM, as the windows take.
-template <int DIM, bool SQRT3>
-__global__ void __launch_bounds__(kThreads, 5)
-masked_eval_bits_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
-                        const float* __restrict__ xj, int W, const unsigned* __restrict__ words,
-                        int nw, float eps, float* __restrict__ out) {
+// The words of a far-field batch: the thread's word b0 + threadIdx.x of
+// its tile (node l in word l / 32, bit l % 32), 0 past the tile's words.
+// Called by every thread with the same b0. From packed accept bits in
+// memory (masked_eval_bits_kernel); bits past node W - 1 in the last word
+// are not read ...
+struct BitWords {
+  const unsigned* __restrict__ words;  // the tile's nw words
+  int nw;
+  unsigned tail;  // the last word's nodes
+
+  __device__ __forceinline__ unsigned operator()(int b0) const {
+    const int k = b0 + static_cast<int>(threadIdx.x);
+    unsigned bits = k < nw ? words[k] : 0u;
+    if (k == nw - 1) bits &= tail;
+    return bits;
+  }
+};
+
+// ... or by a ballot over the tile's row of W float weights, a bit set where
+// the weight is not zero (masked_eval_kernel, group_shared_masked_kernel).
+// Warp v forms the batch's words v*32 .. v*32 + 31, one a step: its lanes
+// read the word's 32 consecutive weights (one coalesced 128-byte load;
+// kWeightLoads words' loads in flight before their ballots) and lane k
+// keeps word v*32 + k. The row's start need not be 16-byte aligned, so the
+// loads are 4 bytes a lane; weights past W read as zero.
+struct WeightWords {
+  const float* __restrict__ w;  // the tile's W weights
+  int W;
+
+  __device__ __forceinline__ unsigned operator()(int b0) const {
+    const int lane = static_cast<int>(threadIdx.x & 31u);
+    const int word0 = b0 + static_cast<int>(threadIdx.x & ~31u);  // the warp's first word
+    unsigned mine = 0u;
+#pragma unroll 1
+    for (int k0 = 0; k0 < 32 && (word0 + k0) * 32 < W; k0 += kWeightLoads) {  // warp-uniform
+      float v[kWeightLoads];
+#pragma unroll
+      for (int k = 0; k < kWeightLoads; ++k) {
+        const int l = (word0 + k0 + k) * 32 + lane;
+        v[k] = l < W ? w[l] : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kWeightLoads; ++k) {
+        const unsigned word = __ballot_sync(0xffffffffu, v[k] != 0.0f);  // NaN != 0: kept
+        if (lane == k0 + k) mine = word;
+      }
+    }
+    return mine;
+  }
+};
+
+// Node l of `src` staged with its weight folded into its mass, (x, y, z |
+// 0, w[l] * m_l): nbody_tpu's (mask * m), rounded once before the chain.
+template <int DIM>
+__device__ __forceinline__ float4 weighted(const SplitSource<float, DIM>& src,
+                                           const float* __restrict__ w, int l) {
+  float4 v = staged(src, l);
+  v.w = w[l] * v.w;
+  return v;
+}
+
+// The three far fields' walk over a tile's nw words, kFarWords a batch,
+// one a thread (word(b0), BitWords or WeightWords): each batch's nodes with
+// a set bit (at most kFarWords * 32, so an id relative to the batch fits
+// 16 bits) are compacted into s_ids in node order (a block scan of the
+// words' bit counts gives each word its offset) and run through the staged
+// loop, node l staged as fetch(l).
+template <int DIM, bool SQRT3, typename Words, typename Fetch>
+__device__ __forceinline__ void add_compacted(Rows<float, DIM>& rows, int nw, const Words& word,
+                                              const Fetch& fetch, float eps) {
   __shared__ unsigned short s_ids[kFarWords * 32];
   __shared__ float4 s_body[kChunk];
   __shared__ int s_red[kThreads / 32];
 
-  Rows<float, DIM> rows(xi, tb);
-  const unsigned* tile_words = words + static_cast<size_t>(blockIdx.x) * nw;
-  const unsigned tail = W % 32 == 0 ? ~0u : (1u << (W % 32)) - 1u;  // the last word's nodes
   const nbody::ChainWeight<float, SQRT3> weight{eps};
-  const SplitSource<float, DIM> src{mj, xj};
   for (int b0 = 0; b0 < nw; b0 += kFarWords) {
-    const int k = b0 + static_cast<int>(threadIdx.x);
-    unsigned bits = k < nw ? tile_words[k] : 0u;
-    if (k == nw - 1) bits &= tail;
+    unsigned bits = word(b0);
     int accepted;
     int at = block_exclusive_scan(__popc(bits), s_red, accepted);
     for (; bits; bits &= bits - 1) {
@@ -344,8 +358,56 @@ masked_eval_bits_kernel(const float* __restrict__ xi, int tb, const float* __res
     __syncthreads();  // s_ids written (and s_red read)
     const int node0 = b0 * 32;
     add_staged_run(rows, 0, accepted, weight, s_body,
-                   [&](long long u) { return staged(src, node0 + s_ids[u]); });
+                   [&](long long u) { return fetch(node0 + s_ids[u]); });
   }
+}
+
+// Block (t, sub): tile t's far field into rows sub*512.. of the tile, its
+// accepted nodes from its packed bits. At most 48 registers, 5 blocks an
+// SM, as the windows take.
+template <int DIM, bool SQRT3>
+__global__ void __launch_bounds__(kThreads, 5)
+masked_eval_bits_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
+                        const float* __restrict__ xj, int W, const unsigned* __restrict__ words,
+                        int nw, float eps, float* __restrict__ out) {
+  Rows<float, DIM> rows(xi, tb);
+  const unsigned tail = W % 32 == 0 ? ~0u : (1u << (W % 32)) - 1u;  // the last word's nodes
+  const BitWords bits{words + static_cast<size_t>(blockIdx.x) * nw, nw, tail};
+  const SplitSource<float, DIM> src{mj, xj};
+  add_compacted<DIM, SQRT3>(rows, nw, bits, [&](int l) { return staged(src, l); }, eps);
+  rows.store(out);
+}
+
+// Block (t, sub): tile t's dense-mask far field into rows sub*512.. of the
+// tile: its nonzero weights mask[t, l] compacted, each node staged with
+// mask[t, l] * m_l. At most 48 registers, 5 blocks an SM.
+template <int DIM, bool SQRT3>
+__global__ void __launch_bounds__(kThreads, 5)
+masked_eval_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
+                   const float* __restrict__ xj, int W, const float* __restrict__ mask, float eps,
+                   float* __restrict__ out) {
+  Rows<float, DIM> rows(xi, tb);
+  const float* weights = mask + static_cast<size_t>(blockIdx.x) * W;
+  const SplitSource<float, DIM> src{mj, xj};
+  add_compacted<DIM, SQRT3>(rows, (W + 31) / 32, WeightWords{weights, W},
+                            [&](int l) { return weighted(src, weights, l); }, eps);
+  rows.store(out);
+}
+
+// Block (t, sub): the same over supertile t / G's list of M monopoles, with
+// tile t's weight row. At most 48 registers, 5 blocks an SM.
+template <int DIM, bool SQRT3>
+__global__ void __launch_bounds__(kThreads, 5)
+group_shared_masked_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
+                           const float* __restrict__ xj, int M, int G,
+                           const float* __restrict__ mask, float eps, float* __restrict__ out) {
+  Rows<float, DIM> rows(xi, tb);
+  const int t = blockIdx.x;
+  const size_t list = static_cast<size_t>(t / G) * M;  // the supertile's monopoles
+  const float* weights = mask + static_cast<size_t>(t) * M;
+  const SplitSource<float, DIM> src{mj + list, xj + list * DIM};
+  add_compacted<DIM, SQRT3>(rows, (M + 31) / 32, WeightWords{weights, M},
+                            [&](int l) { return weighted(src, weights, l); }, eps);
   rows.store(out);
 }
 
@@ -633,36 +695,6 @@ parts_sum_kernel(const T* __restrict__ parts, const Parts ranges, int slice, int
     }
     acc.store(out + static_cast<size_t>(t) * slice + within);
   }
-}
-
-template <int DIM, bool SQRT3>
-__global__ void __launch_bounds__(kThreads)
-masked_eval_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
-                   const float* __restrict__ xj, int W, const float* __restrict__ mask, float eps,
-                   float* __restrict__ out) {
-  __shared__ float s_m[kChunk];
-  __shared__ float s_x[DIM][kChunk];
-
-  Rows<float, DIM> rows(xi, tb);
-  add_range<float, DIM, SQRT3>(rows, split_source<float, DIM>(mj, xj), 0, W, eps, s_m, s_x,
-                               rows.acc, mask + static_cast<size_t>(blockIdx.x) * W);
-  rows.store(out);
-}
-
-template <int DIM, bool SQRT3>
-__global__ void __launch_bounds__(kThreads)
-group_shared_masked_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
-                           const float* __restrict__ xj, int M, int G,
-                           const float* __restrict__ mask, float eps, float* __restrict__ out) {
-  __shared__ float s_m[kChunk];
-  __shared__ float s_x[DIM][kChunk];
-
-  Rows<float, DIM> rows(xi, tb);
-  const int t = blockIdx.x;
-  const size_t list = static_cast<size_t>(t / G) * M;  // the supertile's monopoles
-  add_range<float, DIM, SQRT3>(rows, split_source<float, DIM>(mj + list, xj + list * DIM), 0, M,
-                               eps, s_m, s_x, rows.acc, mask + static_cast<size_t>(t) * M);
-  rows.store(out);
 }
 
 // The list kernel's rows a thread: float32 2, float64 1 (measured on an

@@ -8,19 +8,18 @@
 //     sqrt3: t = (sqrt(d2) + eps)^3          (the octree quirk, octree.h:156-160)
 // where d2 = |x_j - x_i|^2. pair_weight divides and takes the root in IEEE
 // (nvcc's defaults -prec-div=true -prec-sqrt=true; the build never passes
-// --use_fast_math); of group_eval.cu's kernels the ablation kernels
-// (masked_eval_kernel, group_shared_masked_kernel) use it, and so does the
-// all-pairs kernel's exact=True instantiation; no other kernel does. The Pallas kernels take the
+// --use_fast_math); only the all-pairs kernel's exact=True instantiation
+// (allpairs.cu, SoftenedWeight) uses it. The Pallas kernels take the
 // approximate reciprocal plus one Newton step (pallas_allpairs.py:79-84,
 // their default exact=False; pallas_group_eval.py:143-144 and :877-878 in
 // the group kernels), within 1 ulp of the division: newton_recip below. A
 // bare rcp.approx, without the Newton step, would lose bits of the
 // close-pair terms, whose t is eps plus a tiny d2*sqrt(d2); the step
-// restores them. The all-pairs kernels (allpairs.cu) by default, the
-// entries kernel, the list kernel, the far field and the node-mask,
-// interval and dense-mask windows (group_eval.cu), and the entry-cost
-// probes' ladder and ring (entry_probes.cu) run the Newton form in
-// ChainWeight below, as nbody_tpu's CLI does.
+// restores them. The all-pairs kernels (allpairs.cu) by default, every
+// kernel of group_eval.cu (the entries and list kernels, the three far
+// fields, the node-mask, interval and dense-mask windows) and the
+// entry-cost probes' ladder and ring (entry_probes.cu) run the Newton form
+// in ChainWeight below, as nbody_tpu's CLI does.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -61,12 +60,12 @@ struct SoftenedWeight {
   __device__ __forceinline__ T operator()(T m, T d2) const { return pair_weight<T, SQRT3>(m, d2, eps); }
 };
 
-// The two-MUFU chain, which the all-pairs kernels (allpairs.cu), the
-// entries, list, far-field and window kernels (group_eval.cu) and the
-// entry-cost probes (entry_probes.cu) share: a root and a reciprocal
-// a pair, each one MUFU seed (refined in float64), against the IEEE
-// pair_weight's sqrt and division with their slow-path checks (38.25 SASS
-// instructions a 3-D float32 pair against 17.75 on an H100, PERF.md).
+// The two-MUFU chain, which the all-pairs kernels (allpairs.cu), every
+// kernel of group_eval.cu and the entry-cost probes (entry_probes.cu)
+// share: a root and a reciprocal a pair, each one MUFU seed (refined in
+// float64), against the IEEE pair_weight's sqrt and division with their
+// slow-path checks (38.25 SASS instructions a 3-D float32 pair against
+// 17.75 on an H100, PERF.md).
 //
 // The least normal number. The chain sums d2 from it instead of from 0, so
 // that its MUFU seeds see a normal input and a coincident pair (dx = 0)

@@ -8,8 +8,6 @@
 
 #include <cuda_runtime.h>
 
-#include "pair.cuh"
-
 namespace nbody {
 
 constexpr int kThreads = 256;                              // threads per block
@@ -83,25 +81,6 @@ __device__ __forceinline__ void add_to(T (&dst)[R][DIM], const T (&src)[R][DIM])
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int d = 0; d < DIM; ++d) dst[r][d] += src[r][d];
-}
-
-// One source (m, x) acting on all rows of the thread.
-template <typename T, int DIM, bool SQRT3, int R>
-__device__ __forceinline__ void add_source(const T (&p)[R][DIM], T m, const T (&x)[DIM], T eps,
-                                           T (&part)[R][DIM]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    T dx[DIM];
-    T d2 = T(0);
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) {
-      dx[d] = x[d] - p[r][d];
-      d2 += dx[d] * dx[d];
-    }
-    const T w = pair_weight<T, SQRT3>(m, d2, eps);
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) part[r][d] += w * dx[d];
-  }
 }
 
 }  // namespace nbody

@@ -42,12 +42,16 @@ BVH fast and list paths. The kernels live in nbody_torch/csrc/group_eval.cu
                                first nparts[t] of them written
   masked_eval_kernel           replaces masked_eval_pallas (:216; body
                                _masked_eval_kernel :184): the far field
-                               with a dense float32 accept mask (ablate
-                               token densemask)
+                               with a dense float32 weight mask (ablate
+                               token densemask): the far field's walk over
+                               each tile's nonzero weights, compacted in
+                               the block (dense_ids mirrors it), each mass
+                               folded as mask * m, by the Newton chain
   group_shared_masked_kernel   replaces group_shared_masked_eval_pallas
                                (:717; body _group_shared_masked_kernel
                                :684): supertile-shared monopole lists with
-                               per-tile masks (farcompact, desc1 / desc2)
+                               per-tile weight masks (farcompact, desc1 /
+                               desc2), the same walk over list t // G
   entries_lohi_kernel<packed>  replaces _entries_lohi_packed_kernel (:896;
                                entries_lohi_eval_pallas(packed_j=True)
                                :1040): the entries with each source read
@@ -86,14 +90,13 @@ kernels do; group_eval_kernel takes float32 and float64 (the list paths
 are what float64 runs take; float32 reaches them through the list_path
 branch of the step functions); the twins take either precision.
 
-The entries kernels, the list kernel, the far field and the three windows
-take the two-MUFU chain of csrc/pair.cuh: in float32 nbody_tpu's own
-reciprocal, the approximate one and a Newton step (pallas_group_eval.py:73-74,
-:143-144, :206-207, :877-878), within 1 ulp of the division; in float64 (the
-list kernel) MUFU seeds refined twice, within a few ulps of it. The ablation
-kernels (masked_eval_kernel, group_shared_masked_kernel) and every twin
-divide in IEEE (the hardware's approximate reciprocal cannot be reproduced
-on the CPU), and the kernels' tolerance against the twins covers the ulps.
+Every kernel here takes the two-MUFU chain of csrc/pair.cuh: in float32
+nbody_tpu's own reciprocal, the approximate one and a Newton step
+(pallas_group_eval.py:73-74, :143-144, :206-208, :707-709, :877-878),
+within 1 ulp of the division; in float64 (the list kernel) MUFU seeds
+refined twice, within a few ulps of it. Every twin divides in IEEE (the
+hardware's approximate reciprocal cannot be reproduced on the CPU), and
+the kernels' tolerance against the twins covers the ulps.
 
 The accept mask is packed node l -> word l // 32, bit l % 32
 (pack_mask_bits / unpack_mask_bits). nbody_tpu's strided order
@@ -187,6 +190,17 @@ def far_ids(words: torch.Tensor, w: int) -> list[list[torch.Tensor]]:
             batches.append(torch.tensor(ids, dtype=torch.int64, device=words.device))
         out.append(batches)
     return out
+
+
+def dense_ids(mask: torch.Tensor) -> list[list[torch.Tensor]]:
+    """The compaction of masked_eval_kernel and group_shared_masked_kernel,
+    in Python: for each tile of the (T, W) float weights, its batches in
+    order, each the int64 ids of its nodes with a nonzero weight (a NaN
+    counts; -0.0 does not) among FAR_WORDS * 32 consecutive nodes, in node
+    order. The kernels form each word of 32 weights by a ballot of w != 0
+    and compact the words as the far field does (far_ids). The tests use
+    it; the card's path compacts in the kernel."""
+    return far_ids(pack_mask_bits(mask != 0), mask.shape[1])
 
 
 # --------------------------------------------------------------------------
@@ -1055,7 +1069,8 @@ def masked_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, mask:
                      eps: float, softening: str) -> torch.Tensor:
     """Far field of T row tiles against W shared nodes (mj (W,), xj (W,
     dim)) with a dense float weight mask (T, W) on their masses -- the
-    counterpart of masked_eval_pallas."""
+    counterpart of masked_eval_pallas. The kernel visits only each tile's
+    nonzero weights (dense_ids mirrors its compaction)."""
     _check(xi, mask.shape[0], mj, xj)
     _check_mask(mask, xi, mj.shape[0])
     sqrt3 = _sqrt3(softening)
@@ -1072,7 +1087,8 @@ def group_shared_masked_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.
     (nsuper, M), xj (nsuper, M, dim), nsuper = ceil(T / G), padding of
     mass 0); tile t reads list t // G with its own weight mask row (T, M)
     -- the counterpart of group_shared_masked_eval_pallas, with xj
-    untransposed."""
+    untransposed. The kernel visits only each tile's nonzero weights
+    (dense_ids)."""
     ntiles = mask.shape[0]
     if mj.ndim != 2 or xj.shape != (*mj.shape, xi.shape[-1]):
         raise ValueError(f"lists {tuple(mj.shape)}, {tuple(xj.shape)} do not match rows "

@@ -17,6 +17,18 @@ wrappers. Prints one JSON line (appended to OUT too, if given):
                        sleep kernel);
   far_poly_{3,2}d_ms   the same on the call of one f32 BVH force evaluation
                        of a 2^20-body galaxy;
+  densemask_{sqrt3,poly}_{3,2}d_ms  masked_eval_cuda on the call of one such
+                       octree (sqrt3) or BVH (poly) evaluation with
+                       ablate="densemask", on the device alone;
+  shared_{farcompact,desc1,desc2}_{3,2}d_ms  group_shared_masked_eval_cuda on
+                       the call of one such octree evaluation with that
+                       ablate token, on the device alone;
+  *_zero_ms, *_light_ms, *_heavy_share  for those octree calls (sqrt3):
+                       the same call with every weight zero (the weights'
+                       stream and the blocks' fixed work alone), and with
+                       the weights of its heaviest 5% of tiles (by nonzero
+                       weights) zeroed, and those tiles' share of the
+                       nonzero weights;
   dense_{3,2}d_ms      window_eval_dense_cuda on a synthetic 2^20 window:
                        that BVH evaluation's node-mask window call, its
                        slots broadcast over their S bodies as a float mask,
@@ -124,27 +136,63 @@ def recorded(module, names, run) -> dict:
     return seen
 
 
+# the octree's ablate tokens timed, each the wrapper it calls and its key
+OCTREE_TOKENS = {"densemask": ("masked_eval_cuda", "densemask_sqrt3"),
+                 "farcompact": ("group_shared_masked_eval_cuda", "shared_farcompact"),
+                 "desc1": ("group_shared_masked_eval_cuda", "shared_desc1"),
+                 "desc2": ("group_shared_masked_eval_cuda", "shared_desc2")}
+
+
+def weight_variants(args) -> tuple:
+    """A weighted far-field call's args (mask 4th) with every weight zero,
+    and with the weights of its heaviest 5% of tiles zeroed; and those
+    tiles' share of the nonzero weights."""
+    mask = args[3]
+    kept = (mask != 0).sum(1).double()
+    heavy = kept >= torch.quantile(kept, 0.95)
+    light = mask.masked_fill(heavy[:, None], 0)
+    return ((*args[:3], torch.zeros_like(mask), *args[4:]), (*args[:3], light, *args[4:]),
+            (kept[heavy].sum() / kept.sum()).item())
+
+
 def octree_calls(dim: int, dev: torch.device, build_model, octree, og) -> dict:
     """The interval window's and the far field's call args of one f32
-    octree evaluation of a 2^20-body galaxy."""
+    octree evaluation of a 2^20-body galaxy, and under each token of
+    OCTREE_TOKENS its wrapper's call args of one evaluation of the same
+    bodies with that ablate token."""
     cfg, state = build_model("galaxy", N, dim, np.float32, device=dev)
     depth = octree.max_depth(N, dim)
     lo, hi = octree.robust_quant_box(state.x)
     ms, xs, ks, _ = octree.morton_sort(state.m, state.x, lo, hi, depth)
-    return recorded(og, ["window_eval_interval_cuda", "masked_eval_bits_cuda"],
-                    lambda: og.compute_force_grouped_fast(ms, xs, ks, depth, cfg.theta, cfg.G,
-                                                          cfg.eps))
+
+    def run(ablate=""):
+        og.compute_force_grouped_fast(ms, xs, ks, depth, cfg.theta, cfg.G, cfg.eps, ablate=ablate)
+    calls = recorded(og, ["window_eval_interval_cuda", "masked_eval_bits_cuda"], run)
+    for token, (name, _) in OCTREE_TOKENS.items():
+        calls[token] = recorded(og, [name], lambda: run(token))[name]
+    return calls
 
 
-def bvh_calls(n: int, dim: int, theta, dev: torch.device, build_model, bvh, bg) -> dict:
+def bvh_calls(n: int, dim: int, theta, dev: torch.device, build_model, bvh, bg,
+              densemask: bool = False) -> dict:
     """The far field's and the window's call args of one f32 BVH evaluation
-    of an n-body galaxy (theta None: the model's)."""
+    of an n-body galaxy (theta None: the model's), and with densemask the
+    dense-mask far field's call args of one evaluation of the same tree
+    with ablate="densemask" under "densemask"."""
     cfg, state = build_model("galaxy", n, dim, np.float32, device=dev)
     state = bvh.hilbert_sort(state, cfg.eps)
     tree = bvh.build_tree(state.m, state.x, cfg.eps)
+
+    def run(ablate=""):
+        bg.compute_force_grouped_windowed(tree, state.m, state.x,
+                                          cfg.theta if theta is None else theta, cfg.G, cfg.eps,
+                                          ablate=ablate)
     names = ["masked_eval_bits_cuda", "window_eval_nodemask_cuda", "window_eval_dense_cuda"]
-    return recorded(bg, names, lambda: bg.compute_force_grouped_windowed(
-        tree, state.m, state.x, cfg.theta if theta is None else theta, cfg.G, cfg.eps))
+    calls = recorded(bg, names, run)
+    if densemask:
+        calls["densemask"] = recorded(bg, ["masked_eval_cuda"],
+                                      lambda: run("densemask"))["masked_eval_cuda"]
+    return calls
 
 
 SMALL_RUNS = {"n10": ["-n", "10", "-s", "1010", "--algorithm", "bvh", "--theta", "0"],
@@ -210,9 +258,20 @@ def main(argv: list[str]) -> None:
         row[f"interval_{dim}d_ms"] = events_ms(lambda: cg.window_eval_interval_cuda(*args), 10)
         args = calls["masked_eval_bits_cuda"]
         row[f"far_sqrt3_{dim}d_ms"] = device_ms(lambda: cg.masked_eval_bits_cuda(*args))
-        calls = bvh_calls(N, dim, None, dev, build_model, bvh, bg)
+        for token, (name, key) in OCTREE_TOKENS.items():
+            args, fn = calls[token], getattr(cg, name)
+            row[f"{key}_{dim}d_ms"] = device_ms(lambda: fn(*args))
+            zero, light, row[f"{key}_{dim}d_heavy_share"] = weight_variants(args)
+            row[f"{key}_{dim}d_zero_ms"] = device_ms(lambda: fn(*zero))
+            row[f"{key}_{dim}d_light_ms"] = device_ms(lambda: fn(*light))
+            del zero, light
+        del calls, args
+        torch.cuda.empty_cache()
+        calls = bvh_calls(N, dim, None, dev, build_model, bvh, bg, densemask=True)
         args = calls["masked_eval_bits_cuda"]
         row[f"far_poly_{dim}d_ms"] = device_ms(lambda: cg.masked_eval_bits_cuda(*args))
+        args = calls["densemask"]
+        row[f"densemask_poly_{dim}d_ms"] = device_ms(lambda: cg.masked_eval_cuda(*args))
         xi, mj, xj, w0, in_win, eps, wt, S, softening = calls["window_eval_nodemask_cuda"]
         mask = in_win.to(torch.float32).repeat_interleave(S, dim=1).contiguous()
         args = (xi, mj, xj, w0, mask, eps, wt, softening)

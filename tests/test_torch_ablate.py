@@ -136,6 +136,52 @@ def test_group_shared_masked_twin_vs_pallas(dim, softening):
     assert not got[9 * tb:10 * tb].any()
 
 
+def _float_weights(rng, shape, density):
+    """Weights that are not 0/1: 0.5, 3.0, 0.25 or -0.0 where drawn, else 0."""
+    drawn = rng.random(shape) < density
+    return np.where(drawn, rng.choice([0.5, 3.0, 0.25, -0.0], shape), 0.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("softening", ["sqrt3", "poly"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_masked_eval_twin_vs_pallas_float_weights(dim, softening):
+    """masked_eval_pallas (row 10) with weights that are not 0/1, folded as
+    (mask * m): W = 1501 (not a multiple of 4 or 32), dead nodes, a tile
+    whose weights are all zero or -0.0."""
+    ntiles, tb, w = 5, 128, 1501
+    rng, mj, xj, xi = _rows_and_sources(ntiles, tb, w, dim, seed=230 + dim)
+    mj[::23] = 0
+    mask = _float_weights(rng, (ntiles, w), 0.3)
+    mask[3] = 0
+    mask[3, ::5] = -0.0
+    ref = jpg.masked_eval_pallas(jnp.asarray(xi), jnp.asarray(mj), jnp.asarray(xj.T),
+                                 jnp.asarray(mask), EPS, interpret=True, softening=softening)
+    got = tge.masked_eval_cuda(_t(xi), _t(mj), _t(xj), _t(mask), EPS, softening)
+    _assert_twin_and_pallas(got, ref, _f64_sums(xi, mj, xj, mask, tb, softening))
+    assert not got[3 * tb:4 * tb].any()
+
+
+@pytest.mark.parametrize("softening", ["sqrt3", "poly"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_group_shared_masked_twin_vs_pallas_float_weights(dim, softening):
+    """group_shared_masked_eval_pallas (row 11) with weights that are not
+    0/1: G = 8 over 11 tiles, M = 1100 with a padded tail of mass 0."""
+    ntiles, tb, width, G = 11, 128, 1100, 8
+    nsuper = -(-ntiles // G)
+    rng, mj, xj, xi = _rows_and_sources(ntiles, tb, nsuper * width, dim, seed=240 + dim)
+    mj, xj = mj.reshape(nsuper, width), xj.reshape(nsuper, width, dim)
+    mj[:, -70:] = 0
+    mask = _float_weights(rng, (ntiles, width), 0.4)
+    mask[6] = 0
+    ref = jpg.group_shared_masked_eval_pallas(
+        jnp.asarray(xi), jnp.asarray(mj), jnp.asarray(np.swapaxes(xj, 1, 2)), jnp.asarray(mask),
+        EPS, G, interpret=True, softening=softening)
+    got = tge.group_shared_masked_eval_cuda(_t(xi), _t(mj), _t(xj), _t(mask), EPS, G, softening)
+    lists = np.arange(ntiles) // G
+    _assert_twin_and_pallas(got, ref, _f64_sums(xi, mj[lists], xj[lists], mask, tb, softening))
+    assert not got[6 * tb:7 * tb].any()
+
+
 @pytest.mark.parametrize("softening", ["sqrt3", "poly"])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_packed_entries_twin_vs_pallas(dim, softening):

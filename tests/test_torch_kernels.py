@@ -1208,6 +1208,67 @@ def test_group_shared_masked_kernel_vs_twin(dev, dim, G, softening):
     assert not got[4 * tb:5 * tb].any()
 
 
+def _float_weights(shape, density, dev, seed):
+    """Weights that are not 0/1 (0.5, 3.0, 0.25, -0.0 where drawn, else 0)."""
+    rng = np.random.default_rng(seed)
+    drawn = rng.random(shape) < density
+    return torch.tensor(np.where(drawn, rng.choice([0.5, 3.0, 0.25, -0.0], shape), 0.0),
+                        dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("softening", ["poly", "sqrt3"])
+@pytest.mark.parametrize("w", [1501, 20001])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_masked_eval_kernel_compaction(dev, dim, w, softening):
+    """The dense-mask far field's compaction: float weights that are not
+    0/1, W not a multiple of 4 (rows not 16-byte aligned) and above one
+    batch of 8,192 nodes (20,001: three), a tile of zeros and -0.0 (zeros
+    out), a tile with a NaN weight (NaN rows, the others untouched), two
+    launches bit-equal, two row blocks a tile."""
+    ntiles, tb = 4, 1024
+    mj, xj = _bodies(w, dim, torch.float32, dev, seed=180 + dim)
+    mj[::29] = 0
+    _, xi = _bodies(ntiles * tb, dim, torch.float32, dev, seed=181 + dim)
+    mask = _float_weights((ntiles, w), 0.05, dev, seed=182)
+    mask[1] = 0
+    mask[1, ::3] = -0.0
+    mask[0, w - 1] = 3.0
+    got = cg.masked_eval_cuda(xi, mj, xj, mask, EPS32, softening)
+    assert _same_bits(got, cg.masked_eval_cuda(xi, mj, xj, mask, EPS32, softening))
+    ref = cg.masked_eval_torch(xi, mj, xj, mask, EPS32, softening)
+    _assert_group_within(got, ref, cg.masked_eval_torch(xi, mj, xj, mask, EPS32, softening,
+                                                        absolute=True).cpu())
+    assert not got[tb:2 * tb].any()
+    mask[3, w // 2] = float("nan")
+    nan = cg.masked_eval_cuda(xi, mj, xj, mask, EPS32, softening)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(nan[3 * tb:]).all())
+    assert _same_bits(nan[:3 * tb], got[:3 * tb])
+
+
+@pytest.mark.parametrize("softening", ["poly", "sqrt3"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_group_shared_masked_kernel_compaction(dev, dim, softening):
+    """Supertile-shared lists with float weights: G = 8 over 11 tiles of
+    1,024 rows (two row blocks), M = 9,001 (two batches, rows not 16-byte
+    aligned), padded tails of mass 0, a tile of zeros; two launches
+    bit-equal."""
+    ntiles, tb, width, G = 11, 1024, 9001, 8
+    nsuper = -(-ntiles // G)
+    mj, xj = _bodies(nsuper * width, dim, torch.float32, dev, seed=190 + dim)
+    mj, xj = mj.view(nsuper, width), xj.view(nsuper, width, dim)
+    mj[:, -300:] = 0
+    _, xi = _bodies(ntiles * tb, dim, torch.float32, dev, seed=191 + dim)
+    mask = _float_weights((ntiles, width), 0.03, dev, seed=192)
+    mask[9] = 0
+    args = (xi, mj, xj, mask, EPS32, G, softening)
+    got = cg.group_shared_masked_eval_cuda(*args)
+    assert _same_bits(got, cg.group_shared_masked_eval_cuda(*args))
+    _assert_group_within(got, cg.group_shared_masked_eval_torch(*args),
+                         _shared_scale(xi, mj, xj, mask, G, tb, softening))
+    assert not got[9 * tb:10 * tb].any()
+
+
 @pytest.mark.parametrize("softening", ["poly", "sqrt3"])
 @pytest.mark.parametrize("dim", [2, 3])
 def test_packed_entries_kernel_equals_unpacked(dev, dim, softening):
