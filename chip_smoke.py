@@ -228,7 +228,35 @@ Phases, each printed on its own lines:
         rung built at the ring's launch bounds (4 blocks an SM, at most
         64 registers), so the three modes are compared at one register
         budget, and each math's ms are printed side by side; the ideal
-        rung's time at 5 blocks an SM (b) is printed beside blockspec's.
+        rung's time at 5 blocks an SM (b) is printed beside blockspec's;
+ 11. the trees' per-body walks (csrc/tree_walk.cu: bvh_walk_kernel and
+     octree_walk_kernel, one thread a body):
+     a. on a 2^20-body galaxy in 3-D float32, 3-D float64 and 2-D float32,
+        each walk over the tree its per-body path builds: the call timed
+        with CUDA events (a warm-up, then 3 calls), its twin on 4,096
+        sampled rows (the kernel's rows within 1e-5 / 1e-12 of each row's
+        sum of |term|, and the kernel's call on those rows bit-equal to
+        the whole call's), the accepted nodes, direct pairs and opened
+        nodes a body on the rows, the bound from them, the registers,
+        spills and slow-path instructions (probe sass_of of tree_walk.cu,
+        run in a thread from phase 1), and the relative error of the walk
+        and of the group path on the same tree against the exact sum (the
+        float64 IEEE all-pairs kernel) on the rows;
+     b. the CLI at full size, -n 1048576 -s 12 -d 3 --traversal per-body
+        for the octree and the bvh: 12 launches of the walk kernel, and no
+        call of a twin;
+     c. s/step over 20 timed steps (-s 30) at full size in 3-D float32:
+        both per-body paths, and the BVH with --sort-every 4 and with
+        --refine-levels 1 beside its default run;
+     d. the refinement's kernels at 2^20 in 3-D and 2-D: one BVH force
+        evaluation at refine_levels 0 and 1 on the same tree, its kernel
+        calls recorded; at 1, each call (the far field over the wider heap
+        prefix, the node-mask window, the entries on S/2-body node ranges,
+        and the exact fallback on its first 4,096 rows if a tile fell
+        back) held against its twin within 1e-5 of each row's sum of
+        |term| and timed; at 0, each call timed again; the counters, the
+        calls' ms and each force's error against the exact poly sum
+        (median 1e-3, p99 1e-2 at most) printed side by side.
 Phase 2's bounds (bound_ms in the kernels line): pairs times 5*dim + 3
 FLOPs (+1 under sqrt3; 3*dim + 3 for the potential) over 67 TFLOP/s in
 float32 or 34 in float64. Beside the float32 times it prints, and keeps
@@ -311,6 +339,13 @@ the fallback launches of the all-pairs kernel are reported beside them),
 and its float32 instantiations from the float32 list-path steps of 7a
 (float32 CLI runs take the fast paths, and --kernel torch the twin). The
 list kernel counts each instantiation (dtype, softening) on its own.
+The walks' launches come from the two per-body runs of phase 11b.
+Phase 11's bounds: a body's accepted nodes and direct pairs times the
+FLOPs of a pair (5*dim + 3, one more under the octree's sqrt3), plus its
+accepted and opened nodes times 3 (a MAC test beyond its separation),
+counted on the 4,096 sampled rows and scaled to the galaxy, over 67 or 34
+TFLOP/s, against the trees' and bodies' bytes; plain_ms is the twin's
+time on those rows; no PyTorch call walks a tree, so library_ms is null.
 Phase 10's kernels count from the probe runs: each probe sets the counts
 to 0 just before a mode's calls and reports them just after, in the
 mode's JSON line (entries_tables_kernel from mode (1024, real), each
@@ -402,6 +437,7 @@ def main() -> int:
           f"-> {_build.library_path().name}")
     sass_job = start_sass()
     probe_sass = start_sass("entry_probes.cu")
+    walk_sass = start_sass("tree_walk.cu")
 
     # -- phase 2: kernels vs plain twins -----------------------------------
     big = 1 << 20
@@ -492,6 +528,7 @@ def main() -> int:
     variant_kernels = variant_phases(dev, big)
     ablation_kernels = ablation_phases(dev, big, sass_job)
     probe_kernels = probe_phases(dev, big, probe_sass)
+    walk_kernels = walk_phases(dev, big, walk_sass)
 
     runs = {ca.NEWTON: (phase3_launches, f"phase 3: {big}-body 3-D all-pairs --csv-total"),
             ca.NEWTON64: (list_launches, f"phase 7b: {big}-body 3-D octree --precision double "
@@ -512,7 +549,7 @@ def main() -> int:
     parts_sum["octree_interval_window"] = interval_sum  # its second pass in the octree
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": entries + octree_kernels + bvh_kernels + list_kernels
-                      + variant_kernels + ablation_kernels + probe_kernels}))
+                      + variant_kernels + ablation_kernels + probe_kernels + walk_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -1209,32 +1246,39 @@ def recording(module, attrs, key=None, results=False):
 
 
 def cli_full_size(algorithm: str, dim: int, big: int, tag: str,
-                  precision: str = "float") -> dict:
-    """-n big -s 12 --csv-total through the CLI on the card, with the
-    launch counts set to 0 just before and read just after."""
+                  precision: str = "float", extra=(), steps: int = 12):
+    """-n big -s steps --csv-total (and `extra` flags) through the CLI on
+    the card, with the launch counts (and the walks' twin calls) set to 0
+    just before and read just after. Returns the launches, and the run's
+    s/step under "s_per_step"."""
     from nbody_torch import cli
     from nbody_torch.ops import cuda_allpairs as ca
     from nbody_torch.ops import cuda_group_eval as cg
+    from nbody_torch.ops import cuda_tree_walk as tw
 
     ca.reset_launch_counts()
     cg.reset_launch_counts()
-    argv = ["-n", str(big), "-s", "12", "-d", str(dim), "--algorithm", algorithm,
-            "--workload", "galaxy", "--precision", precision, "--device", "cuda", "--csv-total"]
+    tw.reset_launch_counts()
+    argv = ["-n", str(big), "-s", str(steps), "-d", str(dim), "--algorithm", algorithm,
+            "--workload", "galaxy", "--precision", precision, "--device", "cuda", "--csv-total",
+            *extra]
     out = io.StringIO()
     t0 = time.perf_counter()
     rc = cli.main(argv, out=out)
     wall = time.perf_counter() - t0
-    launches = {**cg.launch_counts, **ca.launch_counts}
+    launches = {**cg.launch_counts, **ca.launch_counts, **tw.launch_counts}
     lines = out.getvalue().strip().splitlines()
     check(rc == 0 and len(lines) == 2 and lines[0] == "algorithm,dim,precision,nsteps,nbodies,"
           "total [s]", f"{algorithm} CLI run failed: rc={rc}, output {lines!r}")
     fields = lines[1].split(",")
     bits = "64" if precision == "double" else "32"
-    check(fields[:5] == [algorithm, str(dim), bits, "2", str(big)], f"CSV row {lines[1]!r}")
+    timed = steps - 10
+    check(fields[:5] == [algorithm, str(dim), bits, str(timed), str(big)], f"CSV row {lines[1]!r}")
+    per_step = float(fields[5]) / timed
     print(f"[{tag}] python -m nbody_torch.cli {' '.join(argv)}")
-    print(f"[{tag}]   {lines[1]}  ->  {float(fields[5]) / 2:.4f} s/step; wall {wall:.1f} s with "
-          f"model build and warmup; launches {launches}")
-    return launches
+    print(f"[{tag}]   {lines[1]}  ->  {per_step:.4f} s/step; wall {wall:.1f} s "
+          f"with model build and warmup; launches {launches}")
+    return {**launches, "s_per_step": per_step}
 
 
 ENTRIES_SUM = "entries_sum_kernel"  # the entries calls' second pass
@@ -1849,7 +1893,8 @@ def list_phases(dev, big: int):
     # -- (b) the CLI at full size in double precision; counts from 0 just before;
     #    then probe trace of 2 steps, the list kernel's device time a step
     launches = {tree: cli_full_size(tree, 3, big, "7b", "double") for tree in LIST_SOFTENING}
-    launches_2d = {tree: cli_full_size(tree, 2, big, "7b", "double") for tree in LIST_SOFTENING}
+    launches_2d = {tree: cli_full_size(tree, 2, big, "7b", "double")
+                   for tree in LIST_SOFTENING}
     list_trace = {}
     for tree in LIST_SOFTENING:
         for dim in (3, 2):
@@ -3003,6 +3048,290 @@ def probe_phases(dev, big: int, probe_sass):
         del recs, rec
     print(f"[10] phase 10 wall time {time.perf_counter() - t10:.0f} s")
     return entries
+
+
+# -- phase 11: the trees' per-body walks (csrc/tree_walk.cu) ----------------
+
+TREE_WALK = "nbody_torch/csrc/tree_walk.cu"
+WALK_ROWS = 4096  # 11a: the sampled rows each walk kernel is held against its twin on
+# 11a's configurations: (dim, dtype name) of a 2^20-body galaxy
+WALK_CONFIGS = ((3, "float32"), (3, "float64"), (2, "float32"))
+WALKS = {  # kernel -> (the softening of its terms, the nbody_tpu function it stands for)
+    "bvh_walk_kernel": ("poly", "none: nbody_tpu/ops/bvh.py:129 compute_force "
+                                "(lax.while_loop, no Pallas)"),
+    "octree_walk_kernel": ("sqrt3", "none: nbody_tpu/ops/octree.py:198 compute_force "
+                                    "(lax.while_loop, no Pallas)"),
+}
+MAC_OPS = 3  # a MAC test beyond its separation: two products (or a quotient) and a compare
+CADENCE_STEPS = 30  # 11c: 20 timed steps, so that --csv-total's 0.01 s resolves 0.0005 s/step
+
+
+def walk_states(dev, n: int, dim: int, dtype):
+    """A galaxy's two trees as the per-body paths build them: the BVH over
+    the Hilbert-sorted state (its group path's sort and refit too), the
+    octree's levels over the scalar box; and each walk's call, its twin's
+    and its group path's force on the same tree, all in the walk's sorted
+    order."""
+    import dataclasses
+
+    from nbody_torch.models import build_model
+    from nbody_torch.ops import bvh, bvh_group, octree, octree_group
+    from nbody_torch.ops import cuda_tree_walk as tw
+    from nbody_torch.ops.geometry import scalar_bounds
+
+    cfg, state = build_model("galaxy", n, dim, dtype, device=dev)
+    th, G, eps = cfg.theta, cfg.G, cfg.eps
+    f64 = np.dtype(dtype) == np.float64
+    st = bvh.hilbert_sort(state, eps)
+    tree = bvh.build_tree(st.m, st.x, eps)
+    lo, hi = scalar_bounds(state.x)
+    levels, perm, ms, xs = octree.build_octree(state.m, state.x, lo, hi, octree.max_depth(n, dim))
+    side = hi - lo
+
+    def bvh_group_force():
+        if f64:
+            return bvh_group.compute_force_grouped(tree, st.m, st.x, th, G, eps)[0]
+        return bvh_group.compute_force_grouped_windowed(tree, st.m, st.x, th, G, eps)[0]
+
+    def octree_group_force():  # the step's group path, in the caller's order, then sorted
+        out, _ = octree.octree_step_force(state, th, G, eps, levels.depth, list_path=f64)
+        return out.a[perm]
+
+    tree_bytes = sum(t.numel() * t.element_size() for t in (tree.mm, tree.mx, tree.bw))
+    level_bytes = sum(t.numel() * t.element_size() for t in (
+        levels.mass, levels.com, levels.start, levels.count, levels.child_start,
+        levels.child_count, levels.parent))
+    body_bytes = n * (2 * dim + 1) * np.dtype(dtype).itemsize  # m and x read, a written
+    return {
+        "bvh_walk_kernel": dict(
+            kern=lambda rows=None: tw.bvh_walk_cuda(tree.mm, tree.mx, tree.bw, tree.nlevels,
+                                                     st.m, st.x, th, G, eps, rows),
+            twin=lambda rows: tw.bvh_walk_torch(tree.mm, tree.mx, tree.bw, tree.nlevels, st.m,
+                                                st.x, th, G, eps, rows, detail=True),
+            group=bvh_group_force, m=st.m, x=st.x, G=G, eps=eps,
+            nbytes=tree_bytes + body_bytes),
+        "octree_walk_kernel": dict(
+            kern=lambda rows=None: tw.octree_walk_cuda(levels, ms, xs, side, th, G, eps, rows),
+            twin=lambda rows: tw.octree_walk_torch(levels, ms, xs, side, th, G, eps, rows,
+                                                   detail=True),
+            group=octree_group_force, m=ms, x=xs, G=G, eps=eps,
+            nbytes=level_bytes + body_bytes),
+    }
+
+
+def rel_errors(a, ref) -> dict:
+    """Per-body relative error |a - ref| / |ref|: median, p99, max."""
+    import torch
+
+    rel = ((a - ref).norm(dim=1) / ref.norm(dim=1).clamp_min(1e-300)).double()
+    return {"median": torch.quantile(rel, 0.5).item(), "p99": torch.quantile(rel, 0.99).item(),
+            "max": rel.max().item()}
+
+
+def walk_measure(tag: str, name: str, walk: dict, n: int, dim: int, dtype_name: str,
+                 walk_sass) -> dict:
+    """11a, one walk on one galaxy: its call timed with CUDA events over the
+    whole galaxy (a warm-up, then 3 calls), its twin on WALK_ROWS sampled
+    rows within TOL of each row's sum of |term|, the rows' own kernel call
+    bit-equal to the whole call's rows, the interactions a body on the
+    rows, the bound from them, the SASS's registers and spills, and the
+    walk's and its group path's relative error against the exact sum on
+    the rows."""
+    import torch
+
+    from nbody_torch.ops import cuda_allpairs as ca
+
+    dev = walk["x"].device
+    rows = torch.from_numpy(np.random.default_rng(SEED).choice(n, WALK_ROWS, replace=False))
+    rows = rows.to(dev)
+    got = walk["kern"]()  # the warm-up launch
+    kms = event_ms(walk["kern"], reps=3)
+    check(bool(torch.isfinite(got).all()), f"{tag} {name}: the walk is not finite")
+    rows_ms, sub = event_ms(lambda: walk["kern"](rows), reps=1, keep=True)
+    plain_ms, (ref, scale, counts) = event_ms(lambda: walk["twin"](rows), reps=1, keep=True)
+    err, abs_err = scaled(got[rows], ref, scale)
+    check(err <= TOL[dtype_name], f"{tag} {name}: scaled error {err:.3e} above {TOL[dtype_name]}")
+    check(torch.equal(sub, got[rows]), f"{tag} {name}: the rows' call differs from the whole call")
+    per_body = {k: v.double().mean().item() for k, v in counts.items()}
+    softening = WALKS[name][0]
+    ops = n * ((per_body["nodes"] + per_body["pairs"]) * flops_per_pair(dim, softening)
+               + (per_body["nodes"] + per_body["opened"]) * MAC_OPS)
+    peak = F64_FLOPS if dtype_name == "float64" else F32_FLOPS
+    bound_ms, bound_by = bound(ops, 1, walk["nbytes"], peak)
+    # the exact sum on the rows, in float64 with IEEE division
+    m64, x64 = walk["m"].double(), walk["x"].double()
+    exact = walk["G"] * ca.allpairs_block_cuda(x64[rows], m64, x64, walk["eps"], softening,
+                                               exact=True)
+    errs = {"walk": rel_errors(got[rows].double(), exact),
+            "group": rel_errors(walk["group"]()[rows].double(), exact)}
+    ctype = "double" if dtype_name == "float64" else "float"
+    srow = next(r for r in walk_sass.result(timeout=600)[1]
+                if f"::{name}<{ctype}, (int){dim}>(" in r["kernel"])
+    sass = {k: srow.get(k) for k in ("registers", "spill_stores", "spill_loads",
+                                     "slow_path_instructions")}
+    print(f"[{tag}] {name}<{ctype}, {dim}>, {n} bodies: kernel {kms:.3f} ms a call "
+          f"({rows_ms:.3f} ms on the {WALK_ROWS} rows), twin {plain_ms:.1f} ms on the rows; max "
+          f"|kernel - twin| / sum|term| = {err:.3e} (limit {TOL[dtype_name]:g}); a body: "
+          f"{per_body['nodes']:.1f} accepted nodes, {per_body['pairs']:.1f} direct pairs, "
+          f"{per_body['opened']:.1f} opened nodes; bound {bound_ms:.3f} ms ({bound_by}: "
+          f"{ops:.4e} operations, {walk['nbytes']} bytes); SASS {sass}; relative error against "
+          f"the exact sum, walk {errs['walk']}, group path {errs['group']}")
+    return {"ms": kms, "plain_ms": plain_ms, "plain_on_rows": WALK_ROWS, "rows_ms": rows_ms,
+            "max_abs_err": abs_err, "max_scaled_err": err, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "operations": ops,
+            "per_body": per_body, "sass": sass, "rel_err_vs_exact": errs, "n": n, "dim": dim,
+            "dtype": dtype_name}
+
+
+def walk_phases(dev, big: int, walk_sass):
+    """Phase 11: the trees' per-body walks (see the module docstring)."""
+    import torch
+
+    from nbody_torch.ops import cuda_tree_walk as tw
+
+    t11 = time.perf_counter()
+    # -- (a) each walk kernel against its twin on sampled rows at 2^20 -------
+    measured = {name: {} for name in WALKS}
+    for dim, dtype_name in WALK_CONFIGS:
+        walks = walk_states(dev, big, dim, np.dtype(dtype_name))
+        for name in WALKS:
+            measured[name][(dim, dtype_name)] = walk_measure("11a", name, walks[name], big, dim,
+                                                             dtype_name, walk_sass)
+        del walks
+        torch.cuda.empty_cache()
+
+    # -- (b) the per-body CLI at full size: the walk kernel, never its twin --
+    launches = {}
+    for algorithm, name in (("octree", "octree_walk_kernel"), ("bvh", "bvh_walk_kernel")):
+        launches[name] = cli_full_size(algorithm, 3, big, "11b",
+                                       extra=("--traversal", "per-body"))
+        check(launches[name][name] == 12, f"the per-body {algorithm} CLI launched {name} "
+              f"{launches[name][name]} times, not 12")
+        check(tw.twin_calls == {k: 0 for k in tw.twin_calls},
+              f"the per-body {algorithm} CLI ran a twin: {tw.twin_calls}")
+
+    # -- (c) s/step over 20 timed steps: the per-body paths, and the BVH's
+    # cadence and refinement beside its default -----------------------------
+    runs = {}
+    for label, algorithm, extra in (
+            ("octree per-body", "octree", ("--traversal", "per-body")),
+            ("bvh per-body", "bvh", ("--traversal", "per-body")), ("bvh", "bvh", ()),
+            ("bvh sort-every 4", "bvh", ("--sort-every", "4")),
+            ("bvh refine-levels 1", "bvh", ("--refine-levels", "1"))):
+        runs[label] = cli_full_size(algorithm, 3, big, "11c", extra=extra,
+                                    steps=CADENCE_STEPS)["s_per_step"]
+    print(f"[11c] {big} bodies 3-D float32, s/step over {CADENCE_STEPS - 10} timed steps: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in runs.items()))
+
+    # -- (d) the refinement's kernels at the shapes --refine-levels 1 gives them
+    refine = {dim: refine_phase(dev, big, dim) for dim in (3, 2)}
+    print(f"[11] phase 11 wall time {time.perf_counter() - t11:.0f} s")
+
+    entries = []
+    for name, (_, replaces) in WALKS.items():
+        algorithm = name.split("_")[0]
+        entries.append({"name": name, "route": "cuda", "source": TREE_WALK, "replaces": replaces,
+                        "launches": launches[name][name],
+                        "launches_in": f"phase 11b: {big}-body 3-D {algorithm} --traversal "
+                                       "per-body --csv-total",
+                        **measured[name][(3, "float32")],
+                        "float64_3d": measured[name][(3, "float64")],
+                        "float32_2d": measured[name][(2, "float32")]})
+    entries[0]["cli_s_per_step"] = runs
+    entries[0]["bvh_refine_levels"] = refine
+    return entries
+
+
+REFINE_FALLBACK_ROWS = 4096  # 11d: the exact fallback's rows held against its twin
+
+
+def refine_phase(dev, big: int, dim: int) -> dict:
+    """Phase 11d: one BVH force evaluation of a 2^20-body galaxy at
+    refine_levels 0 and 1 on the same tree, its kernel calls recorded. At
+    R = 1 each recorded call is held against its twin (measure) and, if any
+    tile fell back, the exact fallback on its first rows; at R = 0 each is
+    timed again. Prints the counters, the calls' and kernels' ms side by
+    side, and each force's error against the exact poly sum. Returns them
+    by R."""
+    import torch
+
+    from nbody_torch.models import build_model
+    from nbody_torch.ops import bvh
+    from nbody_torch.ops import bvh_group as bg
+    from nbody_torch.ops import cuda_allpairs as ca
+    from nbody_torch.ops import cuda_group_eval as cg
+
+    tag = f"11d {dim}-D"
+    cfg, state = build_model("galaxy", big, dim, np.float32, device=dev)
+    eps = cfg.eps
+    state = bvh.hilbert_sort(state, eps)
+    tree = bvh.build_tree(state.m, state.x, eps)
+    wrappers = [attr for attr, _, _ in BVH_KERNELS.values()]
+    ref = cfg.G * ca.allpairs_block_cuda(state.x, state.m, state.x, eps, "poly")
+    out = {}
+    for R in (0, 1):
+        def call():
+            return bg.compute_force_grouped_windowed(tree, state.m, state.x, cfg.theta, cfg.G,
+                                                     eps, refine_levels=R)
+        with recording(bg, [*wrappers, "allpairs_block_cuda"]) as recorded:
+            a, info = call()
+        counters = {k: int(v) for k, v in info.items() if not k.startswith("res_pass")}
+        check(bool(torch.isfinite(a).all()), f"{tag} R={R}: the force is not finite")
+        check(set(wrappers) <= set(recorded), f"{tag} R={R}: kernels called {sorted(recorded)}")
+        check(counters["bad_entries"] == 0, f"{tag} R={R}: an entry addresses no tile")
+        call_ms = event_ms(call, reps=3)
+        kernels = {}
+        for name, (attr, twin_attr, _) in BVH_KERNELS.items():
+            kern, args = getattr(cg, attr), recorded[attr]
+            if R:
+                kernels[name] = measure(f"{tag} R=1", name, kern, getattr(cg, twin_attr), args,
+                                        dim, "poly")
+            else:
+                kern(*args)
+                kernels[name] = {"ms": event_ms(lambda: kern(*args), reps=5),
+                                 "pairs": pairs_of(name, args)}
+        fallback = None
+        if "allpairs_block_cuda" in recorded:
+            xi, mj, xj = recorded["allpairs_block_cuda"][:3]
+            fb_ms, got = event_ms(lambda: ca.allpairs_block_cuda(xi, mj, xj, eps, "poly"),
+                                  reps=3, keep=True)
+            fallback = {"rows": xi.shape[0], "ms": fb_ms}
+            if R:
+                r = min(REFINE_FALLBACK_ROWS, xi.shape[0])
+                err, _ = scaled(got[:r], ca.allpairs_block_torch(xi[:r], mj, xj, eps, "poly"),
+                                ca.allpairs_block_abs_torch(xi[:r], mj, xj, eps, "poly"))
+                fallback["max_scaled_err"] = err
+                print(f"[{tag} R=1] the exact fallback on {xi.shape[0]} rows: {fb_ms:.3f} ms; "
+                      f"its first {r} rows against the twin: max |diff| / sum|term| = "
+                      f"{err:.3e} (limit {TOL['float32']:g})")
+                check(err <= TOL["float32"], f"{tag}: the fallback differs from its twin")
+        rel = ((a - ref).norm(dim=1) / ref.norm(dim=1).clamp_min(1e-30)).double()
+        error = {q: torch.quantile(rel, p).item() for q, p in (("median", 0.5), ("p99", 0.99))}
+        out[R] = {"counters": counters, "call_ms": call_ms, "kernels": kernels,
+                  "fallback": fallback, "rel_err_vs_exact": error}
+        if R:
+            diff = ((a - out[0].pop("a")).norm(dim=1) / ref.norm(dim=1).clamp_min(1e-30)).max()
+            out[R]["max_rel_diff_vs_r0"] = diff.item()
+        else:
+            out[R]["a"] = a
+    r0, r1 = out[0], out[1]
+    print(f"[{tag}] {big}-body galaxy, refine_levels 0 -> 1 on one tree: the call "
+          f"{r0['call_ms']:.3f} -> {r1['call_ms']:.3f} ms (CUDA events, 3 calls); "
+          + "; ".join(f"{name} {r0['kernels'][name]['ms']:.3f} -> "
+                      f"{r1['kernels'][name]['ms']:.3f} ms, pairs "
+                      f"{r0['kernels'][name]['pairs']:.4e} -> {r1['kernels'][name]['pairs']:.4e}"
+                      for name in BVH_KERNELS)
+          + f"; fallback {r0['fallback']} -> {r1['fallback']}")
+    print(f"[{tag}] counters R=0 {r0['counters']}")
+    print(f"[{tag}] counters R=1 {r1['counters']}")
+    print(f"[{tag}] per-body relative error against the exact poly sum: R=0 "
+          f"{r0['rel_err_vs_exact']}, R=1 {r1['rel_err_vs_exact']}; max |a1 - a0| / |exact| "
+          f"{r1['max_rel_diff_vs_r0']:.3e}")
+    check(r1["rel_err_vs_exact"]["median"] <= 1e-3 and r1["rel_err_vs_exact"]["p99"] <= 1e-2,
+          f"{tag}: the refined force is far from the direct sum")
+    del ref, tree, state
+    torch.cuda.empty_cache()
+    return out
 
 
 # (mode, the mode it adds one feature to): the ladder's steps

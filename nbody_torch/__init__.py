@@ -23,9 +23,10 @@ Layer map:
 
 Ported so far: the all-pairs and all-pairs-collapsed algorithms, the
 octree and BVH fast paths with their ablation path (the knob probe's
-ablate tokens), the trees' list paths (float64), and the all-pairs kernel
-variants. The per-body walks, the probe kernels and the multi-device
-layouts are still to come (ROADMAP.md).
+ablate tokens), the trees' list paths (float64) and per-body walks, the
+BVH's re-sort cadence and refinement, the all-pairs kernel variants and
+the entry-cost probes. The multi-device layouts are still to come
+(ROADMAP.md).
 """
 
 __version__ = "0.1.0"

@@ -98,7 +98,7 @@ def build() -> Path:
 
 i, p, f64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
 # The C interface of csrc/allpairs.cu, csrc/allpairs_mxu.cu, csrc/group_eval.cu,
-# csrc/entry_probes.cu and csrc/tile_decide.cu: each function's argument types (a pointer must
+# csrc/entry_probes.cu, csrc/tile_decide.cu and csrc/tree_walk.cu: each function's argument types (a pointer must
 # be c_void_p: ctypes passes an undeclared one as a 32-bit int); each
 # returns an int, its cudaError_t.
 SIGNATURES = (
@@ -147,6 +147,13 @@ SIGNATURES = (
     ("nbody_dma_ring", [i, i, i, i, p, i, p, i, p, i, i, i, i, f64, p, p]),
     # (device, dim, kernel, variant, math, min_blocks, S, out (5,) int32)
     ("nbody_entry_probe_budget", [i, i, i, i, i, i, i, p]),
+    # csrc/tree_walk.cu: (device, dtype, dim, mm, mx, bw, nlevels, m, x, n, rows, nrows,
+    #  theta2, eps, G, out, stream)
+    ("nbody_bvh_walk", [i, i, i, p, p, p, i, p, p, i, p, i, f64, f64, f64, p, p]),
+    # (device, dtype, dim, mass, com, start, count, child_start, child_count, parent,
+    #  offsets (host), depth, ms, xs, n, root_side, rows, nrows, theta, eps, G, out, stream)
+    ("nbody_octree_walk", [i, i, i, p, p, p, p, p, p, p, p, i, p, p, i, p, p, i, f64, f64, f64,
+                           p, p]),
 )
 del i, p, f64
 

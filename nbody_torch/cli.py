@@ -13,12 +13,14 @@ changes nothing: the plain torch path sizes its row chunks from n.
 The octree and the bvh run their group traversals, with --theta,
 --group-tile and --window-tiles: the fast paths in float32, the list
 paths in double precision (through the CUDA list kernel) and under
---kernel torch (through its plain twin), as nbody_tpu chooses. Not yet
-ported, and refused with exit code 1 rather than ignored: the octree and
-the bvh with --traversal per-body, the bvh with --sort-every > 1 or
---refine-levels > 0, --mesh > 1 and --profile. At --mesh 1 (or below),
---mesh-layout and --mesh-tile are read and ignored, as nbody_tpu ignores
-them there.
+--kernel torch (through its plain twin), as nbody_tpu chooses; with
+--traversal per-body they run the reference's per-body walk (a CUDA
+thread a body) in either precision. The bvh re-sorts every --sort-every
+steps and refines its fast path's residual --refine-levels deep.
+--profile DIR writes a torch.profiler trace of the run into DIR. Not yet
+ported, and refused with exit code 1 rather than ignored: --mesh > 1. At
+--mesh 1 (or below), --mesh-layout and --mesh-tile are read and ignored,
+as nbody_tpu ignores them there.
 
 The port runs on the GPU unless --device cpu asks for the CPU: without a
 CUDA device, --device auto (the default) and --device cuda exit 1.
@@ -38,7 +40,6 @@ _HELP = """Help:
 --theta t\t\tTheta threshold parameter to use in Octree
 --precision double|float(default)\t\tSelects floating-point precision
 --algorithm all-pairs|all-pairs-collapsed|bvh|octree(default)\t\tSelects simulation algorithm
-\t\t(octree and bvh with --traversal per-body are not yet ported to nbody_torch)
 --workload plummer|galaxy|uniform(default)|load <file.bin>\t\tSelects workload
 --print-state\t\tPrint the initial and final state of the simulation
 --print-info\t\tPrint info every timestep
@@ -53,13 +54,13 @@ _HELP = """Help:
 --mesh-tile T\t\tPartitioned 2-D mesh tile shards (read only when --mesh > 1)
 --chunk N\t\tAccepted for nbody_tpu parity; nbody_torch sizes its row chunks from n
 --fix-collapsed-z\t\tFix the reference's frozen-z quirk in all-pairs-collapsed
---sort-every K\t\tRe-sort bodies every K steps in tree engines (default 1; bvh: only 1 is ported)
+--sort-every K\t\tRe-sort bodies every K steps in tree engines (default 1)
 --traversal group|per-body\t\tTree traversal strategy (default group)
 --group-tile N\t\tBodies per tile in group traversal (default 512)
---refine-levels N\t\tBVH residual refinement depth (default auto; only 0 is ported)
+--refine-levels N\t\tBVH residual refinement depth (default auto)
 --window-tiles N\t\tNear-field window width in tiles (default 32)
 --save-state file.bin\t\tWrite final state in the loadable format
---profile DIR\t\tProfiler trace of the run (not yet ported)
+--profile DIR\t\tProfiler trace of the run
 --help\t\tDisplay this help message and quit
 """
 
@@ -246,22 +247,11 @@ def parse_args(argv: list[str]) -> dict:
 
 def _unported(args: dict) -> str | None:
     """What the parsed flags ask for that the port cannot run yet, or None."""
-    algo = args["algorithm"]
-    if algo in ("octree", "bvh") and args["traversal"] != "group":
-        return f'--algorithm {algo} --traversal {args["traversal"]}'
-    if algo == "bvh":
-        # K <= 1 and R <= 0 are the default branch (re-sort every step, no refinement)
-        if args["sort_every"] > 1:
-            return f'--algorithm bvh --sort-every {args["sort_every"]}'
-        if args["refine"] > 0:
-            return f'--algorithm bvh --refine-levels {args["refine"]}'
     # nbody_tpu reads --mesh-layout and --mesh-tile only when mesh > 1
     # (sim/engines.py:93, sim/tree_engines.py:58, :228); below that it runs
     # the single-device step, which the port has
     if args["mesh"] > 1:
         return "--mesh > 1"
-    if args["profile"]:
-        return "--profile"
     return None
 
 
@@ -277,6 +267,26 @@ def resolve_device(name: str):
     print(f"--device {name}: no CUDA device is available; pass --device cpu to run on the CPU.",
           file=sys.stderr)
     raise SystemExit(1)
+
+
+def profiled(trace_dir: str, device, fn, *args):
+    """fn(*args) under torch.profiler (the host's activities, and the
+    card's on a GPU), the analog of nbody_tpu's jax.profiler.trace
+    (nbody_tpu/cli.py:290-297): one Chrome trace, trace.json, written into
+    trace_dir (made if missing), which chrome://tracing and Perfetto read.
+    Returns what fn returns."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        result = fn(*args)
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    return result
 
 
 def main(argv: list[str] | None = None, out=None) -> int:
@@ -312,13 +322,19 @@ def main(argv: list[str] | None = None, out=None) -> int:
         engine_opts=EngineOptions(
             kernel=args["kernel"],
             fix_z=args["fix_z"],
+            sort_every=args["sort_every"],
             traversal=args["traversal"],
             group_tile=args["group_tile"],
+            refine=args["refine"],
             window_tiles=args["window_tiles"],
         ),
         out=out,
     )
-    state = run_simulation(args["algorithm"], cfg, state, opts)
+    if args["profile"]:
+        state = profiled(args["profile"], device, run_simulation, args["algorithm"], cfg, state,
+                         opts)
+    else:
+        state = run_simulation(args["algorithm"], cfg, state, opts)
     if args["save_state"]:
         from nbody_torch.io.saving import save_system
 

@@ -10,20 +10,24 @@ pointer-free:
     and zero mass marks a dead padding node (bvh.h:186);
   * the refit is one whole-level pass per level (bvh.h:210-243).
 
-The force comes from ops.bvh_group.compute_force_grouped_windowed (the
-group traversal's fast path, float32), or from its list path,
-ops.bvh_group.compute_force_grouped (float64 runs, and --kernel torch).
-The sort physically reorders the body arrays every step and they stay
-reordered, as in the reference: the body order is user-visible. The
-per-body walk is not ported.
+The group traversal's force comes from
+ops.bvh_group.compute_force_grouped_windowed (the fast path, float32), or
+from its list path, ops.bvh_group.compute_force_grouped (float64 runs,
+and --kernel torch); the per-body traversal's from compute_force, the
+reference's stackless walk (bvh.h:251-324) as one CUDA thread a body
+(ops.cuda_tree_walk). The sort physically reorders the body arrays every
+step and they stay reordered, as in the reference: the body order is
+user-visible.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from nbody_torch.ops.cuda_tree_walk import bvh_walk_cuda, bvh_walk_torch
 from nbody_torch.ops.geometry import aabb_of_points
 from nbody_torch.ops.hilbert import hilbert_keys, quantize
 from nbody_torch.ops.permutation import sort_rows_by_key
@@ -46,6 +50,12 @@ class BVHTree:
     mx: torch.Tensor  # (nnodes, dim) node centres of mass
     bw: torch.Tensor  # (nnodes,)     node widths (largest box side)
     nlevels: int      # levels excluding the leaf (body) level
+
+    @classmethod
+    def from_numpy(cls, mm, mx, bw, nlevels: int, device=None) -> "BVHTree":
+        """A tree from host arrays (nbody_tpu's BVHTree fields, say)."""
+        return cls(*(torch.tensor(np.asarray(a), device=device) for a in (mm, mx, bw)),
+                   nlevels=nlevels)
 
 
 def build_tree(m: torch.Tensor, x: torch.Tensor, eps: float) -> BVHTree:
@@ -112,24 +122,54 @@ def hilbert_sort(state: SystemState, eps: float) -> SystemState:
     return hilbert_order(state, *aabb_of_points(state.x, eps))
 
 
-def bvh_step_force(state: SystemState, theta: float, G: float, eps: float,
-                   group_tile: int = 512, window_tiles: int = 32, list_path: bool = False,
-                   use_cuda: bool = True):
-    """One BVH force evaluation (bvh.py:214-283): bbox -> Hilbert sort ->
-    refit -> grouped windowed force, or with list_path the grouped list
-    force (bvh.py:259-278), through the CUDA kernels' wrappers or, where
-    not use_cuda, their plain twins. Returns the PERMUTED state with `a`
-    filled, and aux with the device scalars "overflow" and "root_mass"
-    (the root monopole's mass, bvh.h:377)."""
+def compute_force(tree: BVHTree, m: torch.Tensor, x: torch.Tensor, theta: float, G: float,
+                  eps: float, use_cuda: bool = True) -> torch.Tensor:
+    """The stackless MAC walk (bvh.h:251-324, nbody_tpu bvh.py:129-211) of
+    every Hilbert-sorted body: bvh_walk_kernel, or its plain twin where not
+    use_cuda. Returns G * accel in the sorted order."""
+    walk = bvh_walk_cuda if use_cuda else bvh_walk_torch
+    return walk(tree.mm, tree.mx, tree.bw, tree.nlevels, m, x, theta, G, eps)
+
+
+def tree_force(tree: BVHTree, m: torch.Tensor, x: torch.Tensor, theta: float, G: float,
+               eps: float, group_tile: int = 512, window_tiles: int = 32,
+               list_path: bool = False, use_cuda: bool = True, traversal: str = "group",
+               refine: int | None = None):
+    """The force over `tree` of bvh_step_force (see there). Returns (G *
+    accel in the sorted order, the device scalar count of truncated tiles:
+    0 for the walk)."""
     from nbody_torch.ops.bvh_group import compute_force_grouped, compute_force_grouped_windowed
 
-    state = hilbert_sort(state, eps)
-    tree = build_tree(state.m, state.x, eps)
+    if traversal == "per-body":
+        a = compute_force(tree, m, x, theta, G, eps, use_cuda)
+        return a, torch.zeros((), dtype=torch.int32, device=x.device)
     if list_path:
-        a, info = compute_force_grouped(tree, state.m, state.x, theta, G, eps, tile=group_tile,
+        a, info = compute_force_grouped(tree, m, x, theta, G, eps, tile=group_tile,
                                         use_cuda=use_cuda)
     else:
-        a, info = compute_force_grouped_windowed(tree, state.m, state.x, theta, G, eps,
-                                                 tile=group_tile, window_tiles=window_tiles)
-    aux = {"overflow": info["node_overflow"], "root_mass": tree.mm[0]}
+        a, info = compute_force_grouped_windowed(tree, m, x, theta, G, eps, tile=group_tile,
+                                                 window_tiles=window_tiles, refine_levels=refine)
+    return a, info["node_overflow"]
+
+
+def bvh_step_force(state: SystemState, theta: float, G: float, eps: float,
+                   group_tile: int = 512, window_tiles: int = 32, list_path: bool = False,
+                   use_cuda: bool = True, traversal: str = "group", resort: bool = True,
+                   refine: int | None = None):
+    """One BVH force evaluation (bvh.py:214-283): bbox -> Hilbert sort ->
+    refit -> force. The force is the grouped windowed force (its refinement
+    refine levels deep, None for nbody_tpu's default of 0), or with
+    list_path the grouped list force (bvh.py:259-278), which ignores
+    refine; with traversal "per-body" the walk (compute_force). Each goes
+    through the CUDA kernels' wrappers or, where not use_cuda, their plain
+    twins. Without resort the tree is built over the current order (the
+    cadence of --sort-every). Returns the PERMUTED state with `a` filled,
+    and aux with the device scalars "overflow" and "root_mass" (the root
+    monopole's mass, bvh.h:377)."""
+    if resort:
+        state = hilbert_sort(state, eps)
+    tree = build_tree(state.m, state.x, eps)
+    a, overflow = tree_force(tree, state.m, state.x, theta, G, eps, group_tile, window_tiles,
+                             list_path, use_cuda, traversal, refine)
+    aux = {"overflow": overflow, "root_mass": tree.mm[0]}
     return dataclasses.replace(state, a=a), aux

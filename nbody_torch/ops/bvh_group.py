@@ -32,13 +32,22 @@ entries kernel takes the whole list and visits [lo, hi) exactly. The
 word-compacted residual extraction becomes one row sort, with the same
 word limit RW and the same overflow flag (residual_ids). JAX's
 while_loop over overflowed tiles reads one counter on the host: one
-synchronisation per call. refine_levels is 0 (nbody_tpu's default) and
-not a parameter here.
+synchronisation per call.
+
+refine_levels R (None: nbody_tpu's default, 0) first refines the open
+nodes outside the window R levels down (at most nlevels - 1 - L*): each
+child is re-tested with the group MAC and joins the far field when it
+passes, so the far field's heap prefix widens to levels 0..L*+R; the
+survivors, S2 = S / 2^R bodies each, become the residual entries, and
+sibling runs that survived whole merge back into one entry.
 
 The `ablate` tokens of nbody_tpu that the port runs (BVH_ABLATE), for the
 knob probe (python -m nbody_torch.probe knobs bvh): densemask, the far
 field with the dense float32 mask (masked_eval_cuda) and the dense-mask
-window; packedj, the residual entries reading packed sources.
+window; packedj, the residual entries reading packed sources; widextract,
+the residual ids without the word limit (residual_ids(wide=True));
+forceover0, tile 0 sent to the exact fallback as if its residual words
+overflowed (nbody_tpu's regression knob).
 """
 
 from __future__ import annotations
@@ -59,12 +68,13 @@ from nbody_torch.ops.octree_group import (_box_dist2, ablate_tokens, compact_row
 
 BIG = 1 << 30  # sort sentinel of the residual node ids
 # The ablate tokens of nbody_tpu's windowed path that the port runs:
-# densemask and packedj select ported kernels; fheap and sortunperm change
-# nothing (see octree_group.OCTREE_ABLATE).
-BVH_ABLATE = ("densemask", "packedj", "fheap", "sortunperm")
+# densemask and packedj select ported kernels, widextract and forceover0
+# the residual extraction's branches; fheap and sortunperm change nothing
+# (see octree_group.OCTREE_ABLATE).
+BVH_ABLATE = ("densemask", "packedj", "widextract", "forceover0", "fheap", "sortunperm")
 
 
-def residual_ids(out_open: torch.Tensor, r_slice: int):
+def residual_ids(out_open: torch.Tensor, r_slice: int, wide: bool = False):
     """Per tile, the ascending ids of its open residual nodes, padded with
     BIG to r_slice columns, and a per-tile flag that forces the tile into
     the exact fallback: nbody_tpu's word-compacted extraction
@@ -72,11 +82,12 @@ def residual_ids(out_open: torch.Tensor, r_slice: int):
     nonzero 32-node words (RW = min(words, max(256, r_slice // 4))) and
     flags the tiles with more such words. Below 32 nodes, or at a node
     count that is not a multiple of 32, every node is kept (its wide
-    branch). Returns (ids (T, r_slice) int64, word_overflow (T,) bool)."""
+    branch, which wide takes at any count). Returns (ids (T, r_slice)
+    int64, word_overflow (T,) bool)."""
     ntiles, nodes = out_open.shape
     key = torch.where(out_open, torch.arange(nodes, device=out_open.device), BIG)
     word_over = torch.zeros(ntiles, dtype=torch.bool, device=out_open.device)
-    if nodes % 32 == 0 and nodes >= 32:
+    if nodes % 32 == 0 and nodes >= 32 and not wide:
         nwords = nodes // 32
         rw = min(nwords, max(256, r_slice // 4))
         if rw < nwords:  # otherwise no tile can hold more than rw nonzero words
@@ -90,10 +101,12 @@ def residual_ids(out_open: torch.Tensor, r_slice: int):
 def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tensor,
                                    theta: float, G: float, eps: float, tile: int = 512,
                                    window_tiles: int = 32, e_chunk: int = 24576,
-                                   s_target: int = 512, ablate: str = ""):
+                                   s_target: int = 512, refine_levels: int | None = None,
+                                   ablate: str = ""):
     """Gather-free grouped BVH force (float32). m, x are the Hilbert-sorted
     bodies and tree their refit; an L* node covers min(s_target, tile)
-    bodies. Returns (G * accel in sorted order, info) with info's counters
+    bodies, and the residual's nodes S2 = S / 2^R after refine_levels R
+    (see the module docstring). Returns (G * accel in sorted order, info) with info's counters
     as device tensors, nbody_tpu's keys: max_nodes, max_leaves,
     fallback_tiles, node_overflow, leaf_overflow, entries, res_pairs,
     bad_entries, res_width_sum, res_unique_blocks and
@@ -134,8 +147,12 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
         d_block //= 2
     if d_block > S:
         Sd = d_block
-    if (1 << level_star) + 1 > (1 << 16):  # the entries pack a 16-bit node id
-        raise ValueError("windowed BVH path supports at most 2^16 residual nodes (2^25 bodies)")
+    if refine_levels is None:  # refinement measured counterproductive (bvh_group.py:607-616)
+        refine_levels = 0
+    refine_levels = min(refine_levels, nlevels - 1 - level_star)
+    if (1 << (level_star + refine_levels)) + 1 > (1 << 16):  # entries pack a 16-bit node id
+        raise ValueError("windowed BVH path supports at most 2^16 residual nodes; lower "
+                         "refine_levels/s_target")
     if ntiles > (1 << 15):  # the tile id packs into 16 bits of an int32 entry
         raise ValueError("windowed BVH path supports at most 2^15 tiles; increase tile")
 
@@ -177,14 +194,26 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
     # ---- residual: open nodes outside the window (:705-777) -----------
     all_nodes = torch.arange(nodes_total, **i64)[None, :]
     out_open = open_mask & ((all_nodes < w0n[:, None]) | (all_nodes >= w0n[:, None] + wnodes))
+    # refinement: re-test the children of the open nodes, live ones only;
+    # the passing ones join the far field (:722-732)
+    for level in range(level_star + 1, level_star + refine_levels + 1):
+        out_open = out_open.repeat_interleave(2, dim=1)
+        lo_i, hi_i = (1 << level) - 1, (1 << (level + 1)) - 1
+        alive = (mm[lo_i:hi_i] > 0)[None, :]
+        accept = out_open & alive & (w2[lo_i:hi_i][None, :] < theta2 * _box_dist2(
+            tmin, tmax, mx[lo_i:hi_i]))
+        accept_masks.append(accept)
+        out_open = out_open & alive & ~accept
+    nodes_res = 1 << (level_star + refine_levels)  # the residual's granularity
+    S2 = 1 << (nlevels - level_star - refine_levels)
     # sub-tile monopole re-test: a residual node whose MAC passes against
     # every sub-tile box is a monopole for the whole tile
     nsub = max(1, min(8, tile // 8))
     sub = xt_real.view(ntiles, nsub, tile // nsub, dim)
     sb_lo, sb_hi = sub.amin(2), sub.amax(2)
-    com_res, w2_res = mx[lvl_lo:lvl_lo + nodes_total], w2[lvl_lo:lvl_lo + nodes_total]
+    com_res, w2_res = mx[nodes_res - 1:2 * nodes_res - 1], w2[nodes_res - 1:2 * nodes_res - 1]
     min_dmin2 = None
-    passcnt = torch.zeros(ntiles, nodes_total, **i64)
+    passcnt = torch.zeros(ntiles, nodes_res, **i64)
     for s in range(nsub):
         d2s = _box_dist2(sb_lo[:, s], sb_hi[:, s], com_res)
         min_dmin2 = d2s if min_dmin2 is None else torch.minimum(min_dmin2, d2s)
@@ -196,8 +225,8 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
     accept_masks[-1] = accept_masks[-1] | mono
     out_open = out_open & ~mono
 
-    # ---- far field over heap levels 0..L* (:779-800) -------------------
-    W = (1 << (level_star + 1)) - 1
+    # ---- far field over heap levels 0..L*+R (:779-800) -----------------
+    W = (1 << (level_star + refine_levels + 1)) - 1
     far_bool = torch.cat(accept_masks, dim=1)
     if "densemask" in tokens:
         far = masked_eval_cuda(xp, mm[:W], mx[:W], far_bool.to(dtype), eps, "poly")
@@ -206,23 +235,25 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
 
     # ---- residual entry lists (:802-920) -------------------------------
     out_count = out_open.sum(1)
-    r_slice = min(nodes_total, 1024)
-    sorted_ids, word_over = residual_ids(out_open, r_slice)
+    r_slice = min(nodes_res, 1024)
+    sorted_ids, word_over = residual_ids(out_open, r_slice, wide="widextract" in tokens)
     out_count = torch.where(word_over, r_slice + 1, out_count)
+    if "forceover0" in tokens:
+        out_count[0] = r_slice + 1
     slot = torch.arange(r_slice, **i64)[None, :]
     vmask = slot < out_count.clamp_max(r_slice)[:, None]
-    pad_node = nodes_total
-    row0 = torch.arange(nodes_total, **i64) * S  # the node's first sorted row
+    pad_node = nodes_res
+    row0 = torch.arange(nodes_res, **i64) * S2  # the node's first sorted row
     blk_tbl = torch.cat([row0 // Sd, torch.zeros(1, **i64)])
-    lo_arr = row0 % Sd  # S <= Sd: a node never straddles a block
-    lohi_tbl = torch.cat([lo_arr | ((lo_arr + S) << 16), torch.zeros(1, **i64)]).to(torch.int32)
+    lo_arr = row0 % Sd  # S2 <= Sd: a node never straddles a block
+    lohi_tbl = torch.cat([lo_arr | ((lo_arr + S2) << 16), torch.zeros(1, **i64)]).to(torch.int32)
     nid_rows = torch.cat([torch.full((ntiles, 1), pad_node, **i64),  # the per-tile sentinel
                           torch.where(vmask, sorted_ids.clamp_max(pad_node), pad_node)], dim=1)
     vflag = torch.cat([torch.ones(ntiles, 1, dtype=torch.bool, device=dev), vmask], dim=1)
     flat_v = vflag.reshape(-1)
     flat_ent = ((t_idx[:, None] << 16) | nid_rows).reshape(-1)
     rank = torch.cumsum(flat_v, 0) - 1
-    per_tile_est = min(r_slice, 96 if dim == 2 else 400)
+    per_tile_est = min(r_slice, (96 if dim == 2 else 400) << refine_levels)
     n_chunks = max(1, min(40, -(-(ntiles * per_tile_est + ntiles) // e_chunk)))
     e_cap = min(ntiles * (r_slice + 1), n_chunks * e_chunk)
     if e_cap > e_chunk:

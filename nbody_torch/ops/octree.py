@@ -13,8 +13,12 @@ instead (build_octree: per-level node arrays from segmented reductions
 over the sorted bodies, in the reference's square box, scalar_bounds) and
 takes ops.octree_group.compute_force_grouped.
 
+The per-body traversal builds the same level tree and takes
+compute_force, the reference's walk (octree.h:227-255) as one CUDA thread
+a body (ops.cuda_tree_walk).
+
 Keys are int64 with explicit masks: torch has no right shift for uint32,
-and a 2-D key at depth 16 fills 32 bits. The per-body walk is not ported.
+and a 2-D key at depth 16 fills 32 bits.
 """
 
 from __future__ import annotations
@@ -22,8 +26,10 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
+from nbody_torch.ops.cuda_tree_walk import octree_walk_cuda, octree_walk_torch
 from nbody_torch.ops.geometry import scalar_bounds
 from nbody_torch.ops.permutation import unpermute_rows
 from nbody_torch.state import SystemState
@@ -126,6 +132,17 @@ class OctreeLevels:
     caps: tuple                # capacity of each level
     depth: int
 
+    @classmethod
+    def from_numpy(cls, mass, com, start, count, child_start, child_count, parent,
+                   offsets: tuple, caps: tuple, depth: int, device=None) -> "OctreeLevels":
+        """Levels from host arrays (nbody_tpu's OctreeLevels fields, say);
+        the index arrays become int64."""
+        f = [torch.tensor(np.asarray(a), device=device) for a in (mass, com)]
+        i = [torch.tensor(np.asarray(a).astype(np.int64), device=device)
+             for a in (start, count, child_start, child_count, parent)]
+        return cls(*f, *i, offsets=tuple(int(o) for o in offsets),
+                   caps=tuple(int(c) for c in caps), depth=depth)
+
 
 def build_octree(m: torch.Tensor, x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                  depth: int):
@@ -201,24 +218,53 @@ def tree_size_from_keys(ks: torch.Tensor, depth: int, dim: int) -> torch.Tensor:
     return size
 
 
+def compute_force(levels: OctreeLevels, ms: torch.Tensor, xs: torch.Tensor,
+                  root_side: torch.Tensor, theta: float, G: float, eps: float,
+                  use_cuda: bool = True) -> torch.Tensor:
+    """The theta-MAC walk (octree.h:227-255, nbody_tpu octree.py:198-334)
+    of every Morton-sorted body over the level tree: octree_walk_kernel, or
+    its plain twin where not use_cuda. Returns G * accel in the sorted
+    order."""
+    walk = octree_walk_cuda if use_cuda else octree_walk_torch
+    return walk(levels, ms, xs, root_side, theta, G, eps)
+
+
+def level_force(levels: OctreeLevels, ms: torch.Tensor, xs: torch.Tensor,
+                root_side: torch.Tensor, theta: float, G: float, eps: float,
+                group_tile: int = 512, use_cuda: bool = True, traversal: str = "group"):
+    """The force over the level tree: the walk (compute_force) with
+    traversal "per-body", else the grouped list force. Returns (G * accel
+    in the sorted order, the device scalar count of truncated tiles: 0 for
+    the walk)."""
+    from nbody_torch.ops.octree_group import compute_force_grouped
+
+    if traversal == "per-body":
+        a_sorted = compute_force(levels, ms, xs, root_side, theta, G, eps, use_cuda)
+        return a_sorted, torch.zeros((), dtype=torch.int32, device=xs.device)
+    a_sorted, info = compute_force_grouped(levels, ms, xs, root_side, theta, G, eps,
+                                           tile=group_tile, use_cuda=use_cuda)
+    return a_sorted, info["node_overflow"]
+
+
 def octree_step_force(state: SystemState, theta: float, G: float, eps: float, depth: int,
                       group_tile: int = 512, window_tiles: int = 32, list_path: bool = False,
-                      use_cuda: bool = True):
+                      use_cuda: bool = True, traversal: str = "group"):
     """One octree force evaluation, scattered back to the caller's order.
     The fast path (octree.py:424-447): robust box -> Morton sort ->
     grouped fast force. With list_path (octree.py:448-467, float64 runs
-    and --kernel torch): scalar box -> build_octree -> grouped list force,
-    through the CUDA kernels' wrappers, or their plain twins where not
-    use_cuda. Returns (state with a, aux) with aux holding the device
-    scalars "overflow", "tree_size" and "root_mass"."""
-    from nbody_torch.ops.octree_group import compute_force_grouped, compute_force_grouped_fast
+    and --kernel torch): scalar box -> build_octree -> grouped list force;
+    with traversal "per-body" the same tree and the walk (compute_force).
+    Each goes through the CUDA kernels' wrappers, or their plain twins
+    where not use_cuda. Returns (state with a, aux) with aux holding the
+    device scalars "overflow", "tree_size" and "root_mass"."""
+    from nbody_torch.ops.octree_group import compute_force_grouped_fast
 
-    if list_path:
+    if list_path or traversal == "per-body":
         lo, hi = scalar_bounds(state.x)
         levels, perm, ms, xs = build_octree(state.m, state.x, lo, hi, depth)
-        a_sorted, info = compute_force_grouped(levels, ms, xs, hi - lo, theta, G, eps,
-                                               tile=group_tile, use_cuda=use_cuda)
-        aux = {"overflow": info["node_overflow"], "tree_size": (levels.count > 0).sum(),
+        a_sorted, overflow = level_force(levels, ms, xs, hi - lo, theta, G, eps, group_tile,
+                                         use_cuda, traversal)
+        aux = {"overflow": overflow, "tree_size": (levels.count > 0).sum(),
                "root_mass": levels.mass[0]}
         return dataclasses.replace(state, a=unpermute_rows(a_sorted, perm)), aux
     lo_r, hi_r = robust_quant_box(state.x)

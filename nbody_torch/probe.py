@@ -118,13 +118,13 @@ def trace(n: int, dim: int, steps: int, algorithm: str, precision: str = "float"
     dev = torch.device("cuda", 0)
     cfg, s = build_model("galaxy", n, dim, precision_dtype(precision), device=dev)
     step = get_engine(algorithm).make_step(cfg, EngineOptions(), dev)
-    s, _ = step(s)
+    s, _ = step(s, 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            s, _ = step(s)
+        for k in range(1, steps + 1):
+            s, _ = step(s, k)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if table:
@@ -140,7 +140,7 @@ def trace(n: int, dim: int, steps: int, algorithm: str, precision: str = "float"
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        s, _ = step(s)
+        s, _ = step(s, steps + 1)
     torch.cuda.set_sync_debug_mode("default")
     syncs = [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
     print(f"{algorithm}, {n} bodies, {dim}-D {np.dtype(cfg.dtype).name}, {steps} steps: "
@@ -245,8 +245,8 @@ def knobs(tree: str, out: str, specs: list[str], n: int, device: str) -> None:
         if evolved:  # the scripts' 4 x 13 engine steps
             engine_step = get_engine("octree" if tree == "oct" else "bvh").make_step(
                 cfg, EngineOptions(), dev)
-            for _ in range(52):
-                state, _ = engine_step(state)
+            for k in range(52):
+                state, _ = engine_step(state, k)
         ca.reset_launch_counts()
         cg.reset_launch_counts()
         state, info = step(state)  # untimed

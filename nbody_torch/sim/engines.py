@@ -3,10 +3,12 @@
 Each engine owns one force algorithm and mirrors one of the reference's
 run_* entry points (src/all_pairs.h:108-116, src/octree.h:266):
 
-  make_step(cfg, opts, device)     -> state -> (state, aux): force +
-                                      leapfrog, the unit of the step loop;
-                                      aux holds device scalars ("overflow",
-                                      and the tree engines' "tree_size" and
+  make_step(cfg, opts, device)     -> (state, k) -> (state, aux): force +
+                                      leapfrog, the unit of the step loop,
+                                      k the global step index (the BVH's
+                                      --sort-every cadence reads it); aux
+                                      holds device scalars ("overflow", and
+                                      the tree engines' "tree_size" and
                                       "root_mass" for --print-info)
   make_detailed(cfg, opts, device) -> state -> (state, {phase: seconds}, aux)
                                       for the --csv-detailed timing mode
@@ -41,8 +43,10 @@ class EngineOptions:
     """Runtime knobs that do not exist in the reference CLI."""
     kernel: str = "auto"        # auto|cuda|torch : force backend
     fix_z: bool = False         # fix the collapsed-force z-freeze quirk
+    sort_every: int = 1         # re-sort cadence of the bvh
     traversal: str = "group"    # group|per-body : tree traversal strategy
     group_tile: int = 512       # bodies per tile in group traversal
+    refine: int = -1            # BVH residual refinement levels (-1 = auto)
     window_tiles: int = 32      # tree near-field window width (body tiles)
 
 
@@ -93,7 +97,7 @@ class AllPairsEngine:
     def make_step(self, cfg: SimConfig, opts: EngineOptions, device: torch.device):
         accel = self._accel_fn(cfg, opts, device)
 
-        def step(state: SystemState):
+        def step(state: SystemState, k: int):
             return leapfrog_step(dataclasses.replace(state, a=accel(state)), cfg.dt), {}
 
         return step

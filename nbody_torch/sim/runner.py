@@ -8,7 +8,8 @@ The port of nbody_tpu.sim.runner, faithful to the reference's run loops
   always runs the full warmup loop even when steps < warmup (so `-s 5`
   actually runs 10 steps); we replicate that.
 * --csv-detailed: every step is timed per phase and saved; all `steps`
-  iterations are timed.
+  iterations are timed. It ignores the BVH's --sort-every cadence (every
+  step re-sorts), as nbody_tpu's detailed path does.
 * --csv-total with any print/save flag aborts (all_pairs.h:58-62).
 * CSV schema: algorithm,dim,precision,nsteps,nbodies,total [s][,phases...]
   with seconds formatted {:.2f}.
@@ -130,13 +131,15 @@ def run_algorithm(algo_name: str, cfg: SimConfig, state: SystemState,
             dt_total = _time.perf_counter() - t0
         else:
             step = engine.make_step(cfg, opts.engine_opts, device)
-            for _ in range(opts.warmup_steps):
-                state, aux = step(state)
+            # the global step index: warmup 0..warmup-1, then the timed
+            # steps from warmup_steps on (nbody_tpu/sim/runner.py:152-168)
+            for k in range(opts.warmup_steps):
+                state, aux = step(state, k)
                 after_step(state, aux)
             sync(device)
             t0 = _time.perf_counter()
-            for _ in range(max(0, opts.steps - opts.warmup_steps)):
-                state, aux = step(state)
+            for k in range(opts.warmup_steps, max(opts.warmup_steps, opts.steps)):
+                state, aux = step(state, k)
                 after_step(state, aux)
             sync(device)
             dt_total = _time.perf_counter() - t0

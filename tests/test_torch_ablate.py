@@ -472,7 +472,9 @@ NOT_PORTED = ["far", "win", "near", "nlist", "resid", "rlist", "epg8", "subw512"
 @pytest.mark.parametrize("token", NOT_PORTED)
 def test_unported_tokens_raise(token):
     """Every token that selects no ported code raises for both trees; none
-    is ignored. farcompact and desc1 / desc2 are octree-only."""
+    is ignored. farcompact and desc1 / desc2 are octree-only. The BVH's
+    widextract and forceover0 are ported (tests/test_torch_bvh_cadence.py
+    holds them against nbody_tpu): the BVH runs them, the octree raises."""
     m, x = _clustered(300, 2, 3)
     depth = tot.max_depth(300, 2)
     ms, xs, ks, _ = tot.morton_sort(_t(m), _t(x), *tot.robust_quant_box(_t(x)), depth)
@@ -480,7 +482,10 @@ def test_unported_tokens_raise(token):
         tog.compute_force_grouped_fast(ms, xs, ks, depth, 0.5, 1.0, EPS,
                                        ablate=f"packedj,{token}")
     tree = tbvh.build_tree(ms, xs, EPS)
-    for bad in (token, "farcompact", "desc2"):
+    if token in tbg.BVH_ABLATE:
+        a, _ = tbg.compute_force_grouped_windowed(tree, ms, xs, 0.5, 1.0, EPS, ablate=token)
+        assert bool(torch.isfinite(a).all())
+    for bad in ((token,) if token not in tbg.BVH_ABLATE else ()) + ("farcompact", "desc2"):
         with pytest.raises(ValueError, match="not yet ported"):
             tbg.compute_force_grouped_windowed(tree, ms, xs, 0.5, 1.0, EPS, ablate=bad)
 

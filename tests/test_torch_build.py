@@ -22,10 +22,10 @@ def test_library_path_hashes_sources_and_headers(tmp_path, monkeypatch):
 def test_repo_sources_and_header():
     names = {p.name for p in _build.CSRC.iterdir()}
     assert {"allpairs.cu", "allpairs_mxu.cu", "entry_probes.cu", "group_eval.cu", "pair.cuh",
-            "tile_decide.cu", "tiles.cuh"} <= names
+            "tile_decide.cu", "tiles.cuh", "tree_walk.cu"} <= names
     assert [p.name for p in _build.sources()] == ["allpairs.cu", "allpairs_mxu.cu",
                                                   "entry_probes.cu", "group_eval.cu",
-                                                  "tile_decide.cu"]
+                                                  "tile_decide.cu", "tree_walk.cu"]
     assert _build.library_path().parent == _build.BUILD_DIR
 
 
@@ -56,7 +56,7 @@ def test_ctypes_signatures_match_the_sources():
         assert name in defined, name
         assert [kind[a] for a in args] == defined[name], name
     assert {"nbody_group_eval", "nbody_parts_sum", "nbody_window_eval_nodemask",
-            "nbody_window_eval_interval"} <= defined.keys()
+            "nbody_window_eval_interval", "nbody_bvh_walk", "nbody_octree_walk"} <= defined.keys()
 
 
 SASS = """

@@ -13,7 +13,8 @@ copy-ring kernels (csrc/entry_probes.cu), and the all-pairs variants (the Newton
 instantiations, and the hybrid kernel of csrc/allpairs_mxu.cu, whose
 counts of tile pairs by branch must equal their twins', and the decision
 kernels of csrc/tile_decide.cu that they launch first, bit-equal to their
-plain versions, on layouts a few ulps either side of each threshold too). Every test
+plain versions, on layouts a few ulps either side of each threshold too), and
+the trees' per-body walks (csrc/tree_walk.cu). Every test
 here needs an NVIDIA GPU with nvcc (the kernels are built from
 nbody_torch/csrc at first use) and skips without one; on the GPU machine
 run them with
@@ -359,8 +360,8 @@ def test_engine_step_on_card_matches_cpu(dev):
     for device in (dev, torch.device("cpu")):
         cfg, s = build_galaxy_model(2000, 3, np.float64, device)
         step = get_engine("all-pairs").make_step(cfg, EngineOptions(), device)
-        for _ in range(3):
-            s, _ = step(s)
+        for k in range(3):
+            s, _ = step(s, k)
         outs.append({f.name: getattr(s, f.name).cpu() for f in dataclasses.fields(s)})
     for name in ("x", "v", "a"):
         torch.testing.assert_close(outs[0][name], outs[1][name], rtol=1e-10, atol=1e-14)
@@ -1546,3 +1547,43 @@ def test_entry_probe_budgets_from_the_runtime(dev):
             assert 1 <= b["blocks_an_sm"] <= (4 if nbuf == 2 else 3)
     with pytest.raises(RuntimeError):
         ce.kernel_budget("ladder", "sel", True, 3, 1024, dev, ce.RING_BLOCKS)
+
+
+# ------------------------------------------------------------ per-body walks
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_walk_kernels_vs_twins(dev, dim, dtype):
+    """bvh_walk_kernel and octree_walk_kernel on a 5,001-body galaxy (its
+    last body massless at the origin) against their twins on every row,
+    and the kernel's call on some rows bit-equal to those rows of the whole
+    call; one launch counted a call."""
+    from nbody_torch.models import build_galaxy_model
+    from nbody_torch.ops import bvh, octree
+    from nbody_torch.ops import cuda_tree_walk as tw
+    from nbody_torch.ops.geometry import scalar_bounds
+
+    cfg, s = build_galaxy_model(5001, dim, np.dtype(str(dtype).removeprefix("torch.")), dev)
+    st = bvh.hilbert_sort(s, cfg.eps)
+    tree = bvh.build_tree(st.m, st.x, cfg.eps)
+    lo, hi = scalar_bounds(s.x)
+    levels, _, ms, xs = octree.build_octree(s.m, s.x, lo, hi, octree.max_depth(5001, dim))
+    walks = {
+        tw.BVH_WALK: (lambda r=None: tw.bvh_walk_cuda(tree.mm, tree.mx, tree.bw, tree.nlevels,
+                                                       st.m, st.x, cfg.theta, cfg.G, cfg.eps, r),
+                      lambda: tw.bvh_walk_torch(tree.mm, tree.mx, tree.bw, tree.nlevels, st.m,
+                                                st.x, cfg.theta, cfg.G, cfg.eps, detail=True)),
+        tw.OCTREE_WALK: (lambda r=None: tw.octree_walk_cuda(levels, ms, xs, hi - lo, cfg.theta,
+                                                             cfg.G, cfg.eps, r),
+                         lambda: tw.octree_walk_torch(levels, ms, xs, hi - lo, cfg.theta, cfg.G,
+                                                      cfg.eps, detail=True)),
+    }
+    rows = torch.tensor([5000, 0, 2500, 17], device=dev)
+    for name, (kern, twin) in walks.items():
+        tw.reset_launch_counts()
+        got = kern()
+        assert tw.launch_counts[name] == 1 and tw.twin_calls[name] == 0
+        ref, scale, _ = twin()
+        assert bool(((got - ref).abs() <= TOL[dtype] * scale).all()), name
+        assert torch.equal(kern(rows), got[rows]), name
