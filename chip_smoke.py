@@ -256,7 +256,31 @@ Phases, each printed on its own lines:
         back) held against its twin within 1e-5 of each row's sum of
         |term| and timed; at 0, each call timed again; the counters, the
         calls' ms and each force's error against the exact poly sum
-        (median 1e-3, p99 1e-2 at most) printed side by side.
+        (median 1e-3, p99 1e-2 at most) printed side by side;
+ 12. the replicated multi-device layouts (nbody_torch/parallel), their
+     ranks one process each; on one card they share it over gloo, so
+     their s/step is no scaling figure:
+     a. the --mesh CLI at -n 1048576 -s 12 --csv-total, 2 ranks: all-pairs
+        3-D (the ring), octree and bvh 3-D and 2-D (float32, the fast
+        paths); 4 ranks: octree and bvh 3-D; 2 ranks: the float64 octree
+        at 65,536 bodies (the list path). The first run goes through
+        cli.run_mesh, the others of each rank count share one spawn
+        (launch.run_jobs of the same cli.mesh_rank). For each: the backend,
+        the ranks a card, s/step beside the single-device run's (phase 3's
+        for all-pairs, an in-process run for the others), each rank's
+        peak memory; every rank must launch the path's kernels (none gives
+        way to its plain version) and end with rank 0's state bit for bit;
+     b. one step of each sharded path on 2 ranks (the ring, both trees'
+        fast paths in 3-D and 2-D at 2^20, the float64 octree list path at
+        65,536) against the single-device step on the same state
+        (dryrun.step_parity): the bodies in the same order, max |diff| /
+        max |a| at most 1e-5 (float32) or 1e-12 (float64), every aux equal
+        (the float64 list path's root mass, an atomic index_add_ on the
+        card, within n * eps of it), the ranks' states bit-equal; and the
+        dry run (nbody_tpu's dryrun_multichip blocks) on the same ranks;
+     c. NCCL: with 2 cards or more the runs above went over it; on one
+        card a world of one over NCCL sets up its group and runs the dry
+        run, and the script says that NCCL was not exercised across cards.
 Phase 2's bounds (bound_ms in the kernels line): pairs times 5*dim + 3
 FLOPs (+1 under sqrt3; 3*dim + 3 for the potential) over 67 TFLOP/s in
 float32 or 34 in float64. Beside the float32 times it prints, and keeps
@@ -340,6 +364,9 @@ and its float32 instantiations from the float32 list-path steps of 7a
 (float32 CLI runs take the fast paths, and --kernel torch the twin). The
 list kernel counts each instantiation (dtype, softening) on its own.
 The walks' launches come from the two per-body runs of phase 11b.
+Phase 12 adds to each kernel it launched "mesh_launches", the launches of
+12a's --mesh runs summed over their ranks (the octree's far, window and
+entries kernels under their <sqrt3> names, the BVH's under <poly>).
 Phase 11's bounds: a body's accepted nodes and direct pairs times the
 FLOPs of a pair (5*dim + 3, one more under the octree's sqrt3), plus its
 accepted and opened nodes times 3 (a MAC test beyond its separation),
@@ -529,6 +556,8 @@ def main() -> int:
     ablation_kernels = ablation_phases(dev, big, sass_job)
     probe_kernels = probe_phases(dev, big, probe_sass)
     walk_kernels = walk_phases(dev, big, walk_sass)
+    # phase 3's run is 12a's single-device all-pairs run
+    mesh_launches = mesh_phases(dev, {mesh_key("all-pairs", 3, "float", big): per_step})
 
     runs = {ca.NEWTON: (phase3_launches, f"phase 3: {big}-body 3-D all-pairs --csv-total"),
             ca.NEWTON64: (list_launches, f"phase 7b: {big}-body 3-D octree --precision double "
@@ -547,9 +576,14 @@ def main() -> int:
     entries[1]["fallback_launches_3d"] = list_fallback        # by tree
     parts_sum = next(e for e in bvh_kernels if e["name"] == PARTS_SUM)
     parts_sum["octree_interval_window"] = interval_sum  # its second pass in the octree
+    kernels_line = (entries + octree_kernels + bvh_kernels + list_kernels + variant_kernels
+                    + ablation_kernels + probe_kernels + walk_kernels)
+    for entry in kernels_line:
+        if mesh_launches.get(entry["name"]):
+            entry["mesh_launches"] = mesh_launches[entry["name"]]
+            entry["mesh_launches_in"] = "phase 12a: the --mesh CLI runs, summed over their ranks"
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
-    print(json.dumps({"kernels": entries + octree_kernels + bvh_kernels + list_kernels
-                      + variant_kernels + ablation_kernels + probe_kernels + walk_kernels}))
+    print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -3332,6 +3366,169 @@ def refine_phase(dev, big: int, dim: int) -> dict:
     del ref, tree, state
     torch.cuda.empty_cache()
     return out
+
+
+# -- phase 12: the replicated multi-device layouts (nbody_torch/parallel) ---
+# 12a's CLI runs: (algorithm, dim, precision, n, ranks)
+MESH_RUNS = (("all-pairs", 3, "float", 1 << 20, 2),
+             ("octree", 3, "float", 1 << 20, 2), ("octree", 2, "float", 1 << 20, 2),
+             ("bvh", 3, "float", 1 << 20, 2), ("bvh", 2, "float", 1 << 20, 2),
+             ("octree", 3, "float", 1 << 20, 4), ("bvh", 3, "float", 1 << 20, 4),
+             ("octree", 3, "double", 65536, 2))
+# the kernels that every rank of a run must launch, by (algorithm, precision)
+MESH_KERNELS = {("all-pairs", "float"): ("allpairs_block_kernel<float32, newton>",),
+                ("octree", "float"): ("masked_eval_bits_kernel", "window_eval_interval_kernel",
+                                      "entries_lohi_kernel", "entries_sum_kernel"),
+                ("bvh", "float"): ("masked_eval_bits_kernel", "window_eval_nodemask_kernel",
+                                   "entries_lohi_kernel", "entries_sum_kernel"),
+                ("octree", "double"): ("group_eval_kernel<float64, sqrt3>",)}
+# 12b: one step of each sharded path on 2 ranks against the single-device
+# step, (algorithm, dim, precision, n); the limit on max |diff| / max |a|
+MESH_PARITY = (("all-pairs", 3, "float", 1 << 20), ("octree", 3, "float", 1 << 20),
+               ("octree", 2, "float", 1 << 20), ("bvh", 3, "float", 1 << 20),
+               ("bvh", 2, "float", 1 << 20), ("octree", 3, "double", 65536))
+MESH_LIMIT = {"float": 1e-5, "double": 1e-12}
+
+
+def mesh_key(algorithm: str, dim: int, precision: str, n: int) -> str:
+    """12a's single-device CLI flags of a run; with --mesh N, its mesh run's."""
+    return " ".join(["-n", str(n), "-s", "12", "-d", str(dim), "--algorithm", algorithm,
+                     "--workload", "galaxy", "--precision", precision, "--device", "cuda",
+                     "--csv-total"])
+
+
+def mesh_entry_name(algorithm: str, kernel: str) -> str:
+    """The kernels line's name of a launch_counts key in a run of
+    `algorithm`: the trees' far and entries kernels carry their softening."""
+    if algorithm == "octree" and kernel in OCTREE_KERNELS:
+        return f"{kernel}<sqrt3>"
+    if algorithm == "bvh" and kernel in BVH_KERNELS and "nodemask" not in kernel:
+        return f"{kernel}<poly>"
+    return kernel
+
+
+def mesh_phases(dev, single_steps: dict) -> dict:
+    """Phase 12: the --mesh CLI at full size (12a), one step of each
+    sharded path against the single-device step (12b), the backends
+    (12c). single_steps maps a CLI argv (without --mesh) to its s/step
+    where an earlier phase ran it. Returns the launches of 12a's runs,
+    summed over their ranks, by the kernels line's names."""
+    import torch
+
+    from nbody_torch import cli
+    from nbody_torch.parallel import dryrun, launch, mesh
+
+    t12 = time.perf_counter()
+    cards = torch.cuda.device_count()
+
+    def args_of(run):
+        algorithm, dim, precision, n, world = run
+        return cli.parse_args([*mesh_key(algorithm, dim, precision, n).split(), "--mesh",
+                               str(world)])
+
+    for algorithm, dim, precision, n, _ in MESH_RUNS:
+        key = mesh_key(algorithm, dim, precision, n)
+        if key not in single_steps:
+            out = io.StringIO()
+            check(cli.main(key.split(), out=out) == 0, f"single-device run {key} failed")
+            single_steps[key] = float(out.getvalue().strip().splitlines()[1].split(",")[5]) / 2
+
+    # the first run through the CLI's own --mesh entry (cli.run_mesh: the
+    # spawn, rank 0's text, the ranks' digests checked); the others of each
+    # rank count, and 12b's jobs, share one spawn (launch.run_jobs: the same
+    # cli.mesh_rank on every rank), which saves ~10 s of start a run
+    first = MESH_RUNS[0]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    reports = {first: cli.run_mesh(args_of(first), dev, out)}
+    check(out.getvalue() == reports[first][0]["text"], "run_mesh wrote another text than rank 0's")
+    print(f"[12a] cli.run_mesh of the first run: {time.perf_counter() - t0:.1f} s with its "
+          f"ranks' start")
+    parity_jobs = [(dryrun.step_parity, (algorithm, n, dim, precision))
+                   for algorithm, dim, precision, n in MESH_PARITY] + [(dryrun.dryrun_rank, ())]
+    for world in sorted({run[4] for run in MESH_RUNS[1:]}):
+        runs = [run for run in MESH_RUNS[1:] if run[4] == world]
+        jobs = [(cli.mesh_rank, (args_of(run),)) for run in runs]
+        t0 = time.perf_counter()
+        ranks = launch.spawn(world, "cuda", launch.run_jobs,
+                             jobs + (parity_jobs if world == 2 else []))
+        for i, run in enumerate(runs):
+            reports[run] = [rank[i] for rank in ranks]
+        if world == 2:
+            parity = [[rank[len(runs) + j] for rank in ranks] for j in range(len(parity_jobs))]
+        print(f"[12a] one spawn of {world} ranks for {len(runs)} runs"
+              f"{' and 12b' if world == 2 else ''}: {time.perf_counter() - t0:.1f} s")
+
+    launches: dict[str, int] = {}
+    for run in MESH_RUNS:
+        algorithm, dim, precision, n, world = run
+        key = mesh_key(algorithm, dim, precision, n)
+        lines = reports[run][0]["text"].strip().splitlines()
+        bits = "64" if precision == "double" else "32"
+        check(len(lines) == 2 and lines[1].split(",")[:5] == [algorithm, str(dim), bits, "2",
+                                                                 str(n)],
+              f"--mesh {world} {key}: output {lines!r}")
+        per_step = float(lines[1].split(",")[5]) / 2
+        kernels = MESH_KERNELS[(algorithm, precision)]
+        for r in reports[run]:
+            for kernel in kernels:
+                check(r["launches"][kernel] > 0, f"--mesh {world} {key}: rank {r['rank']} did "
+                      f"not launch {kernel} ({r['launches']})")
+            for kernel, count in r["launches"].items():
+                name = mesh_entry_name(algorithm, kernel)
+                launches[name] = launches.get(name, 0) + count
+        check(len({r["state_digest"] for r in reports[run]}) == 1, "ranks' final states differ")
+        peak = ", ".join(f"{r['peak_memory'] / 2**30:.2f}" for r in reports[run])
+        share = ("not a scaling figure: the ranks share the card" if cards < world
+                 else "a card a rank")
+        print(f"[12a] python -m nbody_torch.cli {key} --mesh {world}: {lines[1]} -> "
+              f"{per_step:.4f} s/step beside {single_steps[key]:.4f} on one device "
+              f"({world} ranks on {cards} card(s), {reports[run][0]['ranks_per_card']} a card: "
+              f"{share}); backend {reports[run][0]['backend']}, devices "
+              f"{sorted({r['device'] for r in reports[run]})}; peak memory a rank (GiB) "
+              f"[{peak}]; launches summed over the ranks "
+              f"{({k: sum(r['launches'][k] for r in reports[run]) for k in kernels})}")
+
+    # -- (b) one step of each sharded path against the single-device step ---
+    for (algorithm, dim, precision, n), ranks in zip(MESH_PARITY, parity):
+        got = ranks[0]
+        tag = f"{n}-body {dim}-D {precision} {algorithm}"
+        check(all(r["state_digest"] == got["state_digest"] for r in ranks),
+              f"12b {tag}: the ranks' states differ")
+        check(got["same_order"], f"12b {tag}: the sharded step left the bodies in another order")
+        aux, aux1 = got["aux"], got["aux_single"]
+        exact = {k: v for k, v in aux.items() if k != "root_mass"}
+        # the list path's root mass is an atomic index_add_ on the card, so its
+        # order of addition varies from run to run: n * eps of the (positive)
+        # masses' sum bounds the rounding of any order
+        mass_tol = n * np.finfo(np.float64).eps
+        mass_ok = "root_mass" not in aux or (
+            aux["root_mass"] == aux1["root_mass"] if precision == "float" else
+            abs(aux["root_mass"] - aux1["root_mass"]) <= mass_tol * abs(aux1["root_mass"]))
+        print(f"[12b] {tag}, 2 ranks: one step's force against the single-device step's, "
+              f"max |diff| / max |a| = {got['max_rel_err']:.3e} (limit "
+              f"{MESH_LIMIT[precision]:.0e}), sum |diff| / sum |a| = {got['sum_rel_err']:.3e}; "
+              f"aux {aux} beside {aux1}")
+        check(got["max_rel_err"] <= MESH_LIMIT[precision], f"12b {tag}: forces differ")
+        check(exact == {k: v for k, v in aux1.items() if k != "root_mass"} and mass_ok,
+              f"12b {tag}: aux {aux} differs from the single-device {aux1}")
+    dry = parity[-1]
+    check(all(np.array_equal(r[k], dry[0][k]) for r in dry for k in dry[0]),
+          "12b dry run: the ranks' positions differ")
+    print(f"[12b] dry run (nbody_tpu's dryrun_multichip blocks) on 2 ranks over "
+          f"{mesh.backend_for('cuda', 2)}: passed")
+
+    # -- (c) the backends ----------------------------------------------------
+    if cards >= 2:
+        print(f"[12c] {cards} cards: the 2-rank runs above went over NCCL")
+    else:
+        one = launch.spawn(1, "cuda", dryrun.dryrun_rank)
+        print(f"[12c] NCCL not exercised across cards: the machine has {cards} card; the runs "
+              f"above went over gloo through host memory. A world of one over "
+              f"{mesh.backend_for('cuda', 1)} set up its group and ran the dry run's "
+              f"{', '.join(sorted(one[0]))} steps")
+    print(f"[12] phase 12 wall time {time.perf_counter() - t12:.0f} s")
+    return launches
 
 
 # (mode, the mode it adds one feature to): the ladder's steps

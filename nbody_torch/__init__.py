@@ -17,6 +17,8 @@ Layer map:
   sim/          - engines, step loop, warmup protocol, CSV (ref: run_* loops)
   utils/        - device sync and the seconds-per-step estimator
   experimental/ - the octree's supertile descent (ablate tokens desc1 / desc2)
+  parallel/     - --mesh N: the ranks (one process each, torch.distributed),
+                  the ring all-pairs and the replicated trees
   cli.py        - python -m nbody_torch.cli
   kernel_bench  - python -m nbody_torch.kernel_bench (scripts/kernel_bench.py)
   probe         - python -m nbody_torch.probe (trace, knobs, sass)
@@ -24,9 +26,9 @@ Layer map:
 Ported so far: the all-pairs and all-pairs-collapsed algorithms, the
 octree and BVH fast paths with their ablation path (the knob probe's
 ablate tokens), the trees' list paths (float64) and per-body walks, the
-BVH's re-sort cadence and refinement, the all-pairs kernel variants and
-the entry-cost probes. The multi-device layouts are still to come
-(ROADMAP.md).
+BVH's re-sort cadence and refinement, the all-pairs kernel variants, the
+entry-cost probes and the replicated multi-device layouts. The partitioned
+layout is still to come (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

@@ -17,10 +17,20 @@ paths in double precision (through the CUDA list kernel) and under
 --traversal per-body they run the reference's per-body walk (a CUDA
 thread a body) in either precision. The bvh re-sorts every --sort-every
 steps and refines its fast path's residual --refine-levels deep.
---profile DIR writes a torch.profiler trace of the run into DIR. Not yet
-ported, and refused with exit code 1 rather than ignored: --mesh > 1. At
---mesh 1 (or below), --mesh-layout and --mesh-tile are read and ignored,
-as nbody_tpu ignores them there.
+--profile DIR writes a torch.profiler trace of the run into DIR.
+
+--mesh N > 1 runs the replicated layouts on N ranks, one process each
+(parallel/launch.py: nccl where every rank has a card of its own, else
+gloo, the ranks sharing the cards in turn, or on the CPU): all-pairs and
+all-pairs-collapsed take the ring, the octree and the bvh sort and build
+on every rank and evaluate their own rows. Every rank runs the same step
+loop; rank 0 alone writes the text (which the launching process writes to
+`out`), the saved files, the state file and the profile, and the run
+fails unless every rank ends with the same state, bit for bit. Not yet
+ported, and refused with exit code 1 rather than ignored: --mesh > 1 with
+--mesh-layout partitioned on the octree or the bvh (all-pairs ignores the
+layout, as nbody_tpu does). --mesh-tile is read and ignored, as the
+replicated layouts of nbody_tpu ignore it.
 
 The port runs on the GPU unless --device cpu asks for the CPU: without a
 CUDA device, --device auto (the default) and --device cuda exit 1.
@@ -49,8 +59,8 @@ _HELP = """Help:
 --kernel auto|cuda|torch\t\tForce backend: CUDA kernel (auto on a GPU) or plain torch
 \t\t(octree and bvh with --kernel torch or in double take their list paths)
 --device auto|cpu|cuda\t\tTorch device (default auto: the GPU; cpu only when asked for)
---mesh N\t\tShard bodies across N devices (only 1 is ported)
---mesh-layout L\treplicated (default) | partitioned (read only when --mesh > 1)
+--mesh N\t\tShard bodies across N ranks, one process each (default 1)
+--mesh-layout L\treplicated (default) | partitioned (not yet ported; read only when --mesh > 1)
 --mesh-tile T\t\tPartitioned 2-D mesh tile shards (read only when --mesh > 1)
 --chunk N\t\tAccepted for nbody_tpu parity; nbody_torch sizes its row chunks from n
 --fix-collapsed-z\t\tFix the reference's frozen-z quirk in all-pairs-collapsed
@@ -247,11 +257,12 @@ def parse_args(argv: list[str]) -> dict:
 
 def _unported(args: dict) -> str | None:
     """What the parsed flags ask for that the port cannot run yet, or None."""
-    # nbody_tpu reads --mesh-layout and --mesh-tile only when mesh > 1
-    # (sim/engines.py:93, sim/tree_engines.py:58, :228); below that it runs
-    # the single-device step, which the port has
-    if args["mesh"] > 1:
-        return "--mesh > 1"
+    # nbody_tpu reads --mesh-layout only when mesh > 1, and only in the
+    # trees (sim/tree_engines.py:58, :228); all-pairs takes its ring whatever
+    # the layout (sim/engines.py:93-96)
+    if args["mesh"] > 1 and args["mesh_layout"] == "partitioned" \
+            and args["algorithm"] in ("octree", "bvh"):
+        return "--mesh > 1 with --mesh-layout partitioned"
     return None
 
 
@@ -289,16 +300,11 @@ def profiled(trace_dir: str, device, fn, *args):
     return result
 
 
-def main(argv: list[str] | None = None, out=None) -> int:
-    if argv is None:
-        argv = sys.argv[1:]
-    args = parse_args(list(argv))
-    missing = _unported(args)
-    if missing:
-        print(f"{missing} is not yet ported to nbody_torch.", file=sys.stderr)
-        raise SystemExit(1)
-    device = resolve_device(args["device"])
-
+def simulate(args: dict, device, out=None, rank: int = 0):
+    """Build the model, run the simulation and save the state, as the
+    parsed flags `args` say, on `device`. Rank `rank` of a --mesh run
+    writes no file and takes no profile unless it is rank 0. Returns the
+    final state."""
     from nbody_torch.models import build_model
     from nbody_torch.sim.engines import EngineOptions
     from nbody_torch.sim.runner import RunOptions, run_simulation
@@ -309,14 +315,15 @@ def main(argv: list[str] | None = None, out=None) -> int:
         device=device,
     )
     cfg = cfg.replace(theta=args["theta"])
+    writes = rank == 0
 
     opts = RunOptions(
         steps=args["steps"],
         warmup_steps=args["warmup_steps"],
         print_state=args["print_state"],
         print_info=args["print_info"],
-        save_pos=args["save_pos"],
-        save_energy=args["save_energy"],
+        save_pos=args["save_pos"] and writes,
+        save_energy=args["save_energy"] and writes,
         csv_detailed=args["csv_detailed"],
         csv_total=args["csv_total"],
         engine_opts=EngineOptions(
@@ -327,18 +334,83 @@ def main(argv: list[str] | None = None, out=None) -> int:
             group_tile=args["group_tile"],
             refine=args["refine"],
             window_tiles=args["window_tiles"],
+            mesh=args["mesh"],
+            mesh_layout=args["mesh_layout"],
+            mesh_tile=args["mesh_tile"],
         ),
         out=out,
     )
-    if args["profile"]:
+    if args["profile"] and writes:
         state = profiled(args["profile"], device, run_simulation, args["algorithm"], cfg, state,
                          opts)
     else:
         state = run_simulation(args["algorithm"], cfg, state, opts)
-    if args["save_state"]:
+    if args["save_state"] and writes:
         from nbody_torch.io.saving import save_system
 
         save_system(args["save_state"], state, cfg)
+    return state
+
+
+def mesh_rank(mesh, args: dict) -> dict:
+    """One rank of a --mesh run (parallel.launch.spawn's fn): simulate on
+    the rank's device, and report rank 0's text, a digest of the final
+    state, the kernels' launch counts and the device's peak memory (both
+    from 0 at the run's start), and the group's backend."""
+    import hashlib
+    import io
+
+    import torch
+
+    from nbody_torch.ops import cuda_allpairs, cuda_group_eval, cuda_tree_walk
+
+    counted = (cuda_group_eval, cuda_allpairs, cuda_tree_walk)
+    for module in counted:
+        module.reset_launch_counts()
+    on_card = mesh.device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    out = io.StringIO()
+    state = simulate(args, mesh.device, out, mesh.rank)
+    digest = hashlib.sha256()
+    for arr in state.to_numpy().values():
+        digest.update(arr.tobytes())
+    return {"rank": mesh.rank, "text": out.getvalue() if mesh.rank == 0 else "",
+            "state_digest": digest.hexdigest(),
+            "launches": {k: v for module in counted for k, v in module.launch_counts.items()},
+            "peak_memory": torch.cuda.max_memory_allocated(mesh.device) if on_card else None,
+            "backend": mesh.backend, "device": str(mesh.device),
+            "ranks_per_card": mesh.ranks_per_card}
+
+
+def run_mesh(args: dict, device, out=None) -> list[dict]:
+    """--mesh N > 1: the simulation on N ranks (parallel.launch), rank 0's
+    text written to `out`. Raises if the ranks' final states differ.
+    Returns the ranks' reports (mesh_rank)."""
+    from nbody_torch.parallel import launch
+
+    reports = launch.spawn(args["mesh"], device.type, mesh_rank, args)
+    (sys.stdout if out is None else out).write(reports[0]["text"])
+    differ = [r["rank"] for r in reports if r["state_digest"] != reports[0]["state_digest"]]
+    if differ:
+        raise RuntimeError(f"--mesh {args['mesh']}: the final states of ranks {differ} differ "
+                           "from rank 0's")
+    return reports
+
+
+def main(argv: list[str] | None = None, out=None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    args = parse_args(list(argv))
+    missing = _unported(args)
+    if missing:
+        print(f"{missing} is not yet ported to nbody_torch.", file=sys.stderr)
+        raise SystemExit(1)
+    device = resolve_device(args["device"])
+    if args["mesh"] > 1:
+        run_mesh(args, device, out)
+    else:
+        simulate(args, device, out)
     return 0
 
 

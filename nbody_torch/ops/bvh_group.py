@@ -64,7 +64,7 @@ from nbody_torch.ops.cuda_group_eval import (entries_lohi_eval_cuda, group_eval_
                                              window_eval_dense_cuda, window_eval_nodemask_cuda)
 from nbody_torch.ops.octree_group import (_box_dist2, ablate_tokens, compact_rows, exact_fallback,
                                           live_heads, merge_contiguous_entries, overflow_causes,
-                                          tile_boxes, unique_blocks)
+                                          row_range, tile_boxes, unique_blocks)
 
 BIG = 1 << 30  # sort sentinel of the residual node ids
 # The ablate tokens of nbody_tpu's windowed path that the port runs:
@@ -102,7 +102,7 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
                                    theta: float, G: float, eps: float, tile: int = 512,
                                    window_tiles: int = 32, e_chunk: int = 24576,
                                    s_target: int = 512, refine_levels: int | None = None,
-                                   ablate: str = ""):
+                                   ablate: str = "", row_start: int = 0, nrows: int | None = None):
     """Gather-free grouped BVH force (float32). m, x are the Hilbert-sorted
     bodies and tree their refit; an L* node covers min(s_target, tile)
     bodies, and the residual's nodes S2 = S / 2^R after refine_levels R
@@ -111,7 +111,16 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
     fallback_tiles, node_overflow, leaf_overflow, entries, res_pairs,
     bad_entries, res_width_sum, res_unique_blocks and
     res_pass_0..res_pass_nsub. ablate: comma-separated tokens of
-    BVH_ABLATE (see the module docstring)."""
+    BVH_ABLATE (see the module docstring).
+
+    Row-range mode (nrows given; bvh_group.py:548-556, the replicated
+    multi-device layout): only the rows [row_start, row_start + nrows) of
+    the sorted bodies are evaluated, against the whole tree and body arrays,
+    and the result has nrows rows. The lists, windows and fallback are built
+    for those tiles alone; the windows and the entries still address the
+    whole tile-padded arrays (the pad is not widened to d_block, which
+    halves instead until it divides it). nrows and row_start are multiples
+    of the tile, and the range lies inside the tile-padded bodies."""
     tokens = ablate_tokens(ablate, BVH_ABLATE)
     n, dim = x.shape
     dev, dtype = x.device, x.dtype
@@ -123,16 +132,21 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
 
     # ---- tiles, the d_block-widened pad, L*, S and Sd (:544-629) -------
     d_block = 4096 if dim == 3 else 2048
-    ntiles = -(-n // tile)
-    npad = ntiles * tile
-    if npad % d_block:  # a residual block wider than the pad needs npad % Sd == 0
+    ntiles_g = -(-n // tile)
+    npad_g = ntiles_g * tile
+    # a residual block wider than the pad needs npad % Sd == 0; a row range keeps the pad
+    if nrows is None and npad_g % d_block:
         lcm = tile * d_block // math.gcd(tile, d_block)
-        npad = -(-n // lcm) * lcm
-        ntiles = npad // tile
-    xp = torch.nn.functional.pad(x, (0, 0, 0, npad - n))
-    mp = torch.nn.functional.pad(m, (0, npad - n))
+        npad_g = -(-n // lcm) * lcm
+        ntiles_g = npad_g // tile
+    xp_g = torch.nn.functional.pad(x, (0, 0, 0, npad_g - n))
+    mp_g = torch.nn.functional.pad(m, (0, npad_g - n))
+    out_rows = n if nrows is None else nrows
+    row_start, nrows = row_range(row_start, nrows, tile, npad_g)
+    ntiles = nrows // tile
+    xp = xp_g[row_start:row_start + nrows]
     xt = xp.view(ntiles, tile, dim)
-    valid = (torch.arange(npad, device=dev) < n).view(ntiles, tile)
+    valid = (row_start + torch.arange(nrows, device=dev) < n).view(ntiles, tile)
     xt_real = torch.where(valid[:, :, None], xt, xt[:, :1, :])  # padding tiles sit at the origin
     tmin, tmax = xt_real.amin(1), xt_real.amax(1)
 
@@ -142,8 +156,8 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
     while S > tile and level_star < nlevels:
         level_star += 1
         S = 1 << (nlevels - level_star)
-    Sd = max(S, min(128, npad))
-    while d_block > S and (d_block % S or npad % d_block):
+    Sd = max(S, min(128, npad_g))
+    while d_block > S and (d_block % S or npad_g % d_block):
         d_block //= 2
     if d_block > S:
         Sd = d_block
@@ -174,12 +188,12 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
     open_mask = open_mask & (mm[lvl_lo:lvl_lo + nodes_total] > 0)[None, :]  # dead nodes
 
     # ---- near field: a window of wt tiles around each tile (:658-703) --
-    wt = min(window_tiles, ntiles)
+    wt = min(window_tiles, ntiles_g)
     npt = tile // S
     wnodes = wt * npt
     t_idx = torch.arange(ntiles, **i64)
     wjf = 4 if wt % 4 == 0 else (2 if wt % 2 == 0 else 1)
-    w0 = (t_idx - wt // 2).clamp(0, ntiles - wt)
+    w0 = (row_start // tile + t_idx - wt // 2).clamp(0, ntiles_g - wt)  # global tiles
     w0 = (w0 // wjf) * wjf
     w0n = w0 * npt
     col = w0n[:, None] + torch.arange(wnodes, **i64)[None, :]
@@ -187,9 +201,10 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
     w0_i32 = w0.to(torch.int32)
     if "densemask" in tokens or wjf * npt > 64:  # the dense branch: in_win broadcast S-fold
         body_mask = in_win.to(dtype)[:, :, None].expand(ntiles, wnodes, S).reshape(ntiles, wt * tile)
-        near = window_eval_dense_cuda(xp, mp, xp, w0_i32, body_mask, eps, wt, "poly")
+        near = window_eval_dense_cuda(xp, mp_g, xp_g, w0_i32, body_mask, eps, wt, "poly")
     else:
-        near = window_eval_nodemask_cuda(xp, mp, xp, w0_i32, in_win, eps, wt, S, "poly")
+        near = window_eval_nodemask_cuda(xp, mp_g, xp_g, w0_i32, in_win, eps, wt, S,
+                                         "poly")
 
     # ---- residual: open nodes outside the window (:705-777) -----------
     all_nodes = torch.arange(nodes_total, **i64)[None, :]
@@ -269,7 +284,7 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
     entries = ((entries_gbe & ~0xFFFF) | blk_tbl[gidx]).to(torch.int32)
     entries, lohis, n_merged = merge_contiguous_entries(entries, lohi_tbl[gidx], end_rank[-1],
                                                         (ntiles - 1) << 16)
-    resid_args = (xp, mp, xp, entries, lohis, n_merged, Sd, ntiles, eps, "poly")
+    resid_args = (xp, mp_g, xp_g, entries, lohis, n_merged, Sd, ntiles, eps, "poly")
     if "packedj" in tokens:
         resid = entries_lohi_eval_cuda(*resid_args, packed=True)
     else:
@@ -297,7 +312,7 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
         "res_unique_blocks": unique_blocks(entries, n_merged),
         **{f"res_pass_{k}": v for k, v in enumerate(res_pass)},
     }
-    return G * acc[:n], info
+    return G * acc[:out_rows], info
 
 
 # --------------------------------------------------------------------------
@@ -316,8 +331,9 @@ def default_caps(n: int, theta: float) -> tuple[int, int]:
 
 def compute_force_grouped(tree: BVHTree, m: torch.Tensor, x: torch.Tensor, theta: float,
                           G: float, eps: float, tile: int = 512, cap_nodes: int | None = None,
-                          cap_leaves: int | None = None, use_cuda: bool = True):
-    """The BVH's list path (bvh_group.py:76-335, nrows=None): per tile of
+                          cap_leaves: int | None = None, use_cuda: bool = True,
+                          row_start: int = 0, nrows: int | None = None):
+    """The BVH's list path (bvh_group.py:76-335): per tile of
     `tile` Hilbert-sorted bodies, an interaction list from a
     level-synchronous walk of the heap with the group MAC
     bw^2 < theta^2 * dmin(tile box, COM)^2, then one evaluation of every
@@ -336,7 +352,10 @@ def compute_force_grouped(tree: BVHTree, m: torch.Tensor, x: torch.Tensor, theta
     tiles that overflow, which the fallback overwrites: live_heads), or its
     plain twin where not use_cuda (--kernel torch); the fallback
     allpairs_block_cuda(..., "poly") or its twin. One host read per call.
-    Returns (G * accel in sorted order, info)."""
+    Returns (G * accel in sorted order, info). With nrows (bvh_group.py:
+    123-131) only the rows [row_start, row_start + nrows) are evaluated,
+    against the whole tree and bodies, and the result has nrows rows
+    (row_range's rules)."""
     n, dim = x.shape
     dev, dtype = x.device, x.dtype
     if cap_nodes is None or cap_leaves is None:
@@ -345,7 +364,7 @@ def compute_force_grouped(tree: BVHTree, m: torch.Tensor, x: torch.Tensor, theta
     nlevels = tree.nlevels
     nnodes = (1 << nlevels) - 1
     theta2 = torch.full((), float(theta) ** 2, dtype=dtype, device=dev)
-    xt, tmin, tmax = tile_boxes(x, tile)
+    xt, tmin, tmax = tile_boxes(x, tile, row_start, nrows)
     ntiles = xt.shape[0]
     mm, mx, w2 = tree.mm, tree.mx, tree.bw * tree.bw
     width = max(cap_nodes, cap_leaves)  # nbody_tpu's F
@@ -416,7 +435,8 @@ def compute_force_grouped(tree: BVHTree, m: torch.Tensor, x: torch.Tensor, theta
     acc = evaluate(xt.reshape(-1, dim), mj_list, xj_list, eps, "poly", cap_nodes,
                    *live_heads(ncnt, 2 * lcnt, tile_over))
     del mj_list, xj_list
-    return _finish_grouped(acc, xt, causes, tile_over, ncnt, lcnt, m, x, G, eps, use_cuda)
+    return _finish_grouped(acc, xt, causes, tile_over, ncnt, lcnt, m, x, G, eps, use_cuda,
+                           n if nrows is None else nrows)
 
 
 BVH_CAUSES = ("frontier", "nodes", "leaves")
@@ -424,14 +444,15 @@ BVH_CAUSES = ("frontier", "nodes", "leaves")
 
 def _finish_grouped(acc: torch.Tensor, xt: torch.Tensor, causes: torch.Tensor,
                     tile_over: torch.Tensor, ncnt: torch.Tensor, lcnt: torch.Tensor,
-                    m: torch.Tensor, x: torch.Tensor, G: float, eps: float, use_cuda: bool):
+                    m: torch.Tensor, x: torch.Tensor, G: float, eps: float, use_cuda: bool,
+                    out_rows: int):
     """The exact poly fallback over the tiles that overflowed (causes (T,
     3) bool: frontier, node cap, leaf cap; tile_over, any of them) and the
-    info dict (bvh_group.py:338-415)."""
+    info dict (bvh_group.py:338-415); the result's first out_rows rows."""
     n_over = tile_over.sum()
     exact_fallback(acc, xt, tile_over, int(n_over), m, x, eps, "poly", use_cuda)
     zero = torch.zeros((), dtype=torch.int32, device=x.device)
     info = {"max_nodes": ncnt.max(), "max_leaves": lcnt.max(), "fallback_tiles": n_over,
             "node_overflow": zero, "leaf_overflow": zero,  # the fallback truncates nothing
             **overflow_causes(causes, BVH_CAUSES)}
-    return G * acc[:x.shape[0]], info
+    return G * acc[:out_rows], info

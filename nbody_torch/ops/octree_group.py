@@ -141,7 +141,8 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
                                window_tiles: int = 32, s_block: int | None = None,
                                far_heap_cap: int | None = None, e_chunk: int = 24576,
                                ablate: str = "", descend_levels: int = 0, descend_G: int = 8,
-                               descend_caps: tuple = (1024, 1024, 2048), descend_maxb: int = 4):
+                               descend_caps: tuple = (1024, 1024, 2048), descend_maxb: int = 4,
+                               row_start: int = 0, nrows: int | None = None):
     """Gather-free grouped octree force (float32). ms, xs, keys are the
     Morton-sorted bodies and their full-depth int64 keys. Returns
     (G * accel in sorted order, info) with info's counters as device
@@ -154,7 +155,16 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
     descend_final_mass.
     ablate: comma-separated tokens of OCTREE_ABLATE (see the module
     docstring); descend_*: the descent's levels, supertile, caps (k0, k,
-    m) and blocks per survivor, nbody_tpu's names and defaults."""
+    m) and blocks per survivor, nbody_tpu's names and defaults.
+
+    Row-range mode (nrows given; octree_group.py:615-650, the replicated
+    multi-device layout): only the rows [row_start, row_start + nrows) of
+    the sorted bodies are evaluated, against the whole heap and bodies, and
+    the result has nrows rows. L*, S, the window's tile range and the run
+    table are sized from the whole tile-padded body count (the pad is not
+    widened to S, which halves instead until it divides it); the masks,
+    entries and fallback are built for the range's tiles alone
+    (row_range's rules)."""
     tokens = ablate_tokens(ablate, OCTREE_ABLATE)
     if "desc1" in tokens:
         descend_levels = 1
@@ -169,33 +179,37 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
     i64 = dict(dtype=torch.int64, device=dev)
 
     # ---- tiles, padding and sizing (octree_group.py:615-715) ----------
-    ntiles = -(-n // tile)
-    npad = ntiles * tile
+    ntiles_g = -(-n // tile)
+    npad_g = ntiles_g * tile
     s_req = s_block if s_block is not None else (8192 if dim == 3 else 2048)
-    s_req = max(128, min(s_req, npad))
-    if npad % s_req:  # npad must be a multiple of both tile and S
+    s_req = max(128, min(s_req, npad_g))
+    if nrows is None and npad_g % s_req:  # the pad must be a multiple of both tile and S
         lcm = tile * s_req // math.gcd(tile, s_req)
-        npad = -(-n // lcm) * lcm
-        ntiles = npad // tile
-    xp = torch.nn.functional.pad(xs, (0, 0, 0, npad - n))
-    mp = torch.nn.functional.pad(ms, (0, npad - n))
+        npad_g = -(-n // lcm) * lcm
+        ntiles_g = npad_g // tile
+    xp_g = torch.nn.functional.pad(xs, (0, 0, 0, npad_g - n))
+    mp_g = torch.nn.functional.pad(ms, (0, npad_g - n))
+    out_rows = n if nrows is None else nrows
+    row_start, nrows = row_range(row_start, nrows, tile, npad_g)
+    ntiles = nrows // tile
+    xp = xp_g[row_start:row_start + nrows]
     xt = xp.view(ntiles, tile, dim)
-    validb = (torch.arange(npad, device=dev) < n).view(ntiles, tile)
+    validb = (row_start + torch.arange(nrows, device=dev) < n).view(ntiles, tile)
     xt_real = torch.where(validb[:, :, None], xt, xt[:, :1, :])
     tmin, tmax = xt_real.amin(1), xt_real.amax(1)
 
     occ = 8 if dim == 3 else 4
     level_star = 1
-    while (1 << (dim * level_star)) * 256 < npad * occ and level_star < depth:
+    while (1 << (dim * level_star)) * 256 < npad_g * occ and level_star < depth:
         level_star += 1
     S = s_block if s_block is not None else (8192 if dim == 3 else 2048)
-    S = max(128, min(S, npad))
-    while npad % S:
+    S = max(128, min(S, npad_g))
+    while npad_g % S:
         S //= 2
-    while npad // S > 16384:
+    while npad_g // S > 16384:
         S *= 2
     # the run table's entries pack a 16-bit gbe index
-    while (1 << (dim * level_star)) + npad // S + 1 > (1 << 16) and level_star > 1:
+    while (1 << (dim * level_star)) + npad_g // S + 1 > (1 << 16) and level_star > 1:
         level_star -= 1
     C = 1 << (dim * level_star)
     if ntiles > (1 << 15):  # the tile id packs into 16 bits of an int32 entry
@@ -231,18 +245,18 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
         com.append(torch.where((cnt[level] == 1)[:, None], single, c))
 
     # ---- near-field window, snapped to L* cell boundaries -------------
-    wt = min(window_tiles, ntiles)
+    wt = min(window_tiles, ntiles_g)
     t_idx = torch.arange(ntiles, **i64)
     wjf = 4 if wt % 4 == 0 else (2 if wt % 2 == 0 else 1)
-    w0 = (t_idx - wt // 2).clamp(0, ntiles - wt)
+    w0 = (row_start // tile + t_idx - wt // 2).clamp(0, ntiles_g - wt)  # global tiles
     w0 = (w0 // wjf) * wjf
     w0_body = w0 * tile
     w1_body = w0_body + wt * tile
-    cell_of_pad = torch.cat([cellid, torch.full((npad - n,), C, **i64)])
+    cell_of_pad = torch.cat([cellid, torch.full((npad_g - n,), C, **i64)])
     cs_arr = torch.cumsum(counts_L, 0) - counts_L
     ce_arr = cs_arr + counts_L
-    c0 = cell_of_pad[w0_body.clamp(0, npad - 1)]
-    c1 = cell_of_pad[(w1_body - 1).clamp(0, npad - 1)]
+    c0 = cell_of_pad[w0_body.clamp(0, npad_g - 1)]
+    c1 = cell_of_pad[(w1_body - 1).clamp(0, npad_g - 1)]
     c0c, c1c = c0.clamp(0, C - 1), c1.clamp(0, C - 1)
     lo_t = torch.where(cs_arr[c0c] == w0_body, w0_body, ce_arr[c0c])
     hi_t = torch.where(c1 >= C, torch.full_like(c1, n),
@@ -324,12 +338,12 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
     #      descent's survivors below it ----------------------------------
     if r_levels == 0:
         entries, lohis, n_merged, ent_count, r_slice, tile_over, n_raw = _base_entries(
-            open_mask, cell_of_pad, C, npad, n, S, ntiles, e_chunk, t_idx, dim)
+            open_mask, cell_of_pad, C, npad_g, n, S, ntiles, e_chunk, t_idx, dim)
         mono_args = None
     else:
         (entries, lohis, n_merged, ent_count, r_slice, tile_over, n_raw, mono_args,
          desc_info) = _descend_entries(open_mask, cnt, mass, mx, cmin, cmax, level_star, r_levels,
-                                       xs, tmin, tmax, theta2, ntiles, npad, S, e_chunk, t_idx,
+                                       xs, tmin, tmax, theta2, ntiles, npad_g, S, e_chunk, t_idx,
                                        descend_G, descend_caps, descend_maxb)
         info.update(desc_info)
     tile_over = tile_over | far_over
@@ -354,12 +368,13 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
     if "densemask" in tokens:  # the window as a dense body mask (:1117-1126)
         cols = w0_body[:, None] + torch.arange(wt * tile, **i64)[None, :]
         bmask = ((cols >= lo_t[:, None]) & (cols < hi_t[:, None])).to(dtype)
-        win = window_eval_dense_cuda(xp, mp, xp, w0.to(torch.int32), bmask, eps, wt, "sqrt3")
+        win = window_eval_dense_cuda(xp, mp_g, xp_g, w0.to(torch.int32), bmask, eps, wt,
+                                     "sqrt3")
         del cols, bmask
     else:
-        win = window_eval_interval_cuda(xp, mp, xp, w0.to(torch.int32), lo_t.to(torch.int32),
+        win = window_eval_interval_cuda(xp, mp_g, xp_g, w0.to(torch.int32), lo_t.to(torch.int32),
                                         hi_t.to(torch.int32), eps, wt, "sqrt3")
-    near_args = (xp, mp, xp, entries, lohis, n_merged, S, ntiles, eps, "sqrt3")
+    near_args = (xp, mp_g, xp_g, entries, lohis, n_merged, S, ntiles, eps, "sqrt3")
     if "packedj" in tokens:
         near = entries_lohi_eval_cuda(*near_args, packed=True)
     else:  # the default path's call, as before the ablation path existed
@@ -384,7 +399,7 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
         "window_capacity": torch.full((), ntiles * wt * tile, **i64),
         "node_overflow": torch.zeros((), dtype=torch.int32, device=dev),
     })
-    return G * acc[:n], info
+    return G * acc[:out_rows], info
 
 
 def unique_blocks(entries: torch.Tensor, n_real: torch.Tensor) -> torch.Tensor:
@@ -632,13 +647,34 @@ def live_heads(ncnt: torch.Tensor, lcnt: torch.Tensor, tile_over: torch.Tensor):
             torch.where(tile_over, 0, lcnt).to(torch.int32))
 
 
-def tile_boxes(x: torch.Tensor, tile: int):
-    """The zero-padded bodies as (T, tile, dim) row tiles, and each tile's
-    box over its real bodies (a padding row takes the tile's first body)."""
+def row_range(row_start: int, nrows: int | None, tile: int, npad: int) -> tuple[int, int]:
+    """The rows [row_start, row_start + nrows) that a group path evaluates:
+    all npad tile-padded rows where nrows is None, else the range the
+    caller gives (nbody_tpu's row-range mode, the replicated multi-device
+    layout), which must start and end on a tile boundary inside them."""
+    if nrows is None:
+        return 0, npad
+    if nrows <= 0 or nrows % tile or row_start % tile:
+        raise ValueError(f"rows [{row_start}, {row_start} + {nrows}) do not fall on tiles of "
+                         f"{tile}")
+    if not 0 <= row_start <= npad - nrows:
+        raise ValueError(f"rows [{row_start}, {row_start + nrows}) lie outside the {npad} "
+                         "tile-padded bodies")
+    return row_start, nrows
+
+
+def tile_boxes(x: torch.Tensor, tile: int, row_start: int = 0, nrows: int | None = None):
+    """The zero-padded bodies of the rows [row_start, row_start + nrows)
+    (all of them where nrows is None) as (T, tile, dim) row tiles, and
+    each tile's box over its real bodies (a padding row takes the tile's
+    first body)."""
     n, dim = x.shape
-    ntiles = -(-n // tile)
-    xt = torch.nn.functional.pad(x, (0, 0, 0, ntiles * tile - n)).view(ntiles, tile, dim)
-    valid = (torch.arange(ntiles * tile, device=x.device) < n).view(ntiles, tile)
+    npad = -(-n // tile) * tile
+    row_start, nrows = row_range(row_start, nrows, tile, npad)
+    ntiles = nrows // tile
+    xp = torch.nn.functional.pad(x, (0, 0, 0, npad - n))
+    xt = xp[row_start:row_start + nrows].view(ntiles, tile, dim)
+    valid = (row_start + torch.arange(nrows, device=x.device) < n).view(ntiles, tile)
     xt_real = torch.where(valid[:, :, None], xt, xt[:, :1, :])
     return xt, xt_real.amin(1), xt_real.amax(1)
 
@@ -647,8 +683,9 @@ def compute_force_grouped(levels: OctreeLevels, ms: torch.Tensor, xs: torch.Tens
                           root_side: torch.Tensor, theta: float, G: float, eps: float,
                           tile: int = 512, cap_nodes: int | None = None,
                           cap_leaves: int | None = None, use_cuda: bool = True,
-                          tile_chunk: int = TILE_CHUNK):
-    """The octree's list path (octree_group.py:143-478, nrows=None): per
+                          tile_chunk: int = TILE_CHUNK, row_start: int = 0,
+                          nrows: int | None = None):
+    """The octree's list path (octree_group.py:143-478): per
     tile of `tile` Morton-sorted bodies, an interaction list from a
     level-synchronous traversal with the group MAC
     side_l^2 < theta^2 * dmin(tile box, COM)^2 (side_l = root_side / 2^l),
@@ -676,7 +713,10 @@ def compute_force_grouped(levels: OctreeLevels, ms: torch.Tensor, xs: torch.Tens
     the fallback takes allpairs_block_cuda(..., "sqrt3") or its twin. One
     host read per call: the fallback count. Returns (G * accel in sorted
     order, info) with device counters max_nodes, max_leaves,
-    fallback_tiles, node_overflow and leaf_overflow."""
+    fallback_tiles, node_overflow and leaf_overflow. With nrows
+    (octree_group.py:184-199) only the rows [row_start, row_start + nrows)
+    are evaluated, against the whole tree and bodies, and the result has
+    nrows rows (row_range's rules)."""
     n, dim = xs.shape
     dev, dtype = xs.device, xs.dtype
     if cap_nodes is None or cap_leaves is None:
@@ -684,7 +724,7 @@ def compute_force_grouped(levels: OctreeLevels, ms: torch.Tensor, xs: torch.Tens
         cap_nodes, cap_leaves = cap_nodes or cn, cap_leaves or cl
     theta2 = torch.full((), float(theta) ** 2, dtype=dtype, device=dev)
     side = [root_side / float(1 << level) for level in range(levels.depth + 1)]
-    xt, tmin, tmax = tile_boxes(xs, tile)
+    xt, tmin, tmax = tile_boxes(xs, tile, row_start, nrows)
     ntiles = xt.shape[0]
 
     parts = [_octree_lists(levels, tmin[c:c + tile_chunk], tmax[c:c + tile_chunk], side, theta2,
@@ -719,7 +759,7 @@ def compute_force_grouped(levels: OctreeLevels, ms: torch.Tensor, xs: torch.Tens
     info = {"max_nodes": ncnt.max(), "max_leaves": lcnt.max(), "fallback_tiles": n_over,
             "node_overflow": zero, "leaf_overflow": zero,  # the fallback truncates nothing
             **overflow_causes(causes, OCTREE_CAUSES)}
-    return G * acc[:n], info
+    return G * acc[:n if nrows is None else nrows], info
 
 
 OCTREE_CAUSES = ("frontier", "nodes", "leaves", "k_cell")

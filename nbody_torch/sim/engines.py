@@ -48,6 +48,9 @@ class EngineOptions:
     group_tile: int = 512       # bodies per tile in group traversal
     refine: int = -1            # BVH residual refinement levels (-1 = auto)
     window_tiles: int = 32      # tree near-field window width (body tiles)
+    mesh: int = 1               # ranks to shard the bodies over (parallel/)
+    mesh_layout: str = "replicated"  # replicated|partitioned tree layout
+    mesh_tile: int = 1          # partitioned 2-D mesh: tile-axis shards
 
 
 def sync(device: torch.device) -> None:
@@ -88,7 +91,17 @@ class AllPairsEngine:
                   device: torch.device) -> Callable[[SystemState], torch.Tensor]:
         """state -> acceleration. `auto` and `cuda` take the CUDA kernel's
         wrapper (which runs its plain twin for CPU tensors); `torch` the
-        plain torch path on any device. Both precisions go through the kernel."""
+        plain torch path on any device. Both precisions go through the kernel.
+        With --mesh N > 1 the ring over this rank's group (parallel/ring.py;
+        nbody_tpu engines.py:93-96), whatever --mesh-layout says."""
+        if opts.mesh > 1:
+            from nbody_torch.parallel import mesh, ring
+
+            use_cuda = opts.kernel != "torch"
+            if use_cuda:
+                check_kernel_backend(opts, device)
+            accel = ring.make_ring_allpairs(cfg, mesh.current(device, opts.mesh), use_cuda)
+            return lambda s: accel(s.m, s.x)
         if opts.kernel == "torch":
             return lambda s: allpairs_accel(s.m, s.x, cfg.G, cfg.eps)
         check_kernel_backend(opts, device)

@@ -21,6 +21,10 @@ synchronisation, see ops/octree_group). Overflow counts stay on the
 device and are read once after the loop. The engine builds and loads the
 CUDA kernels when the step is made, before the timer starts, and the timer
 reads the clock after torch.cuda.synchronize() at both ends.
+
+Under --mesh N every rank runs this loop with the same flags, so that the
+engines' collectives meet in step; the CLI (cli.mesh_rank) keeps rank 0's
+output and lets no other rank write a file.
 """
 
 from __future__ import annotations

@@ -10,6 +10,11 @@ precision: its CUDA kernel (csrc/tree_walk.cu) on a GPU, its plain twin
 under --kernel torch or on the CPU. The bvh re-sorts on the steps k with
 k % --sort-every == 0 and builds its tree over the current order on the
 others (tree_engines.py:61-95); --refine-levels reaches its fast path.
+With --mesh N > 1 (the replicated layout, tree_engines.py:58-59, :97-120,
+:228-249) the step is parallel/tree_sharded's, on the same split of fast
+and list paths; it ignores --sort-every, --traversal, --refine-levels and
+--window-tiles, as nbody_tpu's does, and --csv-detailed ignores the mesh:
+every rank times the single-device phases.
 
 Phases of --csv-detailed mirror the reference's columns:
   bvh:    force, accel, bbox, sort, multipoles, force approx  (bvh.h:342)
@@ -53,6 +58,17 @@ def _paths(cfg: SimConfig, opts: EngineOptions, device: torch.device):
     return np.dtype(cfg.dtype) != np.float32 or not use_cuda, use_cuda
 
 
+def _mesh(opts: EngineOptions, device: torch.device):
+    """This rank's mesh for --mesh > 1: the replicated layout only (the
+    partitioned one, nbody_tpu's parallel/tree_partitioned.py, is not yet
+    ported)."""
+    from nbody_torch.parallel import mesh
+
+    if opts.mesh_layout != "replicated":
+        raise ValueError(f"--mesh-layout {opts.mesh_layout} is not yet ported to nbody_torch")
+    return mesh.current(device, opts.mesh)
+
+
 class BVHEngine:
     """Hilbert-sorted implicit BVH (ref: src/bvh.h). The sort reorders the
     state every step and it stays reordered."""
@@ -63,6 +79,11 @@ class BVHEngine:
 
     def make_step(self, cfg: SimConfig, opts: EngineOptions, device: torch.device):
         list_path, use_cuda = _paths(cfg, opts, device)
+        if opts.mesh > 1:
+            from nbody_torch.parallel.tree_sharded import make_sharded_bvh_step
+
+            return make_sharded_bvh_step(cfg, _mesh(opts, device), opts.group_tile, list_path,
+                                         use_cuda)
         sort_every = max(1, opts.sort_every)
         refine = None if opts.refine < 0 else opts.refine
 
@@ -110,6 +131,11 @@ class OctreeEngine:
 
     def make_step(self, cfg: SimConfig, opts: EngineOptions, device: torch.device):
         list_path, use_cuda = _paths(cfg, opts, device)
+        if opts.mesh > 1:
+            from nbody_torch.parallel.tree_sharded import make_sharded_octree_step
+
+            return make_sharded_octree_step(cfg, _mesh(opts, device), opts.group_tile, list_path,
+                                            use_cuda)
         depth = max_depth(cfg.n, cfg.dim)
 
         def step(state: SystemState, k: int):

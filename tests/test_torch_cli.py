@@ -97,8 +97,8 @@ def test_port_flag_values_checked(argv):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--algorithm", "bvh", "--mesh", "2"],
-    ["--algorithm", "all-pairs", "--mesh", "2"],
+    ["--algorithm", "bvh", "--mesh", "2", "--mesh-layout", "partitioned"],
+    ["--algorithm", "octree", "--mesh", "2", "--mesh-layout", "partitioned"],
 ])
 def test_unported_features_exit_1(argv, capsys):
     with pytest.raises(SystemExit) as e:
@@ -315,9 +315,13 @@ def test_port_imports_no_jax():
         "import io, sys\n"
         "import nbody_torch.cli, nbody_torch.ops.cuda_allpairs, nbody_torch.sim.runner\n"
         "import nbody_torch.probe, nbody_torch.ops.cuda_group_eval, nbody_torch.sim.tree_engines\n"
+        "import nbody_torch.parallel.dryrun, nbody_torch.parallel.launch\n"
+        "import nbody_torch.parallel.ring, nbody_torch.parallel.tree_sharded\n"
         "for algo in ('all-pairs', 'octree', 'bvh'):\n"
         "    nbody_torch.cli.main(['-n', '64', '-s', '11', '--algorithm', algo,\n"
         "                          '--csv-total', '--device', 'cpu'], out=io.StringIO())\n"
+        "nbody_torch.cli.main(['-n', '64', '-s', '11', '--mesh', '2', '--csv-total',\n"
+        "                      '--device', 'cpu'], out=io.StringIO())\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'nbody_tpu')))\n"
         "assert not bad, bad\n"
     )
