@@ -281,6 +281,34 @@ Phases, each printed on its own lines:
      c. NCCL: with 2 cards or more the runs above went over it; on one
         card a world of one over NCCL sets up its group and runs the dry
         run, and the script says that NCCL was not exercised across cards.
+ 13. the partitioned layout (nbody_torch/parallel/tree_partitioned.py and
+     distributed_sort.py), 4 ranks on the card(s):
+     a. the --mesh CLI with --mesh-layout partitioned at -n 1048576 -s 12
+        --csv-total: octree and bvh 3-D on 4 body ranks, the octree 3-D on
+        2 x 2 (--mesh 2 --mesh-tile 2) and 2-D on 4, float32; the float64
+        octree (plain torch) at 65,536 bodies on 4. The first through
+        cli.run_mesh, the others in one spawn with 13b's steps. For each:
+        s/step beside the single-device run's and 12a's replicated 4-rank
+        run's where there is one, each rank's peak memory; every rank of a
+        float32 run must launch masked_eval_bits_kernel and
+        window_eval_interval_kernel, and end with the same gathered state;
+     b. one step (dt 0) of each partitioned path on a 65,536-body float32
+        galaxy: octree and bvh 3-D and 2-D on 4 body ranks, both 3-D on
+        2 x 2; against the same step with --kernel torch (max |diff| / max
+        |a| at most 1e-4, the same sorted positions), at theta 0 against
+        the direct sum by allpairs_block_kernel with the tree's softening
+        (at most 1e-5), at theta 0.5 a relative L2 error against it below
+        0.01; beyond_budget=1 (the ring) against the exchange (1e-4); each
+        step's comm accounting printed;
+     c. window_eval_interval_kernel at the partitioned shape of a middle
+        body rank at 2^20 (262,144 rows against its 786,432-row window), in
+        tiles of 256 and of 512 rows (the port's call), timed on the card
+        alone, beside the FLOP bound and the MUFU floor; both tilings held
+        on the first and the last 512 rows against the plain twin;
+     d. one step of the partitioned octree 3-D and 2-D and bvh 3-D at 2^20
+        on 4 ranks, every masked_eval_bits_cuda call of each rank (the far
+        field, the beyond sets by exchange or ring) held on 4 of its tiles
+        against masked_eval_bits_torch on the same packed words.
 Phase 2's bounds (bound_ms in the kernels line): pairs times 5*dim + 3
 FLOPs (+1 under sqrt3; 3*dim + 3 for the potential) over 67 TFLOP/s in
 float32 or 34 in float64. Beside the float32 times it prints, and keeps
@@ -367,6 +395,10 @@ The walks' launches come from the two per-body runs of phase 11b.
 Phase 12 adds to each kernel it launched "mesh_launches", the launches of
 12a's --mesh runs summed over their ranks (the octree's far, window and
 entries kernels under their <sqrt3> names, the BVH's under <poly>).
+Phase 13 adds "partitioned_launches" to rows 4 and 5, the launches of
+13a's float32 runs summed over their ranks (the far field under the
+tree's softening; the BVH's window, its poly instantiation, as
+"partitioned_poly_launches" of the <sqrt3> entry).
 Phase 11's bounds: a body's accepted nodes and direct pairs times the
 FLOPs of a pair (5*dim + 3, one more under the octree's sqrt3), plus its
 accepted and opened nodes times 3 (a MAC test beyond its separation),
@@ -557,7 +589,9 @@ def main() -> int:
     probe_kernels = probe_phases(dev, big, probe_sass)
     walk_kernels = walk_phases(dev, big, walk_sass)
     # phase 3's run is 12a's single-device all-pairs run
-    mesh_launches = mesh_phases(dev, {mesh_key("all-pairs", 3, "float", big): per_step})
+    single_steps, mesh_steps = {mesh_key("all-pairs", 3, "float", big): per_step}, {}
+    mesh_launches = mesh_phases(dev, single_steps, mesh_steps)
+    part_launches = partitioned_phases(dev, single_steps, mesh_steps)
 
     runs = {ca.NEWTON: (phase3_launches, f"phase 3: {big}-body 3-D all-pairs --csv-total"),
             ca.NEWTON64: (list_launches, f"phase 7b: {big}-body 3-D octree --precision double "
@@ -582,6 +616,8 @@ def main() -> int:
         if mesh_launches.get(entry["name"]):
             entry["mesh_launches"] = mesh_launches[entry["name"]]
             entry["mesh_launches_in"] = "phase 12a: the --mesh CLI runs, summed over their ranks"
+        if part_launches.get(entry["name"]):
+            entry.update(part_launches[entry["name"]])
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3407,12 +3443,13 @@ def mesh_entry_name(algorithm: str, kernel: str) -> str:
     return kernel
 
 
-def mesh_phases(dev, single_steps: dict) -> dict:
+def mesh_phases(dev, single_steps: dict, mesh_steps: dict) -> dict:
     """Phase 12: the --mesh CLI at full size (12a), one step of each
     sharded path against the single-device step (12b), the backends
     (12c). single_steps maps a CLI argv (without --mesh) to its s/step
-    where an earlier phase ran it. Returns the launches of 12a's runs,
-    summed over their ranks, by the kernels line's names."""
+    where an earlier phase ran it, and gains the others; mesh_steps gains
+    each 12a run's s/step, by MESH_RUNS entry. Returns the launches of
+    12a's runs, summed over their ranks, by the kernels line's names."""
     import torch
 
     from nbody_torch import cli
@@ -3469,6 +3506,7 @@ def mesh_phases(dev, single_steps: dict) -> dict:
                                                                  str(n)],
               f"--mesh {world} {key}: output {lines!r}")
         per_step = float(lines[1].split(",")[5]) / 2
+        mesh_steps[run] = per_step
         kernels = MESH_KERNELS[(algorithm, precision)]
         for r in reports[run]:
             for kernel in kernels:
@@ -3529,6 +3567,319 @@ def mesh_phases(dev, single_steps: dict) -> dict:
               f"{', '.join(sorted(one[0]))} steps")
     print(f"[12] phase 12 wall time {time.perf_counter() - t12:.0f} s")
     return launches
+
+
+# -- phase 13: the partitioned layout (nbody_torch/parallel/tree_partitioned) --
+# 13a's CLI runs, 12 steps each on 4 ranks: (algorithm, dim, precision, n, mesh flags)
+PART_RUNS = (("octree", 3, "float", 1 << 20, ("--mesh", "4")),
+             ("bvh", 3, "float", 1 << 20, ("--mesh", "4")),
+             ("octree", 3, "float", 1 << 20, ("--mesh", "2", "--mesh-tile", "2")),
+             ("octree", 2, "float", 1 << 20, ("--mesh", "4")),
+             ("octree", 3, "double", 65536, ("--mesh", "4")))
+# the kernels that every rank of a float32 run must launch (rows 4 and 5)
+PART_KERNELS = ("masked_eval_bits_kernel", "window_eval_interval_kernel")
+# 13b: one step of each partitioned path on 4 ranks, a 65,536-body float32 galaxy:
+# (algorithm, dim, the step's mesh)
+PART_N = 65536
+PART_PATHS = (("octree", 3, {}), ("bvh", 3, {}), ("octree", 2, {}), ("bvh", 2, {}),
+              ("octree", 3, {"n_shards": 2, "tile_shards": 2}),
+              ("bvh", 3, {"n_shards": 2, "tile_shards": 2}))
+PART_SOFTENING = {"octree": "sqrt3", "bvh": "poly"}
+# 13d: one step at 2^20 on 4 ranks whose masked_eval_bits_cuda calls are held
+# against their twin: (algorithm, dim, n)
+PART_FAR = (("octree", 3, 1 << 20), ("octree", 2, 1 << 20), ("bvh", 3, 1 << 20))
+PART_FAR_TILES = 4  # tiles of each call held against the twin
+PART_TORCH_LIMIT = 1e-4   # the kernels' step against the --kernel torch step, of max |a|
+PART_DIRECT_LIMIT = 1e-5  # theta = 0 against the direct sum, of max |a|
+PART_L2_LIMIT = 0.01      # theta = 0.5: relative L2 error against the direct sum
+
+
+def part_argv(run) -> list[str]:
+    algorithm, dim, precision, n, mesh = run
+    return [*mesh_key(algorithm, dim, precision, n).split(), *mesh, "--mesh-layout",
+            "partitioned"]
+
+
+def part_name(algorithm: str, dim: int, kw: dict) -> str:
+    grid = f"{kw['n_shards']}x{kw['tile_shards']}" if kw else "4"
+    return f"{algorithm} {dim}-D on {grid} ranks"
+
+
+def partitioned_phases(dev, single_steps: dict, mesh_steps: dict) -> dict:
+    """Phase 13: the partitioned CLI at full size on 4 ranks (13a), one
+    step of each partitioned path against its --kernel torch step, the
+    direct sum at theta 0 and at theta 0.5, and the ring against the
+    exchange (13b). Returns, by the kernels line's names, the launches of
+    13a's float32 runs summed over their ranks."""
+    import torch
+
+    from nbody_torch import cli
+    from nbody_torch.models import build_galaxy_model
+    from nbody_torch.ops.cuda_allpairs import allpairs_block_cuda
+    from nbody_torch.parallel import dryrun, launch
+
+    t13 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    first = PART_RUNS[0]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    reports = {first: cli.run_mesh(cli.parse_args(part_argv(first)), dev, out)}
+    check(out.getvalue() == reports[first][0]["text"], "run_mesh wrote another text than rank 0's")
+    print(f"[13a] cli.run_mesh of {' '.join(part_argv(first))}: "
+          f"{time.perf_counter() - t0:.1f} s with its ranks' start")
+
+    # dt = 0: the step's new state keeps the positions its forces were taken at
+    bodies = {}
+    for dim in (2, 3):
+        cfg, state = build_galaxy_model(PART_N, dim, np.float32, device=dev)
+        bodies[dim] = cfg.replace(dt=0.0), state
+    jobs, names = [], []
+    for algorithm, dim, kw in PART_PATHS:
+        cfg, state = bodies[dim]
+        arrays = state.to_numpy()
+        for tag, theta, extra in (("kernels", 0.5, {}), ("torch", 0.5, {"use_kernels": False}),
+                                  ("theta0", 0.0, {})):
+            jobs.append((dryrun.partitioned_step,
+                         (algorithm, cfg.replace(theta=theta), arrays, {**kw, **extra})))
+            names.append((algorithm, dim, part_name(algorithm, dim, kw), tag))
+    cfg, state = bodies[3]
+    jobs.append((dryrun.partitioned_step,
+                 ("octree", cfg.replace(theta=0.5), state.to_numpy(), {"beyond_budget": 1})))
+    names.append(("octree", 3, part_name("octree", 3, {}), "ring"))
+    runs = list(PART_RUNS[1:])
+    t0 = time.perf_counter()
+    ranks = launch.spawn(4, "cuda", launch.run_jobs,
+                         [(cli.mesh_rank, (cli.parse_args(part_argv(run)),)) for run in runs]
+                         + jobs + [(far_field_check, path) for path in PART_FAR])
+    for i, run in enumerate(runs):
+        reports[run] = [rank[i] for rank in ranks]
+    steps = {name: ranks[0][len(runs) + j] for j, name in enumerate(names)}
+    far_checks = {path: [rank[len(runs) + len(jobs) + j] for rank in ranks]
+                  for j, path in enumerate(PART_FAR)}
+    print(f"[13a] one spawn of 4 ranks for {len(runs)} runs, 13b's {len(jobs)} steps and 13d's "
+          f"{len(PART_FAR)}: {time.perf_counter() - t0:.1f} s")
+    for j in range(len(runs), len(runs) + len(jobs)):
+        check(all(r[j] is None or r[j][0]["x"].tobytes() == ranks[0][j][0]["x"].tobytes()
+                  for r in ranks), f"13b {names[j - len(runs)]}: the ranks' states differ")
+
+    # -- (a) the CLI runs ------------------------------------------------------
+    replicated = {(run[0], run[1], run[2], run[3]): step for run, step in mesh_steps.items()
+                  if run[4] == 4}
+    launches: dict[str, dict] = {}
+    for run in PART_RUNS:
+        algorithm, dim, precision, n, mesh = run
+        key = mesh_key(algorithm, dim, precision, n)
+        lines = reports[run][0]["text"].strip().splitlines()
+        bits = "64" if precision == "double" else "32"
+        check(len(lines) == 2 and lines[1].split(",")[:5] == [algorithm, str(dim), bits, "2",
+                                                                 str(n)],
+              f"{' '.join(part_argv(run))}: output {lines!r}")
+        per_step = float(lines[1].split(",")[5]) / 2
+        check(len({r["state_digest"] for r in reports[run]}) == 1, "ranks' final states differ")
+        summed = {k: sum(r["launches"][k] for r in reports[run]) for k in PART_KERNELS}
+        if precision == "float":
+            for r in reports[run]:
+                for kernel in PART_KERNELS:
+                    check(r["launches"][kernel] > 0, f"{' '.join(part_argv(run))}: rank "
+                          f"{r['rank']} did not launch {kernel} ({r['launches']})")
+            soft = PART_SOFTENING[algorithm]
+            far = launches.setdefault(f"masked_eval_bits_kernel<{soft}>", {})
+            far["partitioned_launches"] = far.get("partitioned_launches", 0) + \
+                summed["masked_eval_bits_kernel"]
+            window = launches.setdefault("window_eval_interval_kernel<sqrt3>", {})
+            field = "partitioned_launches" if soft == "sqrt3" else "partitioned_poly_launches"
+            window[field] = window.get(field, 0) + summed["window_eval_interval_kernel"]
+        peak = ", ".join(f"{(r['peak_memory'] or 0) / 2**30:.2f}" for r in reports[run])
+        beside = replicated.get((algorithm, dim, precision, n))
+        print(f"[13a] python -m nbody_torch.cli {' '.join(part_argv(run))}: {lines[1]} -> "
+              f"{per_step:.4f} s/step beside {single_steps.get(key, float('nan')):.4f} on one "
+              f"device{'' if beside is None else f' and {beside:.4f} replicated on 4 ranks'} "
+              f"(4 ranks on {cards} card(s): "
+              f"{'not a scaling figure, the ranks share the card' if cards < 4 else 'a card a rank'}"
+              f"); backend {reports[run][0]['backend']}; peak memory a rank (GiB) [{peak}]; "
+              f"launches summed over the ranks {summed}")
+    for entry in launches.values():
+        entry["partitioned_launches_in"] = ("phase 13a: the partitioned --mesh CLI runs at "
+                                            "2^20, float32, summed over their ranks")
+
+    # -- (b) one step of each path: --kernel torch, the direct sum, the ring --
+    for algorithm, dim, kw in PART_PATHS:
+        name = part_name(algorithm, dim, kw)
+        (k, aux), (t, _), (z, aux0) = (steps[(algorithm, dim, name, tag)]
+                                       for tag in ("kernels", "torch", "theta0"))
+        check(np.array_equal(k["x"], t["x"]), f"13b {name}: the torch step sorted otherwise")
+        rel_torch = float(np.abs(k["a"] - t["a"]).max() / np.abs(t["a"]).max())
+        cfg = bodies[dim][0]
+        soft = PART_SOFTENING[algorithm]
+        direct = {}
+        for tag, st in (("theta0", z), ("kernels", k)):
+            x = torch.tensor(st["x"], device=dev)
+            m = torch.tensor(st["m"], device=dev)
+            direct[tag] = (cfg.G * allpairs_block_cuda(x, m, x, cfg.eps, soft)).cpu().numpy()
+        rel0 = float(np.abs(z["a"] - direct["theta0"]).max() / np.abs(direct["theta0"]).max())
+        l2 = float(np.linalg.norm(k["a"] - direct["kernels"]) / np.linalg.norm(direct["kernels"]))
+        print(f"[13b] {PART_N}-body {name}: kernels vs --kernel torch max |diff| / max |a| = "
+              f"{rel_torch:.3e} (limit {PART_TORCH_LIMIT:g}); theta 0 vs the direct sum "
+              f"{rel0:.3e} (limit {PART_DIRECT_LIMIT:g}, ring used {aux0['beyond_used_ring']}); "
+              f"theta 0.5 relative L2 {l2:.3e} (limit {PART_L2_LIMIT:g}); beyond cells "
+              f"{aux['beyond_halo_cells']}, ring used {aux['beyond_used_ring']}; comm {aux['comm']}")
+        check(rel_torch <= PART_TORCH_LIMIT, f"13b {name}: the kernels' step differs from torch's")
+        check(rel0 <= PART_DIRECT_LIMIT, f"13b {name}: theta 0 differs from the direct sum")
+        check(l2 < PART_L2_LIMIT, f"13b {name}: theta 0.5 is far from the direct sum")
+    name = part_name("octree", 3, {})
+    (ex, aux_ex), (ring, aux_ring) = (steps[("octree", 3, name, tag)]
+                                      for tag in ("kernels", "ring"))
+    rel_ring = float(np.abs(ring["a"] - ex["a"]).max() / np.abs(ex["a"]).max())
+    print(f"[13b] {PART_N}-body {name}, beyond_budget=1: ring used "
+          f"{aux_ring['beyond_used_ring']} (exchange {aux_ex['beyond_used_ring']}), against the "
+          f"exchange max |diff| / max |a| = {rel_ring:.3e} (limit 1e-4); comm bytes a rank "
+          f"{aux_ring['comm_bytes_per_shard']} beside {aux_ex['comm_bytes_per_shard']}")
+    check(aux_ring["beyond_used_ring"] and rel_ring <= 1e-4, "13b: the ring differs")
+
+    # -- (c) the near field's call at the main path's shape, on the card alone --
+    launches["window_eval_interval_kernel<sqrt3>"]["partitioned"] = near_field_call(dev)
+
+    # -- (d) the far field and beyond sets' calls of a 2^20 step, on each rank --
+    worst = {}
+    for (algorithm, dim, n), per_rank in far_checks.items():
+        soft = PART_SOFTENING[algorithm]
+        for r, got in enumerate(per_rank):
+            kinds = [c["kind"] for c in got["calls"]]
+            for c in got["calls"]:
+                print(f"[13d] {n}-body {algorithm} {dim}-D rank {r}: {c['kind']} call, "
+                      f"{c['tiles']} tiles of {c['rows'] // c['tiles']} rows against "
+                      f"{c['sources']} sources, "
+                      f"tiles {c['sampled']} against masked_eval_bits_torch on the same packed "
+                      f"words: max |kernel - plain| / sum|term| = {c['err']:.3e} (limit "
+                      f"{TOL['float32']:g})")
+                check(c["finite"] and c["err"] <= TOL["float32"], f"13d {algorithm} {dim}-D rank "
+                      f"{r}: the {c['kind']} call differs from its twin")
+                key = f"masked_eval_bits_kernel<{soft}>"
+                worst[key] = max(worst.get(key, 0.0), c["err"])
+            check(kinds[:1] == ["far"], f"13d {algorithm} {dim}-D rank {r}: no far-field call "
+                  f"({kinds})")
+        print(f"[13d] {n}-body {algorithm} {dim}-D: beyond cells "
+              f"{per_rank[0]['beyond_halo_cells']}, ring used {per_rank[0]['ring']}; calls a rank "
+              f"{[len(got['calls']) for got in per_rank]}")
+    check(any(c["kind"] != "far" for per_rank in far_checks.values() for got in per_rank
+              for c in got["calls"]), "13d: no beyond set was evaluated")
+    for key, err in worst.items():
+        launches.setdefault(key, {})["partitioned_max_scaled_err"] = err
+    print(f"[13] phase 13 wall time {time.perf_counter() - t13:.0f} s")
+    return launches
+
+
+def near_field_call(dev, n: int = 1 << 20) -> dict:
+    """13c: window_eval_interval_kernel as a middle body rank of 4 calls it
+    at 2^20 (3-D galaxy, Morton-sorted): 262,144 rows against the 786,432
+    of its window, every row the whole window, in tiles of 256 rows (the
+    partitioned MAC's tile) and of 512 (the kernel's block, which the port
+    passes), timed with CUDA events; both held on the first and the last
+    512 rows against the plain twin on the same inputs, within 1e-5 of
+    each row's sum of |term|; the pairs, the FLOP bound and the MUFU floor
+    beside them."""
+    import torch
+
+    from nbody_torch.models import build_galaxy_model
+    from nbody_torch.ops import cuda_group_eval as cg
+    from nbody_torch.ops.octree import max_depth, morton_sort, robust_quant_box
+    from nbody_torch.parallel.tree_partitioned import TILE
+
+    block = cg.ROWS_PER_BLOCK
+    cfg, state = build_galaxy_model(n, 3, np.float32, device=dev)
+    lo, hi = robust_quant_box(state.x)
+    ms, xs, _, _ = morton_sort(state.m, state.x, lo, hi, max_depth(n, 3))
+    nl = n // 4
+    xi, me, xe = xs[nl:2 * nl].contiguous(), ms[:3 * nl].contiguous(), xs[:3 * nl].contiguous()
+    pairs = nl * 3 * nl
+    out, got = {"rows": nl, "window": 3 * nl, "pairs": pairs}, {}
+    for tb in (TILE, block):
+        nt = nl // tb
+        zeros = torch.zeros(nt, dtype=torch.int32, device=dev)
+        full = torch.full((nt,), 3 * nl, dtype=torch.int32, device=dev)
+
+        def call():
+            return cg.window_eval_interval_cuda(xi, me, xe, zeros, zeros, full, cfg.eps,
+                                                3 * nl // tb, "sqrt3")
+
+        got[tb] = call()
+        out[f"ms_tile_{tb}"] = event_ms(call, reps=2)
+    # the twin on one tile of `block` rows: the same window and interval
+    errs = {}
+    for where, rows in (("first", slice(0, block)), ("last", slice(nl - block, nl))):
+        args = (xi[rows], me, xe, zeros[:1], zeros[:1], full[:1], cfg.eps, 3 * nl // block,
+                "sqrt3")
+        ref = cg.window_eval_interval_torch(*args)
+        scale = cg.window_eval_interval_torch(*args, absolute=True)
+        for tb in (TILE, block):
+            errs[(where, tb)] = scaled(got[tb][rows], ref, scale)[0]
+    err = max(errs.values())
+    out["max_scaled_err"] = err
+    out["bound_ms"], out["bound_by"] = bound(pairs, flops_per_pair(3, "sqrt3"),
+                                             (nl + 3 * nl) * 16 + nl * 12)
+    out["mufu_floor_ms"] = mufu_floor_ms(pairs, torch.cuda.get_device_properties(dev)
+                                         .multi_processor_count)
+    print(f"[13c] window_eval_interval_kernel at the partitioned shape ({nl} rows against "
+          f"{3 * nl}, {pairs:.3e} pairs): tiles of {TILE} {out[f'ms_tile_{TILE}']:.1f} ms "
+          f"({pairs / out[f'ms_tile_{TILE}'] * 1e3:.3e} pairs/s), of {block} "
+          f"{out[f'ms_tile_{block}']:.1f} ms ({pairs / out[f'ms_tile_{block}'] * 1e3:.3e} "
+          f"pairs/s); against the plain twin on the first and the last {block} rows, max "
+          f"|kernel - plain| / sum|term| "
+          f"{', '.join(f'{w} {tb}-row tiles {e:.2e}' for (w, tb), e in errs.items())} (limit "
+          f"{TOL['float32']:g}); FLOP bound {out['bound_ms']:.3f} ms, MUFU floor "
+          f"{out['mufu_floor_ms']:.3f} ms")
+    check(err <= TOL["float32"], "13c: the window differs from its plain twin")
+    return out
+
+
+def far_field_check(group, algorithm: str, dim: int, n: int) -> dict:
+    """13d, on each rank of a spawned group of 4: one step of the
+    partitioned `algorithm` on an n-body float32 galaxy in `dim`-D, each
+    masked_eval_bits_cuda call it makes (the far field first, then the
+    beyond sets: the exchange, or the ring's rotations) held on
+    PART_FAR_TILES of its tiles (the first, the last and two between)
+    against masked_eval_bits_torch on the same rows, sources and packed
+    words, as a fraction of each row's sum of |term|. Returns the calls'
+    shapes, errors and whether their outputs were finite, the beyond cells
+    and whether the ring ran."""
+    import torch
+
+    from nbody_torch.models import build_galaxy_model
+    from nbody_torch.ops import cuda_group_eval as cg
+    from nbody_torch.parallel import tree_partitioned as tp
+
+    calls = []
+    kernel = tp.masked_eval_bits_cuda
+
+    def held(xi, mj, xj, words, eps, softening):
+        got = kernel(xi, mj, xj, words, eps, softening)
+        ntiles = words.shape[0]
+        tb = xi.shape[0] // ntiles
+        pick = sorted({round(k * (ntiles - 1) / (PART_FAR_TILES - 1))
+                       for k in range(PART_FAR_TILES)})
+        rows = torch.cat([torch.arange(t * tb, (t + 1) * tb, device=xi.device) for t in pick])
+        args = (xi[rows], mj, xj, words[pick], eps, softening)
+        ref = cg.masked_eval_bits_torch(*args)
+        scale = cg.masked_eval_bits_torch(*args, absolute=True)
+        diff = (got[rows] - ref).abs() / scale.clamp_min(torch.finfo(scale.dtype).tiny)
+        calls.append({"kind": "far" if not calls else "beyond", "tiles": ntiles,
+                      "rows": xi.shape[0], "sources": xj.shape[0], "sampled": pick,
+                      "err": diff.max().item(), "finite": bool(torch.isfinite(got).all())})
+        return got
+
+    make = tp.make_partitioned_octree_step if algorithm == "octree" \
+        else tp.make_partitioned_bvh_step
+    tp.masked_eval_bits_cuda = held
+    try:
+        cfg, state = build_galaxy_model(n, dim, np.float32, device=group.device)
+        step = make(cfg, group)
+        _, aux = step(step.shard(state), 0)
+    finally:
+        tp.masked_eval_bits_cuda = kernel
+    ring = bool(aux["beyond_used_ring"])
+    for c in calls[1:]:
+        c["kind"] = "ring" if ring else "exchange"
+    return {"calls": calls, "ring": ring, "beyond_halo_cells": int(aux["beyond_halo_cells"])}
 
 
 # (mode, the mode it adds one feature to): the ladder's steps

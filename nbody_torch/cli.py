@@ -19,18 +19,20 @@ thread a body) in either precision. The bvh re-sorts every --sort-every
 steps and refines its fast path's residual --refine-levels deep.
 --profile DIR writes a torch.profiler trace of the run into DIR.
 
---mesh N > 1 runs the replicated layouts on N ranks, one process each
+--mesh N > 1 runs the multi-device layouts, one process a rank
 (parallel/launch.py: nccl where every rank has a card of its own, else
-gloo, the ranks sharing the cards in turn, or on the CPU): all-pairs and
-all-pairs-collapsed take the ring, the octree and the bvh sort and build
-on every rank and evaluate their own rows. Every rank runs the same step
-loop; rank 0 alone writes the text (which the launching process writes to
-`out`), the saved files, the state file and the profile, and the run
-fails unless every rank ends with the same state, bit for bit. Not yet
-ported, and refused with exit code 1 rather than ignored: --mesh > 1 with
---mesh-layout partitioned on the octree or the bvh (all-pairs ignores the
-layout, as nbody_tpu does). --mesh-tile is read and ignored, as the
-replicated layouts of nbody_tpu ignore it.
+gloo, the ranks sharing the cards in turn, or on the CPU). The replicated
+layout (the default) runs on N ranks: all-pairs and all-pairs-collapsed
+take the ring, the octree and the bvh sort and build on every rank and
+evaluate their own rows. --mesh-layout partitioned runs the octree and the
+bvh on N * --mesh-tile ranks: the distributed sort, the coarse heap and
+the halo near field over N body ranks, each body rank's rows evaluated by
+--mesh-tile ranks (parallel/tree_partitioned.py). All-pairs ignores the
+layout, and the replicated layouts --mesh-tile, as nbody_tpu does. Every
+rank runs the same step loop; rank 0 alone writes the text (which the
+launching process writes to `out`), the saved files, the state file and
+the profile, and the run fails unless every rank ends with the same
+(gathered) state, bit for bit.
 
 The port runs on the GPU unless --device cpu asks for the CPU: without a
 CUDA device, --device auto (the default) and --device cuda exit 1.
@@ -60,8 +62,10 @@ _HELP = """Help:
 \t\t(octree and bvh with --kernel torch or in double take their list paths)
 --device auto|cpu|cuda\t\tTorch device (default auto: the GPU; cpu only when asked for)
 --mesh N\t\tShard bodies across N ranks, one process each (default 1)
---mesh-layout L\treplicated (default) | partitioned (not yet ported; read only when --mesh > 1)
---mesh-tile T\t\tPartitioned 2-D mesh tile shards (read only when --mesh > 1)
+--mesh-layout L\treplicated (default) | partitioned (octree/bvh: sharded
+\t\tbodies + distributed sort, O(n/S) per rank; read only when --mesh > 1)
+--mesh-tile T\t\tPartitioned 2-D mesh: T tile-axis ranks per body rank
+\t\t(mesh x T ranks total; row-shards the force evaluation)
 --chunk N\t\tAccepted for nbody_tpu parity; nbody_torch sizes its row chunks from n
 --fix-collapsed-z\t\tFix the reference's frozen-z quirk in all-pairs-collapsed
 --sort-every K\t\tRe-sort bodies every K steps in tree engines (default 1)
@@ -255,15 +259,12 @@ def parse_args(argv: list[str]) -> dict:
     return args
 
 
-def _unported(args: dict) -> str | None:
-    """What the parsed flags ask for that the port cannot run yet, or None."""
-    # nbody_tpu reads --mesh-layout only when mesh > 1, and only in the
-    # trees (sim/tree_engines.py:58, :228); all-pairs takes its ring whatever
-    # the layout (sim/engines.py:93-96)
-    if args["mesh"] > 1 and args["mesh_layout"] == "partitioned" \
-            and args["algorithm"] in ("octree", "bvh"):
-        return "--mesh > 1 with --mesh-layout partitioned"
-    return None
+def mesh_world(args: dict) -> int:
+    """The ranks of a --mesh run (EngineOptions.mesh_ranks)."""
+    from nbody_torch.sim.engines import EngineOptions
+
+    return EngineOptions(mesh=args["mesh"], mesh_layout=args["mesh_layout"],
+                         mesh_tile=args["mesh_tile"]).mesh_ranks(args["algorithm"])
 
 
 def resolve_device(name: str):
@@ -384,12 +385,16 @@ def mesh_rank(mesh, args: dict) -> dict:
 
 
 def run_mesh(args: dict, device, out=None) -> list[dict]:
-    """--mesh N > 1: the simulation on N ranks (parallel.launch), rank 0's
-    text written to `out`. Raises if the ranks' final states differ.
+    """--mesh N > 1: the simulation on mesh_world(args) ranks
+    (parallel.launch), rank 0's text written to `out`. Raises if the
+    ranks' final states differ, and before any rank starts where the
+    partitioned bvh refuses its sizes (as nbody_tpu's step maker does).
     Returns the ranks' reports (mesh_rank)."""
-    from nbody_torch.parallel import launch
+    from nbody_torch.parallel import launch, tree_partitioned
 
-    reports = launch.spawn(args["mesh"], device.type, mesh_rank, args)
+    if args["mesh_layout"] == "partitioned" and args["algorithm"] == "bvh":
+        tree_partitioned.check_bvh_layout(args["mesh"], tree_partitioned.TILE, args["mesh_tile"])
+    reports = launch.spawn(mesh_world(args), device.type, mesh_rank, args)
     (sys.stdout if out is None else out).write(reports[0]["text"])
     differ = [r["rank"] for r in reports if r["state_digest"] != reports[0]["state_digest"]]
     if differ:
@@ -402,10 +407,6 @@ def main(argv: list[str] | None = None, out=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     args = parse_args(list(argv))
-    missing = _unported(args)
-    if missing:
-        print(f"{missing} is not yet ported to nbody_torch.", file=sys.stderr)
-        raise SystemExit(1)
     device = resolve_device(args["device"])
     if args["mesh"] > 1:
         run_mesh(args, device, out)

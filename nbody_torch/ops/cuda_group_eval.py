@@ -660,6 +660,9 @@ def masked_eval_bits_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                    sqrt3, float(eps))
 
 
+ROWS_PER_BLOCK = 512  # rows a block of the window kernels (csrc/tiles.cuh kRowsPerBlock)
+
+
 def window_eval_interval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                               w0: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, eps: float,
                               window_tiles: int, softening: str,

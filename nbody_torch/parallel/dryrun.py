@@ -1,16 +1,20 @@
-"""The replicated layouts' dry run (the counterpart of nbody_tpu's
-dryrun_multichip, __graft_entry__.py:75-150), and the one-step jobs that
-hold a layout against the single-device engines.
+"""The multi-device layouts' dry run (the counterpart of nbody_tpu's
+dryrun_multichip, __graft_entry__.py:75-189), and the one-step jobs that
+hold a layout against the single-device engines or nbody_tpu.
 
     python -m nbody_torch.parallel.dryrun N [--device cpu|cuda]
 
-starts N ranks (parallel.launch) and runs on each, on a 2-D float32 galaxy
-of n = 16 * N bodies, what nbody_tpu's dry run runs on N devices: one ring
+starts N ranks (parallel.launch) and runs on each what nbody_tpu's dry run
+runs on N devices, on 2-D float32 galaxies: on n = 16 * N bodies one ring
 all-pairs step, one sharded BVH step and one sharded octree step, these
-two at group_tile 16. Each must give (n, 2) finite positions, every rank
-the same bits, and the trees no overflow; it prints OK and exits 0, or
-fails with the first rank's error. nbody_tpu's partitioned blocks
-(:152-189) belong to the partitioned layout, which is not yet ported.
+two at group_tile 16; on max(n, 32 * N) bodies at tile 8 one partitioned
+octree step (whose communication accounting it prints and bounds: the
+bytes a step outside the sort at most 96 * 2 * nl + 64 * C), one
+partitioned BVH step (N a power of two, as nbody_tpu requires) and, where
+N >= 4 is even, one partitioned octree step on the N/2 x 2 (body x tile)
+mesh. Each must give finite positions of the model's shape, every rank
+the same bits, and the replicated trees no overflow; it prints OK and
+exits 0, or fails with the first rank's error.
 """
 
 from __future__ import annotations
@@ -87,13 +91,57 @@ def sharded_accel(mesh: Mesh, make, cfg: SimConfig, m: np.ndarray, x: np.ndarray
     return make(cfg, mesh, **(kw or {}))(*t).cpu().numpy()
 
 
+def partitioned_step(mesh: Mesh, algorithm: str, cfg: SimConfig, arrays: dict,
+                     kw: dict | None = None, steps: int = 1):
+    """`steps` steps of the partitioned `algorithm` ("octree" or "bvh") on
+    this rank's group (make_partitioned_*_step(cfg, mesh, **kw)) from the
+    host arrays m, x, v (and a, ao), all n rows on every rank. Returns the
+    gathered new state's host arrays and the last step's aux as Python
+    numbers, or None on a rank outside the step's grid."""
+    from nbody_torch.parallel import tree_partitioned as tp
+
+    make = tp.make_partitioned_octree_step if algorithm == "octree" \
+        else tp.make_partitioned_bvh_step
+    step = make(cfg, mesh, **(kw or {}))
+    if step is None:
+        return None
+    local = step.shard(SystemState.from_numpy(arrays["m"], arrays["x"], arrays["v"],
+                                              arrays.get("a"), arrays.get("ao"),
+                                              device=mesh.device))
+    for k in range(steps):
+        local, aux = step(local, k)
+    return step.gather(local).to_numpy(), _host_aux(aux)
+
+
+def sort_rows(mesh: Mesh, n_ranks: int, keys: np.ndarray, cols: np.ndarray,
+              adaptive: bool = False):
+    """distributed_sort_rows over the first n_ranks ranks of the group:
+    rank r takes rows [r * nl, (r + 1) * nl) of keys (n, K) (int64 words)
+    and cols (n, F). Returns the sorted blocks gathered, (keys, cols), or
+    None on a rank outside the n_ranks."""
+    from nbody_torch.parallel.distributed_sort import distributed_sort_rows
+    from nbody_torch.parallel.mesh import all_gather_rows, body_tile_mesh
+
+    grid = body_tile_mesh(mesh, n_ranks, 1)
+    if grid is None:
+        return None
+    nl = keys.shape[0] // n_ranks
+    block = slice(grid.body.rank * nl, (grid.body.rank + 1) * nl)
+    k, c = distributed_sort_rows(grid.body, torch.tensor(keys[block], device=mesh.device),
+                                 torch.tensor(cols[block], device=mesh.device), adaptive)
+    return all_gather_rows(grid.body, k).cpu().numpy(), all_gather_rows(grid.body, c).cpu().numpy()
+
+
 def dryrun_rank(mesh: Mesh) -> dict:
-    """nbody_tpu's three replicated blocks on this rank: the ring step, the
-    sharded BVH step and the sharded octree step. Raises on a wrong shape,
-    a non-finite position or an overflow. Returns each block's final
-    positions."""
+    """nbody_tpu's dry-run blocks on this rank: the ring step, the sharded
+    BVH and octree steps, and the partitioned octree, BVH and 2-D mesh
+    steps. Raises on a wrong shape, a non-finite position, an overflow or
+    a communication accounting over its bound. Returns each block's final
+    positions, and under "comm" the partitioned octree's accounting, ring
+    flag and traced total."""
     from nbody_torch.models import build_galaxy_model
     from nbody_torch.ops.integrator import leapfrog_step
+    from nbody_torch.parallel import tree_partitioned as tp
     from nbody_torch.parallel.ring import make_ring_allpairs
     from nbody_torch.parallel.tree_sharded import make_sharded_bvh_step, make_sharded_octree_step
 
@@ -108,23 +156,46 @@ def dryrun_rank(mesh: Mesh) -> dict:
         out[name], aux = make(cfg.replace(theta=0.5), mesh, tile=16)(state, 0)
         if int(aux["overflow"]) != 0:
             raise RuntimeError(f"dry run: the sharded {name} step overflowed {aux}")
+    cfg4, state4 = build_galaxy_model(max(n, 4 * mesh.world * 8), 2, np.float32,
+                                      device=mesh.device)
+    cfg4 = cfg4.replace(theta=0.5)
+    blocks = [("partitioned_octree", tp.make_partitioned_octree_step, {}),
+              ("partitioned_bvh", tp.make_partitioned_bvh_step, {})]
+    if mesh.world % 2 == 0 and mesh.world >= 4:
+        blocks.append(("partitioned_2d", tp.make_partitioned_octree_step,
+                       {"n_shards": mesh.world // 2, "tile_shards": 2}))
+    for name, make, kw in blocks:
+        step = make(cfg4, mesh, tile=8, **kw)
+        local, aux = step(step.shard(state4))
+        out[name] = step.gather(local)
+        if name == "partitioned_octree":
+            comm = aux["comm"]
+            nl4 = -(-cfg4.n // mesh.world)
+            c4 = comm["beyond_need_psum_bytes"] // 4
+            if comm["step_bytes_no_sort"] > 96 * 2 * nl4 + 64 * c4:
+                raise RuntimeError(f"dry run: the partitioned octree's accounting {comm} is "
+                                   f"over 96 * 2 * {nl4} + 64 * {c4} bytes")
+            info = {"comm": comm, "ring_used": aux["beyond_used_ring"],
+                    "traced_total": aux["comm_bytes_per_shard"]}
     for name, st in out.items():
-        if st.x.shape != (n, 2) or not bool(torch.isfinite(st.x).all()):
+        want = (cfg4.n if name.startswith("partitioned") else n, 2)
+        if st.x.shape != want or not bool(torch.isfinite(st.x).all()):
             raise RuntimeError(f"dry run: the {name} step gave {tuple(st.x.shape)} positions, "
                                "or non-finite ones")
-    return {name: st.x.cpu().numpy() for name, st in out.items()}
+    return {**{name: st.x.cpu().numpy() for name, st in out.items()}, "comm": info}
 
 
-def dryrun_multichip(world: int, device_type: str = "cpu") -> None:
+def dryrun_multichip(world: int, device_type: str = "cpu") -> dict:
     """dryrun_rank on `world` ranks; raises unless every rank ends with the
-    same positions."""
+    same positions. Returns rank 0's partitioned octree accounting."""
     from nbody_torch.parallel import launch
 
     ranks = launch.spawn(world, device_type, dryrun_rank)
     for r, got in enumerate(ranks[1:], 1):
         for name, x in got.items():
-            if not np.array_equal(x, ranks[0][name]):
+            if name != "comm" and not np.array_equal(x, ranks[0][name]):
                 raise RuntimeError(f"dry run: rank {r}'s {name} positions differ from rank 0's")
+    return ranks[0]["comm"]
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -136,7 +207,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         print("--device cuda: no CUDA device is available", file=sys.stderr)
         return 1
-    dryrun_multichip(args.world, args.device)
+    info = dryrun_multichip(args.world, args.device)
+    print("partitioned octree per-rank comm bytes/step:", info["comm"], "ring_used:",
+          info["ring_used"], "traced_total:", info["traced_total"])
     print("OK")
     return 0
 

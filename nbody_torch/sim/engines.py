@@ -52,6 +52,15 @@ class EngineOptions:
     mesh_layout: str = "replicated"  # replicated|partitioned tree layout
     mesh_tile: int = 1          # partitioned 2-D mesh: tile-axis shards
 
+    def mesh_ranks(self, algorithm: str) -> int:
+        """The ranks of a --mesh run: mesh * mesh_tile for a partitioned
+        tree, mesh otherwise (nbody_tpu reads mesh_layout only in the
+        trees, sim/tree_engines.py:58, :228, and mesh_tile only in the
+        partitioned layout)."""
+        if self.mesh_layout == "partitioned" and algorithm in ("octree", "bvh"):
+            return self.mesh * self.mesh_tile
+        return self.mesh
+
 
 def sync(device: torch.device) -> None:
     """Wait for the device's queued work (a no-op on the CPU)."""

@@ -24,7 +24,10 @@ reads the clock after torch.cuda.synchronize() at both ends.
 
 Under --mesh N every rank runs this loop with the same flags, so that the
 engines' collectives meet in step; the CLI (cli.mesh_rank) keeps rank 0's
-output and lets no other rank write a file.
+output and lets no other rank write a file. A step that keeps only its
+rank's block of the state (the partitioned layout's PartitionedStep) has
+shard and gather methods: the loop shards the state before the first step
+and gathers it after the timer stops.
 """
 
 from __future__ import annotations
@@ -135,6 +138,9 @@ def run_algorithm(algo_name: str, cfg: SimConfig, state: SystemState,
             dt_total = _time.perf_counter() - t0
         else:
             step = engine.make_step(cfg, opts.engine_opts, device)
+            blocks = hasattr(step, "shard")
+            if blocks:
+                state = step.shard(state)
             # the global step index: warmup 0..warmup-1, then the timed
             # steps from warmup_steps on (nbody_tpu/sim/runner.py:152-168)
             for k in range(opts.warmup_steps):
@@ -148,6 +154,8 @@ def run_algorithm(algo_name: str, cfg: SimConfig, state: SystemState,
             sync(device)
             dt_total = _time.perf_counter() - t0
             reported_steps = opts.steps - opts.warmup_steps
+            if blocks:
+                state = step.gather(state)
     _check_overflow(overflow)
 
     if opts.csv_detailed or opts.csv_total:

@@ -12,9 +12,13 @@ k % --sort-every == 0 and builds its tree over the current order on the
 others (tree_engines.py:61-95); --refine-levels reaches its fast path.
 With --mesh N > 1 (the replicated layout, tree_engines.py:58-59, :97-120,
 :228-249) the step is parallel/tree_sharded's, on the same split of fast
-and list paths; it ignores --sort-every, --traversal, --refine-levels and
---window-tiles, as nbody_tpu's does, and --csv-detailed ignores the mesh:
-every rank times the single-device phases.
+and list paths; with --mesh-layout partitioned (:102-115, :229-244) it is
+parallel/tree_partitioned's on N * --mesh-tile ranks, through row 4's and
+row 5's kernels in float32 unless --kernel torch, through plain torch
+otherwise. Both ignore --sort-every, --traversal, --refine-levels and
+--window-tiles, as nbody_tpu's do (the partitioned steps --group-tile too:
+their tile is 256), and --csv-detailed ignores the mesh: every rank times
+the single-device phases.
 
 Phases of --csv-detailed mirror the reference's columns:
   bvh:    force, accel, bbox, sort, multipoles, force approx  (bvh.h:342)
@@ -58,15 +62,22 @@ def _paths(cfg: SimConfig, opts: EngineOptions, device: torch.device):
     return np.dtype(cfg.dtype) != np.float32 or not use_cuda, use_cuda
 
 
-def _mesh(opts: EngineOptions, device: torch.device):
-    """This rank's mesh for --mesh > 1: the replicated layout only (the
-    partitioned one, nbody_tpu's parallel/tree_partitioned.py, is not yet
-    ported)."""
-    from nbody_torch.parallel import mesh
+def _mesh_step(algorithm: str, cfg: SimConfig, opts: EngineOptions, device: torch.device):
+    """The --mesh > 1 step of a tree on this rank's group: the replicated
+    layout's on --mesh ranks, or the partitioned layout's on --mesh *
+    --mesh-tile ranks."""
+    from nbody_torch.parallel import mesh, tree_partitioned, tree_sharded
 
-    if opts.mesh_layout != "replicated":
-        raise ValueError(f"--mesh-layout {opts.mesh_layout} is not yet ported to nbody_torch")
-    return mesh.current(device, opts.mesh)
+    list_path, use_cuda = _paths(cfg, opts, device)
+    group = mesh.current(device, opts.mesh_ranks(algorithm))
+    if opts.mesh_layout == "partitioned":
+        make = tree_partitioned.make_partitioned_bvh_step if algorithm == "bvh" else \
+            tree_partitioned.make_partitioned_octree_step
+        return make(cfg, group, n_shards=opts.mesh, tile_shards=opts.mesh_tile,
+                    use_kernels=use_cuda)
+    make = tree_sharded.make_sharded_bvh_step if algorithm == "bvh" else \
+        tree_sharded.make_sharded_octree_step
+    return make(cfg, group, opts.group_tile, list_path, use_cuda)
 
 
 class BVHEngine:
@@ -78,12 +89,9 @@ class BVHEngine:
     header_in_detailed = True
 
     def make_step(self, cfg: SimConfig, opts: EngineOptions, device: torch.device):
-        list_path, use_cuda = _paths(cfg, opts, device)
         if opts.mesh > 1:
-            from nbody_torch.parallel.tree_sharded import make_sharded_bvh_step
-
-            return make_sharded_bvh_step(cfg, _mesh(opts, device), opts.group_tile, list_path,
-                                         use_cuda)
+            return _mesh_step("bvh", cfg, opts, device)
+        list_path, use_cuda = _paths(cfg, opts, device)
         sort_every = max(1, opts.sort_every)
         refine = None if opts.refine < 0 else opts.refine
 
@@ -130,12 +138,9 @@ class OctreeEngine:
     pre_info = "Tree init complete\n"   # octree.h:287, once before the loop
 
     def make_step(self, cfg: SimConfig, opts: EngineOptions, device: torch.device):
-        list_path, use_cuda = _paths(cfg, opts, device)
         if opts.mesh > 1:
-            from nbody_torch.parallel.tree_sharded import make_sharded_octree_step
-
-            return make_sharded_octree_step(cfg, _mesh(opts, device), opts.group_tile, list_path,
-                                            use_cuda)
+            return _mesh_step("octree", cfg, opts, device)
+        list_path, use_cuda = _paths(cfg, opts, device)
         depth = max_depth(cfg.n, cfg.dim)
 
         def step(state: SystemState, k: int):
@@ -206,5 +211,8 @@ class OctreeEngine:
         return detailed
 
     def info(self, state: SystemState, cfg: SimConfig, aux: dict) -> str:
-        """--print-info: the step's tree size and root mass (octree.h:313-316)."""
-        return f"Tree size: {int(aux['tree_size'])}\nTotal mass: {float(aux['root_mass']): .5f}\n"
+        """--print-info: the step's tree size and root mass (octree.h:313-316);
+        a step that builds no whole tree (the partitioned layout) has no
+        size, and prints 0, as nbody_tpu's does."""
+        return (f"Tree size: {int(aux.get('tree_size', 0))}\n"
+                f"Total mass: {float(aux['root_mass']): .5f}\n")

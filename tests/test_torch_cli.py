@@ -97,17 +97,6 @@ def test_port_flag_values_checked(argv):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--algorithm", "bvh", "--mesh", "2", "--mesh-layout", "partitioned"],
-    ["--algorithm", "octree", "--mesh", "2", "--mesh-layout", "partitioned"],
-])
-def test_unported_features_exit_1(argv, capsys):
-    with pytest.raises(SystemExit) as e:
-        tcli.main(["-n", "8", *argv, "--device", "cpu"], out=io.StringIO())
-    assert e.value.code == 1
-    assert "not yet ported" in capsys.readouterr().err
-
-
-@pytest.mark.parametrize("argv", [
     ["--algorithm", "octree", "--traversal", "per-body"],
     ["--algorithm", "octree", "--traversal", "per-body", "-d", "3"],
     ["--algorithm", "octree", "--traversal", "per-body", "--workload", "galaxy", "-n", "201"],

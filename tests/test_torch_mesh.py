@@ -209,9 +209,13 @@ def test_sharded_step_vs_single_device_step(name, ranks):
 
 def test_dryrun_on_4_ranks(ranks):
     out = _job(ranks, "dryrun")
-    assert set(out) == {"ring", "bvh", "octree"}
-    for x in out.values():
-        assert x.shape == (16 * WORLD, 2) and np.isfinite(x).all()
+    assert set(out) == {"ring", "bvh", "octree", "partitioned_octree", "partitioned_bvh",
+                        "partitioned_2d", "comm"}
+    comm = out.pop("comm")
+    assert not comm["ring_used"] and comm["traced_total"] == comm["comm"]["step_bytes_no_sort"]
+    for name, x in out.items():
+        n = (32 if name.startswith("partitioned") else 16) * WORLD
+        assert x.shape == (n, 2) and np.isfinite(x).all()
 
 
 def test_a_failing_rank_fails_the_run(tmp_path):
@@ -233,7 +237,9 @@ def test_mesh_needs_its_group():
     for algo in ("all-pairs", "octree", "bvh"):
         with pytest.raises(RuntimeError, match="parallel.launch"):
             get_engine(algo).make_step(cfg, EngineOptions(mesh=4), CPU)
-    with pytest.raises(ValueError, match="not yet ported"):
-        get_engine("octree").make_step(cfg, EngineOptions(mesh=4, mesh_layout="partitioned"), CPU)
+    for algo in ("octree", "bvh"):
+        with pytest.raises(RuntimeError, match="parallel.launch"):
+            get_engine(algo).make_step(cfg, EngineOptions(mesh=2, mesh_tile=2,
+                                                          mesh_layout="partitioned"), CPU)
     with pytest.raises(ValueError):
         launch.spawn(0, "cpu", dryrun.dryrun_rank)

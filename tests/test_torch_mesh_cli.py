@@ -136,11 +136,3 @@ def test_mesh_saves_like_nbody_tpu(port, tmp_path, monkeypatch):
         assert t[:head] == j[:head] and len(t) == len(j)
         tv, jv = (np.frombuffer(b[head:], dtype) for b in (t, j))
         assert np.abs(tv - jv).max() <= 1e-6 * np.abs(jv).max(), name
-
-
-def test_partitioned_trees_are_refused():
-    for algo in ("octree", "bvh"):
-        with pytest.raises(SystemExit) as e:
-            tcli.main(["-n", "8", "--algorithm", algo, "--mesh", "2", "--mesh-layout",
-                       "partitioned", "--device", "cpu"], out=io.StringIO())
-        assert e.value.code == 1
