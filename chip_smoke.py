@@ -230,21 +230,29 @@ Phases, each printed on its own lines:
         budget, and each math's ms are printed side by side; the ideal
         rung's time at 5 blocks an SM (b) is printed beside blockspec's;
  11. the trees' per-body walks (csrc/tree_walk.cu: bvh_walk_kernel and
-     octree_walk_kernel, one thread a body):
+     octree_walk_kernel, one thread a body over packed records, and
+     octree_pack_kernel, which packs the octree's records and ropes):
      a. on a 2^20-body galaxy in 3-D float32, 3-D float64 and 2-D float32,
-        each walk over the tree its per-body path builds: the call timed
-        with CUDA events (a warm-up, then 3 calls), its twin on 4,096
-        sampled rows (the kernel's rows within 1e-5 / 1e-12 of each row's
-        sum of |term|, and the kernel's call on those rows bit-equal to
-        the whole call's), the accepted nodes, direct pairs and opened
-        nodes a body on the rows, the bound from them, the registers,
-        spills and slow-path instructions (probe sass_of of tree_walk.cu,
-        run in a thread from phase 1), and the relative error of the walk
-        and of the group path on the same tree against the exact sum (the
-        float64 IEEE all-pairs kernel) on the rows;
+        each walk over the tree its per-body path builds: the call (its
+        pack included) timed with CUDA events (a warm-up, then 3 calls),
+        the pack alone (the
+        octree's against its plain version, bit for bit, timed beside it
+        with its bytes bound), its twin on 4,096 sampled rows (128 whole
+        warps of 32 consecutive sorted rows at random offsets, passed in a
+        shuffled order: the kernel's rows within 1e-5 / 1e-12 of each
+        row's sum of |term|, and the kernel's call on those rows bit-equal
+        to the whole call's), the accepted nodes,
+        direct pairs, opened nodes and iterations a body on the rows, the
+        sampled warps' SIMT efficiency (their lanes' mean iterations over
+        their most, from the twin's counts), the bound from them, the
+        records' bytes, the registers, spills, slow-path instructions and
+        global loads by width (probe sass_of of
+        tree_walk.cu, run in a thread from phase 1), and the relative
+        error of the walk and of the group path on the same tree against
+        the exact sum (the float64 IEEE all-pairs kernel) on the rows;
      b. the CLI at full size, -n 1048576 -s 12 -d 3 --traversal per-body
-        for the octree and the bvh: 12 launches of the walk kernel, and no
-        call of a twin;
+        for the octree and the bvh: 12 launches of the walk kernel (and of
+        octree_pack_kernel in the octree's run), and no call of a twin;
      c. s/step over 20 timed steps (-s 30) at full size in 3-D float32:
         both per-body paths, and the BVH with --sort-every 4 and with
         --refine-levels 1 beside its default run;
@@ -391,7 +399,8 @@ the fallback launches of the all-pairs kernel are reported beside them),
 and its float32 instantiations from the float32 list-path steps of 7a
 (float32 CLI runs take the fast paths, and --kernel torch the twin). The
 list kernel counts each instantiation (dtype, softening) on its own.
-The walks' launches come from the two per-body runs of phase 11b.
+The walks' and the pack's launches come from the two per-body runs of
+phase 11b.
 Phase 12 adds to each kernel it launched "mesh_launches", the launches of
 12a's --mesh runs summed over their ranks (the octree's far, window and
 entries kernels under their <sqrt3> names, the BVH's under <poly>).
@@ -403,8 +412,11 @@ Phase 11's bounds: a body's accepted nodes and direct pairs times the
 FLOPs of a pair (5*dim + 3, one more under the octree's sqrt3), plus its
 accepted and opened nodes times 3 (a MAC test beyond its separation),
 counted on the 4,096 sampled rows and scaled to the galaxy, over 67 or 34
-TFLOP/s, against the trees' and bodies' bytes; plain_ms is the twin's
-time on those rows; no PyTorch call walks a tree, so library_ms is null.
+TFLOP/s, against the bytes of the packed records and of the rows written;
+plain_ms is the twin's time on those rows; the pack's bound is its bytes
+(the level arrays and bodies read once, the records written once), its
+plain_ms that of octree_records_torch; no PyTorch call walks a tree or
+packs its records, so library_ms is null.
 Phase 10's kernels count from the probe runs: each probe sets the counts
 to 0 just before a mode's calls and reports them just after, in the
 mode's JSON line (entries_tables_kernel from mode (1024, real), each
@@ -3123,7 +3135,7 @@ def probe_phases(dev, big: int, probe_sass):
 # -- phase 11: the trees' per-body walks (csrc/tree_walk.cu) ----------------
 
 TREE_WALK = "nbody_torch/csrc/tree_walk.cu"
-WALK_ROWS = 4096  # 11a: the sampled rows each walk kernel is held against its twin on
+WALK_ROWS = 4096  # 11a: the sampled rows (whole warps) each walk kernel is held against its twin on
 # 11a's configurations: (dim, dtype name) of a 2^20-body galaxy
 WALK_CONFIGS = ((3, "float32"), (3, "float64"), (2, "float32"))
 WALKS = {  # kernel -> (the softening of its terms, the nbody_tpu function it stands for)
@@ -3133,6 +3145,12 @@ WALKS = {  # kernel -> (the softening of its terms, the nbody_tpu function it st
                                     "(lax.while_loop, no Pallas)"),
 }
 MAC_OPS = 3  # a MAC test beyond its separation: two products (or a quotient) and a compare
+# a lane's iterations by the twin's counts (weights): the BVH's node tests
+# and two body slots a leaf visit, the octree's visits and drained bodies
+# (no ADVANCE iteration)
+WALK_ITERATIONS = {"bvh_walk_kernel": {"nodes": 1, "opened": 1, "leaves": 2},
+                   "octree_walk_kernel": {"nodes": 1, "opened": 1, "pairs": 1}}
+PACK = "octree_pack_kernel"
 CADENCE_STEPS = 30  # 11c: 20 timed steps, so that --csv-total's 0.01 s resolves 0.0005 s/step
 
 
@@ -3167,25 +3185,34 @@ def walk_states(dev, n: int, dim: int, dtype):
         out, _ = octree.octree_step_force(state, th, G, eps, levels.depth, list_path=f64)
         return out.a[perm]
 
-    tree_bytes = sum(t.numel() * t.element_size() for t in (tree.mm, tree.mx, tree.bw))
-    level_bytes = sum(t.numel() * t.element_size() for t in (
-        levels.mass, levels.com, levels.start, levels.count, levels.child_start,
-        levels.child_count, levels.parent))
-    body_bytes = n * (2 * dim + 1) * np.dtype(dtype).itemsize  # m and x read, a written
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    level_arrays = (levels.mass, levels.com, levels.start, levels.count, levels.child_start,
+                    levels.child_count, levels.parent)
+    out_bytes = n * dim * np.dtype(dtype).itemsize
+
+    def bvh_pack():
+        return tw.bvh_records(tree.mm, tree.mx, tree.bw), tw.body_records(st.m, st.x)
+
+    def octree_pack():
+        return tw.octree_records_cuda(levels, ms, xs)
     return {
         "bvh_walk_kernel": dict(
             kern=lambda rows=None: tw.bvh_walk_cuda(tree.mm, tree.mx, tree.bw, tree.nlevels,
                                                      st.m, st.x, th, G, eps, rows),
             twin=lambda rows: tw.bvh_walk_torch(tree.mm, tree.mx, tree.bw, tree.nlevels, st.m,
                                                 st.x, th, G, eps, rows, detail=True),
-            group=bvh_group_force, m=st.m, x=st.x, G=G, eps=eps,
-            nbytes=tree_bytes + body_bytes),
+            pack=bvh_pack, group=bvh_group_force, m=st.m, x=st.x, G=G, eps=eps,
+            nbytes=nbytes(*bvh_pack()) + out_bytes),
         "octree_walk_kernel": dict(
             kern=lambda rows=None: tw.octree_walk_cuda(levels, ms, xs, side, th, G, eps, rows),
             twin=lambda rows: tw.octree_walk_torch(levels, ms, xs, side, th, G, eps, rows,
                                                    detail=True),
+            pack=octree_pack, pack_twin=lambda: tw.octree_records_torch(levels, ms, xs),
+            pack_inputs_bytes=nbytes(*level_arrays, ms, xs),
             group=octree_group_force, m=ms, x=xs, G=G, eps=eps,
-            nbytes=level_bytes + body_bytes),
+            nbytes=nbytes(*octree_pack()) + out_bytes),
     }
 
 
@@ -3198,31 +3225,60 @@ def rel_errors(a, ref) -> dict:
             "max": rel.max().item()}
 
 
+def simt_efficiency(rows, iterations) -> float:
+    """The mean over the sampled warps (rows: whole warps of 32 sorted
+    rows, in any order) of their lanes' mean iterations over their most."""
+    import torch
+
+    per_lane = iterations[torch.argsort(rows)].double().view(-1, 32)
+    return (per_lane.mean(1) / per_lane.amax(1).clamp_min(1)).mean().item()
+
+
 def walk_measure(tag: str, name: str, walk: dict, n: int, dim: int, dtype_name: str,
                  walk_sass) -> dict:
-    """11a, one walk on one galaxy: its call timed with CUDA events over the
-    whole galaxy (a warm-up, then 3 calls), its twin on WALK_ROWS sampled
-    rows within TOL of each row's sum of |term|, the rows' own kernel call
-    bit-equal to the whole call's rows, the interactions a body on the
-    rows, the bound from them, the SASS's registers and spills, and the
-    walk's and its group path's relative error against the exact sum on
-    the rows."""
+    """11a, one walk on one galaxy (returns its measurement, and the pack
+    kernel's or None): its call timed with CUDA events over the
+    whole galaxy (a warm-up, then 3 calls), its
+    records' pack alone (the octree's against its plain version, bit for
+    bit), its twin on WALK_ROWS sampled rows (whole warps of 32 sorted
+    rows, passed shuffled so that a lane's warp-mates differ from the whole
+    call's) within TOL of each row's sum of |term|, the rows' own kernel
+    call bit-equal to the whole call's rows, the interactions a body on the
+    rows, the sampled warps' SIMT efficiency, the bound from them, the
+    SASS's registers and spills, and the walk's and its group path's
+    relative error against the exact sum on the rows."""
     import torch
 
     from nbody_torch.ops import cuda_allpairs as ca
 
     dev = walk["x"].device
-    rows = torch.from_numpy(np.random.default_rng(SEED).choice(n, WALK_ROWS, replace=False))
+    rng = np.random.default_rng(SEED)
+    warps = rng.choice(n // 32, WALK_ROWS // 32, replace=False)
+    rows = torch.from_numpy(rng.permutation((warps[:, None] * 32 + np.arange(32)).ravel()))
     rows = rows.to(dev)
     got = walk["kern"]()  # the warm-up launch
     kms = event_ms(walk["kern"], reps=3)
+    pack_ms = event_ms(walk["pack"], reps=10)
     check(bool(torch.isfinite(got).all()), f"{tag} {name}: the walk is not finite")
     rows_ms, sub = event_ms(lambda: walk["kern"](rows), reps=1, keep=True)
     plain_ms, (ref, scale, counts) = event_ms(lambda: walk["twin"](rows), reps=1, keep=True)
     err, abs_err = scaled(got[rows], ref, scale)
     check(err <= TOL[dtype_name], f"{tag} {name}: scaled error {err:.3e} above {TOL[dtype_name]}")
     check(torch.equal(sub, got[rows]), f"{tag} {name}: the rows' call differs from the whole call")
+    iterations = sum(w * counts[k] for k, w in WALK_ITERATIONS[name].items())
+    simt = simt_efficiency(rows, iterations)
     per_body = {k: v.double().mean().item() for k, v in counts.items()}
+    per_body["iterations"] = iterations.double().mean().item()
+    pack = None
+    if "pack_twin" in walk:
+        got_pack = walk["pack"]()
+        pack_plain_ms, want = event_ms(walk["pack_twin"], reps=1, keep=True)
+        check(all(torch.equal(a, b) for a, b in zip(got_pack, want)),
+              f"{tag} {PACK}: the records differ from their plain version")
+        moved = walk["pack_inputs_bytes"] + sum(t.numel() * t.element_size() for t in got_pack)
+        pack = {"ms": pack_ms, "plain_ms": pack_plain_ms, "max_abs_err": 0.0,
+                "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "library_ms": None, "nbytes": moved}
     softening = WALKS[name][0]
     ops = n * ((per_body["nodes"] + per_body["pairs"]) * flops_per_pair(dim, softening)
                + (per_body["nodes"] + per_body["opened"]) * MAC_OPS)
@@ -3235,22 +3291,34 @@ def walk_measure(tag: str, name: str, walk: dict, n: int, dim: int, dtype_name: 
     errs = {"walk": rel_errors(got[rows].double(), exact),
             "group": rel_errors(walk["group"]()[rows].double(), exact)}
     ctype = "double" if dtype_name == "float64" else "float"
-    srow = next(r for r in walk_sass.result(timeout=600)[1]
-                if f"::{name}<{ctype}, (int){dim}>(" in r["kernel"])
-    sass = {k: srow.get(k) for k in ("registers", "spill_stores", "spill_loads",
-                                     "slow_path_instructions")}
-    print(f"[{tag}] {name}<{ctype}, {dim}>, {n} bodies: kernel {kms:.3f} ms a call "
+    sass_rows = walk_sass.result(timeout=600)[1]
+    keys = ("registers", "spill_stores", "spill_loads", "slow_path_instructions",
+            "global_loads")
+
+    def sass_of(kernel):
+        return {k: next(r for r in sass_rows if kernel in r["kernel"]).get(k) for k in keys}
+    sass = sass_of(f"::{name}<{ctype}, (int){dim}>(")
+    print(f"[{tag}] {name}<{ctype}, {dim}>, {n} bodies: kernel {kms:.3f} ms a call with its "
+          f"pack, the pack {pack_ms:.4f} ms alone "
           f"({rows_ms:.3f} ms on the {WALK_ROWS} rows), twin {plain_ms:.1f} ms on the rows; max "
           f"|kernel - twin| / sum|term| = {err:.3e} (limit {TOL[dtype_name]:g}); a body: "
           f"{per_body['nodes']:.1f} accepted nodes, {per_body['pairs']:.1f} direct pairs, "
-          f"{per_body['opened']:.1f} opened nodes; bound {bound_ms:.3f} ms ({bound_by}: "
-          f"{ops:.4e} operations, {walk['nbytes']} bytes); SASS {sass}; relative error against "
-          f"the exact sum, walk {errs['walk']}, group path {errs['group']}")
+          f"{per_body['opened']:.1f} opened nodes, {per_body['iterations']:.1f} iterations; "
+          f"SIMT efficiency of the {WALK_ROWS // 32} sampled warps {simt:.4f}; bound "
+          f"{bound_ms:.3f} ms ({bound_by}: {ops:.4e} operations, {walk['nbytes']} bytes of "
+          f"records and rows); SASS {sass}; relative error against the exact sum, walk "
+          f"{errs['walk']}, group path {errs['group']}")
+    if pack is not None:
+        pack["sass"] = sass_of(f"::{PACK}<{ctype}, (int){dim}>(")
+        print(f"[{tag}] {PACK}<{ctype}, {dim}>: {pack_ms:.4f} ms, plain {pack['plain_ms']:.3f} "
+              f"ms, records bit-equal; bound {pack['bound_ms']:.4f} ms (bytes: "
+              f"{pack['nbytes']}); SASS {pack['sass']}")
     return {"ms": kms, "plain_ms": plain_ms, "plain_on_rows": WALK_ROWS, "rows_ms": rows_ms,
             "max_abs_err": abs_err, "max_scaled_err": err, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "operations": ops,
+            "bound_by": bound_by, "library_ms": None, "operations": ops, "pack_ms": pack_ms,
+            "simt_efficiency": simt,
             "per_body": per_body, "sass": sass, "rel_err_vs_exact": errs, "n": n, "dim": dim,
-            "dtype": dtype_name}
+            "dtype": dtype_name, "records_bytes": walk["nbytes"]}, pack
 
 
 def walk_phases(dev, big: int, walk_sass):
@@ -3262,11 +3330,14 @@ def walk_phases(dev, big: int, walk_sass):
     t11 = time.perf_counter()
     # -- (a) each walk kernel against its twin on sampled rows at 2^20 -------
     measured = {name: {} for name in WALKS}
+    pack = {}
     for dim, dtype_name in WALK_CONFIGS:
         walks = walk_states(dev, big, dim, np.dtype(dtype_name))
         for name in WALKS:
-            measured[name][(dim, dtype_name)] = walk_measure("11a", name, walks[name], big, dim,
-                                                             dtype_name, walk_sass)
+            measured[name][(dim, dtype_name)], packed = walk_measure(
+                "11a", name, walks[name], big, dim, dtype_name, walk_sass)
+            if packed:
+                pack[(dim, dtype_name)] = packed
         del walks
         torch.cuda.empty_cache()
 
@@ -3277,6 +3348,8 @@ def walk_phases(dev, big: int, walk_sass):
                                        extra=("--traversal", "per-body"))
         check(launches[name][name] == 12, f"the per-body {algorithm} CLI launched {name} "
               f"{launches[name][name]} times, not 12")
+        check(launches[name][PACK] == (12 if algorithm == "octree" else 0),
+              f"the per-body {algorithm} CLI launched {PACK} {launches[name][PACK]} times")
         check(tw.twin_calls == {k: 0 for k in tw.twin_calls},
               f"the per-body {algorithm} CLI ran a twin: {tw.twin_calls}")
 
@@ -3309,6 +3382,14 @@ def walk_phases(dev, big: int, walk_sass):
                         "float32_2d": measured[name][(2, "float32")]})
     entries[0]["cli_s_per_step"] = runs
     entries[0]["bvh_refine_levels"] = refine
+    entries.append({"name": PACK, "route": "cuda", "source": TREE_WALK,
+                    "replaces": "none: packs the levels of nbody_tpu/ops/octree.py:111 "
+                                "build_octree for octree_walk_kernel (no Pallas)",
+                    "launches": launches["octree_walk_kernel"][PACK],
+                    "launches_in": f"phase 11b: {big}-body 3-D octree --traversal per-body "
+                                   "--csv-total",
+                    **pack[(3, "float32")], "float64_3d": pack[(3, "float64")],
+                    "float32_2d": pack[(2, "float32")]})
     return entries
 
 

@@ -147,13 +147,15 @@ SIGNATURES = (
     ("nbody_dma_ring", [i, i, i, i, p, i, p, i, p, i, i, i, i, f64, p, p]),
     # (device, dim, kernel, variant, math, min_blocks, S, out (5,) int32)
     ("nbody_entry_probe_budget", [i, i, i, i, i, i, i, p]),
-    # csrc/tree_walk.cu: (device, dtype, dim, mm, mx, bw, nlevels, m, x, n, rows, nrows,
+    # csrc/tree_walk.cu: (device, dtype, dim, nodes, mm, nlevels, bodies, n, rows, nrows,
     #  theta2, eps, G, out, stream)
-    ("nbody_bvh_walk", [i, i, i, p, p, p, i, p, p, i, p, i, f64, f64, f64, p, p]),
+    ("nbody_bvh_walk", [i, i, i, p, p, i, p, i, p, i, f64, f64, f64, p, p]),
     # (device, dtype, dim, mass, com, start, count, child_start, child_count, parent,
-    #  offsets (host), depth, ms, xs, n, root_side, rows, nrows, theta, eps, G, out, stream)
-    ("nbody_octree_walk", [i, i, i, p, p, p, p, p, p, p, p, i, p, p, i, p, p, i, f64, f64, f64,
-                           p, p]),
+    #  offsets (host), depth, total, ms, xs, n, nodes, fnodes, bodies, stream)
+    ("nbody_octree_pack", [i, i, i, p, p, p, p, p, p, p, p, i, i, p, p, i, p, p, p, p]),
+    # (device, dtype, dim, nodes, fnodes, offsets (host), depth, total, bodies, n,
+    #  root_side, rows, nrows, theta, eps, G, out, stream)
+    ("nbody_octree_walk", [i, i, i, p, p, p, i, i, p, i, p, p, i, f64, f64, f64, p, p]),
 )
 del i, p, f64
 

@@ -2,7 +2,7 @@
 variants of the nbody_torch found under ROOT, for comparing two checkouts on
 one card:
 
-    python nbody_torch/probes/compare_trees.py ROOT [OUT] [--allpairs-only]
+    python nbody_torch/probes/compare_trees.py ROOT [OUT] [--allpairs-only | --walks-only]
 
 Run it as a file (not with -m), once per checkout, in turns (parent,
 change, change, parent) on one card: it imports nbody_torch
@@ -54,7 +54,13 @@ wrappers. Prints one JSON line (appended to OUT too, if given):
   decide_{fast,mxu,mxu_fast}_ms  where ROOT has ops/cuda_variant_decide, its
                        decision (tile statistics and table) for the same
                        bodies and each variant's tiles, over 10 calls.
---allpairs-only runs the all-pairs keys alone.
+  walk_{bvh,octree}_{3d,3d_f64,2d}_ms  ops.bvh.compute_force and
+                       ops.octree.compute_force (the per-body walks, the
+                       octree's with its pack) on a 2^20-body galaxy's tree
+                       (3-D float32, 3-D float64, 2-D float32), CUDA events
+                       over 3 calls; where ROOT has octree_records_cuda,
+                       pack_octree_*_ms the pack alone, over 10 calls.
+--allpairs-only runs the all-pairs keys alone, --walks-only the walks'.
 """
 
 import importlib
@@ -237,11 +243,41 @@ def allpairs_row(dev: torch.device) -> dict:
     return row
 
 
+WALK_CONFIGS = (("3d", 3, np.float32), ("3d_f64", 3, np.float64), ("2d", 2, np.float32))
+
+
+def walk_row(dev: torch.device, build_model) -> dict:
+    """The walk keys: each tree's compute_force on a 2^20-body galaxy."""
+    bvh, octree, tw = (importlib.import_module(f"nbody_torch.ops.{name}")
+                       for name in ("bvh", "octree", "cuda_tree_walk"))
+    scalar_bounds = importlib.import_module("nbody_torch.ops.geometry").scalar_bounds
+    row = {}
+    for key, dim, dtype in WALK_CONFIGS:
+        cfg, state = build_model("galaxy", N, dim, dtype, device=dev)
+        th, G, eps = cfg.theta, cfg.G, cfg.eps
+        st = bvh.hilbert_sort(state, eps)
+        tree = bvh.build_tree(st.m, st.x, eps)
+        lo, hi = scalar_bounds(state.x)
+        levels, _, ms, xs = octree.build_octree(state.m, state.x, lo, hi,
+                                                octree.max_depth(N, dim))
+        calls = {"bvh": (tw.BVH_WALK, lambda: bvh.compute_force(tree, st.m, st.x, th, G, eps)),
+                 "octree": (tw.OCTREE_WALK,
+                            lambda: octree.compute_force(levels, ms, xs, hi - lo, th, G, eps))}
+        for walk, (name, call) in calls.items():
+            row[f"walk_{walk}_{key}_ms"] = events_ms(call, 3)
+        if hasattr(tw, "octree_records_cuda"):
+            row[f"pack_octree_{key}_ms"] = events_ms(
+                lambda: tw.octree_records_cuda(levels, ms, xs), 10)
+        del state, st, tree, levels, ms, xs, calls
+        torch.cuda.empty_cache()
+    return row
+
+
 def main(argv: list[str]) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("compare_trees needs a CUDA GPU")
-    allpairs_only = "--allpairs-only" in argv
-    argv = [a for a in argv if a != "--allpairs-only"]
+    allpairs_only, walks_only = "--allpairs-only" in argv, "--walks-only" in argv
+    argv = [a for a in argv if a not in ("--allpairs-only", "--walks-only")]
     root = argv[0] if argv else "."
     sys.path.insert(0, root)  # the checkout's nbody_torch, not this file's
     build_model = importlib.import_module("nbody_torch.models").build_model
@@ -249,10 +285,11 @@ def main(argv: list[str]) -> None:
                       for name in ("cuda_group_eval", "octree", "octree_group"))
     dev = torch.device("cuda", 0)
     row = {"root": root, "module": cg.__file__, "device": torch.cuda.get_device_name(0)}
-    row.update(allpairs_row(dev))
+    row.update(walk_row(dev, build_model) if walks_only else allpairs_row(dev))
+    trees = not (allpairs_only or walks_only)
     bvh, bg, cli = (importlib.import_module(f"nbody_torch.{name}")
                     for name in ("ops.bvh", "ops.bvh_group", "cli"))
-    for dim in (3, 2) if not allpairs_only else ():
+    for dim in (3, 2) if trees else ():
         calls = octree_calls(dim, dev, build_model, octree, og)
         args = calls["window_eval_interval_cuda"]
         row[f"interval_{dim}d_ms"] = events_ms(lambda: cg.window_eval_interval_cuda(*args), 10)
@@ -283,10 +320,10 @@ def main(argv: list[str]) -> None:
         row[f"dense_n16_{dim}d_call_ms"] = events_ms(lambda: cg.window_eval_dense_cuda(*args),
                                                      REPS)
         row[f"dense_n16_{dim}d_host_ms"] = host_ms(lambda: cg.window_eval_dense_cuda(*args), 200)
-    for key, run in SMALL_RUNS.items() if not allpairs_only else ():
+    for key, run in SMALL_RUNS.items() if trees else ():
         row[f"small_{key}_s_per_step"] = small_run_step(cli, run)
     for dim, dtype, written in ((3, torch.float32, P), (2, torch.float32, P),
-                                (3, torch.float64, 0)) if not allpairs_only else ():
+                                (3, torch.float64, 0)) if trees else ():
         parts = torch.rand((NTILES * P, TB, dim), dtype=dtype, device=dev)
         nparts = torch.full((NTILES,), written, dtype=torch.int32, device=dev)
         key = f"parts_sum_{str(dtype).removeprefix('torch.')}_{dim}d_{written}parts"

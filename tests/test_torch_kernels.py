@@ -1558,7 +1558,9 @@ def test_walk_kernels_vs_twins(dev, dim, dtype):
     """bvh_walk_kernel and octree_walk_kernel on a 5,001-body galaxy (its
     last body massless at the origin) against their twins on every row,
     and the kernel's call on some rows bit-equal to those rows of the whole
-    call; one launch counted a call."""
+    call; one launch counted a call (the octree's also one of
+    octree_pack_kernel, whose records equal its plain version's bit for
+    bit)."""
     from nbody_torch.models import build_galaxy_model
     from nbody_torch.ops import bvh, octree
     from nbody_torch.ops import cuda_tree_walk as tw
@@ -1584,6 +1586,10 @@ def test_walk_kernels_vs_twins(dev, dim, dtype):
         tw.reset_launch_counts()
         got = kern()
         assert tw.launch_counts[name] == 1 and tw.twin_calls[name] == 0
+        assert tw.launch_counts[tw.OCTREE_PACK] == (name == tw.OCTREE_WALK)
         ref, scale, _ = twin()
         assert bool(((got - ref).abs() <= TOL[dtype] * scale).all()), name
         assert torch.equal(kern(rows), got[rows]), name
+    packed = tw.octree_records_cuda(levels, ms, xs)
+    for a, b in zip(packed, tw.octree_records_torch(levels, ms, xs)):
+        assert torch.equal(a, b)

@@ -195,8 +195,8 @@ def test_rows_walk_those_bodies_and_the_wrapper_routes_cpu_to_the_twin():
     rows = torch.tensor([299, 0, 17, 17, 150])
     part = tw.bvh_walk_cuda(t.mm, t.mx, t.bw, t.nlevels, m, x, 0.5, 2.0, 1e-7, rows)
     assert torch.equal(part, full[rows])
-    assert tw.launch_counts == {tw.BVH_WALK: 0, tw.OCTREE_WALK: 0}
-    assert tw.twin_calls == {tw.BVH_WALK: 2, tw.OCTREE_WALK: 0}
+    assert tw.launch_counts == {tw.BVH_WALK: 0, tw.OCTREE_WALK: 0, tw.OCTREE_PACK: 0}
+    assert tw.twin_calls == {tw.BVH_WALK: 2, tw.OCTREE_WALK: 0, tw.OCTREE_PACK: 0}
     with pytest.raises(TypeError):
         tw.bvh_walk_cuda(t.mm, t.mx, t.bw, t.nlevels, m, x, 0.5, 1.0, 1e-7, rows.int())
     with pytest.raises(ValueError):

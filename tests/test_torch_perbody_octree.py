@@ -209,8 +209,8 @@ def test_rows_walk_those_bodies_and_the_wrapper_routes_cpu_to_the_twin():
     rows = torch.tensor([299, 0, 17, 17, 150])
     assert torch.equal(tw.octree_walk_cuda(levels, ms, xs, side, 0.5, 2.0, 1e-7, rows),
                        full[rows])
-    assert tw.launch_counts == {tw.BVH_WALK: 0, tw.OCTREE_WALK: 0}
-    assert tw.twin_calls == {tw.BVH_WALK: 0, tw.OCTREE_WALK: 2}
+    assert tw.launch_counts == {tw.BVH_WALK: 0, tw.OCTREE_WALK: 0, tw.OCTREE_PACK: 0}
+    assert tw.twin_calls == {tw.BVH_WALK: 0, tw.OCTREE_WALK: 2, tw.OCTREE_PACK: 0}
     with pytest.raises(ValueError):
         tw.octree_walk_cuda(levels, ms, xs, side[None], 0.5, 1.0, 1e-7)
     with pytest.raises(ValueError):
