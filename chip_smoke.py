@@ -604,6 +604,7 @@ def main() -> int:
     single_steps, mesh_steps = {mesh_key("all-pairs", 3, "float", big): per_step}, {}
     mesh_launches = mesh_phases(dev, single_steps, mesh_steps)
     part_launches = partitioned_phases(dev, single_steps, mesh_steps)
+    mode_kernels = mode_phases(dev, big)
 
     runs = {ca.NEWTON: (phase3_launches, f"phase 3: {big}-body 3-D all-pairs --csv-total"),
             ca.NEWTON64: (list_launches, f"phase 7b: {big}-body 3-D octree --precision double "
@@ -623,7 +624,7 @@ def main() -> int:
     parts_sum = next(e for e in bvh_kernels if e["name"] == PARTS_SUM)
     parts_sum["octree_interval_window"] = interval_sum  # its second pass in the octree
     kernels_line = (entries + octree_kernels + bvh_kernels + list_kernels + variant_kernels
-                    + ablation_kernels + probe_kernels + walk_kernels)
+                    + ablation_kernels + probe_kernels + walk_kernels + mode_kernels)
     for entry in kernels_line:
         if mesh_launches.get(entry["name"]):
             entry["mesh_launches"] = mesh_launches[entry["name"]]
@@ -1202,11 +1203,19 @@ def start_sass(source: str = "group_eval.cu"):
     return future
 
 
-def kernel_sass(sass_job, name: str, dim: int, softening: str) -> dict:
+# the template arguments after DIM and SQRT3 of the kernels that take a mode
+# (the default's, unless kernel_sass is given one)
+MODE_ARGS = {"masked_eval_bits_kernel": ", (int)1", "window_eval_interval_kernel": ", (bool)0",
+             "window_eval_nodemask_kernel": ", (bool)0"}
+
+
+def kernel_sass(sass_job, name: str, dim: int, softening: str, mode: str | None = None) -> dict:
     """probe sass's count of a group_eval.cu kernel's hot loop (sass_job:
-    start_sass's future): its instructions a pair, registers and spills."""
+    start_sass's future): its instructions a pair, registers and spills.
+    mode: the template arguments after DIM and SQRT3 (MODE_ARGS's default)."""
     rows = sass_job.result(timeout=600)[1]
-    key = f"::{name}<(int){dim}, (bool){int(softening == 'sqrt3')}>("
+    mode = MODE_ARGS.get(name, "") if mode is None else mode
+    key = f"::{name}<(int){dim}, (bool){int(softening == 'sqrt3')}{mode}>("
     row = next(r for r in rows if key in r["kernel"])
     return {k: row.get(k) for k in ("instructions_per_pair", "registers", "spill_stores",
                                     "spill_loads", "loop_instructions", "mufu")}
@@ -2783,6 +2792,257 @@ def ablation_phases(dev, big: int, sass_job):
                         "dtype": "float32", "launches_by_spec": launches[name],
                         "other_calls": {k: v for k, v in measured[name].items()
                                         if k != main_call[name]}})
+    return entries
+
+
+# -- phase 14: the A/B modes of the ablate tokens ------------------------------
+
+# mode name -> (wrapper in ops.cuda_group_eval, its twin, the keyword arguments
+# of the instantiation beside the mode's own (packed), the TPU kernel and
+# the argument that selects the mode there)
+MODE_KERNELS = {
+    "masked_eval_bits_kernel<tg2>": ("masked_eval_bits_cuda", "masked_eval_bits_torch", {},
+                                     f"{PALLAS_GROUP_EVAL}:310 (tile_group=2, body :290-301)"),
+    "window_eval_interval_kernel<full>": ("window_eval_interval_cuda",
+                                          "window_eval_interval_torch", {},
+                                          f"{PALLAS_GROUP_EVAL}:502 (skip_outside=False)"),
+    "window_eval_nodemask_kernel<full>": ("window_eval_nodemask_cuda",
+                                          "window_eval_nodemask_torch", {},
+                                          f"{PALLAS_GROUP_EVAL}:614 (skip_outside=False)"),
+    "entries_lohi_kernel<span>": ("entries_lohi_eval_cuda", "entries_lohi_eval_torch", {},
+                                  f"{PALLAS_GROUP_EVAL}:963 (sub_width / skip_empty=False)"),
+    "entries_lohi_kernel<packed, span>": ("entries_lohi_eval_cuda", "entries_lohi_eval_torch",
+                                          {"packed": True},
+                                          f"{PALLAS_GROUP_EVAL}:1040 (packed_j with sub_width / "
+                                          "skip_empty=False)"),
+}
+MODE_HEAD = 32  # 14a: the twins on the first 32 tiles of each 2^20 call
+# 14b: one 3-D SPEC a token of each tree at 2^20; the mode kernel a token brings
+OCTREE_KNOBS = {"epg1": None, "epg8": None, "epg16": None,
+                "subw1024": "entries_lohi_kernel<span>", "fheapcap1024": None, "nofheap": None,
+                "wj1": None, "wj2": None, "sidefloor": None, "mono": None, "subdiag": None,
+                "pbdiag": None, "ftg2": "masked_eval_bits_kernel<tg2>",
+                "nowinskip": "window_eval_interval_kernel<full>", "wordextract": None,
+                "widextract": None, "noskip": "entries_lohi_kernel<span>", "far": None,
+                "win": None, "near": None, "nlist": None, "desc2.dbg": None,
+                "packedj.subw1024": "entries_lohi_kernel<packed, span>", "winskip": None}
+BVH_KNOBS = {"epg1": None, "epg8": None, "epg16": None, "subw512": "entries_lohi_kernel<span>",
+             "dblk2048": None, "dblk0": None, "wj1": None, "wj2": None, "win": None, "far": None,
+             "resid": None, "rlist": None, "ftg2": "masked_eval_bits_kernel<tg2>",
+             "nowinskip": "window_eval_nodemask_kernel<full>", "winskip": None}
+# the keys a token's line must carry beyond the scripts' (KNOB_KEYS)
+KNOB_TOKEN_KEYS = {"subdiag": ("near_width_cell_tile", "near_width_cell_subtile_xnsub"),
+                   "pbdiag": ("pb_width_box", "pb_width_com", "pb_width_tile"),
+                   "desc2.dbg": ("descend_open_2",)}
+
+
+def mode_head(wrapper: str, args, tiles: int):
+    """A mode call's args cut to its first `tiles` row tiles, and their rows."""
+    xi = args[0]
+    if wrapper == "entries_lohi_eval_cuda":
+        return head_args("entries_lohi_kernel", args, tiles)
+    ntiles = args[3].shape[0]
+    tb = xi.shape[0] // ntiles
+    cut = [a[:tiles] if i >= 3 and hasattr(a, "shape") and a.shape[:1] == (ntiles,) else a
+           for i, a in enumerate(args)]
+    return (xi[:tiles * tb], *cut[1:]), tiles * tb
+
+
+def mode_pairs(name: str, args, kw) -> int:
+    """The (row, source) pairs a mode's kernel visits, masked ones included:
+    tg2, each pair of tiles' rows against the union of their accepted
+    nodes; the full windows, every window column below nj; the span mode,
+    each entry's visited span (entry_spans)."""
+    import torch
+
+    from nbody_torch.ops import cuda_group_eval as cg
+
+    xi, mj = args[0], args[1]
+    nj = mj.shape[0]
+    if name == "masked_eval_bits_kernel<tg2>":
+        words = args[3]
+        tb = xi.shape[0] // words.shape[0]
+        pairs = torch.nn.functional.pad(words, (0, 0, 0, words.shape[0] % 2)).view(-1, 2,
+                                                                                   words.shape[1])
+        union = cg.unpack_mask_bits(pairs[:, 0] | pairs[:, 1], nj).sum(1)
+        rows = torch.full_like(union, 2 * tb)
+        rows[-1] -= tb * (words.shape[0] % 2)
+        return int((union * rows).sum())
+    if name.startswith("entries_lohi_kernel"):
+        ent, lohi, n_real, S = args[3], args[4], int(args[5]), args[6]
+        _, start, stop, _, _ = cg.entry_spans(ent[:n_real], lohi[:n_real], S,
+                                              kw.get("sub_width"), kw.get("skip_empty", True))
+        tb = xi.shape[0] // args[7]
+        return int((stop.clamp_max(nj) - start.clamp_max(nj)).clamp_min(0).sum()) * tb
+    w0 = args[3].long()
+    tb = xi.shape[0] // w0.shape[0]
+    # window_tiles: args[7] of the interval window, args[6] of the node-mask one
+    wt = args[6] if name.startswith("window_eval_nodemask") else args[7]
+    cols = torch.clamp(nj - w0 * tb, min=0).clamp_max(wt * tb)
+    return int(cols.sum()) * tb
+
+
+def mode_check(tag: str, name: str, args, kwargs, mode_kw: dict, dim: int,
+               softening: str) -> dict:
+    """14a: a mode's call on a default path's recorded 2^20 args against
+    the default mode's call (within 1e-6 of sum |a|; bit-equal printed)
+    and against its twin on the first MODE_HEAD tiles (1e-5 of sum
+    |term|); both timed on the device alone (device_ms); the bound on the
+    pairs the mode visits."""
+    import torch
+
+    from nbody_torch.ops import cuda_group_eval as cg
+    from nbody_torch.probes.compare_trees import device_ms
+
+    wrapper, twin_name, kind_kw, _ = MODE_KERNELS[name]
+    kern, twin = getattr(cg, wrapper), getattr(cg, twin_name)
+    base_kw = {**kwargs, **kind_kw}
+    kw = {**base_kw, **mode_kw}
+    cg.reset_launch_counts()
+    default, got = kern(*args, **base_kw), kern(*args, **kw)
+    torch.cuda.synchronize()
+    check(cg.launch_counts[name] == 1, f"{tag}: {name} not launched ({cg.launch_counts})")
+    same = torch.equal(got, default)
+    rel = ((got - default).abs().sum() / default.abs().sum()).item()
+    # the entries calls' plan enqueues ~50 torch ops a call (~1.7 ms):
+    # they queue behind a longer sleep
+    sleep_us = 5000.0 if wrapper == "entries_lohi_eval_cuda" else 500.0
+    ms, ms_default = (device_ms(lambda: kern(*args, **k), reps=3, sleep_us=sleep_us)
+                      for k in (kw, base_kw))
+    ntiles = args[7] if wrapper == "entries_lohi_eval_cuda" else args[3].shape[0]
+    h_args, rows = mode_head(wrapper, args, min(MODE_HEAD, ntiles))
+    twin_kw = {k: v for k, v in kw.items() if k != "parts"}
+    plain_ms, ref = event_ms(lambda: twin(*h_args, **twin_kw), reps=1, keep=True)
+    err, abs_err = scaled(got[:rows], ref, twin(*h_args, absolute=True, **twin_kw))
+    pairs, flops = mode_pairs(name, args, kw), flops_per_pair(dim, softening)
+    bound_ms, bound_by = bound(pairs, flops, bytes_of(args))
+    print(f"[{tag}] {name}<{softening}> {mode_kw}: device {ms:.4f} ms, default mode "
+          f"{ms_default:.4f} ms; vs the default mode {'bit-equal' if same else 'not bit-equal'}, "
+          f"sum|diff| / sum|a| = {rel:.3e} (limit 1e-6); vs plain on {rows} rows ({plain_ms:.1f} "
+          f"ms): max |diff| / sum|term| = {err:.3e} (limit 1e-5); {pairs} pairs visited, bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    check(rel <= 1e-6, f"{tag}: {name} differs from the default mode")
+    check(err <= 1e-5, f"{tag}: {name} differs from its twin")
+    return {"ms": ms, "default_mode_ms": ms_default, "plain_ms": plain_ms, "plain_rows": rows,
+            "max_abs_err": abs_err, "max_scaled_err": err, "vs_default_rel": rel,
+            "vs_default_bit_equal": same, "pairs": pairs, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "mode": {k: v for k, v in mode_kw.items()}}
+
+
+def mode_phases(dev, big: int) -> list:
+    """Phase 14: the four kernel modes of the ablate tokens (14a, on a
+    default path's recorded 2^20 calls) and the knob probe with one SPEC a
+    token of each tree at 2^20 (14b). Returns the modes' JSON entries."""
+    import torch
+
+    from nbody_torch.models import build_model
+    from nbody_torch.ops import bvh, bvh_group, octree, octree_group
+    from nbody_torch.probe import KNOB_KEYS
+
+    t14 = time.perf_counter()
+    measured = {name: {} for name in MODE_KERNELS}
+    wrappers = ["masked_eval_bits_cuda", "window_eval_interval_cuda",
+                "window_eval_nodemask_cuda", "entries_lohi_eval_cuda"]
+    # (tree, dim) -> [(mode, the recorded wrapper, the mode's keyword arguments)]
+    plan = {("octree", 3): [("masked_eval_bits_kernel<tg2>", "masked_eval_bits_cuda",
+                             {"tile_group": 2}),
+                            ("window_eval_interval_kernel<full>", "window_eval_interval_cuda",
+                             {"skip_outside": False}),
+                            ("entries_lohi_kernel<span>", "entries_lohi_eval_cuda",
+                             {"sub_width": 1024}),
+                            ("entries_lohi_kernel<span>", "entries_lohi_eval_cuda",
+                             {"skip_empty": False}),
+                            ("entries_lohi_kernel<packed, span>", "entries_lohi_eval_cuda",
+                             {"sub_width": 1024})],
+            ("octree", 2): [("window_eval_interval_kernel<full>", "window_eval_interval_cuda",
+                             {"skip_outside": False}),
+                            ("entries_lohi_kernel<span>", "entries_lohi_eval_cuda",
+                             {"sub_width": 256})],
+            ("bvh", 3): [("masked_eval_bits_kernel<tg2>", "masked_eval_bits_cuda",
+                          {"tile_group": 2}),
+                         ("window_eval_nodemask_kernel<full>", "window_eval_nodemask_cuda",
+                          {"skip_outside": False}),
+                         ("entries_lohi_kernel<span>", "entries_lohi_eval_cuda",
+                          {"sub_width": 512})]}
+    for (tree, dim), modes in plan.items():
+        softening = "sqrt3" if tree == "octree" else "poly"
+        cfg, state = build_model("galaxy", big, dim, np.float32, device=dev)
+        eps = cfg.eps
+        module = octree_group if tree == "octree" else bvh_group
+        with recording(module, [w for w in wrappers if hasattr(module, w)]) as rec:
+            if tree == "octree":
+                depth = octree.max_depth(big, dim)
+                lo, hi = octree.robust_quant_box(state.x)
+                ms, xs, ks = octree.morton_sort(state.m, state.x, lo, hi, depth)[:3]
+                octree_group.compute_force_grouped_fast(ms, xs, ks, depth, cfg.theta, cfg.G, eps)
+            else:
+                st = bvh.hilbert_sort(state, eps)
+                bvh_group.compute_force_grouped_windowed(bvh.build_tree(st.m, st.x, eps), st.m,
+                                                         st.x, cfg.theta, cfg.G, eps)
+            torch.cuda.synchronize()
+        del state
+        for name, wrapper, mode_kw in modes:
+            key = f"{tree}_{dim}d_" + "_".join(f"{k}{v}" for k, v in mode_kw.items())
+            measured[name][key] = mode_check(f"14a {dim}-D {tree}", name, rec[wrapper],
+                                             rec.kwargs[wrapper], mode_kw, dim, softening)
+        del rec
+        torch.cuda.empty_cache()
+
+    # -- (b) python -m nbody_torch.probe knobs at 2^20, one fresh 3-D SPEC
+    #    a token of each tree; each SPEC's launches counted from 0
+    specs = {"oct": {f"512,8192,32,{tok},3,0": tok for tok in OCTREE_KNOBS},
+             "bvh": {f"512,512,32,{tok},0,3": tok for tok in BVH_KNOBS}}
+    launches = {name: {} for name in MODE_KERNELS}
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        for tree, tree_specs in specs.items():
+            out = os.path.join(tmp, f"{tree}.jsonl")
+            cmd = [sys.executable, "-m", "nbody_torch.probe", "knobs", tree, out, *tree_specs,
+                   "--n", str(big), "--device", dev.type]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=root)
+            rows = [json.loads(line) for line in Path(out).read_text().splitlines()] \
+                if os.path.exists(out) else []
+            print(f"[14b] {' '.join(cmd[1:4])} OUT <{len(tree_specs)} SPECs> --n {big}: rc "
+                  f"{proc.returncode}, {len(rows)} lines in {time.perf_counter() - t0:.0f} s")
+            check(proc.returncode == 0 and len(rows) == len(tree_specs),
+                  f"probe knobs {tree} failed: {proc.stderr[-2000:]}")
+            table = OCTREE_KNOBS if tree == "oct" else BVH_KNOBS
+            for r in rows:
+                tok = tree_specs[r["spec"]]
+                print(f"[14b]   {json.dumps(r)}")
+                want = set(KNOB_KEYS[tree]) - {"far_heap_nonempty", "near_width_cell_tile",
+                                               "near_width_cell_subtile_xnsub"}
+                want |= set(KNOB_TOKEN_KEYS.get(tok, ()))
+                check(want <= set(r), f"probe {tree} {r['spec']} lacks {want - set(r)}")
+                check(np.isfinite(r["sec"]) and r["sec"] > 0, f"probe {tree} {r['spec']}: sec")
+                if table[tok]:
+                    n_launch = r["launches"].get(table[tok], 0)
+                    check(n_launch > 0, f"probe {tree} {r['spec']} launched no {table[tok]}")
+                    launches[table[tok]][f"{tree} {r['spec']}"] = n_launch
+    print(f"[14] phase 14 wall time {time.perf_counter() - t14:.0f} s")
+
+    main_spec = {"masked_eval_bits_kernel<tg2>": ("oct 512,8192,32,ftg2,3,0", "octree_3d_tile_group2"),
+                 "window_eval_interval_kernel<full>": ("oct 512,8192,32,nowinskip,3,0",
+                                                       "octree_3d_skip_outsideFalse"),
+                 "window_eval_nodemask_kernel<full>": ("bvh 512,512,32,nowinskip,0,3",
+                                                       "bvh_3d_skip_outsideFalse"),
+                 "entries_lohi_kernel<span>": ("oct 512,8192,32,subw1024,3,0",
+                                               "octree_3d_sub_width1024"),
+                 "entries_lohi_kernel<packed, span>": ("oct 512,8192,32,packedj.subw1024,3,0",
+                                                       "octree_3d_sub_width1024")}
+    entries = []
+    for name, (_, _, _, replaces) in MODE_KERNELS.items():
+        spec, call = main_spec[name]
+        soft = "poly" if spec.startswith("bvh") else "sqrt3"
+        base, _, mode = name.partition("<")
+        entries.append({"name": f"{base}<{soft}, {mode}", "route": "cuda", "source": GROUP_EVAL,
+                        "replaces": replaces, "launches": launches[name][spec],
+                        "launches_in": f"phase 14b: python -m nbody_torch.probe knobs {spec} "
+                                       f"--n {big} (1 untimed + 3 timed steps)",
+                        **measured[name][call], "n": big, "dim": 3, "dtype": "float32",
+                        "launches_by_spec": launches[name],
+                        "other_calls": {k: v for k, v in measured[name].items() if k != call}})
     return entries
 
 

@@ -119,18 +119,19 @@ SIGNATURES = (
     #  work, stream)
     ("nbody_tile_decide", [i, i, i, p, i, i, i, i, p, f64, f64, p, p, p]),
     # (device, dim, xi, ntiles, tb, ...) as in ops/cuda_group_eval._launch
-    ("nbody_masked_eval_bits", [i, i, p, i, i, p, p, i, p, i, i, f64, p, p]),
-    # the interval window: (..., w0, lo, hi, window_tiles, sqrt3, eps, P, nparts, parts,
+    # the far field: (..., mj, xj, W, words, nw, tile_group, sqrt3, eps, out, stream)
+    ("nbody_masked_eval_bits", [i, i, p, i, i, p, p, i, p, i, i, i, f64, p, p]),
+    # the interval window: (..., w0, lo, hi, window_tiles, full, sqrt3, eps, P, nparts,
+    #  parts, stream)
+    ("nbody_window_eval_interval", [i, i, p, i, i, p, p, i, p, p, p, i, i, i, f64, i, p, p, p]),
+    # the node-mask window: (..., w0, in_win, wnodes, S, full, sqrt3, eps, P, nparts, parts,
     #  stream)
-    ("nbody_window_eval_interval", [i, i, p, i, i, p, p, i, p, p, p, i, i, f64, i, p, p, p]),
-    # the node-mask window: (..., w0, in_win, wnodes, S, sqrt3, eps, P, nparts, parts,
-    #  stream)
-    ("nbody_window_eval_nodemask", [i, i, p, i, i, p, p, i, p, p, i, i, i, f64, i, p, p, p]),
+    ("nbody_window_eval_nodemask", [i, i, p, i, i, p, p, i, p, p, i, i, i, i, f64, i, p, p, p]),
     # the dense-mask window: (..., w0, mask, wb, sqrt3, eps, P, nparts, parts, stream)
     ("nbody_window_eval_dense", [i, i, p, i, i, p, p, i, p, p, i, i, f64, i, p, p, p]),
     # the entries kernels: (device, dim, xi, ntiles, tb, mj, xj, xm, sqrt3, eps, cum,
-    #  start, tile, e0, e1, u0, u1, blocks, parts, stream)
-    ("nbody_entries_eval", [i, i, p, i, i, p, p, p, i, f64, p, p, p, p, p, p, p, i, p, p]),
+    #  start, tile, e0, e1, u0, u1, keep_lo, keep_hi, blocks, parts, stream)
+    ("nbody_entries_eval", [i, i, p, i, i, p, p, p, i, f64, p, p, p, p, p, p, p, p, p, i, p, p]),
     # (device, dim, parts, part_start, ntiles, tb, out, stream)
     ("nbody_entries_sum", [i, i, p, p, i, i, p, p]),
     ("nbody_masked_eval", [i, i, p, i, i, p, p, i, p, i, f64, p, p]),

@@ -163,6 +163,16 @@
 // split arrays, so the staged values, the plan and the pair arithmetic
 // after them are the same, and the two agree bit for bit.
 //
+// Four kernels take a mode, a template flag, for the A/B tokens of the
+// fast paths (ablate=): masked_eval_bits_kernel<.., TG = 2> (ftg2: a block
+// holds two tiles' rows and walks the OR of their words),
+// window_eval_interval_kernel<.., FULL> and window_eval_nodemask_kernel<..,
+// FULL> (nowinskip: every window column visited), entries_kernel<.., SPAN>
+// (subwN, noskip: each entry visits a span around [lo, hi)). Each visits
+// what the Pallas kernel visits in that mode and gives a source it masks
+// the weight (0 * m) * r, as nbody_tpu does; the default instantiations
+// are unchanged.
+//
 // What bounds them on an H100: FP32 and SFU issue per pair (float64 issue
 // in the float64 list kernel), not bytes: the sources are staged once per
 // block through shared memory and read as broadcasts (the dense-mask far
@@ -362,20 +372,113 @@ __device__ __forceinline__ void add_compacted(Rows<float, DIM>& rows, int nw, co
   }
 }
 
-// Block (t, sub): tile t's far field into rows sub*512.. of the tile, its
-// accepted nodes from its packed bits. At most 48 registers, 5 blocks an
-// SM, as the windows take.
+// One stage of the two-tile far field: the staged nodes s[0, len) and their
+// tiles' accept bits sel[k] (bit r set: row r's tile accepts node k), added
+// to rows.acc as add_stage adds them, row r weighting node k's mass by its
+// own tile's bit, (sel * m) * r: a node its tile did not accept adds 0 * dx.
 template <int DIM, bool SQRT3>
+__device__ __forceinline__ void add_stage_pair(Rows<float, DIM>& rows, const float4* s,
+                                               const unsigned char* sel, int len,
+                                               const nbody::ChainWeight<float, SQRT3>& weight) {
+  float part[nbody::kRows][DIM];
+  nbody::zero(part);
+  for (int k0 = 0; k0 < len; k0 += nbody::kGroup) {
+    float group[nbody::kRows][DIM];
+    nbody::zero(group);
+    const int k1 = min(len, k0 + nbody::kGroup);
+#pragma unroll 4
+    for (int k = k0; k < k1; ++k) {
+      const float4 v = s[k];
+      const unsigned bits = sel[k];
+      const float x[3] = {v.x, v.y, v.z};
+#pragma unroll
+      for (int r = 0; r < nbody::kRows; ++r) {
+        float dx[DIM];
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) dx[d] = x[d] - rows.p[r][d];
+        const float m = static_cast<float>((bits >> r) & 1u) * v.w;
+        const float w = weight(m, nbody::sep2_from<float, DIM>(nbody::least_normal(0.0f), dx));
+#pragma unroll
+        for (int d = 0; d < DIM; ++d) group[r][d] += w * dx[d];
+      }
+    }
+    nbody::add_to(part, group);
+  }
+  nbody::add_to(rows.acc, part);
+}
+
+// Block (t, sub): tile t's far field into rows sub*512.. of the tile, its
+// accepted nodes from its packed bits. With TG = 2 (the ftg2 token,
+// nbody_tpu's tile_group=2, pallas_group_eval.py:290-301), block (g, sub)
+// holds the rows sub*256.. of both tiles 2g and 2g + 1, row r of each thread
+// in tile 2g + r: it walks the OR of the two tiles' words, each compacted
+// node carrying its two bits, and each row weights a node by its own tile's
+// bit; a last odd tile pairs with a pad tile of no bits and no rows
+// (:341-346). At most 48 registers, 5 blocks an SM, as the windows take.
+template <int DIM, bool SQRT3, int TG>
 __global__ void __launch_bounds__(kThreads, 5)
 masked_eval_bits_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
                         const float* __restrict__ xj, int W, const unsigned* __restrict__ words,
-                        int nw, float eps, float* __restrict__ out) {
-  Rows<float, DIM> rows(xi, tb);
+                        int nw, int ntiles, float eps, float* __restrict__ out) {
   const unsigned tail = W % 32 == 0 ? ~0u : (1u << (W % 32)) - 1u;  // the last word's nodes
-  const BitWords bits{words + static_cast<size_t>(blockIdx.x) * nw, nw, tail};
   const SplitSource<float, DIM> src{mj, xj};
-  add_compacted<DIM, SQRT3>(rows, nw, bits, [&](int l) { return staged(src, l); }, eps);
-  rows.store(out);
+  if constexpr (TG == 1) {
+    Rows<float, DIM> rows(xi, tb);
+    const BitWords bits{words + static_cast<size_t>(blockIdx.x) * nw, nw, tail};
+    add_compacted<DIM, SQRT3>(rows, nw, bits, [&](int l) { return staged(src, l); }, eps);
+    rows.store(out);
+  } else {
+    __shared__ unsigned short s_ids[kFarWords * 32];
+    __shared__ unsigned char s_pick[kFarWords * 32];
+    __shared__ float4 s_body[kChunk];
+    __shared__ unsigned char s_sel[kChunk];
+    __shared__ int s_red[kThreads / 32];
+
+    Rows<float, DIM> rows(xi, tb, 0, 0);
+    const int local = static_cast<int>(blockIdx.y) * kThreads + static_cast<int>(threadIdx.x);
+#pragma unroll
+    for (int r = 0; r < nbody::kRows; ++r) {  // row r of the thread: tile 2g + r
+      const int t = 2 * static_cast<int>(blockIdx.x) + r;
+      rows.row[r] = t < ntiles && local < tb ? t * tb + local : -1;
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) {
+        rows.p[r][d] = rows.row[r] >= 0 ? xi[static_cast<size_t>(rows.row[r]) * DIM + d] : 0.0f;
+      }
+    }
+    const unsigned* wa = words + static_cast<size_t>(2 * blockIdx.x) * nw;
+    const bool has_b = 2 * static_cast<int>(blockIdx.x) + 1 < ntiles;
+    const nbody::ChainWeight<float, SQRT3> weight{eps};
+    for (int b0 = 0; b0 < nw; b0 += kFarWords) {
+      const int k = b0 + static_cast<int>(threadIdx.x);
+      unsigned a = k < nw ? wa[k] : 0u;
+      unsigned b = has_b && k < nw ? wa[nw + k] : 0u;
+      if (k == nw - 1) {
+        a &= tail;
+        b &= tail;
+      }
+      unsigned bits = a | b;
+      int accepted;
+      int at = block_exclusive_scan(__popc(bits), s_red, accepted);
+      for (; bits; bits &= bits - 1) {
+        const int bit = __ffs(bits) - 1;
+        s_ids[at] = static_cast<unsigned short>(threadIdx.x * 32 + bit);
+        s_pick[at++] = static_cast<unsigned char>(((a >> bit) & 1u) | (((b >> bit) & 1u) << 1));
+      }
+      __syncthreads();  // s_ids and s_pick written (and s_red read)
+      const int node0 = b0 * 32;
+      for (int j0 = 0; j0 < accepted; j0 += kChunk) {
+        const int len = min(kChunk, accepted - j0);
+        if (static_cast<int>(threadIdx.x) < len) {
+          s_body[threadIdx.x] = staged(src, node0 + s_ids[j0 + threadIdx.x]);
+          s_sel[threadIdx.x] = s_pick[j0 + threadIdx.x];
+        }
+        __syncthreads();
+        add_stage_pair<DIM, SQRT3>(rows, s_body, s_sel, len, weight);
+        __syncthreads();
+      }
+    }
+    rows.store(out);
+  }
 }
 
 // Block (t, sub): tile t's dense-mask far field into rows sub*512.. of the
@@ -429,10 +532,14 @@ __device__ __forceinline__ Interval tile_interval(int t, int tb, int nj, const i
 // Block (t*P + p, sub): part p of tile t's interval, the p-th of tile_parts
 // equal shares of its bodies, into rows sub*512.. of the tile, written to
 // slice t*P + p of parts (ntiles * P, tb, DIM); block (t*P, 0) writes the
-// tile's part count to nparts[t]. An empty interval has no part. At most
-// 48 registers, 5 blocks an SM, as the node-mask window takes: left to
-// itself nvcc gave this kernel 64 (4 blocks), 2% slower at 2^20 (PERF.md).
-template <int DIM, bool SQRT3>
+// tile's part count to nparts[t]. An empty interval has no part. With FULL
+// (the nowinskip token: nbody_tpu's skip_outside=False,
+// pallas_group_eval.py:482-494) the parts share the whole window [w0*tb,
+// min((w0 + window_tiles)*tb, nj)) instead, and a column outside [lo, hi)
+// gets weight zero, (sel * m) * r (:485-487). At most 48 registers, 5 blocks
+// an SM, as the node-mask window takes: left to itself nvcc gave this kernel
+// 64 (4 blocks), 2% slower at 2^20 (PERF.md).
+template <int DIM, bool SQRT3, bool FULL>
 __global__ void __launch_bounds__(kThreads, 5)
 window_eval_interval_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
                             const float* __restrict__ xj, int nj, const int* __restrict__ w0,
@@ -442,15 +549,26 @@ window_eval_interval_kernel(const float* __restrict__ xi, int tb, const float* _
   __shared__ float4 s_body[kChunk];
 
   const int t = blockIdx.x / P, p = blockIdx.x % P;
-  const Interval iv = tile_interval(t, tb, nj, w0, lo, hi, window_tiles);
+  Interval iv;
+  if constexpr (FULL) {
+    const long long col0 = static_cast<long long>(w0[t]) * tb;
+    const long long end = min(col0 + static_cast<long long>(window_tiles) * tb, static_cast<long long>(nj));
+    iv = Interval{col0, max(end - col0, 0LL)};
+  } else {
+    iv = tile_interval(t, tb, nj, w0, lo, hi, window_tiles);
+  }
   const int np = tile_parts(iv.work, P);
   if (p == 0 && blockIdx.y == 0 && threadIdx.x == 0) nparts[t] = np;
   if (p >= np) return;  // an empty interval, or a part past the tile's count
   Rows<float, DIM> rows(xi, tb, t, blockIdx.y);
   const SplitSource<float, DIM> src{mj, xj};
+  const long long keep_lo = FULL ? lo[t] : 0, keep_hi = FULL ? hi[t] : 0;
   add_staged_run(rows, iv.a + iv.work * p / np, iv.a + iv.work * (p + 1) / np,
-                 nbody::ChainWeight<float, SQRT3>{eps}, s_body,
-                 [&](long long j) { return staged(src, static_cast<int>(j)); });
+                 nbody::ChainWeight<float, SQRT3>{eps}, s_body, [&](long long j) {
+                   float4 v = staged(src, static_cast<int>(j));
+                   if constexpr (FULL) v.w = (j >= keep_lo && j < keep_hi ? 1.0f : 0.0f) * v.w;
+                   return v;
+                 });
   rows.store(parts + static_cast<size_t>(blockIdx.x - t) * tb * DIM);
 }
 
@@ -463,7 +581,11 @@ __device__ __forceinline__ int slot_bodies(long long col0, int v, int S, int nj)
 // order, into rows sub*512.. of the tile, written to slice t*P + p of
 // parts (ntiles * P, tb, DIM); block (t*P, 0) writes the tile's part count
 // to nparts[t]. The tile's in_win row is staged in dynamic shared memory.
-template <int DIM, bool SQRT3>
+// With FULL (the nowinskip token: nbody_tpu's skip_outside=False,
+// pallas_group_eval.py:582-606) the parts share every window body below nj,
+// open or not, and a body of a closed slot gets weight zero, (sel * m) * r
+// (:590-596).
+template <int DIM, bool SQRT3, bool FULL>
 __global__ void __launch_bounds__(kThreads)
 window_eval_nodemask_kernel(const float* __restrict__ xi, int tb, const float* __restrict__ mj,
                             const float* __restrict__ xj, int nj, const int* __restrict__ w0,
@@ -480,7 +602,7 @@ window_eval_nodemask_kernel(const float* __restrict__ xi, int tb, const float* _
   for (int v = threadIdx.x; v < wnodes; v += kThreads) {
     const unsigned char o = slot_open[v];
     s_open[v] = o;
-    if (o) open += slot_bodies(col0, v, S, nj);
+    if (o || FULL) open += slot_bodies(col0, v, S, nj);
   }
   const int work = block_sum(open, s_red);  // its barrier also publishes s_open
   const int np = tile_parts(work, P);
@@ -491,24 +613,32 @@ window_eval_nodemask_kernel(const float* __restrict__ xi, int tb, const float* _
   const long long u1 = static_cast<long long>(work) * (p + 1) / np;
   const nbody::ChainWeight<float, SQRT3> weight{eps};
   const SplitSource<float, DIM> src{mj, xj};
-  const auto fetch = [&](long long j) { return staged(src, static_cast<int>(j)); };
-  // the same slots for every thread: a block-uniform walk over the runs of
-  // open slots, each run one contiguous range of bodies; c of the tile's
-  // open bodies lie before the run
-  long long c = 0;
-  for (int v = 0; v < wnodes && c < u1;) {
-    if (!s_open[v]) {
-      ++v;
-      continue;
+  if constexpr (FULL) {  // the window's bodies as one run, each weighted by its slot
+    add_staged_run(rows, col0 + u0, col0 + u1, weight, s_body, [&](long long j) {
+      float4 v = staged(src, static_cast<int>(j));
+      v.w = (s_open[(j - col0) / S] ? 1.0f : 0.0f) * v.w;
+      return v;
+    });
+  } else {
+    const auto fetch = [&](long long j) { return staged(src, static_cast<int>(j)); };
+    // the same slots for every thread: a block-uniform walk over the runs of
+    // open slots, each run one contiguous range of bodies; c of the tile's
+    // open bodies lie before the run
+    long long c = 0;
+    for (int v = 0; v < wnodes && c < u1;) {
+      if (!s_open[v]) {
+        ++v;
+        continue;
+      }
+      int v1 = v + 1;
+      while (v1 < wnodes && s_open[v1]) ++v1;
+      const long long a = col0 + static_cast<long long>(v) * S;
+      const long long len = max(0LL, min(col0 + static_cast<long long>(v1) * S, static_cast<long long>(nj)) - a);
+      const long long lo = max(u0 - c, 0LL), hi = min(u1 - c, len);
+      if (lo < hi) add_staged_run(rows, a + lo, a + hi, weight, s_body, fetch);
+      c += len;
+      v = v1;
     }
-    int v1 = v + 1;
-    while (v1 < wnodes && s_open[v1]) ++v1;
-    const long long a = col0 + static_cast<long long>(v) * S;
-    const long long len = max(0LL, min(col0 + static_cast<long long>(v1) * S, static_cast<long long>(nj)) - a);
-    const long long lo = max(u0 - c, 0LL), hi = min(u1 - c, len);
-    if (lo < hi) add_staged_run(rows, a + lo, a + hi, weight, s_body, fetch);
-    c += len;
-    v = v1;
   }
   rows.store(parts + static_cast<size_t>(blockIdx.x - t) * tb * DIM);
 }
@@ -549,7 +679,9 @@ window_eval_dense_kernel(const float* __restrict__ xi, int tb, const float* __re
 // the bodies [u0[b], u1[b]) of tile tile[b] in the live entries' body
 // order (cum[e] bodies before entry e, the first of them source start[e]),
 // which lie in the entries [e0[b], e1[b]); tile[b] < 0 marks a block past
-// the plan's parts.
+// the plan's parts. In the span mode each entry's visited sources
+// [start[e], start[e] + cum[e + 1] - cum[e]) hold its live ones [keep_lo[e],
+// keep_hi[e]); null in the default mode, where every visited source is live.
 struct EntriesPlan {
   const long long* __restrict__ cum;
   const long long* __restrict__ start;
@@ -558,11 +690,17 @@ struct EntriesPlan {
   const int* __restrict__ e1;
   const long long* __restrict__ u0;
   const long long* __restrict__ u1;
+  const long long* __restrict__ keep_lo;
+  const long long* __restrict__ keep_hi;
 };
 
 // Block (b, sub) sums its part's bodies into rows sub*512.. of its tile and
-// writes them to slice b of parts (blocks, tb, DIM).
-template <int DIM, bool SQRT3, typename Src>
+// writes them to slice b of parts (blocks, tb, DIM). With SPAN (the tokens
+// subwN and noskip: nbody_tpu's sub_width and skip_empty=False,
+// pallas_group_eval.py:855-893) each entry visits a span [a, b) around its
+// live range [lo, hi), and a source outside [lo, hi) gets weight zero, (sel *
+// m) * r (:879): the plan's parts count the visited sources.
+template <int DIM, bool SQRT3, typename Src, bool SPAN>
 __global__ void __launch_bounds__(kThreads)
 entries_kernel(const float* __restrict__ xi, int tb, const Src src, const EntriesPlan plan,
                float eps, float* __restrict__ parts) {
@@ -584,7 +722,10 @@ entries_kernel(const float* __restrict__ xi, int tb, const Src src, const Entrie
         hi = mid - 1;
       }
     }
-    return staged(src, static_cast<int>(plan.start[lo] + (u - plan.cum[lo])));
+    const long long j = plan.start[lo] + (u - plan.cum[lo]);
+    float4 v = staged(src, static_cast<int>(j));
+    if constexpr (SPAN) v.w = (j >= plan.keep_lo[lo] && j < plan.keep_hi[lo] ? 1.0f : 0.0f) * v.w;
+    return v;
   };
   add_staged_run(rows, plan.u0[b], plan.u1[b], nbody::ChainWeight<float, SQRT3>{eps}, s_body, fetch);
   // b >= t (every tile has a part), so slice b starts (b - t) * tb rows in
@@ -815,7 +956,10 @@ cudaError_t launch_entries(int sqrt3, const void* xi, int tb, const Src& src,
                            const EntriesPlan& plan, int blocks, double eps, void* parts,
                            void* stream) {
   if ((sqrt3 != 0 && sqrt3 != 1) || blocks <= 0) return cudaErrorInvalidValue;
-  const auto kernel = sqrt3 ? entries_kernel<DIM, true, Src> : entries_kernel<DIM, false, Src>;
+  if ((plan.keep_lo == nullptr) != (plan.keep_hi == nullptr)) return cudaErrorInvalidValue;
+  const bool span = plan.keep_lo != nullptr;
+  const auto kernel = sqrt3 ? (span ? entries_kernel<DIM, true, Src, true> : entries_kernel<DIM, true, Src, false>)
+                            : (span ? entries_kernel<DIM, false, Src, true> : entries_kernel<DIM, false, Src, false>);
   kernel<<<grid_for(blocks, tb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xi), tb, src, plan, static_cast<float>(eps),
       static_cast<float*>(parts));
@@ -870,32 +1014,48 @@ extern "C" int nbody_parts_sum(int device, int dtype, int dim, const void* parts
 // and nothing here synchronises.
 extern "C" int nbody_masked_eval_bits(int device, int dim, const void* xi, int ntiles,
                                       int tb, const void* mj, const void* xj, int W,
-                                      const void* words, int nw, int sqrt3, double eps,
-                                      void* out, void* stream) {
+                                      const void* words, int nw, int tile_group, int sqrt3,
+                                      double eps, void* out, void* stream) {
   cudaError_t err = prepare(device, ntiles, tb);
   if (err != cudaSuccess) return err;
-  const auto kernel = pick(dim, sqrt3, masked_eval_bits_kernel<2, false>, masked_eval_bits_kernel<2, true>,
-                           masked_eval_bits_kernel<3, false>, masked_eval_bits_kernel<3, true>);
-  if (kernel == nullptr || W < 0 || nw != (W + 31) / 32) return cudaErrorInvalidValue;
-  kernel<<<grid_for(ntiles, tb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = tile_group == 2
+                          ? pick(dim, sqrt3, masked_eval_bits_kernel<2, false, 2>, masked_eval_bits_kernel<2, true, 2>,
+                                 masked_eval_bits_kernel<3, false, 2>, masked_eval_bits_kernel<3, true, 2>)
+                          : pick(dim, sqrt3, masked_eval_bits_kernel<2, false, 1>, masked_eval_bits_kernel<2, true, 1>,
+                                 masked_eval_bits_kernel<3, false, 1>, masked_eval_bits_kernel<3, true, 1>);
+  if (kernel == nullptr || W < 0 || nw != (W + 31) / 32 || (tile_group != 1 && tile_group != 2)) {
+    return cudaErrorInvalidValue;
+  }
+  // two tiles a block: each block's threads hold kThreads rows of each tile
+  const dim3 grid = tile_group == 1 ? grid_for(ntiles, tb)
+                                    : dim3(static_cast<unsigned>((ntiles + 1) / 2),
+                                           static_cast<unsigned>((tb + kThreads - 1) / kThreads));
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xi), tb, static_cast<const float*>(mj), static_cast<const float*>(xj), W,
-      static_cast<const unsigned*>(words), nw, static_cast<float>(eps), static_cast<float*>(out));
+      static_cast<const unsigned*>(words), nw, ntiles, static_cast<float>(eps), static_cast<float*>(out));
   return cudaGetLastError();
 }
 
 // The octree's interval window in at most P parts a tile: each part's
 // partial rows to parts (ntiles * P, tb, dim), each tile's part count to
 // nparts (ntiles,) int32, for nbody_parts_sum; w0, lo, hi (ntiles,) int32.
+// full = 1 visits the whole window, the columns outside [lo, hi) weighted 0.
 extern "C" int nbody_window_eval_interval(int device, int dim, const void* xi, int ntiles,
                                           int tb, const void* mj, const void* xj, int nj,
                                           const void* w0, const void* lo, const void* hi,
-                                          int window_tiles, int sqrt3, double eps, int P,
-                                          void* nparts, void* parts, void* stream) {
+                                          int window_tiles, int full, int sqrt3, double eps,
+                                          int P, void* nparts, void* parts, void* stream) {
   cudaError_t err = prepare(device, ntiles, tb);
   if (err != cudaSuccess) return err;
-  const auto kernel = pick(dim, sqrt3, window_eval_interval_kernel<2, false>,
-                           window_eval_interval_kernel<2, true>, window_eval_interval_kernel<3, false>,
-                           window_eval_interval_kernel<3, true>);
+  if (full != 0 && full != 1) return cudaErrorInvalidValue;
+  const auto kernel = full ? pick(dim, sqrt3, window_eval_interval_kernel<2, false, true>,
+                                  window_eval_interval_kernel<2, true, true>,
+                                  window_eval_interval_kernel<3, false, true>,
+                                  window_eval_interval_kernel<3, true, true>)
+                           : pick(dim, sqrt3, window_eval_interval_kernel<2, false, false>,
+                                  window_eval_interval_kernel<2, true, false>,
+                                  window_eval_interval_kernel<3, false, false>,
+                                  window_eval_interval_kernel<3, true, false>);
   const dim3 grid = split_grid(ntiles, P, tb, kRowsPerBlock);
   if (kernel == nullptr || grid.x == 0 || window_tiles < 0) return cudaErrorInvalidValue;
   kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -908,19 +1068,26 @@ extern "C" int nbody_window_eval_interval(int device, int dim, const void* xi, i
 // The node-mask window in at most P parts a tile: each part's partial
 // rows to parts (ntiles * P, tb, dim), each tile's part count to nparts
 // (ntiles,) int32, for nbody_parts_sum; in_win (ntiles, wnodes) bytes, at
-// most kMaxWindowSlots a tile.
+// most kMaxWindowSlots a tile. full = 1 visits every slot, a closed one's
+// bodies weighted 0.
 extern "C" int nbody_window_eval_nodemask(int device, int dim, const void* xi, int ntiles,
                                           int tb, const void* mj, const void* xj, int nj,
                                           const void* w0, const void* in_win, int wnodes, int S,
-                                          int sqrt3, double eps, int P, void* nparts, void* parts,
-                                          void* stream) {
+                                          int full, int sqrt3, double eps, int P, void* nparts,
+                                          void* parts, void* stream) {
   cudaError_t err = prepare(device, ntiles, tb);
   if (err != cudaSuccess) return err;
-  const auto kernel = pick(dim, sqrt3, window_eval_nodemask_kernel<2, false>,
-                           window_eval_nodemask_kernel<2, true>, window_eval_nodemask_kernel<3, false>,
-                           window_eval_nodemask_kernel<3, true>);
+  const auto kernel = full ? pick(dim, sqrt3, window_eval_nodemask_kernel<2, false, true>,
+                                  window_eval_nodemask_kernel<2, true, true>,
+                                  window_eval_nodemask_kernel<3, false, true>,
+                                  window_eval_nodemask_kernel<3, true, true>)
+                           : pick(dim, sqrt3, window_eval_nodemask_kernel<2, false, false>,
+                                  window_eval_nodemask_kernel<2, true, false>,
+                                  window_eval_nodemask_kernel<3, false, false>,
+                                  window_eval_nodemask_kernel<3, true, false>);
   const dim3 grid = split_grid(ntiles, P, tb, kRowsPerBlock);
-  if (kernel == nullptr || grid.x == 0 || wnodes <= 0 || wnodes > kMaxWindowSlots || S <= 0) {
+  if (kernel == nullptr || grid.x == 0 || wnodes <= 0 || wnodes > kMaxWindowSlots || S <= 0 ||
+      (full != 0 && full != 1)) {
     return cudaErrorInvalidValue;
   }
   kernel<<<grid, kThreads, static_cast<size_t>(wnodes), static_cast<cudaStream_t>(stream)>>>(
@@ -953,16 +1120,17 @@ extern "C" int nbody_window_eval_dense(int device, int dim, const void* xi, int 
 
 // The entries kernels write their parts' partial rows to parts (blocks,
 // tb, dim) by the plan (cum (E + 1,) and start (E,) int64, tile / e0 / e1
-// (blocks,) int32, u0 / u1 (blocks,) int64: EntriesPlan); nbody_entries_sum
-// adds them into the rows. The sources are (mj, xj), or with xm != null
-// packed as one float4 (x, y, z | 0, m) each in xm (nj, 4), 16-byte
-// aligned; nj is not read: the plan addresses only sources below it.
+// (blocks,) int32, u0 / u1 (blocks,) int64, and in the span mode keep_lo /
+// keep_hi (E,) int64, else both null: EntriesPlan); nbody_entries_sum adds
+// them into the rows. The sources are (mj, xj), or with xm != null packed
+// as one float4 (x, y, z | 0, m) each in xm (nj, 4), 16-byte aligned; nj is
+// not read: the plan addresses only sources below it.
 extern "C" int nbody_entries_eval(int device, int dim, const void* xi, int ntiles, int tb,
                                   const void* mj, const void* xj, const void* xm, int sqrt3,
                                   double eps, const void* cum, const void* start,
                                   const void* tile, const void* e0, const void* e1,
-                                  const void* u0, const void* u1, int blocks, void* parts,
-                                  void* stream) {
+                                  const void* u0, const void* u1, const void* keep_lo,
+                                  const void* keep_hi, int blocks, void* parts, void* stream) {
   cudaError_t err = prepare(device, ntiles, tb);
   if (err != cudaSuccess) return err;
   if (xm != nullptr && reinterpret_cast<uintptr_t>(xm) % alignof(float4) != 0) {
@@ -971,7 +1139,8 @@ extern "C" int nbody_entries_eval(int device, int dim, const void* xi, int ntile
   const EntriesPlan plan{static_cast<const long long*>(cum), static_cast<const long long*>(start),
                          static_cast<const int*>(tile), static_cast<const int*>(e0),
                          static_cast<const int*>(e1), static_cast<const long long*>(u0),
-                         static_cast<const long long*>(u1)};
+                         static_cast<const long long*>(u1), static_cast<const long long*>(keep_lo),
+                         static_cast<const long long*>(keep_hi)};
   const auto* m = static_cast<const float*>(mj);
   const auto* x = static_cast<const float*>(xj);
   const auto* packed = static_cast<const float4*>(xm);

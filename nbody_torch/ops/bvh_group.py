@@ -27,8 +27,10 @@ Every pair uses the reference's softening d2 * sqrt(d2) + eps (bvh.h:297,
 308). Every sizing rule (L*, S, the d_block widening of the pad to Sd, the
 window alignment wjf, R_slice, RW, E_cap from e_chunk, the 2^15-tile and
 2^16-node guards) is nbody_tpu's, so the integer counters of `info` match
-it. The TPU's E_CHUNK chunking and sub_width are not carried over: the
-entries kernel takes the whole list and visits [lo, hi) exactly. The
+it. The TPU's E_CHUNK chunking is not carried over: the entries kernel
+takes the whole list. By default it visits each entry's [lo, hi) exactly:
+nbody_tpu's default sub_width (1024 in 3-D, 512 in 2-D) is a TPU tuning
+constant and applies here only when asked for (sub_width= or subwN). The
 word-compacted residual extraction becomes one row sort, with the same
 word limit RW and the same overflow flag (residual_ids). JAX's
 while_loop over overflowed tiles reads one counter on the host: one
@@ -41,13 +43,37 @@ passes, so the far field's heap prefix widens to levels 0..L*+R; the
 survivors, S2 = S / 2^R bodies each, become the residual entries, and
 sibling runs that survived whole merge back into one entry.
 
-The `ablate` tokens of nbody_tpu that the port runs (BVH_ABLATE), for the
-knob probe (python -m nbody_torch.probe knobs bvh): densemask, the far
-field with the dense float32 mask (masked_eval_cuda) and the dense-mask
-window; packedj, the residual entries reading packed sources; widextract,
-the residual ids without the word limit (residual_ids(wide=True));
-forceover0, tile 0 sent to the exact fallback as if its residual words
-overflowed (nbody_tpu's regression knob).
+The `ablate` tokens (comma-separated, whole tokens) are those that
+nbody_tpu's windowed path reads (nbody_tpu/ops/bvh_group.py), with its
+meaning; the knob probe (python -m nbody_torch.probe knobs bvh) replays
+them. A token that nbody_tpu reads nowhere raises ValueError, but for the
+no-op aliases fheap, sortunperm and winskip (octree_group.ALIASES).
+
+  token (parameter)     nbody_tpu               what the port does
+  epg1/8/16 (epg=)      :490-495, :885,         merge_contiguous_entries'
+                        :911-914                tile-aligned recompaction; a
+                                                tile past E_cap to the fallback
+  subwN (sub_width=)    :496-498, :514-524      entries_lohi_kernel<span>
+                                                (the last subwN counts)
+  dblkN (d_block=)      :499-513, :559-606      the residual's block width Sd:
+                                                the pad widened to it, halved
+                                                until it fits; dblk0 node-sized
+  wj1, wj2              :668-671                cap the window's alignment wjf
+                                                (wjf * npt > 64: the dense
+                                                window, :682)
+  win, far, resid       :680, :784, :922        that part is zeros (wrong
+                                                forces, as in nbody_tpu)
+  rlist                 :924-925                resid = zeros + the int32 sum
+                                                of the entry array
+  ftg2                  :799                    masked_eval_bits_kernel<tg2>
+  nowinskip             :702                    window_eval_nodemask_kernel
+                                                <full>
+  densemask             :682-691, :786-791      masked_eval_cuda and
+                                                window_eval_dense_cuda
+  packedj               :932                    entries_lohi_kernel<packed>
+  widextract            :810                    residual_ids(wide=True)
+  forceover0            :843-847                tile 0 to the exact fallback as
+                                                if its words overflowed
 """
 
 from __future__ import annotations
@@ -62,16 +88,18 @@ from nbody_torch.ops.cuda_group_eval import (entries_lohi_eval_cuda, group_eval_
                                              group_eval_torch, masked_eval_bits_cuda,
                                              masked_eval_cuda, pack_mask_bits,
                                              window_eval_dense_cuda, window_eval_nodemask_cuda)
-from nbody_torch.ops.octree_group import (_box_dist2, ablate_tokens, compact_rows, exact_fallback,
-                                          live_heads, merge_contiguous_entries, overflow_causes,
-                                          row_range, tile_boxes, unique_blocks)
+from nbody_torch.ops.octree_group import (ALIASES, _box_dist2, _entry_cap, ablate_tokens,
+                                          compact_rows, exact_fallback, live_heads,
+                                          merge_contiguous_entries, numbered_token,
+                                          overflow_causes, row_range, tile_boxes, token_epg,
+                                          unique_blocks, wrap_int32)
 
 BIG = 1 << 30  # sort sentinel of the residual node ids
-# The ablate tokens of nbody_tpu's windowed path that the port runs:
-# densemask and packedj select ported kernels, widextract and forceover0
-# the residual extraction's branches; fheap and sortunperm change nothing
-# (see octree_group.OCTREE_ABLATE).
-BVH_ABLATE = ("densemask", "packedj", "widextract", "forceover0", "fheap", "sortunperm")
+# The ablate tokens of nbody_tpu's windowed path (the module docstring's
+# table), and the prefixes of its numbered tokens (subwN, dblkN).
+BVH_ABLATE = ("epg1", "epg8", "epg16", "wj1", "wj2", "win", "far", "resid", "rlist", "ftg2",
+              "nowinskip", "densemask", "packedj", "widextract", "forceover0", *ALIASES)
+BVH_NUMBERED = ("subw", "dblk")
 
 
 def residual_ids(out_open: torch.Tensor, r_slice: int, wide: bool = False):
@@ -102,7 +130,9 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
                                    theta: float, G: float, eps: float, tile: int = 512,
                                    window_tiles: int = 32, e_chunk: int = 24576,
                                    s_target: int = 512, refine_levels: int | None = None,
-                                   ablate: str = "", row_start: int = 0, nrows: int | None = None):
+                                   ablate: str = "", row_start: int = 0, nrows: int | None = None,
+                                   epg: int = 1, d_block: int | None = None,
+                                   sub_width: int | None = None):
     """Gather-free grouped BVH force (float32). m, x are the Hilbert-sorted
     bodies and tree their refit; an L* node covers min(s_target, tile)
     bodies, and the residual's nodes S2 = S / 2^R after refine_levels R
@@ -111,7 +141,9 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
     fallback_tiles, node_overflow, leaf_overflow, entries, res_pairs,
     bad_entries, res_width_sum, res_unique_blocks and
     res_pass_0..res_pass_nsub. ablate: comma-separated tokens of
-    BVH_ABLATE (see the module docstring).
+    BVH_ABLATE (see the module docstring). epg, d_block (None: 4096 in 3-D,
+    2048 in 2-D; 0 node-sized blocks) and sub_width are nbody_tpu's, but
+    sub_width None or 0 is the whole [lo, hi) here.
 
     Row-range mode (nrows given; bvh_group.py:548-556, the replicated
     multi-device layout): only the rows [row_start, row_start + nrows) of
@@ -121,7 +153,10 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
     whole tile-padded arrays (the pad is not widened to d_block, which
     halves instead until it divides it). nrows and row_start are multiples
     of the tile, and the range lies inside the tile-padded bodies."""
-    tokens = ablate_tokens(ablate, BVH_ABLATE)
+    tokens = ablate_tokens(ablate, BVH_ABLATE, BVH_NUMBERED)
+    epg = token_epg(tokens, epg)
+    sub_width = numbered_token(ablate, "subw", sub_width, last=True)
+    d_block = numbered_token(ablate, "dblk", d_block, last=True)
     n, dim = x.shape
     dev, dtype = x.device, x.dtype
     if dtype != torch.float32:
@@ -131,11 +166,13 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
     i64 = dict(dtype=torch.int64, device=dev)
 
     # ---- tiles, the d_block-widened pad, L*, S and Sd (:544-629) -------
-    d_block = 4096 if dim == 3 else 2048
+    if d_block is None:
+        d_block = 4096 if dim == 3 else 2048
+    d_block = max(d_block, 0)  # 0: node-sized blocks, the pad not widened
     ntiles_g = -(-n // tile)
     npad_g = ntiles_g * tile
     # a residual block wider than the pad needs npad % Sd == 0; a row range keeps the pad
-    if nrows is None and npad_g % d_block:
+    if nrows is None and d_block and npad_g % d_block:
         lcm = tile * d_block // math.gcd(tile, d_block)
         npad_g = -(-n // lcm) * lcm
         ntiles_g = npad_g // tile
@@ -193,18 +230,24 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
     wnodes = wt * npt
     t_idx = torch.arange(ntiles, **i64)
     wjf = 4 if wt % 4 == 0 else (2 if wt % 2 == 0 else 1)
+    if "wj1" in tokens:
+        wjf = 1
+    elif "wj2" in tokens:
+        wjf = min(wjf, 2)
     w0 = (row_start // tile + t_idx - wt // 2).clamp(0, ntiles_g - wt)  # global tiles
     w0 = (w0 // wjf) * wjf
     w0n = w0 * npt
     col = w0n[:, None] + torch.arange(wnodes, **i64)[None, :]
     in_win = torch.gather(open_mask, 1, col.clamp_max(nodes_total - 1))  # (T, wnodes)
     w0_i32 = w0.to(torch.int32)
-    if "densemask" in tokens or wjf * npt > 64:  # the dense branch: in_win broadcast S-fold
+    if "win" in tokens:  # the wrong-force probes: that part is zeros
+        near = torch.zeros_like(xp)
+    elif "densemask" in tokens or wjf * npt > 64:  # the dense branch: in_win broadcast S-fold
         body_mask = in_win.to(dtype)[:, :, None].expand(ntiles, wnodes, S).reshape(ntiles, wt * tile)
         near = window_eval_dense_cuda(xp, mp_g, xp_g, w0_i32, body_mask, eps, wt, "poly")
     else:
-        near = window_eval_nodemask_cuda(xp, mp_g, xp_g, w0_i32, in_win, eps, wt, S,
-                                         "poly")
+        near = window_eval_nodemask_cuda(xp, mp_g, xp_g, w0_i32, in_win, eps, wt, S, "poly",
+                                         skip_outside="nowinskip" not in tokens)
 
     # ---- residual: open nodes outside the window (:705-777) -----------
     all_nodes = torch.arange(nodes_total, **i64)[None, :]
@@ -243,10 +286,13 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
     # ---- far field over heap levels 0..L*+R (:779-800) -----------------
     W = (1 << (level_star + refine_levels + 1)) - 1
     far_bool = torch.cat(accept_masks, dim=1)
-    if "densemask" in tokens:
+    if "far" in tokens:
+        far = torch.zeros_like(xp)
+    elif "densemask" in tokens:
         far = masked_eval_cuda(xp, mm[:W], mx[:W], far_bool.to(dtype), eps, "poly")
     else:
-        far = masked_eval_bits_cuda(xp, mm[:W], mx[:W], pack_mask_bits(far_bool), eps, "poly")
+        far = masked_eval_bits_cuda(xp, mm[:W], mx[:W], pack_mask_bits(far_bool), eps, "poly",
+                                    tile_group=2 if "ftg2" in tokens else 1)
 
     # ---- residual entry lists (:802-920) -------------------------------
     out_count = out_open.sum(1)
@@ -269,10 +315,7 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
     flat_ent = ((t_idx[:, None] << 16) | nid_rows).reshape(-1)
     rank = torch.cumsum(flat_v, 0) - 1
     per_tile_est = min(r_slice, (96 if dim == 2 else 400) << refine_levels)
-    n_chunks = max(1, min(40, -(-(ntiles * per_tile_est + ntiles) // e_chunk)))
-    e_cap = min(ntiles * (r_slice + 1), n_chunks * e_chunk)
-    if e_cap > e_chunk:
-        e_cap = -(-e_cap // e_chunk) * e_chunk
+    e_cap = _entry_cap(ntiles, per_tile_est, r_slice, e_chunk, epg)
     pad_entry_gbe = ((ntiles - 1) << 16) | pad_node
     dst = torch.where(flat_v & (rank < e_cap), rank, e_cap)  # e_cap: dropped
     entries_gbe = torch.full((e_cap + 1,), pad_entry_gbe, **i64).scatter_(0, dst, flat_ent)[:e_cap]
@@ -282,13 +325,17 @@ def compute_force_grouped_windowed(tree: BVHTree, m: torch.Tensor, x: torch.Tens
     # resolve node ids into self-describing entries and merge touching ones
     gidx = entries_gbe & 0xFFFF
     entries = ((entries_gbe & ~0xFFFF) | blk_tbl[gidx]).to(torch.int32)
-    entries, lohis, n_merged = merge_contiguous_entries(entries, lohi_tbl[gidx], end_rank[-1],
-                                                        (ntiles - 1) << 16)
-    resid_args = (xp, mp_g, xp_g, entries, lohis, n_merged, Sd, ntiles, eps, "poly")
-    if "packedj" in tokens:
-        resid = entries_lohi_eval_cuda(*resid_args, packed=True)
+    entries, lohis, n_merged, tend = merge_contiguous_entries(
+        entries, lohi_tbl[gidx], end_rank[-1], (ntiles - 1) << 16, ntiles, epg)
+    if tend is not None:
+        tile_over = tile_over | (tend > e_cap)
+    if "resid" in tokens:
+        resid = torch.zeros_like(xp)
+    elif "rlist" in tokens:  # the list built, its evaluation not
+        resid = torch.zeros_like(xp) + wrap_int32(entries.long().sum()).to(dtype)
     else:
-        resid = entries_lohi_eval_cuda(*resid_args)
+        resid = entries_lohi_eval_cuda(xp, mp_g, xp_g, entries, lohis, n_merged, Sd, ntiles, eps,
+                                       "poly", packed="packedj" in tokens, sub_width=sub_width)
     acc = (far + near) + resid
 
     # ---- exact fallback for overflowed tiles (:338-401) ---------------

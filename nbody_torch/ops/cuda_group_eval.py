@@ -75,6 +75,21 @@ BVH fast and list paths. The kernels live in nbody_torch/csrc/group_eval.cu
                                exact fallback overwrites). The Newton chain
                                in float32, refined MUFU seeds in float64
 
+Four of them take a mode that the knob probe's A/B tokens ask for (the
+`ablate=` tokens of both fast paths), each a template flag of its kernel
+with its own launch_counts name: masked_eval_bits_kernel<tg2>
+(tile_group=2, the ftg2 token: a block holds two tiles' rows and walks the
+OR of their accepted nodes, each row weighting a node by its own tile's
+bit), window_eval_interval_kernel<full> and window_eval_nodemask_kernel<full>
+(skip_outside=False, nowinskip: the whole window visited, the columns
+outside the interval or of a closed slot weighted 0), and
+entries_lohi_kernel<span> / <packed, span> (sub_width or skip_empty=False,
+subwN and noskip: each entry visits a span around its [lo, hi), as the
+Pallas kernel's guarded subwindows do, the rest of the span weighted 0).
+A weight multiplies the mass before the chain, (sel * m) * r, as in
+nbody_tpu, so a masked source adds 0 * dx. The twins take the same
+arguments; their float64 sums are those of the default mode.
+
 All of them take the rows xi of T tiles of tb rows each, as an (T*tb, dim)
 array, and return their raw (G-less) accelerations in the same layout.
 `softening`, which every caller names, is "poly" (t = d2 * sqrt(d2) + eps,
@@ -121,6 +136,10 @@ launch_counts = {"masked_eval_bits_kernel": 0, "window_eval_interval_kernel": 0,
                  "entries_lohi_kernel": 0, "masked_eval_kernel": 0,
                  "group_shared_masked_kernel": 0, "entries_lohi_kernel<packed>": 0,
                  "entries_tables_kernel": 0, "entries_sum_kernel": 0, "parts_sum_kernel": 0,
+                 # the A/B modes of the ablate tokens ftg2, nowinskip, subwN / noskip
+                 "masked_eval_bits_kernel<tg2>": 0, "window_eval_interval_kernel<full>": 0,
+                 "window_eval_nodemask_kernel<full>": 0, "entries_lohi_kernel<span>": 0,
+                 "entries_lohi_kernel<packed, span>": 0,
                  **{f"group_eval_kernel<{dtype}, {softening}>": 0
                     for dtype in ("float32", "float64") for softening in SOFTENINGS}}
 
@@ -249,12 +268,15 @@ def _masked_block(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, keep: to
 
 def masked_eval_bits_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                            words: torch.Tensor, eps: float, softening: str,
-                           absolute: bool = False) -> torch.Tensor:
+                           absolute: bool = False, tile_group: int = 1) -> torch.Tensor:
     """Far field: row tile t against the shared nodes (mj (W,), xj (W, dim))
     whose accept bit is set in words[t] -- the plain twin of
     masked_eval_bits_kernel. absolute=True gives each row's sum of |term|,
     the scale the kernel's tolerance is stated against (so for the other
-    twins)."""
+    twins). tile_group 2 (the kernel's <tg2>) visits each row against the
+    nodes of its pair of tiles, those of the other tile weighted 0: the
+    same float64 sums."""
+    _check_tile_group(tile_group)
     ntiles, w = words.shape[0], mj.shape[0]
     tb = xi.shape[0] // ntiles
     mask = unpack_mask_bits(words, w)
@@ -304,6 +326,11 @@ def group_shared_masked_eval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch
     return out.view_as(xi)
 
 
+def _check_tile_group(tile_group: int) -> None:
+    if tile_group not in (1, 2):
+        raise ValueError(f"tile_group must be 1 or 2, got {tile_group}")
+
+
 def pack_sources(mj: torch.Tensor, xj: torch.Tensor) -> torch.Tensor:
     """The sources as one (nj, 4) array of rows (x, y, z | 0, m): what
     entries_lohi_kernel<packed> reads, one 16-byte float4 per body."""
@@ -324,13 +351,17 @@ def tile_intervals(w0: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, tb: int
 def window_eval_interval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                                w0: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, eps: float,
                                window_tiles: int, softening: str,
-                               absolute: bool = False) -> torch.Tensor:
+                               absolute: bool = False, skip_outside: bool = True) -> torch.Tensor:
     """Near window: row tile t against the bodies j of the window
     [w0[t]*tb, (w0[t] + window_tiles)*tb) that lie in [lo[t], hi[t]) -- the
-    plain twin of window_eval_interval_kernel."""
+    plain twin of window_eval_interval_kernel. skip_outside=False (its
+    <full>) visits every window column, those outside [lo, hi) weighted 0."""
     ntiles, nj = w0.shape[0], mj.shape[0]
     tb = xi.shape[0] // ntiles
     a, b = tile_intervals(w0, lo, hi, tb, window_tiles, nj)
+    if not skip_outside:
+        a, b = tile_intervals(w0, torch.zeros_like(lo), torch.full_like(hi, nj), tb,
+                              window_tiles, nj)
     span = (b - a).clamp_min(0)
     xt = xi.view(ntiles, tb, -1)
     out = torch.zeros_like(xt)
@@ -339,7 +370,7 @@ def window_eval_interval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Ten
         if c == 0:
             continue
         cols = a[ts, None] + torch.arange(c, device=xi.device)
-        keep = cols < b[ts, None]
+        keep = (cols < b[ts, None]) & (cols >= lo[ts, None]) & (cols < hi[ts, None])
         cols = cols.clamp_max(nj - 1)
         out[ts, rs] = _masked_block(xt[ts, rs], mj[cols], xj[cols], keep, eps, softening,
                                     absolute)
@@ -371,10 +402,12 @@ def _window_twin(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, w0: torch
 def window_eval_nodemask_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                                w0: torch.Tensor, in_win: torch.Tensor, eps: float,
                                window_tiles: int, S: int, softening: str,
-                               absolute: bool = False) -> torch.Tensor:
+                               absolute: bool = False, skip_outside: bool = True) -> torch.Tensor:
     """BVH near window: row tile t against the window bodies w0[t]*tb +
     [0, window_tiles*tb), slot v (S bodies) counting where in_win[t, v] --
-    the plain twin of window_eval_nodemask_kernel."""
+    the plain twin of window_eval_nodemask_kernel. It visits every slot, a
+    closed one weighted 0, as the kernel's <full> (skip_outside=False)
+    does, so skip_outside changes nothing here."""
     return _window_twin(xi, mj, xj, w0, in_win.repeat_interleave(S, dim=1), eps, softening,
                         absolute)
 
@@ -465,9 +498,11 @@ def window_eval_dense_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor
 
 def _entries_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, tid: torch.Tensor,
                    start: torch.Tensor, stop: torch.Tensor, ntiles: int, eps: float,
-                   softening: str, absolute: bool) -> torch.Tensor:
+                   softening: str, absolute: bool, keep=None) -> torch.Tensor:
     """Entry e adds the pairs of row tile tid[e] with the bodies [start[e],
-    stop[e]) (below nj). Each entry is cut into pieces of at most 256
+    stop[e]) (below nj), and where keep = (keep_lo, keep_hi) is given only
+    those in [keep_lo[e], keep_hi[e]) count, the others weighted 0 (the
+    span mode). Each entry is cut into pieces of at most 256
     bodies; pieces are summed per entry, entries per tile, in float64 and
     rounded once: a float32 sum over a tile's thousands of entries drifts
     to ~7e-6 of the row's sum of |term| (measured on an H100 at 8,192
@@ -482,13 +517,17 @@ def _entries_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor, tid: to
     k = torch.arange(owner.shape[0], device=dev) - first[owner]
     start = start[owner] + k * piece                               # (pieces,)
     stop = stop[owner]
+    if keep is not None:
+        keep_lo, keep_hi = keep[0][owner], keep[1][owner]
     xt = xi.view(ntiles, tb, -1)
     per_entry = torch.zeros(e, tb, xi.shape[1], dtype=torch.float64, device=dev)
     for ps, rs in _chunks(owner.shape[0], tb, piece, dev):
         cols = start[ps, None] + torch.arange(piece, device=dev)
-        keep = (cols < stop[ps, None]) & (cols < nj)
+        live = (cols < stop[ps, None]) & (cols < nj)
+        if keep is not None:
+            live &= (cols >= keep_lo[ps, None]) & (cols < keep_hi[ps, None])
         cols = cols.clamp_max(nj - 1)
-        part = _masked_block(xt[tid[owner[ps]], rs], mj[cols], xj[cols], keep, eps, softening,
+        part = _masked_block(xt[tid[owner[ps]], rs], mj[cols], xj[cols], live, eps, softening,
                              absolute)
         per_entry[:, rs].index_add_(0, owner[ps], part.double())
     out = torch.zeros(ntiles, tb, xi.shape[1], dtype=torch.float64, device=dev)
@@ -502,6 +541,39 @@ def lohi_ranges(entries: torch.Tensor, lohis: torch.Tensor, S: int):
     ent, lohi = entries.long(), lohis.long()
     base = (ent & 0xFFFF) * S
     return ent >> 16, base + (lohi & 0xFFFF), base + ((lohi >> 16) & 0xFFFF)
+
+
+def sub_width_of(sub_width: int | None, S: int) -> int | None:
+    """The subwindow width an entries call takes: None (the whole block)
+    for None, 0 or a width of at least S; else it must divide S and be a
+    multiple of 128 (entries_lohi_eval_pallas's ValueError,
+    pallas_group_eval.py:1000-1003)."""
+    if not sub_width or sub_width >= S:
+        return None
+    if S % sub_width or sub_width % 128:
+        raise ValueError("sub_width must divide S and be a multiple of 128")
+    return sub_width
+
+
+def entry_spans(entries: torch.Tensor, lohis: torch.Tensor, S: int, sub_width: int | None = None,
+                skip_empty: bool = True):
+    """(tile, start, stop, keep_lo, keep_hi), int64, of each near-field
+    entry in the span mode: it visits the sources [start, stop), of which
+    its live range blk*S + [lo, hi) = [keep_lo, keep_hi) counts. Where
+    skip_empty, entries_lohi_eval_pallas visits the sub_width-wide
+    subwindows w0 of its block with hi > max(lo, w0) and lo < w0 +
+    sub_width (pallas_group_eval.py:883-888): [floor(lo/W)*W, ceil(hi/W)*W)
+    cut at S, nothing where hi <= lo. Under skip_empty=False (noskip) every
+    entry, a pad with lo == hi included, visits its whole block."""
+    tid, keep_lo, keep_hi = lohi_ranges(entries, lohis, S)
+    base = (entries.long() & 0xFFFF) * S
+    if not skip_empty:
+        return tid, base, base + S, keep_lo, keep_hi
+    W = sub_width_of(sub_width, S) or S
+    lo, hi = keep_lo - base, keep_hi - base
+    a = torch.where(hi > lo, lo // W * W, lo)
+    b = torch.where(hi > lo, ((hi + W - 1) // W * W).clamp_max(S), lo)
+    return tid, base + a, base + b, keep_lo, keep_hi
 
 
 def table_ranges(entries: torch.Tensor, blk_tbl: torch.Tensor, lohi_tbl: torch.Tensor, S: int):
@@ -523,19 +595,28 @@ def table_ranges(entries: torch.Tensor, blk_tbl: torch.Tensor, lohi_tbl: torch.T
 def entries_lohi_eval_torch(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                             entries: torch.Tensor, lohis: torch.Tensor, n_real, S: int,
                             ntiles: int, eps: float, softening: str, absolute: bool = False,
-                            packed: bool = False) -> torch.Tensor:
+                            packed: bool = False, sub_width: int | None = None,
+                            skip_empty: bool = True) -> torch.Tensor:
     """Near-field entries: for each of the first n_real entries
     (tile << 16 | blk, lo | hi << 16), row tile `tile` against the bodies
     blk*S + [lo, hi) -- the plain twin of entries_lohi_kernel, and with
     packed=True of entries_lohi_kernel<packed>, which reads the sources
-    from pack_sources(mj, xj). Each entry is cut into pieces of at most
+    from pack_sources(mj, xj). With sub_width or skip_empty=False (the
+    kernels' span mode) each entry visits entry_spans' span, the sources
+    outside [lo, hi) weighted 0. Each entry is cut into pieces of at most
     256 bodies; pieces are summed per entry, entries per tile."""
     if packed:
         xm = pack_sources(mj, xj)
         mj, xj = xm[:, 3], xm[:, :xi.shape[1]]
     e = int(n_real)
-    return _entries_torch(xi, mj, xj, *lohi_ranges(entries[:e], lohis[:e], S), ntiles, eps,
-                          softening, absolute)
+    sub_width = sub_width_of(sub_width, S)
+    if sub_width is None and skip_empty:
+        return _entries_torch(xi, mj, xj, *lohi_ranges(entries[:e], lohis[:e], S), ntiles, eps,
+                              softening, absolute)
+    tid, start, stop, keep_lo, keep_hi = entry_spans(entries[:e], lohis[:e], S, sub_width,
+                                                     skip_empty)
+    return _entries_torch(xi, mj, xj, tid, start, stop, ntiles, eps, softening, absolute,
+                          keep=(keep_lo, keep_hi))
 
 
 def live_entries(entries: torch.Tensor,
@@ -645,18 +726,23 @@ def _launch(kernel: str, fn: str, xi: torch.Tensor, ntiles: int, *args):
 
 
 def masked_eval_bits_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
-                          words: torch.Tensor, eps: float, softening: str) -> torch.Tensor:
+                          words: torch.Tensor, eps: float, softening: str,
+                          tile_group: int = 1) -> torch.Tensor:
     """Far field of T row tiles against W shared nodes gated per (tile,
     node) by the packed accept bits words (T, ceil(W/32)) -- the
-    counterpart of masked_eval_bits_pallas."""
+    counterpart of masked_eval_bits_pallas. tile_group=2 (its
+    tile_group=2, the ftg2 token) launches masked_eval_bits_kernel<tg2>,
+    one block a pair of tiles."""
     _check(xi, words.shape[0], mj, xj, words)
     if words.shape[1] != -(-mj.shape[0] // 32):
         raise ValueError(f"words {tuple(words.shape)} do not pack {mj.shape[0]} nodes")
     sqrt3 = _sqrt3(softening)
+    _check_tile_group(tile_group)
     if _on_cpu(xi, mj, xj, words):
-        return masked_eval_bits_torch(xi, mj, xj, words, eps, softening)
-    return _launch("masked_eval_bits_kernel", "nbody_masked_eval_bits", xi, words.shape[0],
-                   mj.data_ptr(), xj.data_ptr(), mj.shape[0], words.data_ptr(), words.shape[1],
+        return masked_eval_bits_torch(xi, mj, xj, words, eps, softening, tile_group=tile_group)
+    name = "masked_eval_bits_kernel" + ("<tg2>" if tile_group == 2 else "")
+    return _launch(name, "nbody_masked_eval_bits", xi, words.shape[0], mj.data_ptr(),
+                   xj.data_ptr(), mj.shape[0], words.data_ptr(), words.shape[1], tile_group,
                    sqrt3, float(eps))
 
 
@@ -666,13 +752,16 @@ ROWS_PER_BLOCK = 512  # rows a block of the window kernels (csrc/tiles.cuh kRows
 def window_eval_interval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                               w0: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, eps: float,
                               window_tiles: int, softening: str,
-                              parts: int | None = None) -> torch.Tensor:
+                              parts: int | None = None, skip_outside: bool = True) -> torch.Tensor:
     """Near window of each row tile t: the bodies of [w0[t]*tb,
     (w0[t] + window_tiles)*tb) inside [lo[t], hi[t]) -- the counterpart of
     window_eval_interval_pallas with skip_outside (only the interval's
     columns are visited). Each tile's interval is split in the kernel into
     at most `parts` parts (split_parts' P by default; interval_parts
-    mirrors the split), added in order by parts_sum_kernel."""
+    mirrors the split), added in order by parts_sum_kernel.
+    skip_outside=False (the nowinskip token) launches
+    window_eval_interval_kernel<full>: the parts share the whole window,
+    its columns outside [lo, hi) weighted 0."""
     _check(xi, w0.shape[0], mj, xj, w0, lo, hi)
     if lo.shape != w0.shape or hi.shape != w0.shape:
         raise ValueError(f"w0 {tuple(w0.shape)}, lo {tuple(lo.shape)} and hi {tuple(hi.shape)} "
@@ -681,7 +770,8 @@ def window_eval_interval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tens
         raise ValueError(f"window_tiles must be >= 0, got {window_tiles}")
     sqrt3 = _sqrt3(softening)
     if _on_cpu(xi, mj, xj, w0, lo, hi):
-        return window_eval_interval_torch(xi, mj, xj, w0, lo, hi, eps, window_tiles, softening)
+        return window_eval_interval_torch(xi, mj, xj, w0, lo, hi, eps, window_tiles, softening,
+                                          skip_outside=skip_outside)
     if xi.dtype != torch.float32:
         raise TypeError(f"window_eval_interval_kernel takes float32, got {xi.dtype}")
     ntiles, tb = w0.shape[0], xi.shape[0] // w0.shape[0]
@@ -691,9 +781,10 @@ def window_eval_interval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tens
     def launch(lib, nparts, scratch, stream):
         return lib.nbody_window_eval_interval(
             xi.device.index, xi.shape[1], xi.data_ptr(), ntiles, tb, mj.data_ptr(), xj.data_ptr(),
-            mj.shape[0], w0.data_ptr(), lo.data_ptr(), hi.data_ptr(), int(window_tiles), sqrt3,
-            float(eps), P, nparts, scratch, stream)
-    return _launch_split("window_eval_interval_kernel", xi, ntiles, P, launch)
+            mj.shape[0], w0.data_ptr(), lo.data_ptr(), hi.data_ptr(), int(window_tiles),
+            int(not skip_outside), sqrt3, float(eps), P, nparts, scratch, stream)
+    name = "window_eval_interval_kernel" + ("" if skip_outside else "<full>")
+    return _launch_split(name, xi, ntiles, P, launch)
 
 
 def _check_window(xi: torch.Tensor, w0: torch.Tensor, wb: int, window_tiles: int) -> None:
@@ -705,14 +796,16 @@ def _check_window(xi: torch.Tensor, w0: torch.Tensor, wb: int, window_tiles: int
 def window_eval_nodemask_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                               w0: torch.Tensor, in_win: torch.Tensor, eps: float,
                               window_tiles: int, S: int, softening: str,
-                              parts: int | None = None) -> torch.Tensor:
+                              parts: int | None = None, skip_outside: bool = True) -> torch.Tensor:
     """BVH near window of each row tile t: the bodies w0[t]*tb +
     [0, window_tiles*tb) in slots of S, a slot counting where in_win[t, v]
     (bool, (T, window_tiles*tb // S)) -- the counterpart of
     window_eval_nodemask_pallas with skip_outside (closed slots are not
     visited). Each tile's open bodies are split in the kernel into at most
     `parts` parts (split_parts' P by default; window_parts mirrors the
-    split), added in order by parts_sum_kernel."""
+    split), added in order by parts_sum_kernel. skip_outside=False (the
+    nowinskip token) launches window_eval_nodemask_kernel<full>: the parts
+    share every window body, a closed slot's weighted 0."""
     _check(xi, w0.shape[0], mj, xj, w0)
     if in_win.dtype != torch.bool or in_win.shape[0] != w0.shape[0] or not in_win.is_contiguous():
         raise ValueError(f"in_win must be a contiguous (T, slots) bool tensor, got "
@@ -722,7 +815,8 @@ def window_eval_nodemask_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tens
     _check_window(xi, w0, in_win.shape[1] * S, window_tiles)
     sqrt3 = _sqrt3(softening)
     if _on_cpu(xi, mj, xj, w0, in_win):
-        return window_eval_nodemask_torch(xi, mj, xj, w0, in_win, eps, window_tiles, S, softening)
+        return window_eval_nodemask_torch(xi, mj, xj, w0, in_win, eps, window_tiles, S, softening,
+                                          skip_outside=skip_outside)
     if xi.dtype != torch.float32:
         raise TypeError(f"window_eval_nodemask_kernel takes float32, got {xi.dtype}")
     ntiles, tb = w0.shape[0], xi.shape[0] // w0.shape[0]
@@ -732,9 +826,10 @@ def window_eval_nodemask_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tens
     def launch(lib, nparts, scratch, stream):
         return lib.nbody_window_eval_nodemask(
             xi.device.index, xi.shape[1], xi.data_ptr(), ntiles, tb, mj.data_ptr(), xj.data_ptr(),
-            mj.shape[0], w0.data_ptr(), in_win.data_ptr(), in_win.shape[1], int(S), sqrt3,
-            float(eps), P, nparts, scratch, stream)
-    return _launch_split("window_eval_nodemask_kernel", xi, ntiles, P, launch)
+            mj.shape[0], w0.data_ptr(), in_win.data_ptr(), in_win.shape[1], int(S),
+            int(not skip_outside), sqrt3, float(eps), P, nparts, scratch, stream)
+    name = "window_eval_nodemask_kernel" + ("" if skip_outside else "<full>")
+    return _launch_split(name, xi, ntiles, P, launch)
 
 
 def window_eval_dense_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
@@ -971,11 +1066,12 @@ def _launch_split(kernel: str, xi: torch.Tensor, ntiles: int, P: int, launch) ->
 
 def _launch_entries(kernel: str, xi: torch.Tensor, ntiles: int, mj: torch.Tensor,
                     xj: torch.Tensor, xm: torch.Tensor | None, ranges, n_live, S: int,
-                    softening: str, eps: float, parts: int | None) -> torch.Tensor:
+                    softening: str, eps: float, parts: int | None, keep=None) -> torch.Tensor:
     """One entries kernel (csrc/group_eval.cu nbody_entries_eval, on the
     sources (mj, xj) or, given xm, the packed ones) on the plan of the
     entries' decoded ranges (entries, start, stop), then entries_sum_kernel
-    over its parts."""
+    over its parts. keep = (keep_lo, keep_hi), int64 a entry, selects the
+    span mode: of the visited [start, stop) only [keep_lo, keep_hi) counts."""
     from nbody_torch._build import load_library
 
     if xi.dtype != torch.float32:
@@ -988,13 +1084,16 @@ def _launch_entries(kernel: str, xi: torch.Tensor, ntiles: int, mj: torch.Tensor
     if parts is None:
         parts = plan_target(entries.shape[0], S, ntiles, sm_count_of(xi.device.index))
     plan = entries_plan(entries, start.clamp_max(nj), stop.clamp_max(nj), n_live, ntiles, parts)
+    if keep is not None:
+        keep = tuple(k.long().contiguous() for k in keep)
     scratch = torch.empty((plan.blocks, tb, xi.shape[1]), dtype=xi.dtype, device=xi.device)
     err = load_library().nbody_entries_eval(
         xi.device.index, xi.shape[1], xi.data_ptr(), ntiles, tb, mj.data_ptr(), xj.data_ptr(),
         None if xm is None else xm.data_ptr(), _sqrt3(softening), float(eps),
         plan.cum.data_ptr(), plan.start.data_ptr(), plan.tile.data_ptr(), plan.e0.data_ptr(),
-        plan.e1.data_ptr(), plan.u0.data_ptr(), plan.u1.data_ptr(), plan.blocks,
-        scratch.data_ptr(), torch.cuda.current_stream(xi.device).cuda_stream)
+        plan.e1.data_ptr(), plan.u0.data_ptr(), plan.u1.data_ptr(),
+        None if keep is None else keep[0].data_ptr(), None if keep is None else keep[1].data_ptr(),
+        plan.blocks, scratch.data_ptr(), torch.cuda.current_stream(xi.device).cuda_stream)
     _raise_on_error(kernel, err)
     launch_counts[kernel] += 1
     return entries_sum_cuda(scratch, plan.part_start)
@@ -1003,7 +1102,8 @@ def _launch_entries(kernel: str, xi: torch.Tensor, ntiles: int, mj: torch.Tensor
 def entries_lohi_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
                            entries: torch.Tensor, lohis: torch.Tensor, n_real: torch.Tensor,
                            S: int, ntiles: int, eps: float, softening: str,
-                           packed: bool = False, parts: int | None = None) -> torch.Tensor:
+                           packed: bool = False, parts: int | None = None,
+                           sub_width: int | None = None, skip_empty: bool = True) -> torch.Tensor:
     """Near-field entries: the first n_real entries of the tile-sorted list
     (tile << 16 | blk, lo | hi << 16), each adding the pairs of row tile
     `tile` with bodies blk*S + [lo, hi) -- the counterpart of
@@ -1012,20 +1112,32 @@ def entries_lohi_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,
     entries_lohi_kernel<packed> on pack_sources(mj, xj), built here once
     per call; its sums equal the unpacked kernel's bit for bit. The call
     runs on entries_plan's parts (`parts`: its target, plan_target's by
-    default) and adds them with entries_sum_kernel."""
+    default) and adds them with entries_sum_kernel. sub_width (the subwN
+    token; sub_width_of's rules) or skip_empty=False (noskip) launch the
+    span mode, entries_lohi_kernel<span> (<packed, span>): each entry
+    visits entry_spans' span, its sources outside [lo, hi) weighted 0, and
+    the plan cuts the parts on the visited sources."""
     _check(xi, ntiles, mj, xj, entries, lohis)
     if entries.shape != lohis.shape or entries.ndim != 1:
         raise ValueError(f"entries {tuple(entries.shape)} and lohis {tuple(lohis.shape)}")
     if S <= 0:
         raise ValueError(f"S must be positive, got {S}")
     _sqrt3(softening)  # raises on an unknown softening
+    sub_width = sub_width_of(sub_width, S)
     if _on_cpu(xi, mj, xj, entries, lohis):
         return entries_lohi_eval_torch(xi, mj, xj, entries, lohis, n_real, S, ntiles, eps,
-                                       softening, packed=packed)
-    _, start, stop = lohi_ranges(entries, lohis, S)
-    name = "entries_lohi_kernel<packed>" if packed else "entries_lohi_kernel"
-    return _launch_entries(name, xi, ntiles, mj, xj, pack_sources(mj, xj) if packed else None,
-                           (entries, start, stop), n_real, S, softening, eps, parts)
+                                       softening, packed=packed, sub_width=sub_width,
+                                       skip_empty=skip_empty)
+    xm = pack_sources(mj, xj) if packed else None
+    if sub_width is None and skip_empty:
+        _, start, stop = lohi_ranges(entries, lohis, S)
+        name = "entries_lohi_kernel<packed>" if packed else "entries_lohi_kernel"
+        return _launch_entries(name, xi, ntiles, mj, xj, xm, (entries, start, stop), n_real, S,
+                               softening, eps, parts)
+    _, start, stop, keep_lo, keep_hi = entry_spans(entries, lohis, S, sub_width, skip_empty)
+    name = "entries_lohi_kernel<packed, span>" if packed else "entries_lohi_kernel<span>"
+    return _launch_entries(name, xi, ntiles, mj, xj, xm, (entries, start, stop), n_real, S,
+                           softening, eps, parts, keep=(keep_lo, keep_hi))
 
 
 def entries_tables_eval_cuda(xi: torch.Tensor, mj: torch.Tensor, xj: torch.Tensor,

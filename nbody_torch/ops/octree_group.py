@@ -27,22 +27,64 @@ w_cell^2 < theta^2 * dmin(tile box, COM)^2 over true cell extents:
 
 Every sizing rule (L*, occ, S, far_cap, R_slice, E_cap, the 16-bit
 packing guards and the 2^15-tile limit) is nbody_tpu's, so the integer
-counters of `info` match it. The TPU's E_CHUNK chunking (a device for
-TPU SMEM) is not carried over: the entries kernel takes the whole list,
-and e_chunk only sizes E_cap, which decides tile overflow. sub_width is
-not carried over either: the kernel visits [lo, hi) exactly. JAX's two
+counters of `info` match it, and `info` holds every key of nbody_tpu's.
+The TPU's E_CHUNK chunking (a device for TPU SMEM) is not carried over:
+the entries kernel takes the whole list, and e_chunk only sizes E_cap,
+which decides tile overflow. By default the entries kernel visits each
+entry's [lo, hi) exactly and the window only its interval: nbody_tpu's
+default sub_width (1024 in 3-D, 256 in 2-D) is a TPU tuning constant and
+applies here only when asked for (sub_width= or subwN). JAX's two
 device-side branches (the far heap's lax.cond and the fallback's
 while_loop) read two counters on the host: one synchronisation per call.
 
-The `ablate` tokens of nbody_tpu that the port runs (OCTREE_ABLATE) swap
-in the A/B variants its knob probe times (python -m nbody_torch.probe
-knobs): densemask, the dense float32 far mask (masked_eval_cuda) and the
-dense body-mask window (window_eval_dense_cuda); farcompact, the far field
-compacted per supertile of 8 tiles (group_shared_masked_eval_cuda);
-packedj, the entries reading packed sources; desc1 / desc2, the sparse
-supertile descent one or two levels below L* (descend_levels,
-experimental/tree_descend.py), whose monopoles go to
-group_shared_masked_eval_cuda and whose survivors become the entries.
+The `ablate` tokens (comma-separated, whole tokens) are the A/B knobs,
+wrong-force probes and diagnostics that nbody_tpu's fast path reads
+(nbody_tpu/ops/octree_group.py), with its meaning; the knob probe
+(python -m nbody_torch.probe knobs oct) replays them. A token that
+nbody_tpu reads nowhere raises ValueError, but for the no-op aliases
+fheap (the compacted far heap, the default since its round 4b), winskip
+(the window's skip, the default since its round 5) and sortunperm (the
+knob scripts' un-permute; the port's is a gather either way).
+
+  token (parameter)     nbody_tpu               what the port does
+  depth_bias=           :673-679                L* deeper by depth_bias; the
+                                                16-bit guard walks it back
+  epg1/8/16 (epg=)      :576-581, :51-117,      merge_contiguous_entries'
+                        :1285, :1313-1314       tile-aligned recompaction with
+                                                no-op pads; a tile past E_cap
+                                                goes to the fallback
+  subwN (sub_width=)    :586-589, pallas_group  entries_lohi_kernel<span>: each
+                        _eval.py:855-893        entry visits its sub_width-
+                                                aligned span (entry_spans)
+  fheapcapN, nofheap    :590-593, :1065-1107    far_heap_cap; nofheap takes the
+                                                dense bit-packed far field
+  wj1, wj2              :800-803                cap the window's alignment wjf
+  sidefloor             :852-854                MAC width at least the nominal
+                                                side max(hi - lo) / 2^l (box=)
+  mono                  :875, :902-911          no sub-tile monopole re-test
+  subdiag               :892-917                info near_width_cell_tile,
+                                                near_width_cell_subtile_xnsub
+  pbdiag                :935-969                info pb_width_box, _com, _tile
+  ftg2                  :1089, :1111            masked_eval_bits_kernel<tg2>
+  nowinskip             :1143                   window_eval_interval_kernel
+                                                <full>
+  wordextract           :1195-1255              the word-compacted extraction
+  (widextract cancels)                          (C % 32 == 0, C >= 32)
+  noskip                :1336, :1504            entries_lohi_kernel<span>:
+                                                every entry its whole block
+  far, win, near        :1012, :1115, :1326,    that part is zeros (wrong
+                        :1496                   forces, as in nbody_tpu)
+  nlist                 :1328-1329              near = zeros + the int32 sum
+                                                of the entry array
+  dbg                   :1514-1520              the descent's tensors in
+                                                info["descend__dbg"]
+  densemask             :1026-1033, :1117-1126  masked_eval_cuda and
+                                                window_eval_dense_cuda
+  farcompact            :984-1025               group_shared_masked_eval_cuda
+                                                per supertile of 8 tiles
+  packedj               :1337                   entries_lohi_kernel<packed>
+  desc1, desc2          :582-585, :1343-1513    the sparse supertile descent
+                                                (experimental/tree_descend.py)
 """
 
 from __future__ import annotations
@@ -62,36 +104,72 @@ from nbody_torch.ops.cuda_group_eval import (entries_lohi_eval_cuda, group_eval_
 from nbody_torch.ops.octree import OctreeLevels
 
 BIGK = 1 << 30  # sort sentinel of the per-tile entry rows (and of compact_rows)
-# The ablate tokens of nbody_tpu's fast paths that the port runs: densemask,
-# farcompact, packedj, desc1 / desc2 select ported kernels; fheap is a no-op
-# alias in nbody_tpu (octree_group.py:1063) and sortunperm belongs to the knob
-# probe (the port's un-permute is already a gather).
-OCTREE_ABLATE = ("densemask", "farcompact", "packedj", "desc1", "desc2", "fheap", "sortunperm")
+# The no-op aliases both fast paths take (see the module docstring).
+ALIASES = ("fheap", "sortunperm", "winskip")
+# The ablate tokens of nbody_tpu's octree fast path (the module docstring's
+# table), and the prefixes of its numbered tokens (subwN, fheapcapN).
+OCTREE_ABLATE = ("epg1", "epg8", "epg16", "desc1", "desc2", "wj1", "wj2", "sidefloor", "mono",
+                 "subdiag", "pbdiag", "farcompact", "far", "densemask", "ftg2", "nofheap", "win",
+                 "nowinskip", "wordextract", "widextract", "near", "nlist", "noskip", "packedj",
+                 "dbg", *ALIASES)
+OCTREE_NUMBERED = ("subw", "fheapcap")
 
 K_CELL = 16  # bodies expanded per open max-depth cell of the list path (else fallback)
 TILE_CHUNK = 256  # tiles per pass of the list path's traversal
 FAR_G = 8  # farcompact: tiles per supertile of the compacted far field
 
 
-def ablate_tokens(ablate: str, ported) -> set:
+def ablate_tokens(ablate: str, known, numbered=()) -> set:
     """The comma-separated tokens of `ablate` (whole tokens, never
-    substrings: "farcompact" is not "far"). A token outside `ported` raises
-    ValueError: nbody_tpu's other A/B knobs and wrong-force probes are not
-    ported, and none is ignored silently."""
+    substrings: "farcompact" is not "far"). A token that is neither in
+    `known` nor a prefix of `numbered` followed by digits (subw512) raises
+    ValueError: nbody_tpu's fast path reads it nowhere, and no token is
+    ignored silently."""
     tokens = {tok for tok in ablate.split(",") if tok}
-    unported = sorted(tokens - set(ported))
-    if unported:
-        raise ValueError(f"ablate token {unported[0]!r} is not yet ported to nbody_torch")
+    unknown = sorted(tok for tok in tokens if tok not in known and not any(
+        tok.startswith(pre) and tok[len(pre):].isdigit() for pre in numbered))
+    if unknown:
+        raise ValueError(f"ablate token {unknown[0]!r} is read by no nbody_tpu fast path of "
+                         "this tree")
     return tokens
 
 
+def numbered_token(ablate: str, prefix: str, default, last: bool = False):
+    """N of the first token prefixN of `ablate` (the last where `last`, as
+    nbody_tpu's BVH reads subwN and dblkN), or `default` without one."""
+    values = [int(tok[len(prefix):]) for tok in ablate.split(",")
+              if tok.startswith(prefix) and tok[len(prefix):].isdigit()]
+    return (values[-1] if last else values[0]) if values else default
+
+
+def token_epg(tokens: set, epg: int) -> int:
+    """epg after the tokens epg1, epg8, epg16 (read in that order, each
+    overriding the last, octree_group.py:576-581, bvh_group.py:490-495)."""
+    for tok, value in (("epg1", 1), ("epg8", 8), ("epg16", 16)):
+        if tok in tokens:
+            epg = value
+    if epg < 1:
+        raise ValueError(f"epg must be positive, got {epg}")
+    return epg
+
+
+def wrap_int32(v: torch.Tensor) -> torch.Tensor:
+    """An int64 tensor's values wrapped to int32, as JAX's int32 sums wrap."""
+    return ((v.long() + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
+
+
 def merge_contiguous_entries(entries: torch.Tensor, lohis: torch.Tensor, n_raw: torch.Tensor,
-                             pad_entry: int):
+                             pad_entry: int, ntiles: int | None = None, epg: int = 1):
     """Merge chains of touching same-block entries of a tile-sorted entry
-    stream (octree_group.py:51-85, epg == 1): an entry equal to its
-    predecessor whose lo is the predecessor's hi joins its run. Returns
-    (entries, lohis, n_merged); entries past the merged stream are no-op
-    pads (lo == hi == 0). int32 in, int32 out."""
+    stream (octree_group.py:51-117): an entry equal to its predecessor
+    whose lo is the predecessor's hi joins its run. Returns (entries,
+    lohis, n_merged, tend); entries past the merged stream are no-op pads
+    (lo == hi == 0). With epg > 1 the merged entries are recompacted tile
+    by tile: each tile's run starts at the epg-rounded sum of the runs
+    before it, its round-up slack holds no-op entries with its tile id,
+    n_merged counts them, and tend (ntiles,) is each tile's stream end,
+    past E_cap for a tile whose entries did not fit (the caller sends it
+    to the exact fallback); tend is None at epg 1. int32 in, int32 out."""
     e_cap = entries.shape[0]
     dev = entries.device
     ii = torch.arange(e_cap, device=dev)
@@ -103,10 +181,33 @@ def merge_contiguous_entries(entries: torch.Tensor, lohis: torch.Tensor, n_raw: 
     glo = torch.full_like(entries, 0xFFFF).scatter_reduce_(0, gid, cur_lo, "amin")
     ghi = torch.zeros_like(entries).scatter_reduce_(0, gid, (lohis >> 16) & 0xFFFF, "amax")
     gent = torch.full_like(entries, -1).scatter_reduce_(0, gid, entries, "amax")
-    entries = torch.where(ii <= gid[-1], gent, torch.full_like(gent, pad_entry))
-    lohis = torch.minimum(glo, ghi) | (ghi << 16)
-    n_merged = (keep & (ii < n_raw)).sum()
-    return entries, lohis, n_merged
+    if epg == 1:
+        entries = torch.where(ii <= gid[-1], gent, torch.full_like(gent, pad_entry))
+        lohis = torch.minimum(glo, ghi) | (ghi << 16)
+        n_merged = (keep & (ii < n_raw)).sum()
+        return entries, lohis, n_merged, None
+    # tile-aligned recompaction (:87-117): a kept entry goes to its tile's
+    # base plus its rank in the tile (gids are consecutive within a tile)
+    i64 = dict(dtype=torch.int64, device=dev)
+    keepr = keep & (ii < n_raw)
+    tid = (entries >> 16).long()
+    tid_d = torch.where(keepr, tid, ntiles)
+    mcnt = torch.zeros(ntiles + 1, **i64).index_add_(0, tid_d, torch.ones_like(tid_d))[:ntiles]
+    padded = -(-mcnt // epg) * epg
+    base = torch.cumsum(padded, 0) - padded
+    gmin = torch.full((ntiles + 1,), 0x7FFFFFFF, **i64).scatter_reduce_(0, tid_d, gid, "amin")
+    tid_c = tid.clamp_max(ntiles - 1)
+    dst = torch.where(keepr, base[tid_c] + gid - gmin[tid_c], e_cap).clamp_max(e_cap)
+    out_ent = torch.full((e_cap + 1,), pad_entry, **i64).scatter_(0, dst, gent[gid].long())
+    lohi_i = torch.minimum(glo, ghi)[gid] | (ghi[gid] << 16)
+    out_lohi = torch.zeros(e_cap + 1, **i64).scatter_(0, dst, lohi_i.long())
+    # each tile's round-up slack: no-op entries with the tile's id
+    jj = torch.arange(epg, **i64)[None, :]
+    pdst = torch.where(jj < (padded - mcnt)[:, None], base[:, None] + mcnt[:, None] + jj, e_cap)
+    tids = torch.arange(ntiles, **i64)[:, None].expand_as(pdst)
+    out_ent.scatter_(0, pdst.clamp_max(e_cap).reshape(-1), (tids << 16).reshape(-1))
+    return (out_ent[:e_cap].to(torch.int32), out_lohi[:e_cap].to(torch.int32),
+            base[-1] + padded[-1], base + padded)
 
 
 def _pool(a: torch.Tensor, nbranch: int, op: str) -> torch.Tensor:
@@ -142,20 +243,27 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
                                far_heap_cap: int | None = None, e_chunk: int = 24576,
                                ablate: str = "", descend_levels: int = 0, descend_G: int = 8,
                                descend_caps: tuple = (1024, 1024, 2048), descend_maxb: int = 4,
-                               row_start: int = 0, nrows: int | None = None):
+                               row_start: int = 0, nrows: int | None = None, depth_bias: int = 0,
+                               epg: int = 1, sub_width: int | None = None, box=None):
     """Gather-free grouped octree force (float32). ms, xs, keys are the
     Morton-sorted bodies and their full-depth int64 keys. Returns
     (G * accel in sorted order, info) with info's counters as device
-    tensors: entries, fallback_tiles, open_cells, open_mass,
-    near_width_sum, near_unique_blocks, window_span_sum, window_capacity,
-    max_nodes, node_overflow, descend_entries_raw, when the far heap is
-    compacted far_heap_nonempty, with farcompact far_over_tiles (the tiles
-    its supertile cap sent to the fallback), and with descend_levels the
-    descent's descend_open_0, descend_mono_r, descend_open_r and
-    descend_final_mass.
+    tensors, nbody_tpu's keys: entries, fallback_tiles, open_cells,
+    open_mass, near_width_sum, near_unique_blocks, window_span_sum,
+    window_capacity, max_nodes, max_leaves, node_overflow, leaf_overflow,
+    descend_entries_raw; without the descent bad_entries and the
+    extraction's overflow reasons flag_entcnt, flag_rank, flag_extra; when
+    the far heap is compacted far_heap_nonempty; with farcompact
+    far_over_tiles (the tiles its supertile cap sent to the fallback, the
+    port's own); with descend_levels the descent's descend_open_0,
+    descend_mono_r, descend_open_r and descend_final_mass; and the keys of
+    the diagnostic tokens (the module docstring).
     ablate: comma-separated tokens of OCTREE_ABLATE (see the module
     docstring); descend_*: the descent's levels, supertile, caps (k0, k,
-    m) and blocks per survivor, nbody_tpu's names and defaults.
+    m) and blocks per survivor, nbody_tpu's names and defaults;
+    depth_bias, epg, sub_width: nbody_tpu's (the module docstring), but
+    sub_width None or 0 is the whole [lo, hi) here; box: (lo, hi), the
+    quantization box, which only the sidefloor token reads.
 
     Row-range mode (nrows given; octree_group.py:615-650, the replicated
     multi-device layout): only the rows [row_start, row_start + nrows) of
@@ -165,11 +273,16 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
     widened to S, which halves instead until it divides it); the masks,
     entries and fallback are built for the range's tiles alone
     (row_range's rules)."""
-    tokens = ablate_tokens(ablate, OCTREE_ABLATE)
+    tokens = ablate_tokens(ablate, OCTREE_ABLATE, OCTREE_NUMBERED)
+    epg = token_epg(tokens, epg)
     if "desc1" in tokens:
         descend_levels = 1
     if "desc2" in tokens:
         descend_levels = 2
+    sub_width = numbered_token(ablate, "subw", sub_width)
+    far_heap_cap = numbered_token(ablate, "fheapcap", far_heap_cap)
+    if "sidefloor" in tokens and box is None:
+        raise ValueError("the sidefloor token needs box=(lo, hi), the quantization box")
     n, dim = xs.shape
     dev, dtype = xs.device, xs.dtype
     if dtype != torch.float32:
@@ -202,6 +315,7 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
     level_star = 1
     while (1 << (dim * level_star)) * 256 < npad_g * occ and level_star < depth:
         level_star += 1
+    level_star = min(level_star + depth_bias, depth)  # the guard below walks it back
     S = s_block if s_block is not None else (8192 if dim == 3 else 2048)
     S = max(128, min(S, npad_g))
     while npad_g % S:
@@ -248,6 +362,10 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
     wt = min(window_tiles, ntiles_g)
     t_idx = torch.arange(ntiles, **i64)
     wjf = 4 if wt % 4 == 0 else (2 if wt % 2 == 0 else 1)
+    if "wj1" in tokens:
+        wjf = 1
+    elif "wj2" in tokens:
+        wjf = min(wjf, 2)
     w0 = (row_start // tile + t_idx - wt // 2).clamp(0, ntiles_g - wt)  # global tiles
     w0 = (w0 // wjf) * wjf
     w0_body = w0 * tile
@@ -271,6 +389,8 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
         dmin2 = _box_dist2(tmin, tmax, com[level])
         width = (cmax[level] - cmin[level]).amax(-1)
         weff = torch.where(cnt[level] > 0, width, torch.zeros_like(width))[None, :]
+        if "sidefloor" in tokens:  # the nominal side as the width's floor
+            weff = torch.maximum(weff, (box[1] - box[0]).amax() / float(1 << level))
         single = (cnt[level] == 1)[None, :]
         lend = torch.cumsum(cnt[level], 0)[None, :]
         lstart = lend - cnt[level][None, :]
@@ -289,19 +409,30 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
     w2_L = torch.where(counts_L > 0, (cmax[level_star] - cmin[level_star]).amax(-1),
                        torch.zeros((), dtype=dtype, device=dev)) ** 2
     min_dmin2 = None
+    info = {}
+    sub_fail_w = torch.zeros((), **i64)  # subdiag: the widths each sub-tile's own MAC opens
     for s in range(nsub):
         d2s = _box_dist2(sb_lo[:, s], sb_hi[:, s], com[level_star])
         min_dmin2 = d2s if min_dmin2 is None else torch.minimum(min_dmin2, d2s)
+        if "subdiag" in tokens:
+            fail = open_mask & ~(w2_L[None, :] < theta2 * d2s)
+            sub_fail_w = sub_fail_w + torch.where(fail, counts_L[None, :], 0).sum()
     mono = open_mask & (w2_L[None, :] < theta2 * min_dmin2)
     del min_dmin2, d2s
-    accept_masks[-1] = accept_masks[-1] | mono
-    open_mask = open_mask & ~mono
+    if "mono" not in tokens:
+        accept_masks[-1] = accept_masks[-1] | mono
+        open_mask = open_mask & ~mono
+    if "subdiag" in tokens:
+        info["near_width_cell_subtile_xnsub"] = wrap_int32(sub_fail_w)
+        info["near_width_cell_tile"] = wrap_int32(torch.where(open_mask, counts_L[None, :], 0).sum())
+    if "pbdiag" in tokens:
+        info.update(per_body_widths(xt_real, open_mask, counts_L, cmin[level_star],
+                                    cmax[level_star], com[level_star], w2_L, theta2))
 
     acc_bool = torch.cat(accept_masks, dim=1)                          # (T, W)
     mm_heap = torch.cat(mass[:level_star + 1])
     com_heap = torch.cat(com)
     w_heap = acc_bool.shape[1]
-    info = {}
 
     # ---- far field (octree_group.py:975-1112) --------------------------
     far_over = torch.zeros(ntiles, dtype=torch.bool, device=dev)
@@ -323,10 +454,13 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
                      com_heap[fidc].contiguous(),
                      unfold_bits(fbits, FAR_G).to(dtype).reshape(tsf * FAR_G, -1)[:ntiles]
                      .contiguous())
-    elif "densemask" not in tokens:
-        # the far heap compacted to its nonempty cells (:1064-1112)
-        far_cap = far_heap_cap if far_heap_cap is not None else (2048 if dim == 3 else 8192)
-        compact = 0 < far_cap < w_heap
+    elif "densemask" not in tokens and "far" not in tokens:
+        # the far heap compacted to its nonempty cells (:1064-1112), unless
+        # nofheap or a cap of 0
+        far_cap = far_heap_cap
+        if far_cap is None and "nofheap" not in tokens:
+            far_cap = 2048 if dim == 3 else 8192
+        compact = far_cap is not None and 0 < far_cap < w_heap
         if compact:
             alive_w = torch.cat(cnt[:level_star + 1]) > 0
             order_key = torch.where(alive_w, 0, w_heap) + torch.arange(w_heap, **i64)
@@ -337,14 +471,17 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
     # ---- near field: exact entries of the cells open at L*, or of the
     #      descent's survivors below it ----------------------------------
     if r_levels == 0:
-        entries, lohis, n_merged, ent_count, r_slice, tile_over, n_raw = _base_entries(
-            open_mask, cell_of_pad, C, npad_g, n, S, ntiles, e_chunk, t_idx, dim)
+        wordex = C % 32 == 0 and C >= 32 and "wordextract" in tokens and "widextract" not in tokens
+        entries, lohis, n_merged, ent_count, r_slice, tile_over, n_raw, flags = _base_entries(
+            open_mask, cell_of_pad, C, npad_g, n, S, ntiles, e_chunk, t_idx, dim, epg, wordex)
+        info.update(flags)
+        info["bad_entries"] = ((entries >> 16) >= ntiles).sum()
         mono_args = None
     else:
         (entries, lohis, n_merged, ent_count, r_slice, tile_over, n_raw, mono_args,
          desc_info) = _descend_entries(open_mask, cnt, mass, mx, cmin, cmax, level_star, r_levels,
                                        xs, tmin, tmax, theta2, ntiles, npad_g, S, e_chunk, t_idx,
-                                       descend_G, descend_caps, descend_maxb)
+                                       descend_G, descend_caps, descend_maxb, epg)
         info.update(desc_info)
     tile_over = tile_over | far_over
 
@@ -356,16 +493,23 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
         cheap, n_over = False, int(n_over_t)
 
     # ---- evaluation: far + window + near ------------------------------
-    if "farcompact" in tokens:
+    tg = 2 if "ftg2" in tokens else 1
+    if "far" in tokens:  # the wrong-force probes: that part is zeros
+        far = torch.zeros_like(xp)
+    elif "farcompact" in tokens:
         far = group_shared_masked_eval_cuda(xp, *far_lists, eps, FAR_G, "sqrt3")
     elif "densemask" in tokens:
         far = masked_eval_cuda(xp, mm_heap, com_heap, acc_bool.to(dtype), eps, "sqrt3")
     elif compact and cheap:
         far = masked_eval_bits_cuda(xp, mm_heap[keep_idx], com_heap[keep_idx].contiguous(),
-                                    pack_mask_bits(acc_bool[:, keep_idx]), eps, "sqrt3")
+                                    pack_mask_bits(acc_bool[:, keep_idx]), eps, "sqrt3",
+                                    tile_group=tg)
     else:
-        far = masked_eval_bits_cuda(xp, mm_heap, com_heap, pack_mask_bits(acc_bool), eps, "sqrt3")
-    if "densemask" in tokens:  # the window as a dense body mask (:1117-1126)
+        far = masked_eval_bits_cuda(xp, mm_heap, com_heap, pack_mask_bits(acc_bool), eps, "sqrt3",
+                                    tile_group=tg)
+    if "win" in tokens:
+        win = torch.zeros_like(xp)
+    elif "densemask" in tokens:  # the window as a dense body mask (:1117-1126)
         cols = w0_body[:, None] + torch.arange(wt * tile, **i64)[None, :]
         bmask = ((cols >= lo_t[:, None]) & (cols < hi_t[:, None])).to(dtype)
         win = window_eval_dense_cuda(xp, mp_g, xp_g, w0.to(torch.int32), bmask, eps, wt,
@@ -373,21 +517,35 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
         del cols, bmask
     else:
         win = window_eval_interval_cuda(xp, mp_g, xp_g, w0.to(torch.int32), lo_t.to(torch.int32),
-                                        hi_t.to(torch.int32), eps, wt, "sqrt3")
-    near_args = (xp, mp_g, xp_g, entries, lohis, n_merged, S, ntiles, eps, "sqrt3")
-    if "packedj" in tokens:
-        near = entries_lohi_eval_cuda(*near_args, packed=True)
-    else:  # the default path's call, as before the ablation path existed
-        near = entries_lohi_eval_cuda(*near_args)
+                                        hi_t.to(torch.int32), eps, wt, "sqrt3",
+                                        skip_outside="nowinskip" not in tokens)
+    far_win = far + win
+    if "near" in tokens:
+        near = torch.zeros_like(xp)
+    elif "nlist" in tokens and mono_args is None:  # the list built, its evaluation not
+        near = torch.zeros_like(xp) + wrap_int32(entries.long().sum()).to(dtype)
+    else:
+        near = entries_lohi_eval_cuda(xp, mp_g, xp_g, entries, lohis, n_merged, S, ntiles, eps,
+                                      "sqrt3", packed="packedj" in tokens, sub_width=sub_width,
+                                      skip_empty="noskip" not in tokens)
     if mono_args is not None:  # the descent's monopoles
-        near = near + group_shared_masked_eval_cuda(xp, *mono_args, eps, descend_G, "sqrt3")
-    acc = (far + win) + near
+        mono_far = group_shared_masked_eval_cuda(xp, *mono_args[:3], eps, descend_G, "sqrt3")
+        if "dbg" in tokens:  # the descent's tensors, by nbody_tpu's names (:1514-1520)
+            info["descend__dbg"] = {
+                "res": mono_args[-1], "entries": entries, "lohis": lohis, "mono_far": mono_far,
+                "ent_near": near, "open_mask": open_mask, "win_lo": lo_t, "win_hi": hi_t,
+                "cellid": cellid, "cid_d": cid_d, "far_win": far_win}
+        near = near + mono_far
+    acc = far_win + near
 
     # ---- exact fallback for overflowed tiles --------------------------
     exact_fallback(acc, xt, tile_over, n_over, ms, xs, eps, "sqrt3")
 
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
     info.update({
         "max_nodes": ent_count.clamp_max(r_slice).max(),
+        "max_leaves": zero,
+        "leaf_overflow": zero,
         "fallback_tiles": n_over_t,
         "entries": n_merged,
         "descend_entries_raw": n_raw,
@@ -397,9 +555,39 @@ def compute_force_grouped_fast(ms: torch.Tensor, xs: torch.Tensor, keys: torch.T
         "near_unique_blocks": unique_blocks(entries, n_merged),
         "window_span_sum": (hi_t - lo_t).sum(),
         "window_capacity": torch.full((), ntiles * wt * tile, **i64),
-        "node_overflow": torch.zeros((), dtype=torch.int32, device=dev),
+        "node_overflow": zero,
     })
     return G * acc[:out_rows], info
+
+
+def per_body_widths(xt_real: torch.Tensor, open_mask: torch.Tensor, counts: torch.Tensor,
+                    cmin: torch.Tensor, cmax: torch.Tensor, com: torch.Tensor, w2: torch.Tensor,
+                    theta2: torch.Tensor, samples: int = 64) -> dict:
+    """The pbdiag token's sampled per-body MAC pricing (octree_group.py:
+    935-969): for min(samples, T) tiles at a stride of T // samples, the
+    pairs (body, source body) of the cells open at L* that fail the MAC
+    taken per body against the cell's box (pb_width_box) and its COM
+    (pb_width_com), beside the tile MAC's pairs (pb_width_tile); float32,
+    summed here in float64."""
+    ntiles, tile, dim = xt_real.shape
+    st = min(samples, ntiles)
+    samp = torch.arange(st, device=xt_real.device) * max(1, ntiles // st)
+    cnt = counts.double()
+    sums = torch.zeros(3, dtype=torch.float64, device=xt_real.device)
+    for t in samp.tolist():
+        xb, op = xt_real[t], open_mask[t]
+        d2box = d2com = None
+        for d in range(dim):
+            xv = xb[:, d][:, None]
+            dd = torch.maximum(torch.clamp_min(cmin[:, d][None, :] - xv, 0), xv - cmax[:, d][None, :])
+            dc = xv - com[:, d][None, :]
+            d2box = dd * dd if d2box is None else d2box + dd * dd
+            d2com = dc * dc if d2com is None else d2com + dc * dc
+        sums[0] += torch.where(op[None, :] & ~(w2[None, :] < theta2 * d2box), cnt, 0).sum()
+        sums[1] += torch.where(op[None, :] & ~(w2[None, :] < theta2 * d2com), cnt, 0).sum()
+        sums[2] += torch.where(op, cnt, 0).sum() * tile
+    box, com_w, tile_w = sums.float()
+    return {"pb_width_box": box, "pb_width_com": com_w, "pb_width_tile": tile_w}
 
 
 def unique_blocks(entries: torch.Tensor, n_real: torch.Tensor) -> torch.Tensor:
@@ -411,21 +599,25 @@ def unique_blocks(entries: torch.Tensor, n_real: torch.Tensor) -> torch.Tensor:
     return ((blk != torch.cat([blk.new_full((1,), -1), blk[:-1]])) & (blk != never)).sum()
 
 
-def _entry_cap(ntiles: int, per_tile_est: int, widest: int, e_chunk: int) -> int:
+def _entry_cap(ntiles: int, per_tile_est: int, widest: int, e_chunk: int, epg: int = 1) -> int:
     """E_cap, the entry budget beyond which tiles go to the fallback
-    (octree_group.py:1282-1289, :1467-1475; epg 1)."""
+    (octree_group.py:1282-1289, :1467-1475; bvh_group.py:882-889): a
+    multiple of epg, and of e_chunk past one chunk."""
     n_chunks = max(1, min(40, -(-(ntiles * per_tile_est + ntiles) // e_chunk)))
     e_cap = min(ntiles * (widest + 1), n_chunks * e_chunk)
+    e_cap = -(-e_cap // epg) * epg
     if e_cap > e_chunk:
         e_cap = -(-e_cap // e_chunk) * e_chunk
     return e_cap
 
 
-def _base_entries(open_mask, cell_of_pad, C, npad, n, S, ntiles, e_chunk, t_idx, dim):
+def _base_entries(open_mask, cell_of_pad, C, npad, n, S, ntiles, e_chunk, t_idx, dim, epg=1,
+                  wordex=False):
     """The exact entries of the cells open at L*: the global (cell,
-    S-block) run table, then per tile the wide extraction
-    (octree_group.py:1150-1324). Returns (entries, lohis, n_merged,
-    ent_count, r_slice, tile_over, n_raw)."""
+    S-block) run table, then per tile the wide extraction, or with wordex
+    the word-compacted one (octree_group.py:1150-1324). Returns (entries,
+    lohis, n_merged, ent_count, r_slice, tile_over, n_raw, the overflow
+    reasons flag_entcnt, flag_rank, flag_extra)."""
     dev = open_mask.device
     i64 = dict(dtype=torch.int64, device=dev)
     nblocks = npad // S
@@ -448,15 +640,20 @@ def _base_entries(open_mask, cell_of_pad, C, npad, n, S, ntiles, e_chunk, t_idx,
     g_hi = torch.where(gbe_valid, gbe_end - gbe_blk * S, 0)
     lohi_tbl = (g_lo | (g_hi << 16)).to(torch.int32)
 
-    # per-tile entry lists, wide extraction
+    # per-tile entry lists
     r_slice = min(gbe_cap + 1, 2048)
     pad_gbe = gbe_cap
-    open_c = torch.cat([open_mask, torch.zeros(ntiles, 1, dtype=torch.bool, device=dev)], dim=1)
-    open_gbe = open_c[:, gbe_cell]                                    # (T, gbe_cap + 1)
-    gkey = torch.where(open_gbe, gi[None, :], BIGK)
-    sorted_g = torch.sort(gkey, dim=1).values[:, :r_slice]
-    ent_count = open_gbe.sum(1)
-    del open_gbe, gkey
+    extra_over = torch.zeros(ntiles, dtype=torch.bool, device=dev)
+    if not wordex:  # the wide extraction: a (T, gbe) gather and row sort
+        open_c = torch.cat([open_mask, torch.zeros(ntiles, 1, dtype=torch.bool, device=dev)], dim=1)
+        open_gbe = open_c[:, gbe_cell]                                # (T, gbe_cap + 1)
+        gkey = torch.where(open_gbe, gi[None, :], BIGK)
+        sorted_g = torch.sort(gkey, dim=1).values[:, :r_slice]
+        ent_count = open_gbe.sum(1)
+        del open_gbe, gkey
+    else:
+        sorted_g, ent_count, extra_over = _word_extract(open_mask, gbe_cell, gbe_valid, gi, C,
+                                                        gbe_cap, r_slice)
     slot = torch.arange(r_slice, **i64)[None, :]
     vmask = slot < ent_count.clamp_max(r_slice)[:, None]
     ent_rows = torch.where(vmask, sorted_g.clamp_max(pad_gbe), pad_gbe)
@@ -465,31 +662,76 @@ def _base_entries(open_mask, cell_of_pad, C, npad, n, S, ntiles, e_chunk, t_idx,
     flat_v = vflag.reshape(-1)
     flat_ent = ((t_idx[:, None] << 16) | ent_rows).reshape(-1)
     frank = torch.cumsum(flat_v, 0) - 1
-    e_cap = _entry_cap(ntiles, 64 + ((560 if dim == 3 else 360) * 256) // S, r_slice, e_chunk)
+    e_cap = _entry_cap(ntiles, 64 + ((560 if dim == 3 else 360) * 256) // S, r_slice, e_chunk,
+                       epg)
     pad_gbe_entry = ((ntiles - 1) << 16) | pad_gbe
     dst = torch.where(flat_v & (frank < e_cap), frank, e_cap)        # e_cap: dropped
     entries_gbe = torch.full((e_cap + 1,), pad_gbe_entry, **i64).scatter_(0, dst, flat_ent)[:e_cap]
     end_rank = torch.cumsum(1 + ent_count.clamp_max(r_slice), 0)
-    tile_over = (ent_count > r_slice) | (end_rank > e_cap)
+    tile_over = (ent_count > r_slice) | (end_rank > e_cap) | extra_over
+    flags = {"flag_entcnt": (ent_count > r_slice).sum(), "flag_rank": (end_rank > e_cap).sum(),
+             "flag_extra": extra_over.sum()}
 
     # resolve the gbe indirection into self-describing entries and merge
     gidx = entries_gbe & 0xFFFF
     entries = ((entries_gbe & ~0xFFFF) | gbe_blk[gidx]).to(torch.int32)
     lohis = lohi_tbl[gidx]
-    entries, lohis, n_merged = merge_contiguous_entries(entries, lohis, end_rank[-1],
-                                                        (ntiles - 1) << 16)
-    return entries, lohis, n_merged, ent_count, r_slice, tile_over, end_rank[-1]
+    entries, lohis, n_merged, tend = merge_contiguous_entries(entries, lohis, end_rank[-1],
+                                                              (ntiles - 1) << 16, ntiles, epg)
+    if tend is not None:
+        tile_over = tile_over | (tend > e_cap)
+    return entries, lohis, n_merged, ent_count, r_slice, tile_over, end_rank[-1], flags
+
+
+def _word_extract(open_mask, gbe_cell, gbe_valid, gi, C, gbe_cap, r_slice, maxb=4):
+    """The wordextract token's extraction (octree_group.py:1209-1255): the
+    (T, C) open mask folded into 32-cell words, a tile's first RW = min(C /
+    32, 256) nonzero words kept, their open cells (at most R_CELL = min(
+    r_slice, RW * 32)) and each cell's first maxb runs of the table, in
+    ascending run order. Returns (sorted run ids (T, r_slice), BIGK past a
+    tile's runs, the run count a tile (all of each cell's runs), and the
+    tiles that overflowed a word, cell or block limit)."""
+    ntiles = open_mask.shape[0]
+    dev = open_mask.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    nwords = C // 32
+    rw = min(nwords, 256)
+    sh32 = torch.arange(32, **i64)
+    words = (open_mask.view(ntiles, nwords, 32).long() << sh32).sum(2)   # bits 0..31
+    wkey = torch.where(words != 0, torch.arange(nwords, **i64)[None, :], BIGK)
+    sw = torch.sort(wkey, dim=1).values[:, :rw]
+    swc = sw.clamp_max(nwords - 1)
+    wv = torch.where(sw < BIGK, torch.gather(words, 1, swc), 0)
+    wcnt = (words != 0).sum(1)
+    first = torch.full((C + 1,), gbe_cap, **i64).scatter_reduce_(0, gbe_cell, gi, "amin")
+    nblk = torch.zeros(C + 1, **i64).index_add_(0, gbe_cell, gbe_valid.long())
+    obit = ((wv[:, :, None] >> sh32) & 1) > 0
+    r_cell = min(r_slice, rw * 32)
+    ckey = torch.where(obit, swc[:, :, None] * 32 + sh32, BIGK).reshape(ntiles, rw * 32)
+    sc = torch.sort(ckey, dim=1).values[:, :r_cell]
+    cvalid = sc < BIGK
+    scc = sc.clamp_max(C - 1)
+    kb = torch.where(cvalid, nblk[scc], 0)
+    jj = torch.arange(maxb, **i64)
+    ekey = torch.where(cvalid[:, :, None] & (jj < kb.clamp_max(maxb)[:, :, None]),
+                       first[scc][:, :, None] + jj, BIGK).reshape(ntiles, -1)
+    sorted_g = torch.sort(ekey, dim=1).values[:, :r_slice]
+    if sorted_g.shape[1] < r_slice:
+        sorted_g = torch.nn.functional.pad(sorted_g, (0, r_slice - sorted_g.shape[1]), value=BIGK)
+    extra_over = (wcnt > rw) | (obit.sum((1, 2)) > r_cell) | (cvalid & (nblk[scc] > maxb)).any(1)
+    return sorted_g, kb.sum(1), extra_over
 
 
 def _descend_entries(open_mask, cnt, mass, mx, cmin, cmax, level_star, r_levels, xs, tmin, tmax,
-                     theta2, ntiles, npad, S, e_chunk, t_idx, Gd, caps, maxb):
+                     theta2, ntiles, npad, S, e_chunk, t_idx, Gd, caps, maxb, epg=1):
     """The sparse supertile descent r_levels below L* (octree_group.py:
     1343-1513): per member tile MAC on the deeper cells' true extents, the
     accepted cells' monopoles (mass, com; a one-body cell is its body) as
     the args of group_shared_masked_eval_cuda, and the survivors as exact
     entries of at most maxb S-blocks each. Returns (entries, lohis,
     n_merged, ent_count, r_slice, tile_over, n_raw, (monopole masses,
-    monopole coms, per-tile mask), info's descend_* counters)."""
+    monopole coms, per-tile mask, the descent's result), info's descend_*
+    counters)."""
     n, dim = xs.shape
     dev, dtype = xs.device, xs.dtype
     i64 = dict(dtype=torch.int64, device=dev)
@@ -534,7 +776,7 @@ def _descend_entries(open_mask, cnt, mass, mx, cmin, cmax, level_star, r_levels,
     res = supertile_descend(open_mask, 1 << dim, r_levels, Gd, k0=k0_cap, k_caps=[k_cap] * r_levels,
                             m_caps=[m_cap] * r_levels, mac_fn=mac_fn, mono_fn=mono_fn)
     mono_args = (res.mono_mass.contiguous(), res.mono_com.contiguous(),
-                 res.mono_mask[:ntiles].contiguous())
+                 res.mono_mask[:ntiles].contiguous(), res)
 
     # the final survivors -> self-describing exact [lo, hi) entries
     cnt_d = cnt[level[r_levels]]
@@ -570,7 +812,7 @@ def _descend_entries(open_mask, cnt, mass, mx, cmin, cmax, level_star, r_levels,
                       torch.stack(val_cols, 2).reshape(ntiles, -1)], 1)
     flat_v = valm.reshape(-1)
     frank = torch.cumsum(flat_v, 0) - 1
-    e_cap = _entry_cap(ntiles, 128 if dim == 2 else 256, kf * maxb, e_chunk)
+    e_cap = _entry_cap(ntiles, 128 if dim == 2 else 256, kf * maxb, e_chunk, epg)
     pad_entry = (ntiles - 1) << 16
     dst = torch.where(flat_v & (frank < e_cap), frank, e_cap)         # e_cap: dropped
     entries = torch.full((e_cap + 1,), pad_entry, **i64).scatter_(0, dst, entm.reshape(-1))[:e_cap]
@@ -579,8 +821,10 @@ def _descend_entries(open_mask, cnt, mass, mx, cmin, cmax, level_star, r_levels,
     end_rank = torch.cumsum(ent_count + 1, 0)
     tile_over = res.overflow[:ntiles] | cell_over.any(1) | (end_rank > e_cap)
     n_raw = end_rank[-1]
-    entries, lohis, n_merged = merge_contiguous_entries(entries.to(torch.int32),
-                                                        lohis.to(torch.int32), n_raw, pad_entry)
+    entries, lohis, n_merged, tend = merge_contiguous_entries(
+        entries.to(torch.int32), lohis.to(torch.int32), n_raw, pad_entry, ntiles, epg)
+    if tend is not None:
+        tile_over = tile_over | (tend > e_cap)
     desc_info = {f"descend_{k}": v for k, v in res.diag.items()}
     desc_info["descend_final_mass"] = torch.where(memb, fcnt[:, None, :], 0).sum()
     return (entries, lohis, n_merged, ent_count, kf * maxb, tile_over, n_raw, mono_args,

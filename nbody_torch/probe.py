@@ -20,8 +20,9 @@
         un-permute, leapfrog): one untimed step, then 3 timed with CUDA
         events (the host clock with --device cpu). Appends one JSON line
         per SPEC to OUT and prints it: probe, spec, n, sec (seconds per
-        step), the scripts' info keys and descend_*, the device, and the
-        kernel launches of the 4 steps. SPEC is the scripts' grammar,
+        step), the scripts' info keys (subdiag's widths, pbdiag's float
+        sums) and descend_*, the device, and the kernel launches of the 4
+        steps. Every SPEC of results/r4 and results/r5's knob_*.jsonl runs. SPEC is the scripts' grammar,
         octree tile,s_block,window_tiles,ablate|none,dim,evolved and BVH
         tile,s_target,window_tiles,ablate|none,evolved[,dim], several
         ablate tokens joined by dots. Runs on the GPU unless --device cpu;
@@ -154,12 +155,15 @@ def trace(n: int, dim: int, steps: int, algorithm: str, precision: str = "float"
 
 
 # the info keys the knob scripts log (probe_oct_knobs.py:104-115,
-# probe_bvh_knobs.py:108-115), where the path reports them
+# probe_bvh_knobs.py:108-115), where the path reports them: integers, and
+# the octree's pbdiag sums as floats
 KNOB_KEYS = {"oct": ("entries", "fallback_tiles", "open_cells", "near_width_sum",
-                     "near_unique_blocks", "window_span_sum", "window_capacity",
+                     "near_unique_blocks", "near_width_cell_tile",
+                     "near_width_cell_subtile_xnsub", "window_span_sum", "window_capacity",
                      "far_heap_nonempty"),
              "bvh": ("entries", "fallback_tiles", "res_width_sum", "res_pairs",
                      "res_unique_blocks")}
+KNOB_FLOATS = ("pb_width_box", "pb_width_com", "pb_width_tile")
 
 
 def knob_step(tree: str, spec: str, cfg):
@@ -186,7 +190,8 @@ def knob_step(tree: str, spec: str, cfg):
             lo_r, hi_r = robust_quant_box(s.x)
             ms, xs, ks, perm = morton_sort(s.m, s.x, lo_r, hi_r, depth)
             a, info = compute_force_grouped_fast(ms, xs, ks, depth, theta, G, eps, tile=tile,
-                                                 s_block=width, window_tiles=wt, ablate=ablate)
+                                                 s_block=width, window_tiles=wt, ablate=ablate,
+                                                 box=(lo_r, hi_r))
             return a, perm, info
     else:
         from nbody_torch.ops.bvh import build_tree
@@ -264,10 +269,14 @@ def knobs(tree: str, out: str, specs: list[str], n: int, device: str) -> None:
             for _ in range(3):
                 state, _ = step(state)
             sec = (time.perf_counter() - t0) / 3
-        keys = [k for k in info if k in KNOB_KEYS[tree] or k.startswith(("res_pass_", "descend_"))]
+        # descend__dbg (the dbg token) holds tensors, not a counter
+        keys = [k for k in info if k in KNOB_KEYS[tree] or (
+            k.startswith(("res_pass_", "descend_")) and k != "descend__dbg")]
         launches = {k: v for k, v in {**ca.launch_counts, **cg.launch_counts}.items() if v}
         log(out, {"probe": f"{tree}knobs", "spec": spec, "n": n, "sec": sec,
-                  **{k: int(info[k]) for k in keys}, "device": name, "launches": launches})
+                  **{k: int(info[k]) for k in keys},
+                  **{k: float(info[k]) for k in KNOB_FLOATS if k in info},
+                  "device": name, "launches": launches})
         del state, step
 
 

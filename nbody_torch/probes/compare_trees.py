@@ -101,14 +101,15 @@ def host_ms(fn, reps: int = REPS) -> float:
     return ms
 
 
-def device_ms(fn, reps: int = REPS) -> float:
-    """Mean device ms of `reps` calls queued behind a sleep kernel that
-    outlasts their enqueueing (checked), after one warm-up."""
+def device_ms(fn, reps: int = REPS, sleep_us: float = 500.0) -> float:
+    """Mean device ms of `reps` calls queued behind a sleep kernel of
+    sleep_us a call that outlasts their enqueueing (checked), after one
+    warm-up."""
     fn()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     torch.cuda.synchronize()
     ev[0].record()
-    torch.cuda._sleep(int(1.98e9 * 500e-6 * reps))
+    torch.cuda._sleep(int(1.98e9 * sleep_us * 1e-6 * reps))
     ev[1].record()
     t0 = time.perf_counter()
     for _ in range(reps):

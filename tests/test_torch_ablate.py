@@ -1,7 +1,8 @@
 """The ablation path of the trees' fast paths (the `ablate=` tokens
 densemask, farcompact, packedj, desc1 / desc2), its three kernels'
 plain twins, the supertile descent and the knob probe, against nbody_tpu
-on the CPU.
+on the CPU (the other tokens: tests/test_torch_knobs_octree.py and
+test_torch_knobs_bvh.py).
 
 The same numpy-made inputs go through both packages; the Pallas
 functions run in interpret mode, as nbody_tpu's own tests run them.
@@ -356,9 +357,11 @@ def octree_runs():
 
 
 def _assert_counters_equal(tinfo, jinfo):
-    shared = set(tinfo) & set(jinfo)
-    assert {k for k in jinfo if k.startswith("descend_")} <= shared
-    assert {k: int(tinfo[k]) for k in shared} == {k: jinfo[k] for k in shared}
+    """Every key of nbody_tpu's info is in the port's (but descend__dbg, a
+    dict of tensors compared on its own), with the same count."""
+    keys = set(jinfo) - {"descend__dbg"}
+    assert not keys - set(tinfo), keys - set(tinfo)
+    assert {k: int(tinfo[k]) for k in keys} == {k: jinfo[k] for k in keys}
 
 
 @pytest.mark.parametrize("name", list(OCTREE_CASES))
@@ -464,30 +467,24 @@ def test_bvh_token_vs_nbody_tpu(token, kw, bvh_system):
 
 # ------------------------------------------------------------------ errors
 
-NOT_PORTED = ["far", "win", "near", "nlist", "resid", "rlist", "epg8", "subw512", "fheapcap1024",
-              "wj1", "wj2", "ftg2", "nowinskip", "noskip", "wordextract", "widextract",
-              "sidefloor", "mono", "subdiag", "pbdiag", "forceover0", "dbg"]
 
-
-@pytest.mark.parametrize("token", NOT_PORTED)
-def test_unported_tokens_raise(token):
-    """Every token that selects no ported code raises for both trees; none
-    is ignored. farcompact and desc1 / desc2 are octree-only. The BVH's
-    widextract and forceover0 are ported (tests/test_torch_bvh_cadence.py
-    holds them against nbody_tpu): the BVH runs them, the octree raises."""
+@pytest.mark.parametrize("tree,token", [("octree", "forceover0"), ("octree", "farcompactt"),
+                                        ("bvh", "farcompact"), ("bvh", "desc2")])
+def test_unported_tokens_raise(tree, token):
+    """A token that nbody_tpu's fast path of the tree reads nowhere raises;
+    none is ignored (tests/test_torch_knobs_*.py run every token it
+    reads). forceover0 is the BVH's regression knob, farcompact and desc2
+    the octree's; farcompactt is misspelt."""
     m, x = _clustered(300, 2, 3)
     depth = tot.max_depth(300, 2)
     ms, xs, ks, _ = tot.morton_sort(_t(m), _t(x), *tot.robust_quant_box(_t(x)), depth)
-    with pytest.raises(ValueError, match="not yet ported"):
-        tog.compute_force_grouped_fast(ms, xs, ks, depth, 0.5, 1.0, EPS,
-                                       ablate=f"packedj,{token}")
-    tree = tbvh.build_tree(ms, xs, EPS)
-    if token in tbg.BVH_ABLATE:
-        a, _ = tbg.compute_force_grouped_windowed(tree, ms, xs, 0.5, 1.0, EPS, ablate=token)
-        assert bool(torch.isfinite(a).all())
-    for bad in ((token,) if token not in tbg.BVH_ABLATE else ()) + ("farcompact", "desc2"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            tbg.compute_force_grouped_windowed(tree, ms, xs, 0.5, 1.0, EPS, ablate=bad)
+    with pytest.raises(ValueError, match="read by no nbody_tpu fast path"):
+        if tree == "octree":
+            tog.compute_force_grouped_fast(ms, xs, ks, depth, 0.5, 1.0, EPS,
+                                           ablate=f"packedj,{token}")
+        else:
+            tbg.compute_force_grouped_windowed(tbvh.build_tree(ms, xs, EPS), ms, xs, 0.5, 1.0,
+                                               EPS, ablate=f"packedj,{token}")
 
 
 # --------------------------------------------------------------- the probe
@@ -522,9 +519,10 @@ def test_probe_knobs_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [["oct", "512,2048,2,none,2"], ["bvh", "512,512,2,none"],
-                                  ["oct", "512,2048,2,far,2,0"]])
+                                  ["oct", "512,2048,2,forceover0,2,0"]])
 def test_probe_knobs_rejects_bad_specs(argv, tmp_path):
-    """A malformed SPEC or an unported token ends the run with an error."""
+    """A malformed SPEC or a token the tree reads nowhere ends the run with
+    an error."""
     with pytest.raises(ValueError):
         probe.main(["knobs", argv[0], str(tmp_path / "o.jsonl"), argv[1], "--n", "1024",
                     "--device", "cpu"])

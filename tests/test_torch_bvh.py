@@ -427,9 +427,9 @@ def _recording():
     saved = {name: getattr(tbg, name) for name in KERNEL_WRAPPERS}
 
     def wrap(name, fn):
-        def call(*args):
+        def call(*args, **kwargs):  # the keywords select no mode on the default path
             calls[name] = args
-            return fn(*args)
+            return fn(*args, **kwargs)
         return call
 
     for name, fn in saved.items():

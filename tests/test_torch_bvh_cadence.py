@@ -125,9 +125,9 @@ def _far_widths():
     widths = []
     saved = tbg.masked_eval_bits_cuda
 
-    def call(xi, mj, *args):
+    def call(xi, mj, *args, **kwargs):  # the keywords select the kernel's mode
         widths.append(mj.shape[0])
-        return saved(xi, mj, *args)
+        return saved(xi, mj, *args, **kwargs)
 
     tbg.masked_eval_bits_cuda = call
     try:

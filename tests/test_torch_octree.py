@@ -186,7 +186,7 @@ def test_merge_contiguous_entries_bit_equal():
     lohis = np.concatenate([lohis, np.zeros(50, np.int32)])
     je, jl, jn, _ = jog.merge_contiguous_entries(jnp.asarray(ents), jnp.asarray(lohis),
                                                  jnp.asarray(n_raw, jnp.int32), pad)
-    te, tl, tn = tog.merge_contiguous_entries(_t(ents), _t(lohis), torch.tensor(n_raw), pad)
+    te, tl, tn, _ = tog.merge_contiguous_entries(_t(ents), _t(lohis), torch.tensor(n_raw), pad)
     assert te.dtype == tl.dtype == torch.int32 and te.shape == (e_cap,)
     np.testing.assert_array_equal(te.numpy(), np.asarray(je))
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
