@@ -19,9 +19,10 @@ Phases, each printed on its own lines:
      c. the main path's shape, N = 2^20 3-D float32: the CLI's force (the
         Newton chain) and the potential, each launched twice (the two
         results bit-equal), timed with CUDA events while nvidia-smi samples
-        the SM clock and the draw, beside the twin on all rows; the IEEE
-        instantiation against the same twin; the FLOP bound and the MUFU
-        floor printed beside each time;
+        the SM clock and the draw, beside the twin on the first 131,072
+        rows (plain_ms is its time on them; on all rows it took ~120 s of
+        the run); the IEEE instantiation against the same twin; the FLOP
+        bound and the MUFU floor printed beside each time;
      d. 9,216 rows (18 tiles, the BVH 2-D float64 fallback's count) against
         the 2^20 bodies in float32, which the plan splits over the bodies:
         more than one split, bit-equal launches, within 1e-5 of the twin;
@@ -317,6 +318,42 @@ Phases, each printed on its own lines:
         on 4 ranks, every masked_eval_bits_cuda call of each rank (the far
         field, the beyond sets by exchange or ring) held on 4 of its tiles
         against masked_eval_bits_torch on the same packed words.
+ 14. the four kernel modes of the ablate tokens (masked_eval_bits_kernel
+     <tg2>, window_eval_*_kernel<full>, entries_lohi_kernel<span> and
+     <packed, span>): a. each on a default path's recorded 2^20 call,
+     against its twin and timed beside the default mode; b. python -m
+     nbody_torch.probe knobs with one 3-D SPEC a token of each tree at 2^20.
+ 15. the accuracy study and its growth probe (python -m nbody_torch.probe
+     accuracy | acc-growth, the ports of scripts/accuracy_study.py and
+     probe_acc_growth.py), every output in a temporary directory, a run a
+     tree:
+     a. accuracy 1048576 0 --force-error --dims 3, fresh: the script's
+        keys; each leg (fp32fast: the fast paths' kernels; f64group: the
+        list kernel and the float64 fallback) against the float64
+        all-pairs kernel that 2f holds to its twin, within 5c's sanity
+        bounds (per-body relative error median 1e-3, p99 1e-2);
+     b. acc-growth 131072 5 --dim 3: the rows per step, step 1's acc_l1 at
+        most 1e-2 (the script's rule: ~1e-3 healthy, 1e-1 a bug);
+     c. accuracy 65536 5 --dims 2 --evolved: the trajectory columns
+        against the float64 all-pairs engine from the 50-step pre-roll,
+        finite, and the reason the reference legs are skipped printed;
+ 16. python -m nbody_torch.probe nasa --synthetic 2000 --steps 25 (the port
+     of scripts/nasa.py) on the card and with --device cpu: the octree vs
+     all-pairs lines printed; each engine's final positions on the card
+     within 1e-6 of each column's largest value of the CPU run's (phase 3's
+     limit);
+ 17. python -m nbody_torch.probe mesh-scaling --n 32768 --steps 3 (the port
+     of scripts/probe_mesh_scaling.py): four rows (S = 1, 2, 4, 8 ranks on
+     the card(s)) with the script's keys, the backend and the ranks a card
+     printed, the table written; on one card the ranks share it over gloo,
+     so the table is no scaling figure.
+Each of 15-17 prints its wall time; its runs count the kernels from 0
+just before each run and read them just after (phase 17's ranks by layout,
+summed over the ranks), and each run must launch the kernels of its path:
+the fast paths' (rows 4-7), the list kernel and the float64 all-pairs
+kernel (rows 9, 2), the float32 all-pairs kernel (the ring). The kernels
+line gains "script_launches" (by phase) and "script_launches_in" on each
+kernel these runs launched.
 Phase 2's bounds (bound_ms in the kernels line): pairs times 5*dim + 3
 FLOPs (+1 under sqrt3; 3*dim + 3 for the potential) over 67 TFLOP/s in
 float32 or 34 in float64. Beside the float32 times it prints, and keeps
@@ -605,6 +642,7 @@ def main() -> int:
     mesh_launches = mesh_phases(dev, single_steps, mesh_steps)
     part_launches = partitioned_phases(dev, single_steps, mesh_steps)
     mode_kernels = mode_phases(dev, big)
+    script_launches = script_phases(dev)
 
     runs = {ca.NEWTON: (phase3_launches, f"phase 3: {big}-body 3-D all-pairs --csv-total"),
             ca.NEWTON64: (list_launches, f"phase 7b: {big}-body 3-D octree --precision double "
@@ -631,6 +669,10 @@ def main() -> int:
             entry["mesh_launches_in"] = "phase 12a: the --mesh CLI runs, summed over their ranks"
         if part_launches.get(entry["name"]):
             entry.update(part_launches[entry["name"]])
+        if script_launches.get(entry["name"]):
+            entry["script_launches"] = script_launches[entry["name"]]
+            entry["script_launches_in"] = {tag: SCRIPT_RUNS[tag]
+                                           for tag in script_launches[entry["name"]]}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -646,6 +688,7 @@ F64_FLOPS = 34e12
 HBM_BYTES_PER_S = 3.35e12
 FEW_ROWS = 9216  # 18 tiles of 512: the BVH 2-D float64 exact fallback's rows at 2^20
 PLAIN_ROWS = 8192  # 2f: the float64 2^20 calls held against the twin on their first rows
+BIG_PLAIN_ROWS = 131072  # 2c: the float32 2^20 calls held against the twin on their first rows
 
 
 def timed_with_clock(fn, reps: int):
@@ -753,20 +796,22 @@ def allpairs_phase(dev, big: int) -> dict:
     m, x = bodies(big, 3, torch.float32)
     eps = eps_of(torch.float32)
     floor = mufu_floor_ms(pairs, sms)
+    rows = BIG_PLAIN_ROWS
     for name, kern, plain, scale_fn, flops, width in (
         (ca.NEWTON, lambda: ca.allpairs_accel_cuda(m, x, 1.0, eps),
-         lambda: ca.allpairs_block_torch(x, m, x, eps),
-         lambda: ca.allpairs_block_abs_torch(x, m, x, eps), flops_per_pair(3, "poly"), 3),
+         lambda: ca.allpairs_block_torch(x[:rows], m, x, eps),
+         lambda: ca.allpairs_block_abs_torch(x[:rows], m, x, eps), flops_per_pair(3, "poly"),
+         3),
         (ca.POTENTIAL, lambda: ca.potential_rowsums_cuda(m, x, eps),
-         lambda: ca.potential_rowsums_torch(m, x, eps), None, 3 * 3 + 3, 1),
+         lambda: ca.potential_rowsums_torch(m, x, eps, rows=rows), None, 3 * 3 + 3, 1),
     ):
         got = same_bits(f"{name} at N=2^20 3-D float32", kern)
         ms, clock, power = timed_with_clock(kern, reps=3)
         plain_ms, ref = event_ms(plain, reps=1, keep=True)
         scale = ref.abs() if scale_fn is None else scale_fn()
-        err, abs_err = scaled(got, ref, scale)
-        report(f"{name} at N=2^20 3-D float32 (kernel {ms:.1f} ms, plain {plain_ms:.1f} ms)",
-               torch.float32, err)
+        err, abs_err = scaled(got[:rows], ref, scale)
+        report(f"{name} at N=2^20 3-D float32 (kernel {ms:.1f} ms, plain {plain_ms:.1f} ms on "
+               f"the first {rows} rows)", torch.float32, err)
         bound_ms, bound_by = bound(pairs, flops, big * 4 * (3 + 1) + big * 4 * width)
         print(f"[2] {name}: {pairs} pairs, {flops} FLOPs a pair: FLOP bound {bound_ms:.3f} ms "
               f"({bound_by}), MUFU floor {floor:.3f} ms (2 a pair at {MUFU_PER_SM_CLOCK} a "
@@ -774,14 +819,14 @@ def allpairs_phase(dev, big: int) -> dict:
               f"the SM clock was {clock:.0f} MHz and the draw {power:.1f} W")
         out[name] = {"max_abs_err": abs_err, "max_scaled_err": err,
                      "scaled_err_limit": TOL["float32"], "ms": ms, "plain_ms": plain_ms,
-                     "pairs": pairs, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "plain_rows": rows, "pairs": pairs, "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": None, "bit_equal": True,
                      "sm_clock_mhz": clock, "power_w": power, "n": big, "dim": 3,
                      "dtype": "float32"}
         if name == ca.NEWTON:
             ieee = ca.allpairs_accel_cuda(m, x, 1.0, eps, exact=True)
             ieee_ms = event_ms(lambda: ca.allpairs_accel_cuda(m, x, 1.0, eps, exact=True), reps=2)
-            ieee_err = scaled(ieee, ref, scale)[0]
+            ieee_err = scaled(ieee[:rows], ref, scale)[0]
             report(f"{ca.EXACT} at N=2^20 3-D float32 (kernel {ieee_ms:.1f} ms)", torch.float32,
                    ieee_err)
             out[name]["ieee"] = {"ms": ieee_ms, "max_scaled_err": ieee_err}
@@ -2793,6 +2838,213 @@ def ablation_phases(dev, big: int, sass_job):
                         "other_calls": {k: v for k, v in measured[name].items()
                                         if k != main_call[name]}})
     return entries
+
+
+# -- phases 15-17: the ports of the last nbody_tpu scripts --------------------
+
+ACC_LEGS = ("fp32fast", "f64group")
+FORCE_STATS = ("vs_apf64", "relerr_p50", "relerr_p99", "relerr_max")
+# the kernels each run must launch (launch_counts names), by tree
+FAST_KERNELS = {"octree": ("masked_eval_bits_kernel", "window_eval_interval_kernel",
+                           "entries_lohi_kernel"),
+                "bvh": ("masked_eval_bits_kernel", "window_eval_nodemask_kernel",
+                        "entries_lohi_kernel")}
+LIST_KERNEL = {"octree": "group_eval_kernel<float64, sqrt3>",
+               "bvh": "group_eval_kernel<float64, poly>"}
+
+
+def counted_run(argv: list[str]):
+    """python -m nbody_torch.probe argv in this process, the kernels' counts
+    set to 0 just before it and read just after: (its stdout, the counts
+    that are not 0)."""
+    from nbody_torch import probe
+    from nbody_torch.ops import cuda_allpairs as ca
+    from nbody_torch.ops import cuda_group_eval as cg
+
+    ca.reset_launch_counts()
+    cg.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = probe.main(argv)
+    check(rc == 0, f"probe {' '.join(argv)} returned {rc}")
+    launches = {k: v for k, v in {**ca.launch_counts, **cg.launch_counts}.items() if v}
+    return out.getvalue(), launches
+
+
+def add_script_launches(counts: dict, tag: str, algorithm: str | None, launches: dict) -> None:
+    """Add a run's launches to counts[kernels line name][tag]."""
+    for kernel, count in launches.items():
+        name = mesh_entry_name(algorithm, kernel) if algorithm else kernel
+        counts.setdefault(name, {})
+        counts[name][tag] = counts[name].get(tag, 0) + count
+
+
+def expect_launched(tag: str, launches: dict, names) -> None:
+    missing = [k for k in names if not launches.get(k)]
+    check(not missing, f"{tag}: {missing} not launched (launches {launches})")
+
+
+def script_phases(dev) -> dict:
+    """Phases 15-17, the ports of accuracy_study.py, probe_acc_growth.py,
+    nasa.py and probe_mesh_scaling.py through python -m nbody_torch.probe,
+    every output under a temporary directory. Returns the launches of each
+    run by the kernels line's names and the run's tag."""
+    import torch
+
+    from nbody_torch.ops import cuda_allpairs as ca
+    from nbody_torch.probes.nasa import read_points
+
+    by_name = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scripts_") as tmp:
+        # -- 15a: the force error at 2^20, 3-D, fresh, both legs and trees --
+        t15 = time.perf_counter()
+        n15 = 1 << 20
+        for algo in ("octree", "bvh"):
+            out = os.path.join(tmp, f"force_{algo}.json")
+            t0 = time.perf_counter()
+            text, launches = counted_run(["accuracy", str(n15), "0", "--force-error", "--dims",
+                                          "3", "--algos", algo, "--out", out])
+            (row,) = json.load(open(out))
+            keys = {"dim", "algo", "n", "steps", "theta", "evolved",
+                    *(f"force_{leg}_{k}" for leg in ACC_LEGS for k in FORCE_STATS)}
+            check(set(row) == keys, f"15a {algo}: keys {sorted(row)}")
+            check("| dim | algo | evolved |" in text, f"15a {algo}: no table printed")
+            for leg in ACC_LEGS:
+                stats = [row[f"force_{leg}_{k}"] for k in FORCE_STATS]
+                print(f"[15a] {n15}-body 3-D {algo} {leg} against the f64 all-pairs kernel: "
+                      f"L1 {stats[0]:.4e}, per-body relative error p50 {stats[1]:.4e}, p99 "
+                      f"{stats[2]:.4e}, max {stats[3]:.4e} (limits: p50 1e-3, p99 1e-2)")
+                check(all(np.isfinite(stats)), f"15a {algo} {leg}: not finite")
+                check(stats[1] <= 1e-3 and stats[2] <= 1e-2,
+                      f"15a {algo} {leg}: far from the direct sum")
+            expect_launched(f"15a {algo}", launches,
+                            (*FAST_KERNELS[algo], LIST_KERNEL[algo], ca.NEWTON64))
+            add_script_launches(by_name, "15a", algo, launches)
+            print(f"[15a] {algo}: {time.perf_counter() - t0:.1f} s; launches {launches}")
+        print(f"[15a] phase 15a wall time {time.perf_counter() - t15:.0f} s")
+
+        # -- 15b: the growth probe at 2^17, 3-D, 5 steps -------------------
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "growth.jsonl")
+        for algo in ("bvh", "octree"):
+            _, launches = counted_run(["acc-growth", "131072", "5", "--dim", "3", "--algos", algo,
+                                       "--out", out])
+            expect_launched(f"15b {algo}", launches, (*FAST_KERNELS[algo], LIST_KERNEL[algo]))
+            add_script_launches(by_name, "15b", algo, launches)
+        rows = [json.loads(line) for line in open(out)]
+        check([(r["algo"], r["step"]) for r in rows]
+              == [(a, k) for a in ("bvh", "octree") for k in range(1, 6)], "15b: rows")
+        for r in rows:
+            check(set(r) == {"algo", "dim", "n", "step", "pos_l1", "acc_l1"}, f"15b: keys {r}")
+            check(np.isfinite(r["pos_l1"]) and np.isfinite(r["acc_l1"]), f"15b: {r}")
+            print(f"[15b] {r['algo']} 131072-body 3-D step {r['step']}: pos_l1 "
+                  f"{r['pos_l1']:.4e}, acc_l1 {r['acc_l1']:.4e}")
+            if r["step"] == 1:
+                check(r["acc_l1"] <= 1e-2, f"15b {r['algo']}: step 1's acc_l1 above 1e-2")
+        print(f"[15b] phase 15b wall time {time.perf_counter() - t0:.0f} s (limit on step 1's "
+              f"acc_l1: 1e-2)")
+
+        # -- 15c: trajectories from an evolved start against the f64 all-pairs
+        #    oracle, a run per tree (the octree's makes the pre-roll, on its
+        #    fast path, which the BVH's then reads)
+        t0 = time.perf_counter()
+        skipped = []
+        for algo in ("octree", "bvh"):
+            out = os.path.join(tmp, f"evolved_{algo}.json")
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                _, launches = counted_run(["accuracy", "65536", "5", "--dims", "2", "--evolved",
+                                           "--algos", algo, "--out", out])
+            sys.stderr.write(err.getvalue())
+            skipped += [line for line in err.getvalue().splitlines()
+                        if line.startswith("# reference legs skipped: ")]
+            (r,) = json.load(open(out))
+            cols = {k: v for k, v in r.items() if k.startswith("ours_")}
+            check(r["algo"] == algo and r["evolved"] is True
+                  and set(cols) == {"ours_fp32fast_vs_f64group",
+                                    "ours_fp32fast_vs_f64group_canon",
+                                    "ours_fp32fast_vs_oracle", "ours_f64group_vs_oracle"},
+                  f"15c: row {r}")
+            check(all(np.isfinite(v) for v in cols.values()), f"15c: {r}")
+            print(f"[15c] 65536-body 2-D {algo}, 5 steps from the 50-step pre-roll: "
+                  + ", ".join(f"{k} {v:.4e}" for k, v in cols.items()))
+            expect_launched(f"15c {algo}", launches,
+                            (*FAST_KERNELS[algo], LIST_KERNEL[algo], ca.NEWTON64))
+            add_script_launches(by_name, "15c", algo, launches)
+        check(len(skipped) == 2, "15c: no reason printed for the reference legs")
+        print(f"[15c] {skipped[0]}; phase 15c wall time {time.perf_counter() - t0:.0f} s")
+
+        # -- 16: the NASA pipeline on the card and on the CPU ---------------
+        t0 = time.perf_counter()
+        finals = {}
+        for device in ("cuda", "cpu"):
+            work = os.path.join(tmp, f"nasa_{device}")
+            text, launches = counted_run(["nasa", "--synthetic", "2000", "--steps", "25",
+                                          "--workdir", work, "--device", device])
+            lines = text.splitlines()
+            check("# octree vs all-pairs final positions:" in lines, f"16 {device}: {lines}")
+            i = lines.index("# octree vs all-pairs final positions:")
+            check(lines[i + 1].startswith("Total absolute difference is ")
+                  and lines[i + 2].startswith("Absolute difference per body is "),
+                  f"16 {device}: {lines[i:i + 3]}")
+            print(f"[16] --device {device}: {lines[i + 1]}; {lines[i + 2]}")
+            finals[device] = {algo: read_points(os.path.join(work, algo, "positions.bin"))[-1].T
+                              for algo in ("octree", "all_pairs")}
+            if device == "cuda":
+                expect_launched("16", launches, (LIST_KERNEL["octree"], ca.NEWTON64))
+                add_script_launches(by_name, "16", None, launches)
+                print(f"[16] launches on the card: {launches}")
+            else:
+                check(not launches, f"16 --device cpu launched {launches}")
+        for algo in ("octree", "all_pairs"):
+            gpu, cpu = finals["cuda"][algo], finals["cpu"][algo]
+            check(gpu.shape == (2000, 3) and bool(np.isfinite(gpu).all()), f"16 {algo}: shape")
+            diff = float((np.abs(gpu - cpu).max(axis=0) / np.abs(cpu).max(axis=0)).max())
+            print(f"[16] {algo} final positions, card vs --device cpu: max over columns of max "
+                  f"|diff| / max |value| = {diff:.3e} (limit 1e-6)")
+            check(diff <= 1e-6, f"16 {algo}: card and CPU final positions differ")
+        print(f"[16] phase 16 wall time {time.perf_counter() - t0:.0f} s")
+
+        # -- 17: the mesh-scaling table, the ranks sharing the card ---------
+        t0 = time.perf_counter()
+        table = os.path.join(tmp, "scaling.md")
+        text, _ = counted_run(["mesh-scaling", "--n", "32768", "--steps", "3", "--out", table])
+        rows = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+        check([r["S"] for r in rows] == [1, 2, 4, 8], f"17: rows {rows}")
+        layout_algo = {"ring_allpairs": "all-pairs", "sharded_bvh": "bvh"}
+        for r in rows:
+            keys = ["S", "n", "ring_allpairs_s", "sharded_bvh_s", "sharded_octree_s",
+                    "partitioned_octree_s", *(["partitioned_2d_s"] if r["S"] >= 4 else []),
+                    "partitioned_weak_n", "partitioned_weak_s"]
+            check(list(r)[:len(keys)] == keys, f"17: keys {list(r)}")
+            check(all(r[k] > 0 for k in keys if k.endswith("_s")), f"17: times {r}")
+            print(f"[17] S={r['S']} backend {r['backend']}, {r['ranks_per_card']} ranks a card: "
+                  + ", ".join(f"{k} {r[k]:.4f}" for k in keys[2:] if k.endswith("_s"))
+                  + f" (weak n {r['partitioned_weak_n']})")
+            for layout, counts in r["launches"].items():
+                algo = layout_algo.get(layout, "octree")
+                want = (ca.NEWTON,) if algo == "all-pairs" else (
+                    FAST_KERNELS[algo] if layout.startswith("sharded")
+                    else ("masked_eval_bits_kernel", "window_eval_interval_kernel"))
+                expect_launched(f"17 S={r['S']} {layout}", counts, want)
+                add_script_launches(by_name, "17", algo, counts)
+        text = open(table).read()
+        print(text, end="")
+        check(text.startswith("| S | ring all-pairs | sharded bvh | sharded octree | "
+                              "partitioned octree | partitioned 2-D (S/2 x 2) | "
+                              "partitioned weak (n=n*S/8) |")
+              and len(text.splitlines()) == 6, "17: table")
+        print(f"[17] on {torch.cuda.device_count()} card(s): ranks that share a card give no "
+              f"scaling figure; phase 17 wall time {time.perf_counter() - t0:.0f} s")
+    return by_name
+
+
+SCRIPT_RUNS = {"15a": "phase 15a: probe accuracy 1048576 0 --force-error --dims 3, per tree",
+               "15b": "phase 15b: probe acc-growth 131072 5 --dim 3, per tree",
+               "15c": "phase 15c: probe accuracy 65536 5 --dims 2 --evolved, per tree",
+               "16": "phase 16: probe nasa --synthetic 2000 --steps 25 on the card",
+               "17": "phase 17: probe mesh-scaling --n 32768 --steps 3, summed over ranks and S"}
+
 
 
 # -- phase 14: the A/B modes of the ablate tokens ------------------------------

@@ -228,18 +228,21 @@ def allpairs_fast_torch(m: torch.Tensor, x: torch.Tensor, G: float, eps: float,
     return G * a.to(x.dtype), torch.tensor(counts, dtype=torch.int64)
 
 
-def potential_rowsums_torch(m: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
+def potential_rowsums_torch(m: torch.Tensor, x: torch.Tensor, eps: float,
+                            rows: int | None = None) -> torch.Tensor:
     """pe_i = m_i * sum_{j != i} m_j / (sqrt(d2) + eps), the diagonal masked
-    by global index: the plain twin of potential_rowsums_kernel."""
+    by global index: the plain twin of potential_rowsums_kernel (on the
+    first `rows` rows only, when given)."""
     n = x.shape[0]
+    ni = n if rows is None else min(rows, n)
     cols = torch.arange(n, device=x.device)
     parts = []
-    for a, b in row_chunks(n, n, x.device):
+    for a, b in row_chunks(ni, n, x.device):
         d = x[None, :, :] - x[a:b, None, :]
         w = m[None, :] / (torch.sqrt(torch.sum(d * d, dim=-1)) + eps)
         rows = torch.arange(a, b, device=x.device)
         parts.append(torch.sum(w.masked_fill(rows[:, None] == cols[None, :], 0), dim=1))
-    return m * cat_rows(parts, m)
+    return m[:ni] * cat_rows(parts, m[:ni])
 
 
 def split_sum_torch(parts: torch.Tensor, scale: float = 1.0,

@@ -87,6 +87,52 @@
         variants' far branches, counted at one MUFU a pair); and its
         global loads by width over the whole function (LDG.E.128 a 16-byte
         load), what the sum passes are judged by.
+
+    python -m nbody_torch.probe accuracy [n] [steps] [--dims 2,3] [--algos bvh,octree]
+                                         [--evolved] [--no-ap-oracle] [--legs L]
+                                         [--force-error] [--out FILE.json]
+                                         [--reference SRC] [--device cuda|cpu]
+        The port of scripts/accuracy_study.py (probes/accuracy.py; n 16,384
+        and 25 steps by default): the float32 fast paths (leg fp32fast) and
+        the float64 list paths (f64group) of both trees against each other
+        and the float64 all-pairs oracle on the galaxy at theta 0.5, as
+        final-position L1s of `steps` steps or, with --force-error, as one
+        force evaluation's relative L1 and per-body relative errors (p50,
+        p99, max) against the float64 all-pairs kernel. The script's JSON
+        lines, the list in --out (default accuracy_torch.json) and its
+        markdown table; the --evolved pre-roll cache and the force dumps
+        beside --out. The reference binary's legs need --reference, the
+        reference's src/main.cpp, and g++; else stderr says why they are
+        skipped.
+
+    python -m nbody_torch.probe acc-growth [n] [steps] [--dim 3] [--algos bvh,octree]
+                                           [--out FILE.jsonl] [--device cuda|cpu]
+        The port of scripts/probe_acc_growth.py (probes/accuracy.py; n
+        131,072, 10 steps by default): the float64 and float32 legs stepped
+        in lockstep; per step {algo, dim, n, step, pos_l1, acc_l1}, printed
+        and appended to --out (default acc_growth.jsonl).
+
+    python -m nbody_torch.probe nasa [--csv FILE | --synthetic N] [--external CSV]
+                                     [--steps 25] [--workdir DIR] [--reference SRC]
+                                     [--device cuda|cpu]
+        The port of scripts/nasa.py (probes/nasa.py): the asteroid CSV (or N
+        synthetic main-belt bodies from seed 7, default 2,000) converted to
+        the state format, the octree and all-pairs runs of nbody_torch.cli
+        at -d 3 --precision double --theta 0.6 --csv-detailed --save pos
+        under --workdir (default nasa_work), and the L1 of their final
+        positions, printed as check_state.py prints it.
+
+    python -m nbody_torch.probe mesh-scaling [--n 32768] [--steps 3] [--out FILE.md]
+                                             [--device cuda|cpu]
+        The port of scripts/probe_mesh_scaling.py (probes/mesh_scaling.py):
+        per shard count S in 1, 2, 4, 8 one group of S ranks times the ring,
+        the replicated BVH and octree steps, the partitioned octree (also
+        S/2 x 2 from S = 4, and at n * S / 8 bodies); one JSON line per S
+        with the script's keys and the backend, the ranks a card and the
+        launches; the script's table in --out. Ranks that share a card give
+        no scaling figure.
+        These four run on the GPU unless --device cpu (the kernels' plain
+        twins) and end non-zero on an error.
 """
 
 from __future__ import annotations
@@ -310,6 +356,33 @@ def entry_probe(args) -> None:
                          resolve_device(args.device))
 
 
+def script_port(args) -> None:
+    """accuracy, acc-growth, nasa or mesh-scaling (nbody_torch/probes/)."""
+    from nbody_torch.cli import resolve_device
+
+    dev = resolve_device(args.device)
+    if args.cmd == "accuracy":
+        from nbody_torch.probes import accuracy
+
+        accuracy.study(args.n, args.steps, [int(d) for d in args.dims.split(",")],
+                       args.algos.split(","), dev, evolved=args.evolved,
+                       force_error=args.force_error, ap_oracle=not args.no_ap_oracle,
+                       legs=args.legs.split(","), out=args.out, ref_src=args.reference)
+    elif args.cmd == "acc-growth":
+        from nbody_torch.probes import accuracy
+
+        accuracy.growth(args.n, args.steps, args.dim, args.algos.split(","), args.out, dev)
+    elif args.cmd == "nasa":
+        from nbody_torch.probes import nasa
+
+        nasa.run(args.csv, args.synthetic, args.external, args.steps, args.workdir, dev.type,
+                 args.reference)
+    else:
+        from nbody_torch.probes import mesh_scaling
+
+        mesh_scaling.run(args.n, args.steps, args.out, dev)
+
+
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 SASS_TARGET = re.compile(r"(0x[0-9a-f]+|\.L_x_\d+)")
@@ -517,6 +590,40 @@ def main(argv: list[str] | None = None) -> int:
     sp.add_argument("--dims", default="3,2")
     for p in (en, eo, dp, ep, sp):
         p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ac = sub.add_parser("accuracy", help="the fp32 fast paths' and f64 list paths' error")
+    ac.add_argument("n", nargs="?", type=int, default=16384)
+    ac.add_argument("steps", nargs="?", type=int, default=25)
+    ac.add_argument("--dims", default="2,3")
+    ac.add_argument("--algos", default="bvh,octree", help="engine subset (e.g. re-run one row)")
+    ac.add_argument("--evolved", action="store_true",
+                    help="pre-roll 50 fp32 fast octree steps first, the legs' common start")
+    ac.add_argument("--no-ap-oracle", action="store_true",
+                    help="skip the f64 all-pairs trajectory; normalise by the f64 leg")
+    ac.add_argument("--legs", default="fp32fast,f64group", help="force-error legs subset")
+    ac.add_argument("--force-error", action="store_true",
+                    help="one force evaluation against the f64 all-pairs kernel, no trajectory")
+    ac.add_argument("--out", default="accuracy_torch.json")
+    ac.add_argument("--reference", help="the reference's src/main.cpp, for its legs")
+    ag = sub.add_parser("acc-growth", help="fp32 against f64, stepped in lockstep")
+    ag.add_argument("n", nargs="?", type=int, default=131072)
+    ag.add_argument("steps", nargs="?", type=int, default=10)
+    ag.add_argument("--dim", type=int, choices=(2, 3), default=3)
+    ag.add_argument("--algos", default="bvh,octree")
+    ag.add_argument("--out", default="acc_growth.jsonl")
+    na = sub.add_parser("nasa", help="the asteroid validation pipeline")
+    na.add_argument("--csv", help="real SBDB CSV (TimThuering schema)")
+    na.add_argument("--synthetic", type=int, default=0,
+                    help="generate a synthetic belt of N bodies instead")
+    na.add_argument("--external", help="external simulator lastState.csv to compare")
+    na.add_argument("--steps", type=int, default=25)
+    na.add_argument("--workdir", default="nasa_work")
+    na.add_argument("--reference", help="the reference's src/main.cpp, for its run")
+    ms = sub.add_parser("mesh-scaling", help="the --mesh layouts' times by shard count")
+    ms.add_argument("--n", type=int, default=32768)
+    ms.add_argument("--steps", type=int, default=3)
+    ms.add_argument("--out", default=None)
+    for p in (ac, ag, na, ms):
+        p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     s = sub.add_parser("sass", help="write the kernels' SASS to a file")
     s.add_argument("out")
     args = parser.parse_args(argv)
@@ -538,6 +645,8 @@ def main(argv: list[str] | None = None) -> int:
 
         split_parts.run(args.out, args.n, tuple(int(d) for d in args.dims.split(",")),
                         resolve_device(args.device))
+    elif args.cmd in ("accuracy", "acc-growth", "nasa", "mesh-scaling"):
+        script_port(args)
     else:
         sass(args.out)
     return 0
